@@ -1,0 +1,106 @@
+"""Port tests that need the card: the CUDA kernel against its plain version,
+and one whole sweep on the card against the same sweep on the CPU.
+
+Every test here carries the ``gpu`` marker and skips without a CUDA device.
+This file imports no JAX, so on a machine with an NVIDIA GPU and nvcc but
+no JAX it runs without the suite's conftest:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpirt_tpu_torch.models import gibbs
+from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants
+from gpirt_tpu_torch.ops.threshold_ess import (
+    binary_threshold_ess,
+    binary_threshold_ess_reference,
+)
+
+_C = 0.7071067811865476
+_TWO_PI = 6.283185307179586
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit (nvcc)")
+    return torch.device("cuda")
+
+
+def _lane_inputs(device, K=4, H=1, n=50, m=97, R=64, seed=0):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((K, H, n, m))
+    y = rng.choice([0, 1, 2], size=(H, n, m), p=[0.2, 0.4, 0.4])
+    t1, nu = rng.standard_normal((2, K, H, m))
+    logu = np.log(rng.random((K, H, m)))
+    eps0 = rng.random((K, H, m)) * _TWO_PI
+    rs = rng.random((R, K, H, m))
+    f32 = [torch.as_tensor(a, dtype=torch.float32, device=device)
+           for a in (g, t1, nu, logu, eps0, rs)]
+    return [f32[0], torch.as_tensor(y, dtype=torch.int32, device=device)] + f32[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+def test_kernel_matches_plain_version(cuda_device, temp):
+    """float32 on the card: every lane within 1e-5 except at most 1% of
+    lanes whose accept flipped on a near-tie (the kernel sums the sites in
+    another order than torch.sum)."""
+    args = _lane_inputs(cuda_device)
+    c = _C / np.sqrt(temp)
+    before = binary_threshold_ess.launches
+    got = binary_threshold_ess(*args, c)
+    torch.cuda.synchronize()
+    assert binary_threshold_ess.launches == before + 1
+    want = binary_threshold_ess_reference(*args, c)
+    err = (got - want).abs()
+    assert int((err > 1e-5).sum()) <= 0.01 * err.numel()
+    assert float((got != args[2]).float().mean()) > 0.8  # lanes moved
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    args = _lane_inputs(cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        binary_threshold_ess(*[a.double() if a.is_floating_point() else a
+                               for a in args], _C)
+    with pytest.raises(ValueError, match="int32"):
+        binary_threshold_ess(args[0], args[1].long(), *args[2:], _C)
+    with pytest.raises(ValueError, match="contiguous"):
+        binary_threshold_ess(args[0].mT.contiguous().mT, *args[1:], _C)
+
+
+@pytest.mark.gpu
+def test_sweep_on_card_matches_cpu(cuda_device):
+    """One float32 sweep from the same state and draws on both devices:
+    theta identical, the rest within 1e-3 (float32 products and solves in
+    another order)."""
+    K, n, m, N = 3, 12, 9, 101
+    rng = np.random.default_rng(1)
+    y = np.where(rng.random((1, n, m)) < 0.5, 2, 1).astype(np.int32)
+    y[0, 0, :3] = 0
+    cfg = GPIRTConfig(n=n, m=m, grid_size=N, dtype="float32", jitter=1e-5)
+    priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
+              np.zeros((2, n)))
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, cuda_device)}
+    state0 = gibbs.init_state(
+        torch.as_tensor(rng.uniform(-1, 1, (K, 1, n))),
+        torch.as_tensor(np.tile([-np.inf, 0.0, np.inf], (1, m, 1))),
+        consts[cpu], cfg, gibbs.init_draws(gen, K, consts[cpu], cfg))
+    draws = gibbs.sweep_draws(gen, K, consts[cpu], cfg)
+    out = {}
+    for d in (cpu, cuda_device):
+        out[d] = gibbs.gibbs_sweep(
+            gibbs.GPIRTState(*(a.to(d) for a in state0)),
+            gibbs.SweepDraws(*(a.to(d) for a in draws)),
+            torch.as_tensor(y, device=d), consts[d], cfg, temp=4.0)
+    (s_cpu, ll_cpu), (s_gpu, ll_gpu) = out[cpu], out[cuda_device]
+    assert torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu())
+    for a, b in zip(s_cpu[1:], s_gpu[1:]):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(ll_gpu.cpu(), ll_cpu, rtol=1e-4, atol=1e-3)
