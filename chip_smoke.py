@@ -7,15 +7,21 @@ Phases, each of which stops the run with a non-zero exit on failure:
   2. build: the CUDA kernel is compiled from gpirt_tpu_torch/csrc (timed);
   3. kernel check: the binary cutpoint ESS kernel against its plain PyTorch
      version at the main path's shape (64 chains x senate116's 418 items,
-     100 respondents, float32), untempered and at T = 64, with both times;
+     100 respondents, float32) on random lanes, untempered and at T = 64;
   4. sweep check: one small sweep on the card against the same sweep on
      the CPU, from the same state and draws;
   5. main path: senate116 through gpirt_mcmc with 64 chains, 320 SMC steps
      from T = 64, burn 100 and 500 draws, checked for finite output and for
      one kernel launch per sweep; prints phase times, sweep rate and theta
-     ESS per second.
-The last two lines are the card as nvidia-smi reports it and
-{"ok": true, "device": {...}}.
+     ESS per second. The kernel's inputs of the last sweep are kept;
+  6. kernel at the main path's state: the check of phase 3 on those inputs,
+     each lane's rounds, the work they need and the bound it gives, and the
+     kernel's time with each thread-group size.
+A kernel time is the mean over 50 back-to-back launches captured in one
+CUDA graph and timed by CUDA events after a warm-up ("ms"), and over 50
+eager calls, which adds the wrapper's host time where that is the longer
+("ms_eager"). The last lines are the kernels as JSON, the card as
+nvidia-smi reports it, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -40,8 +46,22 @@ from gpirt_tpu_torch.utils.diagnostics import effective_sample_size_device  # no
 from gpirt_tpu_torch.utils.response import encode_categories  # noqa: E402
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
+REPS = 50
 _C = 0.7071067811865476
 _TWO_PI = 6.283185307179586
+# Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes
+# and FP32 operations outside the tensor cores per second, and results per
+# clock of one SM's special-function pipes.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SFU_PER_CLOCK_PER_SM = 16
+# One site evaluation, log(0.5 * (1 + erf(sgn * c * (t - g))) + 1e-6) and
+# its accumulate: 2 operations for the argument, 3 around erf, ~8 in erff's
+# polynomial, ~6 in logf's, 1 to accumulate. Of them, one is a
+# special-function result: the build's SASS has one MUFU.EX2 per site (in
+# erff) and none in logf, which is a polynomial.
+OPS_PER_SITE = 20
+SFU_PER_SITE = 1
 
 
 def log(msg):
@@ -53,36 +73,62 @@ def check(ok, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def card():
+def nvidia_smi(query):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, reps=20, warmup=2):
-    """Median of ``reps`` single-call times by CUDA events."""
+def card():
+    return nvidia_smi("name,power.limit")
+
+
+def loop_ms(fn, reps=REPS, warmup=3):
+    """Mean time of one call over ``reps`` eager back-to-back calls, by
+    CUDA events around the loop, after warm-up."""
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
-def kernel_check(y_dev):
-    """The kernel against its plain version at the main path's lane shape,
-    on senate116's responses and random lane state from a seed."""
+def graph_ms(fn, reps=REPS):
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    replayed once to warm up, then timed by CUDA events over one replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def random_lanes(y_dev):
+    """Lane inputs at the main path's shape on senate116's responses, with
+    random g, cutpoints and uniforms from a seed."""
     H, n, m = y_dev.shape
     dev = y_dev.device
     gen = torch.Generator(device=dev).manual_seed(0)
-    L = K * H * m
 
     def rand(*s):
         return torch.rand(s, generator=gen, device=dev)
@@ -90,11 +136,18 @@ def kernel_check(y_dev):
     def randn(*s):
         return torch.randn(s, generator=gen, device=dev)
 
-    g = 1.5 * randn(K, H, n, m)
-    args = (g, y_dev, randn(K, H, m), randn(K, H, m), torch.log(rand(K, H, m)),
-            rand(K, H, m) * _TWO_PI, rand(64, K, H, m))
-    worst, flipped, times = 0.0, 0, {}
-    for temp in (1.0, T_MAX):
+    return (1.5 * randn(K, H, n, m), y_dev, randn(K, H, m), randn(K, H, m),
+            torch.log(rand(K, H, m)), rand(K, H, m) * _TWO_PI, rand(64, K, H, m))
+
+
+def kernel_check(args, label, temps=(1.0, T_MAX)):
+    """The kernel against its plain version on ``args``: at most 0.1% of
+    lanes over 1e-5 (a near-tie accept may flip, the site sum being taken
+    in another order), finite, and most lanes moved. Returns the largest
+    error of the other lanes and the count of lanes over 1e-5."""
+    L = args[2].numel()
+    worst, flipped = 0.0, 0
+    for temp in temps:
         c = _C / np.sqrt(temp)
         got = threshold_ess.binary_threshold_ess(*args, c)
         torch.cuda.synchronize()
@@ -102,19 +155,116 @@ def kernel_check(y_dev):
         torch.cuda.synchronize()
         err = (got - want).abs()
         over = int((err > 1e-5).sum())
-        check(bool(torch.isfinite(got).all()), "kernel output not finite")
+        check(bool(torch.isfinite(got).all()), f"{label}: kernel output not finite")
         check(over <= 0.001 * L,
-              f"T={temp}: {over} of {L} lanes differ by more than 1e-5")
-        check(float((got != args[2]).float().mean()) > 0.8, "lanes did not move")
-        worst = max(worst, float(err[err <= 1e-5].max()))
-        flipped += over
-        ms = median_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
-        plain_ms = median_ms(
-            lambda: threshold_ess.binary_threshold_ess_reference(*args, c))
-        times[temp] = (ms, plain_ms)
-        log(f"kernel check T={temp:g}: lanes={L} over_1e-5={over} "
-            f"max_abs_err(rest)={worst:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    return worst, flipped, times
+              f"{label} T={temp:g}: {over} of {L} lanes differ by more than 1e-5")
+        check(float((got != args[2]).float().mean()) > 0.8, f"{label}: lanes did not move")
+        rest = float(err[err <= 1e-5].max())
+        worst, flipped = max(worst, rest), flipped + over
+        log(f"kernel check, {label}, T={temp:g}: lanes={L} over_1e-5={over} "
+            f"max_abs_err(rest)={rest:.3g}")
+    return worst, flipped
+
+
+def kernel_times(args, c):
+    """(graph ms, eager ms, plain ms) of one update of ``args``."""
+    ms = graph_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
+    eager = loop_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
+    plain = loop_ms(
+        lambda: threshold_ess.binary_threshold_ess_reference(*args, c), reps=10)
+    return ms, eager, plain
+
+
+def lane_rounds(g, y, t1, nu, logu, eps0, rs, c):
+    """Each lane's proposals up to its accept, R for a lane at the cap, and
+    the mask of lanes at the cap: a copy of the plain version's loop
+    (gpirt_tpu_torch/ops/threshold_ess.py) that counts."""
+    obs = (y > 0).to(g.dtype)
+    sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
+
+    def ll(t):
+        x = sgn * (t.unsqueeze(-2) - g) * c
+        return torch.sum(torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6) * obs, dim=-2)
+
+    R = rs.shape[0]
+    log_y = ll(t1) + logu
+    eps = eps0
+    eps_min = eps - _TWO_PI
+    eps_max = torch.full_like(eps, _TWO_PI)
+    rounds = torch.full(t1.shape, R, dtype=torch.int64, device=t1.device)
+    active = torch.ones_like(t1, dtype=torch.bool)
+    for r in range(R):
+        if not bool(active.any()):
+            break
+        prop = t1 * torch.cos(eps) + nu * torch.sin(eps)
+        accept = ll(prop) > log_y
+        rounds = torch.where(active & accept, r + 1, rounds)
+        still = active & ~accept
+        eps_min = torch.where(still & (eps < 0), eps, eps_min)
+        eps_max = torch.where(still & (eps >= 0), eps, eps_max)
+        eps = torch.where(still, eps_min + rs[r] * (eps_max - eps_min), eps)
+        active = still
+    return rounds, active
+
+
+def kernel_bound(args, c):
+    """The work this launch needs and the least time the card could take
+    for it: each input read once (of rs, the values a shrink uses), the
+    output written once, and every observed site evaluated once per ll."""
+    g, y, t1 = args[0], args[1], args[2]
+    rounds, capped = lane_rounds(*args, c)
+    n_obs = (y > 0).sum(dim=1)  # (H, m), shared by the chains
+    site_evals = int(((1 + rounds) * n_obs).sum())
+    shrinks = int(torch.where(capped, rounds, rounds - 1).sum())
+    L = t1.numel()
+    nbytes = 4 * (g.numel() + y.numel() + 5 * L + shrinks)
+    ops = OPS_PER_SITE * site_evals
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / FP32_OPS_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    sfu_ms = SFU_PER_SITE * site_evals / (SFU_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
+    rf = rounds.double()
+    work = {
+        "rounds_mean": float(rf.mean()),
+        "rounds_p99": float(torch.quantile(rf.flatten(), 0.99)),
+        "rounds_max": int(rounds.max()),
+        "lanes_at_cap": int(capped.sum()),
+        "site_evals": site_evals,
+        "ops": ops,
+        "bytes": nbytes,
+        "bound_ms": max(mem_ms, op_ms),
+        "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+        "sfu_bound_ms": sfu_ms,
+    }
+    log(f"kernel work at the main path's state: rounds per lane mean "
+        f"{work['rounds_mean']:.3f} p99 {work['rounds_p99']:.0f} max "
+        f"{work['rounds_max']} ({work['lanes_at_cap']} at the cap); "
+        f"{site_evals} site evaluations, {ops} FP32 operations, {nbytes} bytes; "
+        f"bound {work['bound_ms']:.5f} ms by {work['bound_by']} "
+        f"(bytes {mem_ms:.5f} ms, operations {op_ms:.5f} ms, special-function "
+        f"pipes {sfu_ms:.5f} ms at {sms} SMs x {clock_hz / 1e6:.0f} MHz)")
+    return work
+
+
+def group_times(args, c):
+    """The kernel with each thread-group size forced, on ``args``: checked
+    against the plain version as in kernel_check, and timed."""
+    want = threshold_ess.binary_threshold_ess_reference(*args, c)
+    L, n = want.numel(), args[0].shape[2]
+    times = {}
+    for group, cap in threshold_ess.GROUPS.items():
+        if cap is not None and n > cap:
+            continue
+        got = threshold_ess.binary_threshold_ess_group(*args, c, group)
+        torch.cuda.synchronize()
+        over = int(((got - want).abs() > 1e-5).sum())
+        check(over <= 0.001 * L, f"group {group}: {over} of {L} lanes over 1e-5")
+        times[str(group)] = graph_ms(
+            lambda: threshold_ess.binary_threshold_ess_group(*args, c, group))
+    log("kernel by thread-group size at the main path's state (ms, -1 = "
+        "streaming): " + ", ".join(f"{k}: {v:.5f}" for k, v in times.items()))
+    return times
 
 
 def sweep_check(dev):
@@ -149,10 +299,23 @@ def sweep_check(dev):
 
 
 def main_path(rm, dev, smi):
-    threshold_ess.binary_threshold_ess.launches = 0
-    out = gpirt_mcmc(rm, DRAWS, BURN, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
-                     smc_max_temp=T_MAX, dtype="float32", device=dev)
-    launches = threshold_ess.binary_threshold_ess.launches
+    """Returns the kernel's launches in the run and its inputs at the last
+    sweep, which the sweep hands to the wrapper through gibbs."""
+    seen = {}
+    wrapper = gibbs.binary_threshold_ess
+
+    def keep_inputs(*args):
+        seen["args"] = args
+        return wrapper(*args)
+
+    gibbs.binary_threshold_ess = keep_inputs
+    try:
+        threshold_ess.binary_threshold_ess.launches = 0
+        out = gpirt_mcmc(rm, DRAWS, BURN, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
+                         smc_max_temp=T_MAX, dtype="float32", device=dev)
+        launches = threshold_ess.binary_threshold_ess.launches
+    finally:
+        gibbs.binary_threshold_ess = wrapper
     sweeps = WARM_STEPS + SMC_STEPS - 1 + BURN + DRAWS
     check(launches == sweeps, f"{launches} kernel launches for {sweeps} sweeps")
     check(len(out) == K, "one result per chain")
@@ -176,7 +339,7 @@ def main_path(rm, dev, smi):
     log(f"theta ESS on {smi}: median within-chain (summed over {K} chains) "
         f"{within_med:.1f}, pooled {pooled_med:.1f}; "
         f"ess/sec {within_med / (smc_s + samp_s):.2f} (smc + sampling wall)")
-    return launches
+    return launches, seen["args"][:7]
 
 
 def main():
@@ -197,23 +360,45 @@ def main():
     rm, _, _ = senate116_response_matrix()
     y, _, _ = encode_categories(np.asarray(rm))
     y_dev = torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32, device=dev)
-    worst, flipped, times = kernel_check(y_dev)
+    rand_args = random_lanes(y_dev)
+    worst, flipped = kernel_check(rand_args, "random lanes")
+    rand_times = {t: kernel_times(rand_args, _C / np.sqrt(t)) for t in (1.0, T_MAX)}
+    for t, (ms, eager, plain) in rand_times.items():
+        log(f"kernel time, random lanes, T={t:g}: {ms:.5f} ms (graph), "
+            f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
     sweep_check(dev)
-    launches = main_path(rm, dev, smi)
+    launches, state_args = main_path(rm, dev, smi)
 
-    ms, plain_ms = times[1.0]
+    w, f = kernel_check(state_args, "main path's state")
+    worst, flipped = max(worst, w), flipped + f
+    ms, eager, plain = kernel_times(state_args, _C)
+    log(f"kernel time, main path's state, T=1: {ms:.5f} ms (graph), "
+        f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
+    work = kernel_bound(state_args, _C)
+    groups = group_times(state_args, _C)
+
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
         "route": "cuda",
         "source": "gpirt_tpu_torch/csrc/threshold_ess.cu",
         "replaces": "gpirt_tpu/ops/pallas_threshold.py:166",
         "launches": launches,
+        "launches_per_main_path": launches,
         "max_abs_err": worst,
         "lanes_over_1e-5": flipped,
         "ms": ms,
-        "plain_ms": plain_ms,
-        "ms_T64": times[T_MAX][0],
-        "plain_ms_T64": times[T_MAX][1],
+        "ms_eager": eager,
+        "plain_ms": plain,
+        "bound_ms": work["bound_ms"],
+        "bound_by": work["bound_by"],
+        "share_of_bound": work["bound_ms"] / ms,
+        "library_ms": None,
+        "ms_random_T1": rand_times[1.0][0],
+        "plain_ms_random_T1": rand_times[1.0][2],
+        "ms_random_T64": rand_times[T_MAX][0],
+        "plain_ms_random_T64": rand_times[T_MAX][2],
+        "group_ms": groups,
+        **{k: v for k, v in work.items() if k not in ("bound_ms", "bound_by")},
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

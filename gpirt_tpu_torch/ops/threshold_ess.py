@@ -7,6 +7,9 @@ elliptical-slice update of the binary interior cutpoint t_1 for every lane
 (chain x horizon x item), the bracket-shrink loop included, in one launch.
 It is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``gpirt_tpu_torch/_build/`` at first use and called through ``ctypes``.
+A group of threads shares each lane's site sum; the group size is chosen
+from n at launch, and :func:`binary_threshold_ess_group` forces it so that
+the choices can be timed against each other.
 
 The uniforms (``logu``, ``eps0`` and the per-round table ``rs``) are inputs,
 so the kernel and :func:`binary_threshold_ess_reference` compute the same
@@ -26,7 +29,9 @@ import subprocess
 import torch
 
 __all__ = [
+    "GROUPS",
     "binary_threshold_ess",
+    "binary_threshold_ess_group",
     "binary_threshold_ess_reference",
     "build",
 ]
@@ -36,6 +41,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# Thread-group sizes the kernel takes, each with the largest n it holds in
+# registers; -1 is the streaming path, which takes any n.
+GROUPS = {8: 128, 16: 128, 32: 256, 256: 2048, -1: None}
 
 _lib = None
 
@@ -77,10 +85,13 @@ def build(verbose: bool = False) -> str:
         os.replace(tmp, path)
     if _lib is None:
         lib = ctypes.CDLL(path)
-        fn = lib.gpirt_binary_threshold_ess
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        head = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        lib.gpirt_binary_threshold_ess.argtypes = (
+            head + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.gpirt_binary_threshold_ess_group.argtypes = (
+            head + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.gpirt_binary_threshold_ess.restype = ctypes.c_int
+        lib.gpirt_binary_threshold_ess_group.restype = ctypes.c_int
         _lib = lib
     return report
 
@@ -151,19 +162,9 @@ def binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c: float):
     return x_out
 
 
-def binary_threshold_ess(g, y, t1, nu, logu, eps0, rs, c: float):
-    """One ESS update of every lane's binary cutpoint (arguments as in
-    :func:`binary_threshold_ess_reference`).
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream (float32, contiguous, ``y`` int32) or raise; each
-    launch adds one to ``binary_threshold_ess.launches``.
-    """
-    _check(g, y, t1, nu, logu, eps0, rs)
-    if g.device.type == "cpu":
-        return binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c)
-    if g.device.type != "cuda":
-        raise ValueError(f"no kernel for device {g.device}")
+def _launch(g, y, t1, nu, logu, eps0, rs, c, group=None):
+    """Launch the kernel on checked CUDA tensors; ``group`` None lets the
+    kernel choose. Returns the output, or raises."""
     if g.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel takes float32, got {g.dtype}")
     if y.dtype != torch.int32:
@@ -177,16 +178,56 @@ def binary_threshold_ess(g, y, t1, nu, logu, eps0, rs, c: float):
     if _lib is None:
         build()
     out = torch.empty_like(t1)
+    ptrs = [v.data_ptr() for v in (g, y, t1, nu, logu, eps0, rs)]
+    dims = [K, H, n, m, rs.shape[0]]
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = _lib.gpirt_binary_threshold_ess(
-            g.data_ptr(), y.data_ptr(), t1.data_ptr(), nu.data_ptr(),
-            logu.data_ptr(), eps0.data_ptr(), rs.data_ptr(), c,
-            out.data_ptr(), K, H, n, m, rs.shape[0], stream)
+        if group is None:
+            err = _lib.gpirt_binary_threshold_ess(
+                *ptrs, c, out.data_ptr(), *dims, stream)
+        else:
+            err = _lib.gpirt_binary_threshold_ess_group(
+                *ptrs, c, out.data_ptr(), *dims, group, stream)
     if err != 0:
         raise RuntimeError(f"binary_threshold_ess launch failed: cudaError {err}")
+    return out
+
+
+def binary_threshold_ess(g, y, t1, nu, logu, eps0, rs, c: float):
+    """One ESS update of every lane's binary cutpoint (arguments as in
+    :func:`binary_threshold_ess_reference`).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream (float32, contiguous, ``y`` int32) or raise; each
+    launch adds one to ``binary_threshold_ess.launches``.
+    """
+    _check(g, y, t1, nu, logu, eps0, rs)
+    if g.device.type == "cpu":
+        return binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c)
+    if g.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g.device}")
+    if t1.numel() == 0:
+        return torch.empty_like(t1)
+    out = _launch(g, y, t1, nu, logu, eps0, rs, c)
     binary_threshold_ess.launches += 1
     return out
 
 
 binary_threshold_ess.launches = 0
+
+
+def binary_threshold_ess_group(g, y, t1, nu, logu, eps0, rs, c: float,
+                               group: int):
+    """The kernel with its thread-group size forced to ``group``, a key of
+    :data:`GROUPS`, for timing the choices against each other. CUDA tensors
+    only; these launches are not counted in ``binary_threshold_ess.launches``.
+    """
+    _check(g, y, t1, nu, logu, eps0, rs)
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {sorted(GROUPS)}, got {group}")
+    n, cap = g.shape[2], GROUPS[group]
+    if cap is not None and n > cap:
+        raise ValueError(f"a group of {group} holds n <= {cap}, got n = {n}")
+    if g.device.type != "cuda":
+        raise ValueError(f"binary_threshold_ess_group needs CUDA tensors, got {g.device}")
+    return _launch(g, y, t1, nu, logu, eps0, rs, c, group)

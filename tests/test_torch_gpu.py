@@ -1,5 +1,6 @@
 """Port tests that need the card: the CUDA kernel against its plain version,
-and one whole sweep on the card against the same sweep on the CPU.
+over shapes, edge cases and every thread-group size, and one whole sweep on
+the card against the same sweep on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX, so on a machine with an NVIDIA GPU and nvcc but
@@ -15,7 +16,9 @@ import torch
 from gpirt_tpu_torch.models import gibbs
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants
 from gpirt_tpu_torch.ops.threshold_ess import (
+    GROUPS,
     binary_threshold_ess,
+    binary_threshold_ess_group,
     binary_threshold_ess_reference,
 )
 
@@ -59,6 +62,74 @@ def test_kernel_matches_plain_version(cuda_device, temp):
     err = (got - want).abs()
     assert int((err > 1e-5).sum()) <= 0.01 * err.numel()
     assert float((got != args[2]).float().mean()) > 0.8  # lanes moved
+
+
+def _assert_matches_plain(got, want):
+    """The kernel's rule on the card: at most 0.1% of lanes over 1e-5. A
+    lane over it is a near-tie accept that flipped: the kernel sums a lane's
+    sites in another order than torch.sum, and nothing else differs."""
+    err = (got - want).abs()
+    over = int((err > 1e-5).sum())
+    assert over <= 0.001 * err.numel(), (over, err.numel(), float(err.max()))
+    assert bool(torch.isfinite(got).all())
+    return err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+@pytest.mark.parametrize("H", [1, 3])
+@pytest.mark.parametrize("m", [97, 418])
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 200, 257, 5000])
+def test_kernel_over_shapes(cuda_device, n, m, H, temp):
+    """Every path the kernel chooses from n (8 threads a lane up to n = 32,
+    a warp up to 256, a block of registers up to 2048, streaming beyond),
+    unaligned m, several sessions, and items with no observed response."""
+    args = _lane_inputs(cuda_device, K=16, H=H, n=n, m=m, seed=n + m + H)
+    args[1][:, :, 0] = 0  # item 0: no response in any session
+    args[1][0, :, 1] = 0  # item 1: none in session 0
+    c = _C / np.sqrt(temp)
+    before = binary_threshold_ess.launches
+    got = binary_threshold_ess(*args, c)
+    torch.cuda.synchronize()
+    assert binary_threshold_ess.launches == before + 1
+    want = binary_threshold_ess_reference(*args, c)
+    err = _assert_matches_plain(got, want)
+    # ll is 0 on an all-missing lane, so its first proposal is taken
+    assert float(err[:, :, 0].max()) <= 1e-5
+    assert float(err[:, 0, 1].max()) <= 1e-5
+    assert bool((got[:, :, 0] != args[2][:, :, 0]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+@pytest.mark.parametrize("R", [1, 2])
+def test_kernel_round_cap_keeps_t0(cuda_device, R, temp):
+    """With a cap of R rounds, a lane not accepted by then keeps t0 bit for
+    bit, as in the plain version."""
+    args = _lane_inputs(cuda_device, K=16, n=100, m=418, R=R, seed=R)
+    c = _C / np.sqrt(temp)
+    got = binary_threshold_ess(*args, c)
+    want = binary_threshold_ess_reference(*args, c)
+    err = _assert_matches_plain(got, want)
+    kept = want == args[2]
+    assert 0 < int(kept.sum()) < kept.numel()
+    agree = kept & (err <= 1e-5)
+    assert torch.equal(got[agree], args[2][agree])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [31, 100])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_every_group_matches_plain_version(cuda_device, group, n):
+    """Each thread-group size, forced, computes the same update; these
+    launches are not counted."""
+    args = _lane_inputs(cuda_device, K=16, H=3, n=n, m=97, seed=group + n)
+    args[1][:, :, 0] = 0
+    before = binary_threshold_ess.launches
+    got = binary_threshold_ess_group(*args, _C, group)
+    torch.cuda.synchronize()
+    assert binary_threshold_ess.launches == before
+    _assert_matches_plain(got, binary_threshold_ess_reference(*args, _C))
 
 
 @pytest.mark.gpu

@@ -19,7 +19,9 @@ from gpirt_tpu.ops.pallas_threshold import (
     binary_threshold_ess_pallas,
 )
 from gpirt_tpu_torch.ops.threshold_ess import (
+    GROUPS,
     binary_threshold_ess,
+    binary_threshold_ess_group,
     binary_threshold_ess_reference,
 )
 
@@ -41,16 +43,14 @@ def _t(a, dtype=torch.float64):
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
-@pytest.mark.parametrize("temp", [1.0, 64.0])
-def test_reference_equals_pallas_interpret(temp):
-    """Same uniforms (the Pallas wrapper's own split(key, 3), R = 24),
-    unaligned n and L. Tolerance: every lane within 1e-10, except at most 2
-    of 130 lanes whose accept flipped on a near-tie — the Pallas kernel
-    evaluates erf by the A&S 7.1.26 polynomial (|err| <= 1.5e-7), the plain
-    version by torch.erf."""
-    K, H, n, m = 2, 1, 37, 65
+def _pallas_and_plain(K, H, n, m, temp, seed=0, missing_items=(), rounds=None):
+    """The Pallas kernel in interpret mode (R = 24) and the plain version
+    fed the same uniforms, the wrapper's own split(key, 3) replayed; the
+    plain version keeps the first ``rounds`` rows of the shrink table when
+    given. Returns (plain, pallas, t1), each flat over the lanes."""
     L = K * H * m
-    g, y, t1, nu = _lanes(0, K, H, n, m)
+    g, y, t1, nu = _lanes(seed, K, H, n, m)
+    y[..., list(missing_items)] = 0
     c = _C / np.sqrt(temp)
     sgn = np.where(y == 1, 1.0, -1.0) * (y > 0)
 
@@ -70,15 +70,59 @@ def test_reference_equals_pallas_interpret(temp):
     got = binary_threshold_ess_reference(
         _t(g), _t(y, torch.int32), _t(t1), _t(nu),
         _t(logu).reshape(K, H, m), _t(eps0).reshape(K, H, m),
-        _t(rs).reshape(-1, K, H, m), c)
-    err = np.abs(got.numpy().reshape(L) - np.asarray(want))
+        _t(rs[:rounds]).reshape(-1, K, H, m), c)
+    return got.numpy().reshape(L), np.asarray(want), t1.reshape(L)
+
+
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+def test_reference_equals_pallas_interpret(temp):
+    """Same uniforms (the Pallas wrapper's own split(key, 3), R = 24),
+    unaligned n and L. Tolerance: every lane within 1e-10, except at most 2
+    of 130 lanes whose accept flipped on a near-tie — the Pallas kernel
+    evaluates erf by the A&S 7.1.26 polynomial (|err| <= 1.5e-7), the plain
+    version by torch.erf."""
+    got, want, t1 = _pallas_and_plain(2, 1, 37, 65, temp)
+    err = np.abs(got - want)
     assert np.sum(err > 1e-10) <= 2, np.sort(err)[-5:]
-    assert np.mean(got.numpy() != t1) > 0.8  # the update moves lanes
+    assert np.mean(got != t1) > 0.8  # the update moves lanes
+
+
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+@pytest.mark.parametrize("case", ["item_without_responses", "one_respondent"])
+def test_reference_equals_pallas_interpret_edge_cases(case, temp):
+    """Items with no observed response (ll is 0, so the first proposal is
+    taken) and n = 1, with the tolerance of the test above."""
+    K, H, m = 2, 1, 65
+    if case == "item_without_responses":
+        missing = (0, 7, 64)
+        got, want, t1 = _pallas_and_plain(K, H, 37, m, temp, seed=4,
+                                          missing_items=missing)
+        lanes = [k * m + j for k in range(K) for j in missing]
+        np.testing.assert_allclose(got[lanes], want[lanes], rtol=0, atol=1e-10)
+        assert np.all(got[lanes] != t1[lanes])
+    else:
+        got, want, t1 = _pallas_and_plain(K, H, 1, m, temp, seed=5)
+    err = np.abs(got - want)
+    assert np.sum(err > 1e-10) <= 2, np.sort(err)[-5:]
+    assert np.mean(got != t1) > 0.8
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_round_cap_keeps_t0_against_pallas(rounds):
+    """With the first ``rounds`` rows of the Pallas kernel's own shrink
+    table as the cap, a lane that accepts within them takes the Pallas
+    kernel's value, and every other lane keeps t0 exactly."""
+    got, want, t1 = _pallas_and_plain(2, 1, 37, 65, 1.0, seed=6, rounds=rounds)
+    kept = got == t1
+    assert 0 < kept.sum() < kept.size
+    err = np.abs(got[~kept] - want[~kept])
+    assert np.sum(err > 1e-10) <= 2, np.sort(err)[-5:]
 
 
 def _replay_ess_draws(key, H, m):
     """nu, logu, eps0 and the 64-round shrink table exactly as
-    draw_threshold -> ess_update consume them from ``key``."""
+    draw_threshold -> ess_update consume them from ``key``; its first R rows
+    are what a cap of R rounds consumes."""
     dt = jnp.float64
     k_nu, k_ess = jax.random.split(key)
     nu = jax.random.normal(k_nu, (H, m, 1), dt)[..., 0]
@@ -118,6 +162,34 @@ def test_reference_equals_tempered_xla_draw_threshold():
     np.testing.assert_allclose(got.numpy(), want[..., 1], rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_round_cap_equals_xla_draw_threshold(rounds):
+    """draw_threshold's XLA path with ess_max_rounds = R (1 or 2) against the
+    plain version with R rows of the same uniforms, lane for lane, to
+    1e-10: lanes not accepted within R rounds keep t0 in both."""
+    K, H, n, m = 2, 1, 23, 11
+    g, y, t1, _ = _lanes(7, K, H, n, m)
+    cfg = JConfig(n=n, m=m, C=2, grid_size=11, dtype="float64",
+                  f_method="conjugate", threshold_ess_twophase=False,
+                  ess_max_rounds=rounds)
+    thr = np.stack([np.full((K, H, m), -np.inf), t1,
+                    np.full((K, H, m), np.inf)], axis=-1)
+    keys = [jax.random.key(200 + k) for k in range(K)]
+    want = np.stack([
+        np.asarray(jg.draw_threshold(keys[k], jnp.asarray(thr[k]),
+                                     jnp.asarray(g[k]), jnp.zeros_like(g[k]),
+                                     jnp.asarray(y), cfg))
+        for k in range(K)])[..., 1]
+    nu, logu, eps0, rs = (np.stack(a) for a in
+                          zip(*[_replay_ess_draws(key, H, m) for key in keys]))
+    got = binary_threshold_ess_reference(
+        _t(g), _t(y, torch.int32), _t(t1), _t(nu), _t(logu), _t(eps0),
+        _t(rs[:, :rounds]).transpose(0, 1).contiguous(), _C).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    kept = got == t1
+    assert 0 < kept.sum() < kept.size
+
+
 def _wrapper_args(dtype=torch.float64, device="cpu", K=2, H=1, n=7, m=5, R=8):
     g, y, t1, nu = _lanes(2, K, H, n, m)
     rng = np.random.default_rng(3)
@@ -152,3 +224,21 @@ def test_wrapper_rejects_bad_inputs():
     meta = [a.to("meta") for a in (g, y, t1, nu, logu, eps0, rs)]
     with pytest.raises(ValueError, match="no kernel for device"):
         binary_threshold_ess(*meta, _C)
+
+
+def test_group_entry_rejects_what_the_kernel_cannot_take():
+    """The forced thread-group entry takes only a size the kernel has, with
+    n within its register cap, and only CUDA tensors: it has no plain
+    fallback."""
+    g, y, t1, nu, logu, eps0, rs = _wrapper_args(dtype=torch.float32)
+    y = y.to(torch.int32)
+    args = (g, y, t1, nu, logu, eps0, rs)
+    with pytest.raises(ValueError, match="group must be one of"):
+        binary_threshold_ess_group(*args, _C, 64)
+    big = _wrapper_args(dtype=torch.float32, n=129)
+    big[1] = big[1].to(torch.int32)
+    with pytest.raises(ValueError, match="holds n <= 128"):
+        binary_threshold_ess_group(*big, _C, 16)
+    for group in GROUPS:
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            binary_threshold_ess_group(*args, _C, group)
