@@ -15,8 +15,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
      one kernel launch per sweep; prints phase times, sweep rate and theta
      ESS per second. The kernel's inputs of the last sweep are kept;
   6. kernel at the main path's state: the check of phase 3 on those inputs,
-     each lane's rounds, the work they need and the bound it gives, and the
-     kernel's time with each thread-group size.
+     each lane's rounds, the work they need and the bound it gives.
 A kernel time is the mean over 50 back-to-back launches captured in one
 CUDA graph and timed by CUDA events after a warm-up ("ms"), and over 50
 eager calls, which adds the wrapper's host time where that is the longer
@@ -247,26 +246,6 @@ def kernel_bound(args, c):
     return work
 
 
-def group_times(args, c):
-    """The kernel with each thread-group size forced, on ``args``: checked
-    against the plain version as in kernel_check, and timed."""
-    want = threshold_ess.binary_threshold_ess_reference(*args, c)
-    L, n = want.numel(), args[0].shape[2]
-    times = {}
-    for group, cap in threshold_ess.GROUPS.items():
-        if cap is not None and n > cap:
-            continue
-        got = threshold_ess.binary_threshold_ess_group(*args, c, group)
-        torch.cuda.synchronize()
-        over = int(((got - want).abs() > 1e-5).sum())
-        check(over <= 0.001 * L, f"group {group}: {over} of {L} lanes over 1e-5")
-        times[str(group)] = graph_ms(
-            lambda: threshold_ess.binary_threshold_ess_group(*args, c, group))
-    log("kernel by thread-group size at the main path's state (ms, -1 = "
-        "streaming): " + ", ".join(f"{k}: {v:.5f}" for k, v in times.items()))
-    return times
-
-
 def sweep_check(dev):
     """One tempered sweep on the card against the CPU, same state and draws."""
     Ks, n, m, N = 3, 12, 9, 101
@@ -298,24 +277,38 @@ def sweep_check(dev):
     log(f"sweep check (card vs CPU, float32, T=4): theta equal, max abs diff {err:.3g}")
 
 
-def main_path(rm, dev, smi):
-    """Returns the kernel's launches in the run and its inputs at the last
-    sweep, which the sweep hands to the wrapper through gibbs."""
-    seen = {}
+def observe_kernel(run, before_call=None, kernel=None):
+    """Runs ``run()`` with the sweep's call of the kernel wrapper (through
+    gibbs, once a sweep) observed: ``before_call(i)``, when given, runs
+    before the i-th call, and ``kernel``, when given, is called in the
+    wrapper's place. Returns run's result and the inputs of the last call."""
+    seen = {"calls": 0, "args": None}
     wrapper = gibbs.binary_threshold_ess
+    launch = wrapper if kernel is None else kernel
 
-    def keep_inputs(*args):
-        seen["args"] = args
-        return wrapper(*args)
+    def observe(*args):
+        if before_call is not None:
+            before_call(seen["calls"])
+        seen["calls"] += 1
+        seen["args"] = args[:7]
+        return launch(*args)
 
-    gibbs.binary_threshold_ess = keep_inputs
+    gibbs.binary_threshold_ess = observe
     try:
-        threshold_ess.binary_threshold_ess.launches = 0
-        out = gpirt_mcmc(rm, DRAWS, BURN, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
-                         smc_max_temp=T_MAX, dtype="float32", device=dev)
-        launches = threshold_ess.binary_threshold_ess.launches
+        out = run()
     finally:
         gibbs.binary_threshold_ess = wrapper
+    return out, seen["args"]
+
+
+def main_path(rm, dev, smi):
+    """Returns the kernel's launches in the run and its inputs at the last
+    sweep."""
+    threshold_ess.binary_threshold_ess.launches = 0
+    out, state_args = observe_kernel(lambda: gpirt_mcmc(
+        rm, DRAWS, BURN, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
+        smc_max_temp=T_MAX, dtype="float32", device=dev))
+    launches = threshold_ess.binary_threshold_ess.launches
     sweeps = WARM_STEPS + SMC_STEPS - 1 + BURN + DRAWS
     check(launches == sweeps, f"{launches} kernel launches for {sweeps} sweeps")
     check(len(out) == K, "one result per chain")
@@ -339,7 +332,7 @@ def main_path(rm, dev, smi):
     log(f"theta ESS on {smi}: median within-chain (summed over {K} chains) "
         f"{within_med:.1f}, pooled {pooled_med:.1f}; "
         f"ess/sec {within_med / (smc_s + samp_s):.2f} (smc + sampling wall)")
-    return launches, seen["args"][:7]
+    return launches, state_args
 
 
 def main():
@@ -375,7 +368,6 @@ def main():
     log(f"kernel time, main path's state, T=1: {ms:.5f} ms (graph), "
         f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
     work = kernel_bound(state_args, _C)
-    groups = group_times(state_args, _C)
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -397,7 +389,6 @@ def main():
         "plain_ms_random_T1": rand_times[1.0][2],
         "ms_random_T64": rand_times[T_MAX][0],
         "plain_ms_random_T64": rand_times[T_MAX][2],
-        "group_ms": groups,
         **{k: v for k, v in work.items() if k not in ("bound_ms", "bound_by")},
     }]}))
     log(card())

@@ -32,8 +32,9 @@
 //     group takes the same accept decision with no broadcast. A round's
 //     critical path is ceil(n_obs / G) site evaluations plus log2(G)
 //     shuffles, and the launch has G times the threads in flight. G is
-//     chosen from n at launch (gpirt_binary_threshold_ess_group): a warp
-//     for senate116's n = 100, timed against 8, 16 and 256 threads;
+//     chosen from n at launch: 8 threads up to n = 32, a warp up to 256
+//     (senate116's n = 100, where it beat 8, 16 and 256 threads in
+//     PERF.md's timings) and the whole block up to 2048;
 //   * a block takes a tile of neighbouring items of one (k, h), reads the
 //     (n x tile) slab of g and y once, row by row (coalesced, no padding of
 //     g), and packs each column's observed sites to the front in shared
@@ -287,48 +288,21 @@ int launch_regs(const float* g, const int32_t* y, const float* t1,
 
 }  // namespace
 
-// Thread-group size per lane: 8, 16, 32 or 256 threads with the sites in
-// registers (n at most 128, 128, 256 and 2048), -1 for the streaming path,
-// 0 to choose from n. Returns cudaErrorInvalidValue for a size that cannot
-// hold n.
-extern "C" int gpirt_binary_threshold_ess_group(
-    const float* g, const int32_t* y, const float* t1, const float* nu,
-    const float* logu, const float* eps0, const float* rs, float c,
-    float* out, int K, int H, int n, int m, int R, int group, void* stream) {
-  const int64_t L = static_cast<int64_t>(K) * H * m;
-  if (L == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (group == 0) group = n <= 32 ? 8 : n <= 256 ? 32 : n <= 2048 ? 256 : -1;
-  switch (group) {
-    case 8:
-      if (n <= 32) return launch_regs<8, 4>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
-      if (n <= 128) return launch_regs<8, 16>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
-      break;
-    case 16:
-      if (n <= 128) return launch_regs<16, 8>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
-      break;
-    case 32:
-      if (n <= 128) return launch_regs<32, 4, kTile32>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
-      if (n <= 256) return launch_regs<32, 8, kTile32>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
-      break;
-    case kBlock:
-      if (n <= 2048) return launch_regs<kBlock, 8>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
-      break;
-    case -1:
-      if (L <= 0x7fffffff) {
-        ess_stream_kernel<<<static_cast<unsigned>(L), kBlock, 0, st>>>(
-            g, y, t1, nu, logu, eps0, rs, c, out, H, n, m, R);
-        return static_cast<int>(cudaGetLastError());
-      }
-      break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
+// A group of 8 threads a lane up to n = 32, a warp up to 256 and the block
+// up to 2048, each with the sites in registers; the streaming path beyond.
 extern "C" int gpirt_binary_threshold_ess(
     const float* g, const int32_t* y, const float* t1, const float* nu,
     const float* logu, const float* eps0, const float* rs, float c,
     float* out, int K, int H, int n, int m, int R, void* stream) {
-  return gpirt_binary_threshold_ess_group(g, y, t1, nu, logu, eps0, rs, c, out,
-                                          K, H, n, m, R, 0, stream);
+  const int64_t L = static_cast<int64_t>(K) * H * m;
+  if (L == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 32) return launch_regs<8, 4>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
+  if (n <= 128) return launch_regs<32, 4, kTile32>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
+  if (n <= 256) return launch_regs<32, 8, kTile32>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
+  if (n <= 2048) return launch_regs<kBlock, 8>(g, y, t1, nu, logu, eps0, rs, c, out, K, H, n, m, R, st);
+  if (L > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  ess_stream_kernel<<<static_cast<unsigned>(L), kBlock, 0, st>>>(
+      g, y, t1, nu, logu, eps0, rs, c, out, H, n, m, R);
+  return static_cast<int>(cudaGetLastError());
 }

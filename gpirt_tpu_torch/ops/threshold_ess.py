@@ -7,9 +7,8 @@ elliptical-slice update of the binary interior cutpoint t_1 for every lane
 (chain x horizon x item), the bracket-shrink loop included, in one launch.
 It is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``gpirt_tpu_torch/_build/`` at first use and called through ``ctypes``.
-A group of threads shares each lane's site sum; the group size is chosen
-from n at launch, and :func:`binary_threshold_ess_group` forces it so that
-the choices can be timed against each other.
+A group of threads shares each lane's site sum; the kernel chooses the
+group size from n at launch.
 
 The uniforms (``logu``, ``eps0`` and the per-round table ``rs``) are inputs,
 so the kernel and :func:`binary_threshold_ess_reference` compute the same
@@ -29,9 +28,7 @@ import subprocess
 import torch
 
 __all__ = [
-    "GROUPS",
     "binary_threshold_ess",
-    "binary_threshold_ess_group",
     "binary_threshold_ess_reference",
     "build",
 ]
@@ -41,9 +38,6 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-# Thread-group sizes the kernel takes, each with the largest n it holds in
-# registers; -1 is the streaming path, which takes any n.
-GROUPS = {8: 128, 16: 128, 32: 256, 256: 2048, -1: None}
 
 _lib = None
 
@@ -70,30 +64,38 @@ def build(verbose: bool = False) -> str:
         with open(s, "rb") as fh:
             digest.update(fh.read())
     path = os.path.join(_BUILD, f"libgpirt_kernels_{digest.hexdigest()[:16]}.so")
-    report = ""
-    if not os.path.exists(path):
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), _ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-o", tmp, *srcs]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        report = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
-        os.replace(tmp, path)
+    report = "" if os.path.exists(path) else compile_library(srcs, path, verbose)
     if _lib is None:
-        lib = ctypes.CDLL(path)
-        head = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        lib.gpirt_binary_threshold_ess.argtypes = (
-            head + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.gpirt_binary_threshold_ess_group.argtypes = (
-            head + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.gpirt_binary_threshold_ess.restype = ctypes.c_int
-        lib.gpirt_binary_threshold_ess_group.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(path)
     return report
+
+
+def compile_library(srcs, path: str, verbose: bool = False) -> str:
+    """nvcc the CUDA sources ``srcs`` for ``sm_90a`` into the shared library
+    ``path``; returns the compiler's report."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), _ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, *srcs]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    report = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+    os.replace(tmp, path)
+    return report
+
+
+def load_library(path: str):
+    """Load a library built from a source with the C entry
+    ``gpirt_binary_threshold_ess`` and declare that entry's signature."""
+    lib = ctypes.CDLL(path)
+    lib.gpirt_binary_threshold_ess.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.gpirt_binary_threshold_ess.restype = ctypes.c_int
+    return lib
 
 
 def _check(g, y, t1, nu, logu, eps0, rs):
@@ -162,9 +164,10 @@ def binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c: float):
     return x_out
 
 
-def _launch(g, y, t1, nu, logu, eps0, rs, c, group=None):
-    """Launch the kernel on checked CUDA tensors; ``group`` None lets the
-    kernel choose. Returns the output, or raises."""
+def _launch(g, y, t1, nu, logu, eps0, rs, c, lib=None):
+    """Launch the kernel on checked CUDA tensors, from ``lib`` (a
+    :func:`load_library`) or else this checkout's build. Returns the output,
+    or raises."""
     if g.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel takes float32, got {g.dtype}")
     if y.dtype != torch.int32:
@@ -175,19 +178,16 @@ def _launch(g, y, t1, nu, logu, eps0, rs, c, group=None):
     if not math.isfinite(c):
         raise ValueError(f"c must be finite, got {c}")
     K, H, n, m = g.shape
-    if _lib is None:
-        build()
+    if lib is None:
+        if _lib is None:
+            build()
+        lib = _lib
     out = torch.empty_like(t1)
     ptrs = [v.data_ptr() for v in (g, y, t1, nu, logu, eps0, rs)]
     dims = [K, H, n, m, rs.shape[0]]
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        if group is None:
-            err = _lib.gpirt_binary_threshold_ess(
-                *ptrs, c, out.data_ptr(), *dims, stream)
-        else:
-            err = _lib.gpirt_binary_threshold_ess_group(
-                *ptrs, c, out.data_ptr(), *dims, group, stream)
+        err = lib.gpirt_binary_threshold_ess(*ptrs, c, out.data_ptr(), *dims, stream)
     if err != 0:
         raise RuntimeError(f"binary_threshold_ess launch failed: cudaError {err}")
     return out
@@ -215,19 +215,3 @@ def binary_threshold_ess(g, y, t1, nu, logu, eps0, rs, c: float):
 
 binary_threshold_ess.launches = 0
 
-
-def binary_threshold_ess_group(g, y, t1, nu, logu, eps0, rs, c: float,
-                               group: int):
-    """The kernel with its thread-group size forced to ``group``, a key of
-    :data:`GROUPS`, for timing the choices against each other. CUDA tensors
-    only; these launches are not counted in ``binary_threshold_ess.launches``.
-    """
-    _check(g, y, t1, nu, logu, eps0, rs)
-    if group not in GROUPS:
-        raise ValueError(f"group must be one of {sorted(GROUPS)}, got {group}")
-    n, cap = g.shape[2], GROUPS[group]
-    if cap is not None and n > cap:
-        raise ValueError(f"a group of {group} holds n <= {cap}, got n = {n}")
-    if g.device.type != "cuda":
-        raise ValueError(f"binary_threshold_ess_group needs CUDA tensors, got {g.device}")
-    return _launch(g, y, t1, nu, logu, eps0, rs, c, group)

@@ -24,8 +24,9 @@ last sweep. Prints the card's name and power limit first.
            Each time is 50 launches in one CUDA graph, by CUDA events.
            May be given more than once.
 --end-to-end  with --other: the main path itself (SMC, then 300 sampling
-           sweeps) with each build in turn, four pairs in the order other,
-           this, this, other, ...; prints the SMC and sampling sweeps/s.
+           sweeps) with each build in turn, eight runs of each in the order
+           other, this, this, other, ...; prints the SMC and sampling
+           sweeps/s of every run and their medians.
 --anatomy  times this kernel at the main path's state (T = 1) as drawn,
            with every lane taking its first proposal (log u = -inf: two
            evaluations of ll a lane), and with no observed site (y = 0: the
@@ -36,11 +37,9 @@ last sweep. Prints the card's name and power limit first.
 """
 
 import argparse
-import ctypes
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -61,10 +60,10 @@ from chip_smoke import (  # noqa: E402
     graph_ms,
     lane_rounds,
     log,
+    observe_kernel,
     random_lanes,
 )
 from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
-from gpirt_tpu_torch.models import gibbs  # noqa: E402
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.parallel.smc import WARM_STEPS  # noqa: E402
 from gpirt_tpu_torch.utils.datasets import senate116_response_matrix  # noqa: E402
@@ -80,70 +79,43 @@ def build_other(src):
     with open(src, "rb") as fh:
         tag = hashlib.sha256(fh.read()).hexdigest()[:16]
     path = os.path.join(threshold_ess._BUILD, f"libab_{tag}.so")
-    os.makedirs(threshold_ess._BUILD, exist_ok=True)
     t = time.perf_counter()
-    proc = subprocess.run(
-        [threshold_ess._nvcc(), threshold_ess._ARCH, "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-o", path, src],
-        capture_output=True, text=True)
-    check(proc.returncode == 0, f"nvcc {src}:\n{proc.stdout}{proc.stderr}")
+    threshold_ess.compile_library([src], path)
     log(f"built {src} in {time.perf_counter() - t:.1f} s")
-    lib = ctypes.CDLL(path)
-    fn = lib.gpirt_binary_threshold_ess
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
+    return threshold_ess.load_library(path)
 
 
 def launcher(lib, args, c):
-    """A call of ``lib``'s C entry on ``args``, into a fresh output."""
-    fn = lib.gpirt_binary_threshold_ess
-    g, y, t1, nu, logu, eps0, rs = args
-    K_, H, n, m = g.shape
-    ptrs = [a.data_ptr() for a in args]
-
-    def go():
-        out = torch.empty_like(t1)
-        err = fn(*ptrs, c, out.data_ptr(), K_, H, n, m, rs.shape[0],
-                 torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"launch failed: cudaError {err}")
-        return out
-    return go
+    """A launch of ``lib``'s kernel (None: this checkout's) on ``args``."""
+    return lambda: threshold_ess._launch(*args, c, lib=lib)
 
 
 def run_main_path(rm, dev, profile):
     """gpirt_mcmc on senate116; returns the kernel's inputs at the last
     sweep, and with ``profile`` the wall per sweep and the profiler."""
     first = WARM_STEPS + SMC_STEPS - 1  # the kernel call of sampling sweep 0
-    seen = {"calls": 0}
-    wrapper = gibbs.binary_threshold_ess
+    stamps = {}
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
 
-    def observe(*args):
-        s = seen["calls"] - first
-        if profile and s in (WALL_FROM, PROF_FROM):
+    def before_call(i):
+        s = i - first
+        if s in (WALL_FROM, PROF_FROM):
             torch.cuda.synchronize()
-            seen[s] = time.perf_counter()
-        if profile and s == PROF_FROM:
+            stamps[s] = time.perf_counter()
+        if s == PROF_FROM:
             prof.start()
-        if profile and s == PROF_TO:
+        if s == PROF_TO:
             prof.stop()
-        seen["calls"] += 1
-        seen["args"] = args
-        return wrapper(*args)
 
-    gibbs.binary_threshold_ess = observe
-    try:
-        gpirt_mcmc(rm, SAMPLING, 0, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
-                   smc_max_temp=T_MAX, dtype="float32", device=dev)
-    finally:
-        gibbs.binary_threshold_ess = wrapper
+    _, args = observe_kernel(
+        lambda: gpirt_mcmc(rm, SAMPLING, 0, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
+                           smc_max_temp=T_MAX, dtype="float32", device=dev),
+        before_call if profile else None)
     wall = None
     if profile:
-        wall = (seen[PROF_FROM] - seen[WALL_FROM]) / (PROF_FROM - WALL_FROM) * 1e3
-    return seen["args"][:7], wall, prof
+        wall = (stamps[PROF_FROM] - stamps[WALL_FROM]) / (PROF_FROM - WALL_FROM) * 1e3
+    return args, wall, prof
 
 
 def report_profile(prof, wall_ms, smi, trace_dir):
@@ -175,10 +147,9 @@ def report_profile(prof, wall_ms, smi, trace_dir):
 
 def ab(other, args, label, c):
     """Times of another build and this one, in turns, on ``args``."""
-    ours = threshold_ess._lib
     want = threshold_ess.binary_threshold_ess_reference(*args, c)
     L = want.numel()
-    runs = {"other": launcher(other, args, c), "this": launcher(ours, args, c)}
+    runs = {"other": launcher(other, args, c), "this": launcher(None, args, c)}
     for name, go in runs.items():
         over = int(((go() - want).abs() > 1e-5).sum())
         check(over <= 0.001 * L, f"{name}, {label}: {over} of {L} lanes over 1e-5")
@@ -229,26 +200,30 @@ def anatomy(args, smi):
 
 
 def end_to_end(name, other, rm, dev, smi):
-    """The main path with the wrapper's library swapped for ``other`` and
-    back, in turns; sweeps/s of the SMC and sampling phases."""
-    ours = threshold_ess._lib
+    """The main path with the sweep's kernel from ``other`` and from this
+    checkout, in turns; sweeps/s of the SMC and sampling phases."""
     smc_sweeps = WARM_STEPS + SMC_STEPS - 1
     rates = {"other": [], "this": []}
-    for who in ("other", "this", "this", "other") * 2:
-        threshold_ess._lib = other if who == "other" else ours
-        try:
-            out = gpirt_mcmc(rm, E2E_SWEEPS, 0, CHAIN=K, SEED=SEED,
-                             smc_steps=SMC_STEPS, smc_max_temp=T_MAX,
-                             dtype="float32", device=dev)
-        finally:
-            threshold_ess._lib = ours
+
+    def other_kernel(*args):
+        return threshold_ess._launch(*args, lib=other)
+
+    for who in ("other", "this", "this", "other") * 4:
+        out, _ = observe_kernel(
+            lambda: gpirt_mcmc(rm, E2E_SWEEPS, 0, CHAIN=K, SEED=SEED,
+                               smc_steps=SMC_STEPS, smc_max_temp=T_MAX,
+                               dtype="float32", device=dev),
+            kernel=other_kernel if who == "other" else None)
         sec = out[0]["seconds"]
         rates[who].append({"smc": smc_sweeps / sec["smc"],
                            "sampling": E2E_SWEEPS / sec["sampling"]})
     for phase in ("smc", "sampling"):
+        runs = {w: [r[phase] for r in rates[w]] for w in rates}
         log(f"end to end on {smi}, {phase} sweeps/s: {name} "
-            f"{[round(r[phase], 1) for r in rates['other']]}, this "
-            f"{[round(r[phase], 1) for r in rates['this']]}")
+            f"{[round(v, 1) for v in runs['other']]} (median "
+            f"{np.median(runs['other']):.1f}), this "
+            f"{[round(v, 1) for v in runs['this']]} (median "
+            f"{np.median(runs['this']):.1f})")
     return rates
 
 

@@ -19,9 +19,7 @@ from gpirt_tpu.ops.pallas_threshold import (
     binary_threshold_ess_pallas,
 )
 from gpirt_tpu_torch.ops.threshold_ess import (
-    GROUPS,
     binary_threshold_ess,
-    binary_threshold_ess_group,
     binary_threshold_ess_reference,
 )
 
@@ -224,21 +222,3 @@ def test_wrapper_rejects_bad_inputs():
     meta = [a.to("meta") for a in (g, y, t1, nu, logu, eps0, rs)]
     with pytest.raises(ValueError, match="no kernel for device"):
         binary_threshold_ess(*meta, _C)
-
-
-def test_group_entry_rejects_what_the_kernel_cannot_take():
-    """The forced thread-group entry takes only a size the kernel has, with
-    n within its register cap, and only CUDA tensors: it has no plain
-    fallback."""
-    g, y, t1, nu, logu, eps0, rs = _wrapper_args(dtype=torch.float32)
-    y = y.to(torch.int32)
-    args = (g, y, t1, nu, logu, eps0, rs)
-    with pytest.raises(ValueError, match="group must be one of"):
-        binary_threshold_ess_group(*args, _C, 64)
-    big = _wrapper_args(dtype=torch.float32, n=129)
-    big[1] = big[1].to(torch.int32)
-    with pytest.raises(ValueError, match="holds n <= 128"):
-        binary_threshold_ess_group(*big, _C, 16)
-    for group in GROUPS:
-        with pytest.raises(ValueError, match="needs CUDA tensors"):
-            binary_threshold_ess_group(*args, _C, group)
