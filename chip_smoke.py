@@ -15,7 +15,15 @@ Phases, each of which stops the run with a non-zero exit on failure:
      one kernel launch per sweep; prints phase times, sweep rate and theta
      ESS per second. The kernel's inputs of the last sweep are kept;
   6. kernel at the main path's state: the check of phase 3 on those inputs,
-     each lane's rounds, the work they need and the bound it gives.
+     each lane's rounds, the work they need and the bound it gives;
+  7. ordinal sweep check: one tempered (T = 4) C = 5 sweep on the card
+     against the CPU from the same state and draws, with the cutpoints by
+     ESS and by Newton-proposal MH;
+  8. SDO path: the ordinal survey (1500 respondents x 16 items, C = 5)
+     through gpirt_mcmc with 64 chains, burn 200 and 500 draws, f* stored;
+     checked for finite ll and f*, ordered cutpoints that moved, and no
+     binary kernel launch; prints the sweep rate, theta ESS and ESS per
+     second, the ESS rounds per cutpoint update and the host syncs a sweep.
 A kernel time is the mean over 50 back-to-back launches captured in one
 CUDA graph and timed by CUDA events after a warm-up ("ms"), and over 50
 eager calls, which adds the wrapper's host time where that is the longer
@@ -35,16 +43,21 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
-from gpirt_tpu_torch.api import full_fp32_matmuls  # noqa: E402
+from gpirt_tpu_torch.api import default_thresholds, full_fp32_matmuls  # noqa: E402
 from gpirt_tpu_torch.models import gibbs  # noqa: E402
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants  # noqa: E402
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
+from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
 from gpirt_tpu_torch.parallel.smc import WARM_STEPS  # noqa: E402
-from gpirt_tpu_torch.utils.datasets import senate116_response_matrix  # noqa: E402
+from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
+    load_sdo,
+    senate116_response_matrix,
+)
 from gpirt_tpu_torch.utils.diagnostics import effective_sample_size_device  # noqa: E402
 from gpirt_tpu_torch.utils.response import encode_categories  # noqa: E402
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
+SDO_BURN, SDO_DRAWS = 200, 500
 REPS = 50
 _C = 0.7071067811865476
 _TWO_PI = 6.283185307179586
@@ -246,13 +259,14 @@ def kernel_bound(args, c):
     return work
 
 
-def sweep_check(dev):
+def sweep_check(dev, C=2, method="auto"):
     """One tempered sweep on the card against the CPU, same state and draws."""
     Ks, n, m, N = 3, 12, 9, 101
     rng = np.random.default_rng(1)
-    y = np.where(rng.random((1, n, m)) < 0.5, 2, 1).astype(np.int32)
+    y = rng.integers(1, C + 1, (1, n, m)).astype(np.int32)
     y[0, 0, :3] = 0
-    cfg = GPIRTConfig(n=n, m=m, grid_size=N, dtype="float32", jitter=1e-5)
+    cfg = GPIRTConfig(n=n, m=m, C=C, grid_size=N, dtype="float32", jitter=1e-5,
+                      threshold_method=method)
     priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
               np.zeros((2, n)))
     cpu = torch.device("cpu")
@@ -260,21 +274,30 @@ def sweep_check(dev):
     consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
     state0 = gibbs.init_state(
         torch.as_tensor(rng.uniform(-1, 1, (Ks, 1, n))),
-        torch.as_tensor(np.tile([-np.inf, 0.0, np.inf], (1, m, 1))),
+        torch.as_tensor(default_thresholds(C, m, 1)),
         consts[cpu], cfg, gibbs.init_draws(gen, Ks, consts[cpu], cfg))
     draws = gibbs.sweep_draws(gen, Ks, consts[cpu], cfg)
     res = {}
     for d in (cpu, dev):
         res[d] = gibbs.gibbs_sweep(
             gibbs.GPIRTState(*(a.to(d) for a in state0)),
-            gibbs.SweepDraws(*(a.to(d) for a in draws)),
+            gibbs.SweepDraws(*(None if a is None else a.to(d) for a in draws)),
             torch.as_tensor(y, device=d), consts[d], cfg, temp=4.0)
     torch.cuda.synchronize()
     (s_cpu, _), (s_gpu, _) = res[cpu], res[dev]
-    check(torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu()), "sweep theta differs")
-    err = max(float((b.cpu() - a).abs().max()) for a, b in zip(s_cpu[1:], s_gpu[1:]))
-    check(err < 1e-3, f"sweep state differs by {err}")
-    log(f"sweep check (card vs CPU, float32, T=4): theta equal, max abs diff {err:.3g}")
+    check(torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu()),
+          f"sweep theta differs (C={C}, {method})")
+    errs = {}
+    for name in ("f", "beta", "thresholds", "fstar"):
+        a, b = getattr(s_cpu, name), getattr(s_gpu, name).cpu()
+        check(bool(torch.isclose(b, a, rtol=1e-3, atol=1e-3).all()),
+              f"sweep {name} differs beyond 1e-3 + 1e-3 |x| (C={C}, {method})")
+        errs[name] = float(torch.nan_to_num(b - a).abs().max())
+    moved = (s_gpu.thresholds.cpu() != state0.thresholds)[..., 1:-1]
+    check(float(moved.float().mean()) > 0.2, f"cutpoints did not move (C={C}, {method})")
+    log(f"sweep check (card vs CPU, float32, T=4, C={C}, cutpoints by {method}): "
+        f"theta equal, the rest within 1e-3 + 1e-3 |x|, max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
 
 def observe_kernel(run, before_call=None, kernel=None):
@@ -335,6 +358,55 @@ def main_path(rm, dev, smi):
     return launches, state_args
 
 
+def sdo_path(dev, smi):
+    """gpirt_mcmc on the SDO survey, checked; prints its rates and counts."""
+    launches = threshold_ess.binary_threshold_ess.launches
+    ess_update.calls = ess_update.rounds = ess_update.syncs = 0
+    data = load_sdo()
+    out = gpirt_mcmc(data, SDO_DRAWS, SDO_BURN, CHAIN=K, SEED=SEED, vote_codes=None,
+                     store_fstar=True, dtype="float32", device=dev)
+    sweeps = SDO_BURN + SDO_DRAWS
+    check(threshold_ess.binary_threshold_ess.launches == launches,
+          "the binary kernel was launched on the ordinal path")
+    check(len(out) == K, "one result per chain")
+    n, m = data.shape
+    C = 5
+    ll = np.stack([d["ll"] for d in out])
+    thr = np.stack([d["threshold"][..., 0] for d in out])  # (K, S, m, C+1)
+    theta = np.stack([d["theta"][:, :, 0] for d in out])  # (K, S, n)
+    check(ll.shape == (K, SDO_DRAWS) and np.isfinite(ll).all(), "SDO ll not finite")
+    t = thr[..., 1:C]
+    check(np.isfinite(t).all(), "SDO cutpoints not finite")
+    check(bool((np.diff(t, axis=-1) > 0).all()), "SDO cutpoints not increasing")
+    qn = default_thresholds(C, m, 1)[0, :, 1:C]
+    check(np.mean(t[:, -1] != qn) > 0.99, "SDO cutpoints did not move off qnorm(i/5)")
+    for d in out:
+        fs = d["fstar"]
+        check(fs.shape == (SDO_DRAWS, 1001, m, 1), f"fstar shape {fs.shape}")
+        check(bool(np.isfinite(fs).all()), "fstar not finite")
+    samp_s = out[0]["seconds"]["sampling"]
+    th = torch.as_tensor(theta, device=dev)
+    within = sum(effective_sample_size_device(th[c:c + 1]) for c in range(K))
+    within_med = float(np.median(within.cpu().numpy()))
+    pooled_med = float(np.median(effective_sample_size_device(th).cpu().numpy()))
+    check(np.isfinite(within_med) and within_med > 0, "SDO theta ESS not positive")
+    res = {
+        "sweeps_per_s": sweeps / samp_s,
+        "sampling_s": samp_s,
+        "ess_within": within_med,
+        "ess_pooled": pooled_med,
+        "ess_per_s": within_med / samp_s,
+        "rounds_per_update": ess_update.rounds / ess_update.calls,
+        "syncs_per_sweep": ess_update.syncs / sweeps,
+    }
+    log(f"SDO path on {smi}: {n} x {m}, C={C}, {K} chains, {sweeps} sweeps in "
+        f"{samp_s:.3f} s ({res['sweeps_per_s']:.2f} sweeps/s, f* stored); theta ESS "
+        f"median within-chain (summed over {K} chains) {within_med:.1f}, pooled "
+        f"{pooled_med:.1f}; ess/sec {res['ess_per_s']:.2f}; cutpoint ESS "
+        f"{ess_update.calls} updates, {res['rounds_per_update']:.2f} rounds an update, "
+        f"{res['syncs_per_sweep']:.2f} host syncs a sweep; binary kernel launches 0")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -368,6 +440,9 @@ def main():
     log(f"kernel time, main path's state, T=1: {ms:.5f} ms (graph), "
         f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
     work = kernel_bound(state_args, _C)
+    for method in ("ess", "newton"):
+        sweep_check(dev, C=5, method=method)
+    sdo_path(dev, smi)
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",

@@ -1,10 +1,11 @@
 """gpirt_tpu_torch: the GP-IRT sampler in PyTorch for one NVIDIA H100.
 
 A port of ``gpirt_tpu`` (JAX), which stays beside it as the reference. The
-port covers binary, single-session data through the conjugate sweep, SMC
-annealed initialization and the lockstep K-chain sampling loop; the binary
-cutpoint ESS runs in a hand-written CUDA kernel (``csrc/threshold_ess.cu``)
-on the card and in its plain PyTorch version on the CPU.
+port covers binary and ordinal single-session data through the conjugate
+sweep (cutpoints by y-marginal ESS or Newton-proposal MH), SMC annealed
+initialization and the lockstep K-chain sampling loop; the binary cutpoint
+ESS runs in a hand-written CUDA kernel (``csrc/threshold_ess.cu``) on the
+card and in its plain PyTorch version on the CPU.
 """
 
 from gpirt_tpu_torch.api import default_thresholds, gpirt_mcmc

@@ -1,10 +1,11 @@
 """Public user API: ``gpirt_mcmc`` on the port's slice.
 
-Counterpart of ``gpirt_tpu/api.py::gpirt_mcmc`` for binary, single-session
-data on one device: vote-code recoding, prior and cutpoint defaults, K
-chains in lockstep, an optional SMC annealed initialization, and the
-reference output layout (``gpirt_tpu/api.py:606``). Arguments the port does
-not cover yet raise ``NotImplementedError``.
+Counterpart of ``gpirt_tpu/api.py::gpirt_mcmc`` for binary and ordinal
+single-session data on one device: vote-code recoding, prior and cutpoint
+defaults, K chains in lockstep, an optional SMC annealed initialization,
+optional f / f* storage, and the reference output layout
+(``gpirt_tpu/api.py:606``). Arguments the port does not cover yet raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,14 +56,31 @@ def default_thresholds(C: int, m: int, horizon: int) -> np.ndarray:
     return thr
 
 
+def _coerce_thresholds(thr: np.ndarray, m: int, C: int, H: int) -> np.ndarray:
+    """Accept (C+1,), (m, C+1), or (m, C+1, H) and return (H, m, C+1)."""
+    if thr.ndim == 1:
+        out = np.broadcast_to(thr, (H, m, thr.size))
+    elif thr.ndim == 2:
+        out = np.broadcast_to(thr[None], (H,) + thr.shape)
+    elif thr.ndim == 3:
+        out = np.ascontiguousarray(np.moveaxis(thr, 2, 0))
+    else:
+        raise ValueError(f"bad thresholds shape {thr.shape}")
+    if out.shape != (H, m, C + 1):
+        raise ValueError(f"thresholds shape {thr.shape} incompatible with "
+                         f"(m={m}, C+1={C + 1}, H={H})")
+    return out
+
+
 def _to_reference_layout(draws: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Internal (S, H, ...) layouts -> trailing-horizon reference layouts:
-    theta (S, n, H), beta (S, 3, m, H), threshold (S, m, C+1, H), ll (S,)."""
+    theta (S, n, H), beta (S, 3, m, H), threshold (S, m, C+1, H),
+    f (S, n, m, H), fstar (S, N, m, H), ll (S,)."""
     out: Dict[str, np.ndarray] = {}
     for k, a in draws.items():
         if k == "theta":
             out[k] = np.moveaxis(a, 1, 2)
-        elif k in ("beta", "threshold"):
+        elif k in ("beta", "threshold", "f", "fstar"):
             out[k] = np.moveaxis(a, 1, 3)
         else:
             out[k] = a
@@ -88,32 +106,47 @@ def gpirt_mcmc(
     theta_init: Optional[np.ndarray] = None,
     SEED: int = 1,
     *,
+    thresholds: Optional[np.ndarray] = None,
+    store_f: bool = False,
+    store_fstar: bool = False,
+    threshold_method: str = "auto",
+    threshold_mh_tries: int = 2,
     smc_steps: int = 0,
     smc_max_temp: float = 64.0,
     dtype: str = "float32",
-    device,
+    device="cuda",
     **unsupported,
 ) -> List[Dict[str, np.ndarray]]:
-    """Posterior samples for the binary GP-IRT model; one dict per chain.
+    """Posterior samples for the GP-IRT model; one dict per chain.
 
     Argument semantics follow ``gpirt_tpu.api.gpirt_mcmc``: ``vote_codes``
-    recodes raw votes (None: data already coded), default priors are beta
-    N(0, 3^2) and theta prior means/sds of zero, and chain c's theta init
-    is drawn from numpy's generator seeded SEED + c. All sampler randomness
-    comes from one ``torch.Generator`` on ``device`` seeded with SEED.
-    ``smc_steps > 0`` prepends the SMC annealed initialization from
-    ``smc_max_temp``.
+    recodes raw votes (None: data already coded 1..C, NaN missing, which is
+    how ordinal data comes in), default priors are beta N(0, 3^2) and theta
+    prior means/sds of zero, cutpoints start at ``thresholds`` ((C+1,),
+    (m, C+1) or (m, C+1, H)) or else at qnorm(i/C), and chain c's theta
+    init is drawn from numpy's generator seeded SEED + c.
+    ``threshold_method`` is "auto" / "ess" (the y-marginal delta ESS) or
+    "newton" (``threshold_mh_tries`` Newton-proposal MH tries on the same
+    conditional). All sampler randomness comes from one ``torch.Generator``
+    on ``device`` seeded with SEED. ``smc_steps > 0`` prepends the SMC
+    annealed initialization from ``smc_max_temp``. The run is on the CUDA
+    card unless ``device`` says otherwise; without a card it raises.
 
     Each dict holds theta (S, n, H), beta (S, 3, m, H), threshold
-    (S, m, C+1, H) and ll (S,); "respondents" / "items" when the data
-    carried labels; and "seconds", the wall time of the SMC and sampling
-    phases (device work included).
+    (S, m, C+1, H) and ll (S,); f (S, n, m, H) with ``store_f`` and fstar
+    (S, N, m, H), f* plus its parametric mean, with ``store_fstar``;
+    "respondents" / "items" when the data carried labels; and "seconds",
+    the wall time of the SMC and sampling phases (device work included).
     """
     if unsupported:
         raise NotImplementedError(
             "gpirt_mcmc arguments not ported to gpirt_tpu_torch yet: "
             + ", ".join(sorted(unsupported)))
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "gpirt_mcmc runs on a CUDA device, and torch.cuda.is_available() "
+            "is false; pass device='cpu' to run on the CPU")
     full_fp32_matmuls()
 
     if vote_codes is not None:
@@ -146,7 +179,9 @@ def gpirt_mcmc(
     theta_prior_sds = np.broadcast_to(np.asarray(theta_prior_sds, np.float64), (2, n))
 
     config = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype=dtype,
-                         jitter=1e-6 if dtype == "float64" else 1e-5)
+                         jitter=1e-6 if dtype == "float64" else 1e-5,
+                         threshold_method=threshold_method,
+                         threshold_mh_tries=threshold_mh_tries)
     consts = make_constants(config, beta_prior_means, beta_prior_sds,
                             theta_prior_means, theta_prior_sds, device=device)
 
@@ -163,11 +198,15 @@ def gpirt_mcmc(
         inits.append(np.clip(th, THETA_LO, THETA_HI))
 
     def tensor(a, dt=config.tdtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+        return torch.as_tensor(np.array(a, order="C"), dtype=dt, device=device)
 
     yt = tensor(y, torch.int32)
     th_inits = tensor(np.stack(inits))  # (CHAIN, H, n)
-    thr_init = tensor(default_thresholds(C, m, H))
+    if thresholds is None:
+        thr_init = tensor(default_thresholds(C, m, H))
+    else:
+        thr_init = tensor(_coerce_thresholds(np.asarray(thresholds, np.float64),
+                                             m, C, H))
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
 
@@ -184,7 +223,8 @@ def gpirt_mcmc(
     draws = run_chains(gen, yt, th_inits, thr_init, consts, config,
                        sample_iterations=sample_iterations,
                        burn_iterations=burn_iterations, thin=THIN,
-                       initial_states=states)
+                       initial_states=states, store_f=store_f,
+                       store_fstar=store_fstar)
     _sync(device)
     t2 = time.perf_counter()
     host = {k: v.cpu().numpy() for k, v in draws.items()}

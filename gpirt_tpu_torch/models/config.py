@@ -1,9 +1,10 @@
 """Static configuration and precomputed constants for the port's sampler.
 
 Counterpart of ``gpirt_tpu/models/config.py``, restricted to what the port
-runs: binary data (C = 2), one session (H = 1), the Albert-Chib conjugate
-latent sampler, the exact grid draw of theta and the y-marginal cutpoint
-ESS. A configuration outside that raises ``NotImplementedError``.
+runs: binary or ordinal data (any C >= 2), one session (H = 1), the
+Albert-Chib conjugate latent sampler, the exact grid draw of theta, and the
+y-marginal cutpoint update by ESS or by Newton-proposal MH. A configuration
+outside that raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ class GPIRTConfig:
     dtype: str = "float32"
     ess_max_rounds: int = 64  # cutpoint ESS round cap
     theta_method: str = "grid"
-    threshold_method: str = "auto"
+    threshold_method: str = "auto"  # "auto" / "ess" (y-marginal delta ESS)
+    # or "newton" (Newton-proposal independence MH, same conditional)
+    threshold_mh_tries: int = 2  # MH tries per sweep under "newton"
     f_method: str = "auto"
 
     def __post_init__(self):
@@ -52,18 +55,19 @@ class GPIRTConfig:
             raise ValueError(f"grid_size must be >= 2, got {self.grid_size}")
         if self.ess_max_rounds < 1:
             raise ValueError(f"ess_max_rounds must be >= 1, got {self.ess_max_rounds}")
+        if self.threshold_mh_tries < 1:
+            raise ValueError(
+                f"threshold_mh_tries must be >= 1, got {self.threshold_mh_tries}")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {self.dtype!r}")
         outside = []
-        if self.C != 2:
-            outside.append(f"C={self.C} (ordinal data)")
         if self.horizon != 1:
             outside.append(f"horizon={self.horizon} (multi-session data)")
         if self.constant_IRF:
             outside.append("constant_IRF")
         if self.f_method not in ("auto", "conjugate"):
             outside.append(f"f_method={self.f_method!r}")
-        if self.threshold_method not in ("auto", "ess"):
+        if self.threshold_method not in ("auto", "ess", "newton"):
             outside.append(f"threshold_method={self.threshold_method!r}")
         if self.theta_method != "grid":
             outside.append(f"theta_method={self.theta_method!r}")
@@ -74,6 +78,12 @@ class GPIRTConfig:
     @property
     def tdtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def resolved_threshold_method(self) -> str:
+        """"auto" is the y-marginal ESS, as in the JAX package on the
+        conjugate path."""
+        return "newton" if self.threshold_method == "newton" else "ess"
 
     @property
     def grid_step(self) -> float:

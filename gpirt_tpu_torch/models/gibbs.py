@@ -9,8 +9,11 @@ applies the blocks in the order of src/gpirtMCMC.cpp:261-331:
   theta | f*  ->  z | theta, f*  ->  f* | z  ->  beta | z, f  ->  t | f, mu
   ->  ll.
 
-The cutpoint block runs through the hand-written CUDA kernel on the card
-(``ops/threshold_ess.py``), tempered and untempered alike.
+The cutpoint block is the y-marginal update of the reference: an ESS in
+the delta parametrization (the binary one through the hand-written CUDA
+kernel on the card, ``ops/threshold_ess.py``; the ordinal one through
+``ops/ess.py``), or Newton-proposal independence MH on the same
+conditional (``threshold_method="newton"``).
 
 Layouts put the chain axis first, then the horizon:
   theta_idx (K, H, n) int64, f (K, H, n, m), beta (K, H, 3, m),
@@ -30,7 +33,13 @@ from gpirt_tpu_torch.models.config import (
     THETA_HI,
     THETA_LO,
 )
-from gpirt_tpu_torch.ops.likelihood import delta_to_threshold, ordinal_ll_terms
+from gpirt_tpu_torch.ops.ess import ess_update
+from gpirt_tpu_torch.ops.likelihood import (
+    cutpoint_bounds,
+    delta_to_threshold,
+    ordinal_ll_terms,
+    threshold_to_delta,
+)
 from gpirt_tpu_torch.ops.linalg import chol3, tri3_solve, tri_solve
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
 
@@ -56,6 +65,7 @@ __all__ = [
 _SQRT2 = 1.4142135623730951
 _INV_SQRT2 = 0.7071067811865476
 _TWO_PI = 6.283185307179586
+_INV_SQRT2PI = 0.3989422804014327
 
 
 class GPIRTState(NamedTuple):
@@ -74,7 +84,8 @@ class InitDraws(NamedTuple):
 
 
 class SweepDraws(NamedTuple):
-    """One sweep's random numbers for K chains."""
+    """One sweep's random numbers for K chains. The cutpoint ESS draws are
+    None under ``threshold_method="newton"``, the Newton draws otherwise."""
 
     u_theta: torch.Tensor  # (K, n, N) uniform [0, 1): Gumbel noise of the theta draw
     u_z: torch.Tensor  # (K, H, n, m) uniform: truncated-normal inverse CDF
@@ -83,10 +94,12 @@ class SweepDraws(NamedTuple):
     z_n: torch.Tensor  # (K, H, N, m) normal: f* prior, grid nugget
     eps_f: torch.Tensor  # (K, H, n, m) normal: f* observation noise
     zeta: torch.Tensor  # (K, H, m, 3) normal: beta draw
-    nu_t: torch.Tensor  # (K, H, m) normal: cutpoint ESS prior draw
-    logu_t: torch.Tensor  # (K, H, m) log uniform: cutpoint slice level
-    eps0_t: torch.Tensor  # (K, H, m) uniform [0, 2 pi): initial angle
-    rs_t: torch.Tensor  # (R, K, H, m) uniform: bracket shrink per round
+    nu_t: Optional[torch.Tensor]  # (K, H, m, C-1) normal: cutpoint ESS prior draw
+    logu_t: Optional[torch.Tensor]  # (K, H, m) log uniform: cutpoint slice level
+    eps0_t: Optional[torch.Tensor]  # (K, H, m) uniform [0, 2 pi): initial angle
+    rs_t: Optional[torch.Tensor]  # (R, K, H, m) uniform: bracket shrink per round
+    z_mh: Optional[torch.Tensor] = None  # (tries, K, H, m, C-1) normal: Newton proposal
+    logu_mh: Optional[torch.Tensor] = None  # (tries, K, H, m) log uniform: MH accept
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +151,11 @@ def _temp_scales(temp):
     return s, 1.0 / s
 
 
+def _onehot(y, C: int, dtype) -> torch.Tensor:
+    """(H, n, m) categories 1..C -> (H, n, m, C); a missing cell is all 0."""
+    return (y.unsqueeze(-1) == torch.arange(1, C + 1, device=y.device)).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # random draws
 # ---------------------------------------------------------------------------
@@ -165,7 +183,7 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=dt)
 
-    return SweepDraws(
+    latent = dict(
         u_theta=rand(K, n, N),
         u_z=rand(K, H, n, m),
         z_q=randn(K, H, q, m),
@@ -173,7 +191,16 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
         z_n=randn(K, H, N, m),
         eps_f=randn(K, H, n, m),
         zeta=randn(K, H, m, 3),
-        nu_t=randn(K, H, m),
+    )
+    d = config.C - 1
+    if config.resolved_threshold_method == "newton":
+        tries = config.threshold_mh_tries
+        return SweepDraws(**latent, nu_t=None, logu_t=None, eps0_t=None, rs_t=None,
+                          z_mh=randn(tries, K, H, m, d),
+                          logu_mh=torch.log(rand(tries, K, H, m)))
+    return SweepDraws(
+        **latent,
+        nu_t=randn(K, H, m, d),
         logu_t=torch.log(rand(K, H, m)),
         eps0_t=rand(K, H, m) * _TWO_PI,
         rs_t=rand(config.ess_max_rounds, K, H, m),
@@ -231,8 +258,7 @@ def _theta_ll_table(fstar, mu_star, y, thresholds, C: int, inv_s=None):
     gstar = fstar + mu_star  # (K, H, N, m)
     logp = _category_logprobs(gstar, thresholds.unsqueeze(-3), C, inv_s)
     K, H, N, m, _ = logp.shape
-    cats = torch.arange(1, C + 1, device=y.device)
-    onehot = (y.unsqueeze(-1) == cats).to(gstar.dtype)  # (H, n, m, C)
+    onehot = _onehot(y, C, gstar.dtype)  # (H, n, m, C)
     return logp.reshape(K, H, N, m * C) @ onehot.reshape(H, -1, m * C).mT
 
 
@@ -257,26 +283,31 @@ def _draw_theta_grid(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
 
 
 def draw_z_truncnorm(g, y, thresholds, u, temp=None) -> torch.Tensor:
-    """Albert-Chib latents, binary data: z ~ N(g, T) truncated to the
-    observed category's side of t_1, unconstrained where missing.
+    """Albert-Chib latents: z ~ N(g, T) truncated to the observed category's
+    cutpoint interval (t_{y-1}, t_y), unconstrained where missing.
 
     Inverse CDF: z = g + sqrt(2 T) erfinv(2p - 1), p between the Phi's of
     the bounds. Infinite cutpoints are clamped to +-1e30 first, and a
     far-tail interval (width < 1e-6 in probability) falls back to the
-    nearest bound.
+    nearest bound. Binary data has one finite bound a cell, t_1; ordinal
+    data gathers both bounds per cell (the JAX package's one-hot
+    contractions select the same values exactly).
     """
-    if thresholds.shape[-1] != 3:
-        raise NotImplementedError("draw_z_truncnorm is ported for binary data only")
     big = 1e30
     sqrt_t, inv_s = _temp_scales(temp)
     c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
-    t1 = torch.clamp(thresholds, -big, big)[..., 1].unsqueeze(-2)  # (K, H, 1, m)
-    cdf_b = 0.5 * (1.0 + torch.erf((t1 - g) * c))
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
-    cdf_lo = torch.where(y == 2, cdf_b, zero)
-    cdf_hi = torch.where(y == 1, cdf_b, zero + 1.0)
-    z_lo = torch.where(y == 2, t1, zero - big)
-    z_hi = torch.where(y == 1, t1, zero + big)
+    if thresholds.shape[-1] == 3:
+        t1 = torch.clamp(thresholds, -big, big)[..., 1].unsqueeze(-2)  # (K, H, 1, m)
+        cdf_b = 0.5 * (1.0 + torch.erf((t1 - g) * c))
+        cdf_lo = torch.where(y == 2, cdf_b, zero)
+        cdf_hi = torch.where(y == 1, cdf_b, zero + 1.0)
+        z_lo = torch.where(y == 2, t1, zero - big)
+        z_hi = torch.where(y == 1, t1, zero + big)
+    else:
+        z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)  # (K, H, n, m)
+        cdf_lo = torch.where(mask, 0.5 * (1.0 + torch.erf((z_lo - g) * c)), zero)
+        cdf_hi = torch.where(mask, 0.5 * (1.0 + torch.erf((z_hi - g) * c)), zero + 1.0)
     eps = 1e-6
     p = torch.clamp(cdf_lo + u * (cdf_hi - cdf_lo), eps, 1.0 - eps)
     q = _SQRT2 * torch.erfinv(2.0 * p - 1.0)
@@ -369,20 +400,169 @@ def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
 
 def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
                    rs, temp=None) -> torch.Tensor:
-    """y-marginal ESS redraw of the binary interior cutpoint t_1 (identity
-    prior in delta space, src/draw_threshold.cpp), one lane per (chain,
-    horizon, item), through the binary cutpoint ESS kernel.
+    """y-marginal ESS redraw of the cutpoints in the delta parametrization,
+    identity prior (src/draw_threshold.cpp), one lane per (chain, horizon,
+    item).
 
-    thresholds (K, H, m, 3); nu, logu, eps0 (K, H, m); rs (R, K, H, m).
+    Binary data goes through the binary cutpoint ESS kernel. Ordinal data
+    goes through :func:`ess_update`, its loglik the category log-probs
+    summed against the one-hot of y.
+
+    thresholds (K, H, m, C+1); nu (K, H, m, C-1), or (K, H, m) when
+    binary; logu, eps0 (K, H, m); rs (R, K, H, m).
     """
-    if thresholds.shape[-1] != 3:
-        raise NotImplementedError("draw_threshold is ported for binary data only")
+    C = thresholds.shape[-1] - 1
     _, inv_s = _temp_scales(temp)
-    c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
-    t_new = binary_threshold_ess(
-        (f + mu).contiguous(), y, thresholds[..., 1].contiguous(), nu, logu,
-        eps0, rs, c)
-    return delta_to_threshold(t_new.unsqueeze(-1))
+    g = f + mu
+    if C == 2:
+        c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
+        t1 = thresholds[..., 1].contiguous()
+        t_new = binary_threshold_ess(g.contiguous(), y, t1, nu.reshape(t1.shape),
+                                     logu, eps0, rs, c)
+        return delta_to_threshold(t_new.unsqueeze(-1))
+    onehot = _onehot(y, C, g.dtype)  # (H, n, m, C)
+
+    def loglik(d):  # (K, H, m, C-1) -> (K, H, m)
+        thr = delta_to_threshold(d)
+        logp = _category_logprobs(g, thr.unsqueeze(-3), C, inv_s)  # (K, H, n, m, C)
+        return (logp * onehot).sum(dim=(-3, -1))
+
+    d_new = ess_update(threshold_to_delta(thresholds), nu, loglik, logu, eps0, rs)
+    return delta_to_threshold(d_new)
+
+
+def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
+    """Newton-proposal independence MH on the binary cutpoint t_1, the
+    conditional of the binary ESS (prior N(0, 1), likelihood the sum of
+    log(Phi(s (t_1 - g)) + 1e-6) over observed cells).
+
+    Each try proposes N(t + clip(Newton step, +-3), -1.1^2 / psi'') from
+    the current point's (psi, psi', psi''), evaluates the proposal's own
+    stats for the reverse move, and accepts by the exact proposal-aware
+    ratio (``gpirt_tpu/models/gibbs.py:1842``).
+
+    thresholds (K, H, m, 3); g (K, H, n, m); z (tries, K, H, m, 1) normal;
+    logu (tries, K, H, m).
+    """
+    obs = y > 0
+    sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs  # (H, n, m)
+    cscale = 1.0 if inv_s is None else inv_s
+
+    def stats(t1):  # (K, H, m) -> psi, proposal mean, proposal variance
+        u = sgn * (t1.unsqueeze(-2) - g) * cscale  # (K, H, n, m)
+        phi_cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2)) + 1e-6
+        r = _INV_SQRT2PI * torch.exp(-0.5 * u * u) / phi_cdf
+        psi = -0.5 * t1 * t1 + (torch.log(phi_cdf) * obs).sum(dim=-2)
+        dpsi = -t1 + cscale * (sgn * r).sum(dim=-2)
+        d2psi = -1.0 + cscale * cscale * ((r * (-u - r)) * obs).sum(dim=-2)
+        d2psi = torch.clamp(d2psi, max=-1.0)  # concave up to the 1e-6 floors
+        return psi, t1 + torch.clamp(-dpsi / d2psi, -3.0, 3.0), -1.21 / d2psi
+
+    def log_q(x, mean, var):
+        return -0.5 * (torch.log(var) + torch.square(x - mean) / var)
+
+    t1 = thresholds[..., 1]
+    cur = stats(t1)
+    for k in range(z.shape[0]):
+        psi0, mean0, var0 = cur
+        prop = mean0 + torch.sqrt(var0) * z[k, ..., 0]
+        psi1, mean1, var1 = stats(prop)
+        log_a = psi1 - psi0 + log_q(t1, mean1, var1) - log_q(prop, mean0, var0)
+        acc = logu[k] < log_a
+        t1 = torch.where(acc, prop, t1)
+        cur = tuple(torch.where(acc, new, old)
+                    for new, old in zip((psi1, mean1, var1), cur))
+    return delta_to_threshold(t1.unsqueeze(-1))
+
+
+def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
+    """Newton-proposal independence MH on each lane's ordinal cutpoint
+    vector, in delta space, with the conditional of the ordinal ESS (prior
+    N(0, I) on delta, likelihood the sum of log(P(y | t) + 1e-6)).
+
+    Per pass and lane: psi, the exact cutpoint-space gradient and the
+    tridiagonal cutpoint Hessian (a cell touches only its category's two
+    bounds), carried to delta space through the Jacobian of
+    delta_to_threshold plus its curvature term. The proposal is N(d +
+    clip(Newton step, +-3), 1.1^2 A^{-1}), A = -Hessian made positive
+    definite by a Gershgorin diagonal ridge; the reverse stats come from
+    the proposal's pass, so the acceptance ratio is exact
+    (``gpirt_tpu/models/gibbs.py:1927``).
+
+    thresholds (K, H, m, C+1); g (K, H, n, m); z (tries, K, H, m, C-1)
+    normal; logu (tries, K, H, m).
+    """
+    C = thresholds.shape[-1] - 1
+    q = C - 1
+    dt, dev = g.dtype, g.device
+    cscale = 1.0 if inv_s is None else inv_s
+    eta = 1.1
+    obs = y > 0
+    onehot = _onehot(y, C, dt)  # (H, n, m, C)
+    up = onehot[..., :q]  # the cell's upper bound is interior cutpoint c
+    lo = onehot[..., 1:]  # the cell's lower bound is interior cutpoint c
+    sgn_b = up - lo
+    eye = torch.eye(q, dtype=dt, device=dev)
+    tri = torch.tril(torch.ones(q, q, dtype=dt, device=dev))  # tri[c, j] = c >= j
+    first = torch.arange(q, device=dev) == 0
+
+    def stats(d):  # (K, H, m, q) -> psi, proposal mean, chol(A), logdet(A)
+        t_int = delta_to_threshold(d)[..., 1:C]
+        u = (t_int.unsqueeze(-3) - g.unsqueeze(-1)) * cscale  # (K, H, n, m, q)
+        cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
+        pdf = _INV_SQRT2PI * torch.exp(-0.5 * u * u)
+        zero = torch.zeros(cdf.shape[:-1] + (1,), dtype=dt, device=dev)
+        cdf_full = torch.cat([zero, cdf, zero + 1.0], dim=-1)
+        p_cell = ((cdf_full[..., 1:] - cdf_full[..., :-1]) * onehot).sum(-1) + 1e-6
+        pc = p_cell.unsqueeze(-1)
+        ll_sum = (torch.log(p_cell) * obs).sum(dim=-2)  # (K, H, m)
+        grad_t = (sgn_b * pdf / pc).sum(dim=-3) * cscale  # (K, H, m, q)
+        # pdf'(u) = -u pdf; (up - lo)^2 = up + lo, the two being disjoint
+        diag_c = (-u * pdf * sgn_b - pdf * pdf * (up + lo) / pc) / pc
+        Ht = torch.diag_embed(diag_c.sum(dim=-3) * cscale * cscale)
+        if q > 1:
+            # cells with y = c+1 have lower bound c and upper bound c+1
+            off_c = pdf[..., :-1] * pdf[..., 1:] * lo[..., :-1] / (pc ** 2)
+            off_t = off_c.sum(dim=-3) * cscale * cscale
+            Ht = Ht + torch.diag_embed(off_t, 1) + torch.diag_embed(off_t, -1)
+        # t_c = d_1 + sum_{2<=j<=c} exp(d_j): J[c, j] = 1 (j = 1), exp(d_j)
+        # (2 <= j <= c), 0 (j > c)
+        col = torch.where(first, 1.0, torch.exp(d))
+        J = tri * col.unsqueeze(-2)
+        grad_d = (J * grad_t.unsqueeze(-1)).sum(dim=-2)
+        tail = torch.flip(torch.cumsum(torch.flip(grad_t, [-1]), -1), [-1])
+        curv = torch.where(first, 0.0, col * tail)  # d^2 t_c / d d_j^2 terms
+        Hd = J.mT @ Ht @ J + torch.diag_embed(curv)
+        psi = -0.5 * (d * d).sum(dim=-1) + ll_sum
+        A = eye - Hd  # -(H_lik + H_prior)
+        diag_a = torch.diagonal(A, dim1=-2, dim2=-1)
+        offsum = A.abs().sum(dim=-1) - diag_a.abs()
+        tau = torch.clamp((offsum - diag_a + 1.0).amax(dim=-1), min=0.0)
+        L, _ = torch.linalg.cholesky_ex(A + tau[..., None, None] * eye)
+        rhs = (grad_d - d).unsqueeze(-1)
+        step = tri_solve(L, tri_solve(L, rhs), trans=True)[..., 0]
+        mean = d + torch.clamp(step, -3.0, 3.0)
+        logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)
+        return psi, mean, L, logdet
+
+    def log_q(x, mean, L, logdet):  # N(mean, eta^2 A^{-1})
+        r = (L.mT @ (x - mean).unsqueeze(-1))[..., 0]
+        return 0.5 * logdet - q * math.log(eta) - 0.5 * (r * r).sum(dim=-1) / (eta * eta)
+
+    d_cur = threshold_to_delta(thresholds)
+    cur = stats(d_cur)
+    for k in range(z.shape[0]):
+        psi0, mean0, L0, ld0 = cur
+        prop = mean0 + eta * tri_solve(L0, z[k].unsqueeze(-1), trans=True)[..., 0]
+        psi1, mean1, L1, ld1 = stats(prop)
+        log_a = (psi1 - psi0 + log_q(d_cur, mean1, L1, ld1)
+                 - log_q(prop, mean0, L0, ld0))
+        acc = logu[k] < log_a
+        accq = acc.unsqueeze(-1)
+        d_cur = torch.where(accq, prop, d_cur)
+        cur = (torch.where(acc, psi1, psi0), torch.where(accq, mean1, mean0),
+               torch.where(accq.unsqueeze(-1), L1, L0), torch.where(acc, ld1, ld0))
+    return delta_to_threshold(d_cur)
 
 
 def gibbs_sweep(state: GPIRTState, draws: SweepDraws, y: torch.Tensor,
@@ -405,8 +585,15 @@ def gibbs_sweep(state: GPIRTState, draws: SweepDraws, y: torch.Tensor,
                                     draws.z_p, draws.z_n, draws.eps_f, temp)
     beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp)
     mu = compute_mu(theta, beta)
-    thresholds = draw_threshold(state.thresholds, f, mu, y, config, draws.nu_t,
-                                draws.logu_t, draws.eps0_t, draws.rs_t, temp)
+    if config.resolved_threshold_method == "newton":
+        newton = (_draw_threshold_binary_newton if config.C == 2
+                  else _draw_threshold_newton_ordinal)
+        thresholds = newton(state.thresholds, f + mu, y, draws.z_mh,
+                            draws.logu_mh, inv_s)
+    else:
+        thresholds = draw_threshold(state.thresholds, f, mu, y, config,
+                                    draws.nu_t, draws.logu_t, draws.eps0_t,
+                                    draws.rs_t, temp)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
                        thresholds=thresholds, fstar=fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds, inv_s).sum(dim=(-3, -2, -1))

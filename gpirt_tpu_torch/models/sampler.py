@@ -16,6 +16,7 @@ import torch
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
+    compute_mu_star,
     gibbs_sweep,
     init_draws,
     init_state,
@@ -60,6 +61,8 @@ def run_chains(
     burn_iterations: int,
     thin: int = 1,
     initial_states: Optional[GPIRTState] = None,
+    store_f: bool = False,
+    store_fstar: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run K chains; returns draws with a leading chain axis, on the device.
 
@@ -68,7 +71,9 @@ def run_chains(
     ``gen``.
 
     Returns "theta" (K, S, H, n), "beta" (K, S, H, 3, m),
-    "threshold" (K, S, H, m, C+1) and "ll" (K, S).
+    "threshold" (K, S, H, m, C+1) and "ll" (K, S); with ``store_f`` also
+    "f" (K, S, H, n, m), and with ``store_fstar`` "fstar" (K, S, H, N, m),
+    f* with the parametric mean mu* added (``gpirt_tpu/parallel/chains.py:284``).
     """
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
     K, H, n = theta_init.shape
@@ -94,12 +99,21 @@ def run_chains(
                                  device=dev),
         "ll": torch.empty((S, K), dtype=dt, device=dev),
     }
+    if store_f:
+        out["f"] = torch.empty((S,) + tuple(state.f.shape), dtype=dt, device=dev)
+    if store_fstar:
+        out["fstar"] = torch.empty((S,) + tuple(state.fstar.shape), dtype=dt,
+                                   device=dev)
     for s in range(S):
         state, ll = sweep(state)  # the recorded sweep
         out["theta"][s] = theta_from_indices(state.theta_idx, consts)
         out["beta"][s] = state.beta
         out["threshold"][s] = state.thresholds
         out["ll"][s] = ll
+        if store_f:
+            out["f"][s] = state.f
+        if store_fstar:
+            out["fstar"][s] = state.fstar + compute_mu_star(consts, state.beta)
         for _ in range(thin - 1):
             state, _ = sweep(state)
     return {k: v.transpose(0, 1) for k, v in out.items()}

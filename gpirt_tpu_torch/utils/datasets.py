@@ -1,8 +1,9 @@
-"""Bundled senate116 roll calls (the ``.npz`` archive under ``data/``).
+"""Bundled datasets: senate116 roll calls and the SDO survey (the ``.npz``
+archives under ``data/``).
 
-Counterpart of ``gpirt_tpu/utils/datasets.py`` for the port's main path:
-only the vendored ``.npz`` branch of :func:`load_senate116` and the
-vignette spread into a response matrix.
+Counterpart of ``gpirt_tpu/utils/datasets.py`` for the port's paths: only
+the vendored ``.npz`` branches of :func:`load_senate116` and
+:func:`load_sdo`, and the vignette spread into a response matrix.
 
 senate116 cast codes (R/senate116.R:10-12): 1 = Yea, 6 = Nay, 7 = Present,
 9 = abstention.
@@ -21,7 +22,7 @@ from gpirt_tpu_torch.utils.response import (
     response_matrix,
 )
 
-__all__ = ["load_senate116", "senate116_response_matrix"]
+__all__ = ["load_senate116", "load_sdo", "senate116_response_matrix"]
 
 _LOCAL_DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
@@ -42,6 +43,18 @@ def load_senate116(path: Optional[str] = None) -> Dict[str, np.ndarray]:
             "icpsr": z["icpsr"].astype(np.int64),
             "cast_code": z["cast_code"].astype(np.int64),
         }
+
+
+def load_sdo(path: Optional[str] = None) -> np.ndarray:
+    """The SDO ordinal survey: (1500, 16) float with codes 1..5, NaN
+    missing. ``path`` names an ``.npz`` archive with a "responses" array;
+    the default is the one bundled under ``data/``."""
+    npz = path or os.path.join(_LOCAL_DATA, "SDO.npz")
+    if not npz.endswith(".npz"):
+        raise NotImplementedError(
+            f"only .npz archives are read by the port (got {npz!r})")
+    with np.load(npz) as z:
+        return z["responses"].astype(np.float64)
 
 
 def senate116_response_matrix(

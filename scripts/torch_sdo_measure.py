@@ -1,0 +1,140 @@
+"""The port's ordinal path on one CUDA card: where an SDO sampling sweep's
+time goes.
+
+    python3 scripts/torch_sdo_measure.py [--threshold-method ess|newton]
+        [--trace-dir DIR]
+
+Runs the SDO survey (1500 respondents x 16 items, C = 5) through
+gpirt_mcmc with 64 chains, burn 200 and 41 draws, and observes the
+sampling sweeps (through models.sampler's call of gibbs_sweep):
+
+  sweeps 5-19   the wall by the host clock (a synchronise at each end), and
+                the cutpoint ESS's rounds and host syncs in them;
+  sweeps 20-29  each block of the sweep timed by CUDA events around its
+                call (the stream's time from the block's first launch to
+                its last, idle gaps included);
+  sweeps 30-39  traced with torch.profiler: device time by operator and the
+                device's busy share; with --trace-dir the profiler's table
+                and its Chrome trace are written into DIR.
+
+Prints the card's name and power limit first.
+"""
+
+import argparse
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from chip_smoke import K, SEED, card, log  # noqa: E402
+from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
+from gpirt_tpu_torch.models import gibbs, sampler  # noqa: E402
+from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
+from gpirt_tpu_torch.utils.datasets import load_sdo  # noqa: E402
+from torch_threshold_ess_measure import report_profile  # noqa: E402
+
+BURN, DRAWS = 200, 41
+# sampling-sweep indices; report_profile labels the wall window 5-19 and
+# divides by a window of ten sweeps, as here
+WALL_FROM, BLOCKS_FROM, PROF_FROM, PROF_TO = 5, 20, 30, 40
+BLOCKS = ["_draw_theta_grid", "draw_z_truncnorm", "draw_fstar_conjugate",
+          "draw_beta_conjugate", "draw_threshold", "_draw_threshold_newton_ordinal",
+          "ordinal_ll_terms"]
+
+
+def timed_blocks(events):
+    """Wrap the sweep's blocks so that each call records a pair of CUDA
+    events into ``events[name]`` while ``events["on"]`` is set."""
+    real = {name: getattr(gibbs, name) for name in BLOCKS}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            if not events["on"]:
+                return fn(*args, **kw)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            events[name].append((a, b))
+            return out
+        return timed
+
+    for name, fn in real.items():
+        setattr(gibbs, name, wrap(name, fn))
+    return real
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--threshold-method", default="ess", choices=["ess", "newton"])
+    ap.add_argument("--trace-dir", help="where the profiler's table and trace go")
+    opt = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = card()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    events = defaultdict(list)
+    events["on"] = False
+    stamps, counts = {}, {}
+    sweep = sampler.gibbs_sweep
+    calls = [0]
+
+    def observed(*args, **kw):
+        s = calls[0] - BURN
+        calls[0] += 1
+        if s in (WALL_FROM, BLOCKS_FROM, PROF_FROM):
+            torch.cuda.synchronize()
+            stamps[s] = time.perf_counter()
+            counts[s] = (ess_update.calls, ess_update.rounds, ess_update.syncs)
+        events["on"] = BLOCKS_FROM <= s < PROF_FROM
+        if s == PROF_FROM:
+            prof.start()
+        if s == PROF_TO:
+            prof.stop()
+        return sweep(*args, **kw)
+
+    real = timed_blocks(events)
+    sampler.gibbs_sweep = observed
+    try:
+        gpirt_mcmc(load_sdo(), DRAWS, BURN, CHAIN=K, SEED=SEED, vote_codes=None,
+                   threshold_method=opt.threshold_method, dtype="float32",
+                   device="cuda")
+    finally:
+        sampler.gibbs_sweep = sweep
+        for name, fn in real.items():
+            setattr(gibbs, name, fn)
+
+    n_wall = BLOCKS_FROM - WALL_FROM
+    wall_ms = (stamps[BLOCKS_FROM] - stamps[WALL_FROM]) / n_wall * 1e3
+    c0, c1 = counts[WALL_FROM], counts[BLOCKS_FROM]
+    log(f"SDO sampling sweeps on {smi}, cutpoints by {opt.threshold_method}: wall "
+        f"{wall_ms:.4f} ms a sweep (sweeps {WALL_FROM}-{BLOCKS_FROM - 1}); cutpoint "
+        f"ESS {(c1[1] - c0[1]) / max(c1[0] - c0[0], 1):.2f} rounds an update, "
+        f"{(c1[2] - c0[2]) / n_wall:.2f} host syncs a sweep")
+    torch.cuda.synchronize()
+    n_blk = PROF_FROM - BLOCKS_FROM
+    blk_wall = (stamps[PROF_FROM] - stamps[BLOCKS_FROM]) / n_blk * 1e3
+    log(f"blocks, sweeps {BLOCKS_FROM}-{PROF_FROM - 1} (wall {blk_wall:.4f} ms a "
+        f"sweep with the events):")
+    for name in BLOCKS:
+        if events[name]:
+            ms = sum(a.elapsed_time(b) for a, b in events[name]) / n_blk
+            log(f"  block {name}: {ms:.4f} ms a sweep ({len(events[name]) // n_blk} "
+                f"calls a sweep)")
+    report_profile(prof, wall_ms, smi, opt.trace_dir)
+    log(card())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,6 +16,7 @@ from gpirt_tpu.models.config import make_constants as j_make_constants
 from gpirt_tpu_torch import gpirt_mcmc
 from gpirt_tpu_torch.api import default_thresholds
 from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy, to_numpy
+from gpirt_tpu_torch.models import gibbs
 from gpirt_tpu_torch.models.config import GPIRTConfig
 
 
@@ -30,9 +31,10 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(C=3), dict(horizon=2), dict(constant_IRF=True), dict(f_method="grid"),
-    dict(f_method="two_stage"), dict(threshold_method="newton"),
-    dict(threshold_method="collapsed"), dict(theta_method="ess"),
+    dict(horizon=2), dict(constant_IRF=True), dict(f_method="grid"),
+    dict(f_method="two_stage"), dict(threshold_method="collapsed"),
+    dict(threshold_method="interleave"), dict(theta_method="ess"),
+    dict(C=5, horizon=3),
 ])
 def test_config_outside_slice_raises(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -44,6 +46,22 @@ def test_config_in_slice_accepted_and_validated():
         assert GPIRTConfig(n=5, m=4, **kw).grid_step == 0.01
     with pytest.raises(ValueError):
         GPIRTConfig(n=0, m=4)
+
+
+@pytest.mark.parametrize("kw, method", [
+    (dict(C=3), "ess"),
+    (dict(threshold_method="newton"), "newton"),
+    (dict(C=5, threshold_method="newton", threshold_mh_tries=3), "newton"),
+    (dict(C=5, threshold_method="ess", f_method="conjugate"), "ess"),
+])
+def test_config_ordinal_and_newton_in_slice(kw, method):
+    """C > 2 and threshold_method="newton" are in the slice; "auto"
+    resolves to the ESS, as in the JAX package on the conjugate path."""
+    cfg = GPIRTConfig(n=5, m=4, **kw)
+    assert cfg.resolved_threshold_method == method
+    assert JConfig(n=5, m=4, **kw).resolved_threshold_method == method
+    with pytest.raises(ValueError, match="threshold_mh_tries"):
+        GPIRTConfig(n=5, m=4, **dict(kw, threshold_mh_tries=0))
 
 
 def _votes(n=10, m=6, seed=0):
@@ -77,14 +95,38 @@ def test_gpirt_mcmc_layout_and_precision_flags():
         assert set(d["seconds"]) == {"smc", "sampling"}
 
 
+def test_gpirt_mcmc_hands_the_kernel_contiguous_tensors(monkeypatch):
+    """The cutpoint kernel takes only contiguous tensors: every tensor the
+    sweep passes its wrapper is, from data given in either memory order."""
+    seen = []
+    wrapper = gibbs.binary_threshold_ess
+
+    def observe(*args):
+        seen.append(all(a.is_contiguous() for a in args if torch.is_tensor(a)))
+        return wrapper(*args)
+
+    monkeypatch.setattr(gibbs, "binary_threshold_ess", observe)
+    for votes in (_votes(), np.asfortranarray(_votes())):
+        gpirt_mcmc(votes, 2, 1, CHAIN=2, smc_steps=2, dtype="float64", device="cpu")
+    assert len(seen) == 2 * (8 + 1 + 3) and all(seen)
+
+
 def test_gpirt_mcmc_guards():
-    with pytest.raises(NotImplementedError, match="store_f"):
-        gpirt_mcmc(_votes(), 2, 1, store_f=True, device="cpu")
-    with pytest.raises(TypeError):
-        gpirt_mcmc(_votes(), 2, 1)  # no silent default device
-    ordinal = np.random.default_rng(1).integers(1, 4, (8, 5)).astype(float)
-    with pytest.raises(NotImplementedError, match="C=3"):
-        gpirt_mcmc(ordinal, 2, 1, vote_codes=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="n_temps"):
+        gpirt_mcmc(_votes(), 2, 1, n_temps=2, device="cpu")
+    multi = np.random.default_rng(1).integers(1, 4, (8, 5, 2)).astype(float)
+    with pytest.raises(NotImplementedError, match="horizon=2"):
+        gpirt_mcmc(multi, 2, 1, vote_codes=None, device="cpu")
+
+
+def test_gpirt_mcmc_defaults_to_the_card_and_never_falls_back(monkeypatch):
+    """With no ``device`` the run is on CUDA; without a card that raises,
+    naming CUDA, rather than running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpirt_mcmc(_votes(), 2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpirt_mcmc(_votes(), 2, 1, device="cuda")
 
 
 @pytest.mark.parametrize("C", [2, 3])

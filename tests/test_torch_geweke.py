@@ -1,0 +1,121 @@
+"""Geweke (2004) joint-distribution test of the port's sweep.
+
+The pattern of tests/test_geweke.py::_run_geweke_sweep, with the port's
+``gibbs_sweep`` in the successive-conditional chain: the prior and the
+response redraws come from ``gpirt_tpu.models.generate``, the statistics
+from that file's ``_stats``, and states pass between the packages as
+numpy. If every block of the port targets its exact conditional, moments
+of the chain agree with forward draws from the prior up to MC error.
+
+The three oracles run 12,000 sweeps each and are ``slow``; a short chain
+checks finite, ordered cutpoints in the fast tier.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpirt_tpu.models.config import GPIRTConfig as JConfig
+from gpirt_tpu.models.config import make_constants as j_make_constants
+from gpirt_tpu.models.generate import sample_prior_state, sample_responses
+from gpirt_tpu.models.gibbs import GPIRTState as JState
+from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy, to_numpy
+from gpirt_tpu_torch.models import gibbs as tg
+from gpirt_tpu_torch.models.config import GPIRTConfig
+from test_geweke import _stats
+
+NAMES = ["th", "th2", "b", "b2", "fs", "fs2", "t1", "t12", "ti", "ti2"]
+
+
+def _model(n, m, C, method, N=61):
+    jcfg = JConfig(n=n, m=m, horizon=1, C=C, grid_size=N, dtype="float64",
+                   f_method="conjugate", threshold_method=method)
+    jconsts = j_make_constants(jcfg, beta_prior_means=np.zeros((3, m)),
+                               beta_prior_sds=np.full((3, m), 1.5),
+                               theta_prior_means=np.zeros((2, n)),
+                               theta_prior_sds=np.zeros((2, n)))
+    cfg = GPIRTConfig(n=n, m=m, C=C, grid_size=N, dtype="float64",
+                      threshold_method=method)
+    return jcfg, jconsts, cfg, constants_from_numpy(jconsts, device="cpu",
+                                                    dtype=torch.float64)
+
+
+def _chain(n, m, C, method, sweeps, seed=0, mask=None):
+    """The successive-conditional chain: the port's sweep given y, then y
+    redrawn given the state. Returns the (sweeps, 10) statistics, the
+    cutpoints of every sweep and the forward model."""
+    jcfg, jconsts, cfg, consts = _model(n, m, C, method)
+    k0, k1, kr = jax.random.split(jax.random.key(seed + 1), 3)
+    st0 = sample_prior_state(k0, jconsts, jcfg)
+    y = sample_responses(k1, st0, jconsts, jcfg, mask=mask)
+    respond = jax.jit(lambda k, st: sample_responses(k, st, jconsts, jcfg, mask=mask))
+    stats = jax.jit(lambda st: _stats(st, jconsts))
+    state = state_from_numpy({k: np.asarray(v)[None] for k, v in st0._asdict().items()},
+                             device="cpu", dtype=torch.float64)
+    gen = torch.Generator().manual_seed(seed)
+    out, thr = [], []
+    for key in jax.random.split(kr, sweeps):
+        state, _ = tg.gibbs_sweep(state, tg.sweep_draws(gen, 1, consts, cfg),
+                                  torch.as_tensor(np.array(y)), consts, cfg)
+        jst = JState(**{k: jnp.asarray(v[0]) for k, v in to_numpy(state).items()})
+        y = respond(key, jst)
+        out.append(np.asarray(stats(jst)))
+        thr.append(state.thresholds[0].numpy())
+    return np.stack(out), np.stack(thr), (jcfg, jconsts)
+
+
+def _run_geweke_sweep(n, m, C, method, seed=0, mask=None):
+    sc, _, (jcfg, jconsts) = _chain(n, m, C, method, 12000, seed, mask)
+    sc = sc[500::3]
+
+    @jax.jit
+    def forward(key):
+        return _stats(sample_prior_state(key, jconsts, jcfg), jconsts)
+
+    fwd = np.asarray(jax.vmap(forward)(jax.random.split(jax.random.key(seed), 4000)))
+    fails = []
+    for j, name in enumerate(NAMES):
+        mf, vf = fwd[:, j].mean(), fwd[:, j].var() / len(fwd)
+        x = sc[:, j]
+        nb = len(x) // 40
+        bm = x[: nb * 40].reshape(nb, 40).mean(axis=1)
+        z = (mf - x.mean()) / np.sqrt(vf + bm.var(ddof=1) / nb + 1e-12)
+        if abs(z) > 4.5:
+            fails.append((name, float(z)))
+    assert not fails, fails
+
+
+def _mask(seed, n, m, keep=0.3):
+    return jnp.asarray(np.random.default_rng(seed).random((1, n, m)) > keep)
+
+
+@pytest.mark.slow
+def test_geweke_binary_ess_masked():
+    """The binary cutpoint ESS (the kernel's plain version on the CPU) with
+    missing cells: TestGewekeBinaryESS's sizes."""
+    _run_geweke_sweep(6, 3, 2, "ess", mask=_mask(11, 6, 3))
+
+
+@pytest.mark.slow
+def test_geweke_ordinal_ess_masked():
+    """C = 3, the ordinal ESS and the generic z draw, with missing cells."""
+    _run_geweke_sweep(6, 3, 3, "ess", mask=_mask(42, 6, 3, keep=0.4))
+
+
+@pytest.mark.slow
+def test_geweke_ordinal_newton_c5():
+    """C = 5 Newton: TestGewekeOrdinalNewton.test_ordinal_newton_c5's sizes."""
+    _run_geweke_sweep(6, 3, 5, "newton", seed=7)
+
+
+@pytest.mark.parametrize("C, method", [(3, "ess"), (5, "newton")])
+def test_successive_conditional_smoke(C, method):
+    """200 sweeps of the chain above: finite statistics and finite,
+    strictly increasing cutpoints at every sweep."""
+    sc, thr, _ = _chain(6, 3, C, method, 200, mask=_mask(42, 6, 3))
+    assert np.isfinite(sc).all()
+    t = thr[..., 1:-1]
+    assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
+    assert np.std(t[:, :, :, 0], axis=0).min() > 0  # every cutpoint moves

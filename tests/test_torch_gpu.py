@@ -1,6 +1,8 @@
 """Port tests that need the card: the CUDA kernel against its plain version,
 over shapes (every thread-group size the kernel chooses from n) and edge
-cases, and one whole sweep on the card against the same sweep on the CPU.
+cases; whole sweeps on the card against the same sweeps on the CPU (binary,
+and ordinal with the cutpoints by ESS and by Newton); and gpirt_mcmc on the
+card by default.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX, so on a machine with an NVIDIA GPU and nvcc but
@@ -13,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from gpirt_tpu_torch import gpirt_mcmc
+from gpirt_tpu_torch.api import default_thresholds
 from gpirt_tpu_torch.models import gibbs
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants
 from gpirt_tpu_torch.ops.threshold_ess import (
@@ -127,34 +131,69 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         binary_threshold_ess(args[0].mT.contiguous().mT, *args[1:], _C)
 
 
-@pytest.mark.gpu
-def test_sweep_on_card_matches_cpu(cuda_device):
-    """One float32 sweep from the same state and draws on both devices:
-    theta identical, the rest within 1e-3 (float32 products and solves in
-    another order)."""
+def _sweep_on_both(device, C=2, method="auto", temp=4.0):
+    """One float32 sweep from the same state and draws on the CPU and on
+    ``device``: theta identical, the rest within 1e-3 (float32 products and
+    solves in another order)."""
     K, n, m, N = 3, 12, 9, 101
     rng = np.random.default_rng(1)
-    y = np.where(rng.random((1, n, m)) < 0.5, 2, 1).astype(np.int32)
+    y = rng.integers(1, C + 1, (1, n, m)).astype(np.int32)
     y[0, 0, :3] = 0
-    cfg = GPIRTConfig(n=n, m=m, grid_size=N, dtype="float32", jitter=1e-5)
+    cfg = GPIRTConfig(n=n, m=m, C=C, grid_size=N, dtype="float32", jitter=1e-5,
+                      threshold_method=method)
     priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
               np.zeros((2, n)))
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(0)
-    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, cuda_device)}
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, device)}
     state0 = gibbs.init_state(
         torch.as_tensor(rng.uniform(-1, 1, (K, 1, n))),
-        torch.as_tensor(np.tile([-np.inf, 0.0, np.inf], (1, m, 1))),
+        torch.as_tensor(default_thresholds(C, m, 1)),
         consts[cpu], cfg, gibbs.init_draws(gen, K, consts[cpu], cfg))
     draws = gibbs.sweep_draws(gen, K, consts[cpu], cfg)
     out = {}
-    for d in (cpu, cuda_device):
+    for d in (cpu, device):
         out[d] = gibbs.gibbs_sweep(
             gibbs.GPIRTState(*(a.to(d) for a in state0)),
-            gibbs.SweepDraws(*(a.to(d) for a in draws)),
-            torch.as_tensor(y, device=d), consts[d], cfg, temp=4.0)
-    (s_cpu, ll_cpu), (s_gpu, ll_gpu) = out[cpu], out[cuda_device]
+            gibbs.SweepDraws(*(None if a is None else a.to(d) for a in draws)),
+            torch.as_tensor(y, device=d), consts[d], cfg, temp=temp)
+    (s_cpu, ll_cpu), (s_gpu, ll_gpu) = out[cpu], out[device]
     assert torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu())
     for a, b in zip(s_cpu[1:], s_gpu[1:]):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(ll_gpu.cpu(), ll_cpu, rtol=1e-4, atol=1e-3)
+    return state0, s_gpu
+
+
+@pytest.mark.gpu
+def test_sweep_on_card_matches_cpu(cuda_device):
+    """A tempered binary sweep (T = 4), its cutpoints by the kernel."""
+    before = binary_threshold_ess.launches
+    _sweep_on_both(cuda_device)
+    assert binary_threshold_ess.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp", [None, 64.0])
+@pytest.mark.parametrize("method", ["ess", "newton"])
+def test_ordinal_sweep_on_card_matches_cpu(cuda_device, method, temp):
+    """A C = 5 sweep at T = 1 and 64, its cutpoints by the ordinal ESS or
+    by Newton-proposal MH; the binary kernel is not launched."""
+    before = binary_threshold_ess.launches
+    state0, state = _sweep_on_both(cuda_device, C=5, method=method, temp=temp)
+    assert binary_threshold_ess.launches == before
+    t = state.thresholds[..., 1:-1]
+    assert bool((t[..., 1:] > t[..., :-1]).all())
+    assert bool((state.thresholds != state0.thresholds.to(t.device)).any())
+
+
+@pytest.mark.gpu
+def test_gpirt_mcmc_runs_on_the_card_by_default(cuda_device):
+    """No ``device`` argument: the run is on the card (one kernel launch a
+    sweep of binary data)."""
+    rng = np.random.default_rng(0)
+    votes = np.where(rng.random((20, 12)) < 0.5, 1.0, 6.0)
+    before = binary_threshold_ess.launches
+    out = gpirt_mcmc(votes, sample_iterations=3, burn_iterations=2, CHAIN=2)
+    assert binary_threshold_ess.launches == before + 5
+    assert all(np.isfinite(d["ll"]).all() for d in out)
