@@ -23,7 +23,7 @@ Layouts put the chain axis first, then the horizon:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -46,6 +46,8 @@ from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
 __all__ = [
     "GPIRTState",
     "InitDraws",
+    "ESSDraws",
+    "NewtonDraws",
     "SweepDraws",
     "snap_indices",
     "theta_from_indices",
@@ -83,9 +85,25 @@ class InitDraws(NamedTuple):
     z_fstar: torch.Tensor  # (K, H, N, m) standard normal
 
 
+class ESSDraws(NamedTuple):
+    """The cutpoint ESS's random numbers."""
+
+    nu: torch.Tensor  # (K, H, m, C-1) normal: prior draw
+    logu: torch.Tensor  # (K, H, m) log uniform: slice level
+    eps0: torch.Tensor  # (K, H, m) uniform [0, 2 pi): initial angle
+    rs: torch.Tensor  # (R, K, H, m) uniform: bracket shrink per round
+
+
+class NewtonDraws(NamedTuple):
+    """Newton-proposal MH's random numbers, one row per try."""
+
+    z: torch.Tensor  # (tries, K, H, m, C-1) normal: proposal
+    logu: torch.Tensor  # (tries, K, H, m) log uniform: accept
+
+
 class SweepDraws(NamedTuple):
-    """One sweep's random numbers for K chains. The cutpoint ESS draws are
-    None under ``threshold_method="newton"``, the Newton draws otherwise."""
+    """One sweep's random numbers for K chains; ``cut`` holds those of the
+    configured cutpoint update."""
 
     u_theta: torch.Tensor  # (K, n, N) uniform [0, 1): Gumbel noise of the theta draw
     u_z: torch.Tensor  # (K, H, n, m) uniform: truncated-normal inverse CDF
@@ -94,12 +112,11 @@ class SweepDraws(NamedTuple):
     z_n: torch.Tensor  # (K, H, N, m) normal: f* prior, grid nugget
     eps_f: torch.Tensor  # (K, H, n, m) normal: f* observation noise
     zeta: torch.Tensor  # (K, H, m, 3) normal: beta draw
-    nu_t: Optional[torch.Tensor]  # (K, H, m, C-1) normal: cutpoint ESS prior draw
-    logu_t: Optional[torch.Tensor]  # (K, H, m) log uniform: cutpoint slice level
-    eps0_t: Optional[torch.Tensor]  # (K, H, m) uniform [0, 2 pi): initial angle
-    rs_t: Optional[torch.Tensor]  # (R, K, H, m) uniform: bracket shrink per round
-    z_mh: Optional[torch.Tensor] = None  # (tries, K, H, m, C-1) normal: Newton proposal
-    logu_mh: Optional[torch.Tensor] = None  # (tries, K, H, m) log uniform: MH accept
+    cut: Union[ESSDraws, NewtonDraws]
+
+    def to(self, device) -> "SweepDraws":
+        cut = type(self.cut)(*(a.to(device) for a in self.cut))
+        return SweepDraws(*(a.to(device) for a in self[:-1]), cut)
 
 
 # ---------------------------------------------------------------------------
@@ -195,16 +212,14 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     d = config.C - 1
     if config.resolved_threshold_method == "newton":
         tries = config.threshold_mh_tries
-        return SweepDraws(**latent, nu_t=None, logu_t=None, eps0_t=None, rs_t=None,
-                          z_mh=randn(tries, K, H, m, d),
-                          logu_mh=torch.log(rand(tries, K, H, m)))
-    return SweepDraws(
-        **latent,
-        nu_t=randn(K, H, m, d),
-        logu_t=torch.log(rand(K, H, m)),
-        eps0_t=rand(K, H, m) * _TWO_PI,
-        rs_t=rand(config.ess_max_rounds, K, H, m),
-    )
+        return SweepDraws(**latent, cut=NewtonDraws(
+            z=randn(tries, K, H, m, d), logu=torch.log(rand(tries, K, H, m))))
+    return SweepDraws(**latent, cut=ESSDraws(
+        nu=randn(K, H, m, d),
+        logu=torch.log(rand(K, H, m)),
+        eps0=rand(K, H, m) * _TWO_PI,
+        rs=rand(config.ess_max_rounds, K, H, m),
+    ))
 
 
 # ---------------------------------------------------------------------------
@@ -588,12 +603,10 @@ def gibbs_sweep(state: GPIRTState, draws: SweepDraws, y: torch.Tensor,
     if config.resolved_threshold_method == "newton":
         newton = (_draw_threshold_binary_newton if config.C == 2
                   else _draw_threshold_newton_ordinal)
-        thresholds = newton(state.thresholds, f + mu, y, draws.z_mh,
-                            draws.logu_mh, inv_s)
+        thresholds = newton(state.thresholds, f + mu, y, *draws.cut, inv_s)
     else:
         thresholds = draw_threshold(state.thresholds, f, mu, y, config,
-                                    draws.nu_t, draws.logu_t, draws.eps0_t,
-                                    draws.rs_t, temp)
+                                    *draws.cut, temp)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
                        thresholds=thresholds, fstar=fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds, inv_s).sum(dim=(-3, -2, -1))

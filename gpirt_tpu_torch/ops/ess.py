@@ -7,15 +7,15 @@ MCMC step). The uniforms are inputs, so the result is a function of the
 draws alone: a lane's accept/shrink sequence depends only on its own
 numbers and likelihood, never on when the loop stops.
 
-The loop stops once no lane is active. Testing that on the card is one
-device-to-host sync; ``check_every`` rounds pass between tests. The
-function's ``calls``, ``rounds`` and ``syncs`` attributes count the updates,
-the rounds run and the syncs made.
+The loop stops after the first round that leaves no lane active. Testing
+that on the card is one device-to-host sync a round. The function's
+``calls``, ``rounds`` and ``syncs`` attributes count the updates, the rounds
+run and the syncs made.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -31,9 +31,6 @@ def ess_update(
     logu: torch.Tensor,
     eps0: torch.Tensor,
     rs: torch.Tensor,
-    *,
-    transform: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-    check_every: int = 1,
 ) -> torch.Tensor:
     """One ESS update of a batch of lanes.
 
@@ -44,21 +41,13 @@ def ess_update(
       logu: ``(*B,)`` log of the slice uniform.
       eps0: ``(*B,)`` initial angle in [0, 2 pi).
       rs: ``(R, *B)`` shrink uniforms, one row per round; R is the cap.
-      transform: optional map applied to every proposal before the
-        likelihood and before output.
-      check_every: rounds between tests for a lane still active.
 
     Returns:
       ``(*B, d)`` new state.
     """
-    if check_every < 1:
-        raise ValueError(f"check_every must be >= 1, got {check_every}")
     if tuple(rs.shape[1:]) != tuple(x.shape[:-1]) or rs.shape[0] < 1:
         raise ValueError(f"rs must be (R, *B) = (R, {tuple(x.shape[:-1])}), "
                          f"got {tuple(rs.shape)}")
-    if transform is None:
-        def transform(v):
-            return v
     ess_update.calls += 1
     log_y = loglik_fn(x) + logu
     eps = eps0
@@ -67,13 +56,10 @@ def ess_update(
     x_out = x
     active = torch.ones_like(logu, dtype=torch.bool)
     for r in range(rs.shape[0]):
-        if r > 0 and r % check_every == 0:
-            ess_update.syncs += 1
-            if not bool(active.any()):
-                break
+        if r > 0 and not _any_active(active):
+            break
         ess_update.rounds += 1
-        prop = transform(x * torch.cos(eps).unsqueeze(-1)
-                         + nu * torch.sin(eps).unsqueeze(-1))
+        prop = x * torch.cos(eps).unsqueeze(-1) + nu * torch.sin(eps).unsqueeze(-1)
         accept = loglik_fn(prop) > log_y
         x_out = torch.where((active & accept).unsqueeze(-1), prop, x_out)
         still = active & ~accept
@@ -82,6 +68,12 @@ def ess_update(
         eps = torch.where(still, eps_min + rs[r] * (eps_max - eps_min), eps)
         active = still
     return x_out
+
+
+def _any_active(active: torch.Tensor) -> bool:
+    """Whether a lane is still active: one device-to-host sync on the card."""
+    ess_update.syncs += 1
+    return bool(active.any())
 
 
 ess_update.calls = 0

@@ -245,8 +245,9 @@ def test_three_sweeps_match(setup, temp):
         per = [_sweep_draws(keys[k], q) for k in range(K)]
         draws = [_t(np.stack(a)) for a in zip(*per)]
         draws[-1] = draws[-1].transpose(0, 1).contiguous()  # rs: (R, K, H, m)
-        state, ll = tg.gibbs_sweep(state, tg.SweepDraws(*draws), s["yt"],
-                                   s["consts"], s["cfg"], temp)
+        draws = tg.SweepDraws(*draws[:7], tg.ESSDraws(*draws[7:]))
+        state, ll = tg.gibbs_sweep(state, draws, s["yt"], s["consts"], s["cfg"],
+                                   temp)
         np.testing.assert_array_equal(state.theta_idx.numpy(),
                                       np.asarray(jstate.theta_idx))
         for name in ("f", "beta", "thresholds", "fstar"):

@@ -155,7 +155,7 @@ def _sweep_on_both(device, C=2, method="auto", temp=4.0):
     for d in (cpu, device):
         out[d] = gibbs.gibbs_sweep(
             gibbs.GPIRTState(*(a.to(d) for a in state0)),
-            gibbs.SweepDraws(*(None if a is None else a.to(d) for a in draws)),
+            draws.to(d),
             torch.as_tensor(y, device=d), consts[d], cfg, temp=temp)
     (s_cpu, ll_cpu), (s_gpu, ll_gpu) = out[cpu], out[device]
     assert torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu())

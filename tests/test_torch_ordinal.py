@@ -34,6 +34,7 @@ from gpirt_tpu_torch.api import _coerce_thresholds, default_thresholds
 from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy
 from gpirt_tpu_torch.models import gibbs as tg
 from gpirt_tpu_torch.models.config import GPIRTConfig
+from gpirt_tpu_torch.ops import ess
 from gpirt_tpu_torch.ops.ess import ess_update
 from gpirt_tpu_torch.ops.likelihood import delta_to_threshold, threshold_to_delta
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
@@ -158,10 +159,11 @@ def _toy():
 
 
 @pytest.mark.parametrize("rounds", [1, 2, 64])
-def test_ess_update_matches_and_ignores_the_exit_policy(rounds):
+def test_ess_update_matches_and_ignores_the_exit_policy(rounds, monkeypatch):
     """Against gpirt_tpu.ops.ess.ess_update with max_rounds = R, to 1e-10;
     and the same draws give the same result whether the loop stops at the
-    first round with every lane done or runs all R rounds."""
+    first round with every lane done or, with its exit test stubbed out,
+    runs all R rounds."""
     x, nu, mu, sd = _toy()
     key = jax.random.key(5)
     want = j_ess_update(key, jnp.asarray(x), jnp.asarray(nu),
@@ -177,7 +179,8 @@ def test_ess_update_matches_and_ignores_the_exit_policy(rounds):
     before = ess_update.rounds
     early = ess_update(*args)
     ran = ess_update.rounds - before
-    full = ess_update(*args, check_every=rounds)
+    monkeypatch.setattr(ess, "_any_active", lambda active: True)
+    full = ess_update(*args)
     assert ess_update.rounds - before - ran == rounds
     _close(early, want)
     assert torch.equal(early, full)
@@ -292,11 +295,11 @@ def _port_draws(per_lane, method):
     latent = [_stack_lanes(a, 0) for a in zip(*[p[0] for p in per_lane])]
     cut = list(zip(*[p[1] for p in per_lane]))
     if method == "newton":
-        return tg.SweepDraws(*latent, None, None, None, None,
-                             z_mh=_stack_lanes(cut[0], 1),
-                             logu_mh=_stack_lanes(cut[1], 1))
-    return tg.SweepDraws(*latent, _stack_lanes(cut[0], 0), _stack_lanes(cut[1], 0),
-                         _stack_lanes(cut[2], 0), _stack_lanes(cut[3], 1))
+        return tg.SweepDraws(*latent, tg.NewtonDraws(_stack_lanes(cut[0], 1),
+                                                     _stack_lanes(cut[1], 1)))
+    return tg.SweepDraws(*latent, tg.ESSDraws(
+        _stack_lanes(cut[0], 0), _stack_lanes(cut[1], 0), _stack_lanes(cut[2], 0),
+        _stack_lanes(cut[3], 1)))
 
 
 @pytest.mark.parametrize("method", ["ess", "newton"])
@@ -336,11 +339,11 @@ def test_sweep_draws_layouts_and_binary_stream():
                           threshold_method=method, threshold_mh_tries=3)
         return tg.sweep_draws(torch.Generator().manual_seed(0), K, consts, cfg)
 
-    d = draws(5, "newton")
-    assert d.nu_t is None and d.rs_t is None
-    assert d.z_mh.shape == (3, K, H, m, 4) and d.logu_mh.shape == (3, K, H, m)
-    d = draws(3, "ess")
-    assert d.nu_t.shape == (K, H, m, 2) and d.z_mh is None
+    d = draws(5, "newton").cut
+    assert isinstance(d, tg.NewtonDraws)
+    assert d.z.shape == (3, K, H, m, 4) and d.logu.shape == (3, K, H, m)
+    d = draws(3, "ess").cut
+    assert isinstance(d, tg.ESSDraws) and d.nu.shape == (K, H, m, 2)
     d = draws(2, "ess")
     gen = torch.Generator().manual_seed(0)
     shapes = [(K, n, N), (K, H, n, m), (K, H, consts.U_se.shape[1], m), (K, H, 3, m),
@@ -350,9 +353,9 @@ def test_sweep_draws_layouts_and_binary_stream():
     old += [torch.randn(sh, generator=gen, dtype=torch.float64) for sh in shapes[2:]]
     old += [torch.rand((K, H, m), generator=gen, dtype=torch.float64)
             for _ in range(2)]
-    assert torch.equal(d.nu_t[..., 0], old[7])
-    assert torch.equal(d.logu_t, torch.log(old[8]))
-    assert torch.equal(d.eps0_t, old[9] * _TWO_PI)
+    assert torch.equal(d.cut.nu[..., 0], old[7])
+    assert torch.equal(d.cut.logu, torch.log(old[8]))
+    assert torch.equal(d.cut.eps0, old[9] * _TWO_PI)
     for got, want in zip(d[:7], old[:7]):
         assert torch.equal(got, want)
 
