@@ -24,7 +24,18 @@ Phases, each of which stops the run with a non-zero exit on failure:
      through gpirt_mcmc with 64 chains, burn 200 and 500 draws, f* stored;
      checked for finite ll and f*, ordered cutpoints that moved, and no
      binary kernel launch; prints the sweep rate, theta ESS and ESS per
-     second, the ESS rounds per cutpoint update and the host syncs a sweep.
+     second, the ESS rounds per cutpoint update and the host syncs a sweep;
+  9. GP sweep check: the check of phase 4 over three sessions in the GP
+     theta regime (theta_ls = 2), at C = 2 and C = 5;
+ 10. dynamic path: simulate_dynamic's 150 respondents x 60 items x 10
+     sessions (binary, 10% missing) through gpirt_mcmc in the GP regime
+     with 64 chains, burn 100 and 300 draws; checked for the regime, one
+     kernel launch per sweep, finite ll, cutpoints that moved and theta
+     that differs between sessions; prints the sweep rate, theta ESS over
+     the n H parameters and ESS per second, and the sign-aligned
+     correlation of the posterior means with the true trait;
+ 11. kernel at the dynamic path's state: phase 6 on the inputs of its last
+     sweep.
 A kernel time is the mean over 50 back-to-back launches captured in one
 CUDA graph and timed by CUDA events after a warm-up ("ms"), and over 50
 eager calls, which adds the wrapper's host time where that is the longer
@@ -32,6 +43,7 @@ eager calls, which adds the wrapper's host time where that is the longer
 nvidia-smi reports it, and {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -55,12 +67,16 @@ from gpirt_tpu_torch.parallel.smc import WARM_STEPS  # noqa: E402
 from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     load_sdo,
     senate116_response_matrix,
+    simulate_dynamic,
 )
 from gpirt_tpu_torch.utils.diagnostics import effective_sample_size_device  # noqa: E402
 from gpirt_tpu_torch.utils.response import encode_categories  # noqa: E402
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
 SDO_BURN, SDO_DRAWS = 200, 500
+# bench.py::bench_dynamic's data, regime and run lengths
+DYN_N, DYN_M, DYN_H, DYN_LS, DYN_BURN, DYN_DRAWS = 150, 60, 10, 2.0, 100, 300
+DYN_VOTES = {"yea": 1, "nay": 0, "missing": None}
 REPS = 50
 _C = 0.7071067811865476
 _TWO_PI = 6.283185307179586
@@ -222,7 +238,7 @@ def lane_rounds(g, y, t1, nu, logu, eps0, rs, c):
     return rounds, active
 
 
-def kernel_bound(args, c):
+def kernel_bound(args, c, label="main path's state"):
     """The work this launch needs and the least time the card could take
     for it: each input read once (of rs, the values a shrink uses), the
     output written once, and every observed site evaluated once per ll."""
@@ -252,7 +268,7 @@ def kernel_bound(args, c):
         "bound_by": "bytes" if mem_ms >= op_ms else "operations",
         "sfu_bound_ms": sfu_ms,
     }
-    log(f"kernel work at the main path's state: rounds per lane mean "
+    log(f"kernel work at the {label}: rounds per lane mean "
         f"{work['rounds_mean']:.3f} p99 {work['rounds_p99']:.0f} max "
         f"{work['rounds_max']} ({work['lanes_at_cap']} at the cap); "
         f"{site_evals} site evaluations, {ops} FP32 operations, {nbytes} bytes; "
@@ -290,31 +306,84 @@ def max_diff(a, b):
     return float(err[i]), i
 
 
-def sweep_check(dev, C=2, method="auto", temp=4.0):
-    """One tempered sweep on the card against the CPU, same state and draws:
-    theta equal, the rest within 1e-3. At C > 2 f* is held to 1e-3 given
-    the CPU's z draw, and to 1e-3 + 1e-3 |f*| on its own draw; the cells
-    that set both differences are printed."""
+def model_responses(state, consts, C, rng):
+    """(H, n, m) categories 1..C drawn from the model at chain 0 of
+    ``state`` (untempered), the first respondent's first 3 items missing."""
+    theta = consts.grid[state.theta_idx[0]]
+    g = (state.f[0] + gibbs.compute_mu(theta, state.beta[0])).double().numpy()
+    z = g + rng.standard_normal(g.shape)
+    thr = state.thresholds[0].double().numpy()  # (H, m, C+1)
+    y = ((z[..., None] > thr[:, None, :, 1:C]).sum(-1) + 1).astype(np.int32)
+    y[:, 0, :3] = 0
+    return y
+
+
+def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None):
+    """The sweep check's float32 configuration, priors, state (3 chains on
+    the CPU), draws and responses. y is uniform over 1..C; with
+    ``model_y`` (by default when H > 1) the chains share chain 0's state
+    and y is drawn from the model there. Uniform y against prior-drawn
+    states (|g| up to ~9) leaves cells whose interval holds under 1e-5 of
+    z's mass, where float32 rounding of p moves f past 1e-3 (on the CPU as
+    on the card, against float64: scripts/torch_sweep_precision.py), and 3 H
+    sessions make such a cell likely."""
     Ks, n, m, N = 3, 12, 9, 101
     rng = np.random.default_rng(1)
-    y = rng.integers(1, C + 1, (1, n, m)).astype(np.int32)
-    y[0, 0, :3] = 0
-    cfg = GPIRTConfig(n=n, m=m, C=C, grid_size=N, dtype="float32", jitter=1e-5,
-                      threshold_method=method)
+    y = rng.integers(1, C + 1, (H, n, m)).astype(np.int32)
+    y[:, 0, :3] = 0
+    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float32",
+                      jitter=1e-5, threshold_method=method, theta_ls=theta_ls)
     priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
               np.zeros((2, n)))
-    cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(0)
-    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
+    consts = make_constants(cfg, *priors, device="cpu")
     state0 = gibbs.init_state(
-        torch.as_tensor(rng.uniform(-1, 1, (Ks, 1, n))),
-        torch.as_tensor(default_thresholds(C, m, 1)),
-        consts[cpu], cfg, gibbs.init_draws(gen, Ks, consts[cpu], cfg))
-    draws = gibbs.sweep_draws(gen, Ks, consts[cpu], cfg)
+        torch.as_tensor(rng.uniform(-1, 1, (Ks, H, n))),
+        torch.as_tensor(default_thresholds(C, m, H)),
+        consts, cfg, gibbs.init_draws(gen, Ks, consts, cfg))
+    if H > 1 if model_y is None else model_y:
+        state0 = gibbs.GPIRTState(*(a[:1].expand(a.shape).contiguous() for a in state0))
+        y = model_responses(state0, consts, C, rng)
+    return cfg, priors, state0, gibbs.sweep_draws(gen, Ks, consts, cfg), y
+
+
+def sweep_vs_float64(C=2, H=1, theta_ls=10.0, model_y=None, temp=4.0):
+    """The sweep check's float32 sweep and the same sweep with its state,
+    draws and constants in float64, on the CPU: the yardstick for the
+    card's differences. Returns ((state, z draw) in float32, the same in
+    float64, y, the float32 config)."""
+    cfg, priors, state0, draws, y = sweep_inputs(C, H=H, theta_ls=theta_ls,
+                                                 model_y=model_y)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    cpu = torch.device("cpu")
+
+    def f64(a):
+        return a.double() if a.is_floating_point() else a
+
+    out32 = sweep_on(cpu, state0, draws, y,
+                     {cpu: make_constants(cfg, *priors, device=cpu)}, cfg, temp)
+    out64 = sweep_on(cpu, gibbs.GPIRTState(*map(f64, state0)),
+                     gibbs.SweepDraws(*map(f64, draws[:-1]),
+                                      type(draws.cut)(*map(f64, draws.cut))),
+                     y, {cpu: make_constants(cfg64, *priors, device=cpu)}, cfg64, temp)
+    return out32, out64, y, cfg
+
+
+def sweep_check(dev, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
+    """One tempered sweep on the card against the CPU, same state and draws
+    (:func:`sweep_inputs`): theta equal, the rest within 1e-3. At C > 2 f*
+    is held to 1e-3 given the CPU's z draw, and to 1e-3 + 1e-3 |f*| on its
+    own draw; the cells that set both differences are printed. ``H``
+    sessions and ``theta_ls`` pick the theta regime."""
+    cfg, priors, state0, draws, y = sweep_inputs(C, method, H, theta_ls)
+    cpu = torch.device("cpu")
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
     args = (state0, draws, y, consts, cfg, temp)
     s_cpu, z_cpu = sweep_on(cpu, *args)
     s_gpu, z_gpu = sweep_on(dev, *args)
     label = f"C={C}, cutpoints by {method}"
+    if H > 1:
+        label += f", H={H}, {cfg.theta_regime} regime"
     check(torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu()), f"sweep theta differs ({label})")
     errs = {k: max_diff(getattr(s_gpu, k), getattr(s_cpu, k))[0]
             for k in ("f", "beta", "thresholds", "fstar")}
@@ -454,6 +523,76 @@ def sdo_path(dev, smi):
         f"{res['syncs_per_sweep']:.2f} host syncs a sweep; binary kernel launches 0")
 
 
+def dynamic_inputs():
+    """bench.py::bench_dynamic's data and the spread theta init of its first
+    chain: (truth (n, H), responses (n, m, H) in {0, 1, NaN}, init (n,))."""
+    truth, raw = simulate_dynamic(0, n=DYN_N, m=DYN_M, horizon=DYN_H, missing=0.1)
+    init = np.random.default_rng(0).permutation(np.linspace(-2, 2, DYN_N))
+    return truth, raw, init
+
+
+def dynamic_path(dev, smi):
+    """gpirt_mcmc on the dynamic configuration, checked; prints its rates,
+    theta ESS and truth correlation. Returns the kernel's launches in the
+    run and its inputs at the last sweep."""
+    truth, raw, init = dynamic_inputs()
+    regimes = set()
+    draw_theta = gibbs._draw_theta_grid
+
+    def observe_regime(state, mu_star, y, consts, config, *rest):
+        regimes.add(config.theta_regime)
+        return draw_theta(state, mu_star, y, consts, config, *rest)
+
+    gibbs._draw_theta_grid = observe_regime
+    threshold_ess.binary_threshold_ess.launches = 0
+    calls = []  # the sweep's calls of the wrapper, seen through observe_kernel
+    try:
+        out, state_args = observe_kernel(
+            lambda: gpirt_mcmc(raw, DYN_DRAWS, DYN_BURN, CHAIN=K, SEED=SEED,
+                               vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init,
+                               dtype="float32", device=dev),
+            before_call=calls.append)
+    finally:
+        gibbs._draw_theta_grid = draw_theta
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = DYN_BURN + DYN_DRAWS
+    check(regimes == {"GP"}, f"theta regimes drawn: {sorted(regimes)}")
+    check(launches == len(calls) == sweeps,
+          f"{launches} kernel launches ({len(calls)} calls) for {sweeps} sweeps")
+    check(len(out) == K, "one result per chain")
+    m = out[0]["beta"].shape[2]
+    ll = np.stack([d["ll"] for d in out])
+    thr = np.stack([d["threshold"] for d in out])  # (K, S, m, 3, H)
+    theta = np.stack([d["theta"] for d in out])  # (K, S, n, H)
+    check(theta.shape == (K, DYN_DRAWS, DYN_N, DYN_H), f"theta shape {theta.shape}")
+    check(ll.shape == (K, DYN_DRAWS) and np.isfinite(ll).all(), "dynamic ll not finite")
+    check(np.isfinite(thr[..., 1, :]).all(), "dynamic cutpoints not finite")
+    check(np.mean(thr[:, -1, :, 1, :] != 0.0) > 0.99, "dynamic cutpoints did not move")
+    varies = np.mean(np.ptp(theta, axis=-1) > 0)
+    check(varies > 0.5, f"theta differs between sessions in {varies:.3f} of draws")
+    samp_s = out[0]["seconds"]["sampling"]
+    th = torch.as_tensor(theta.reshape(K, DYN_DRAWS, -1), device=dev)  # n H parameters
+    within = sum(effective_sample_size_device(th[c:c + 1]) for c in range(K))
+    within_med = float(np.median(within.cpu().numpy()))
+    pooled_med = float(np.median(effective_sample_size_device(th).cpu().numpy()))
+    check(np.isfinite(within_med) and within_med > 0, "dynamic theta ESS not positive")
+    # sign-aligned posterior means against the truth, as bench_dynamic
+    ch_means = theta.mean(axis=1).transpose(0, 2, 1)  # (K, H, n)
+    tt = truth.T  # (H, n)
+    sign = np.sign(np.sum(ch_means * tt[None], axis=(1, 2), keepdims=True))
+    sign[sign == 0] = 1
+    r = abs(np.corrcoef((ch_means * sign).mean(axis=0).ravel(), tt.ravel())[0, 1])
+    check(np.isfinite(r) and r > 0.5, f"truth correlation {r}")
+    rate = sweeps / samp_s
+    log(f"dynamic path on {smi}: {DYN_N} x {m} (of {DYN_M}) x {DYN_H} sessions, GP "
+        f"regime (theta_ls={DYN_LS:g}), {K} chains, {sweeps} sweeps in {samp_s:.3f} s "
+        f"({rate:.2f} sweeps/s); {launches} kernel launches; theta ESS over "
+        f"{DYN_N * DYN_H} parameters, median within-chain (summed over {K} chains) "
+        f"{within_med:.1f}, pooled {pooled_med:.1f}; ess/sec {within_med / samp_s:.2f} "
+        f"(sampling wall); truth correlation {r:.4f} (sign-aligned chain means)")
+    return launches, state_args
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -490,6 +629,15 @@ def main():
     for method in ("ess", "newton"):
         sweep_check(dev, C=5, method=method)
     sdo_path(dev, smi)
+    for C in (2, 5):
+        sweep_check(dev, C=C, H=3, theta_ls=DYN_LS)
+    dyn_launches, dyn_args = dynamic_path(dev, smi)
+    dyn_worst, dyn_flipped = kernel_check(dyn_args, "dynamic path's state")
+    dyn_ms, dyn_eager, dyn_plain = kernel_times(dyn_args, _C)
+    log(f"kernel time, dynamic path's state, T=1: {dyn_ms:.5f} ms (graph), "
+        f"{dyn_eager:.5f} ms (eager), plain {dyn_plain:.4f} ms")
+    dyn_work = kernel_bound(dyn_args, _C, "dynamic path's state")
+    worst, flipped = max(worst, dyn_worst), flipped + dyn_flipped
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -512,6 +660,14 @@ def main():
         "ms_random_T64": rand_times[T_MAX][0],
         "plain_ms_random_T64": rand_times[T_MAX][2],
         **{k: v for k, v in work.items() if k not in ("bound_ms", "bound_by")},
+        "launches_dynamic": dyn_launches,
+        "max_abs_err_dynamic": dyn_worst,
+        "lanes_over_1e-5_dynamic": dyn_flipped,
+        "ms_dynamic_state": dyn_ms,
+        "ms_eager_dynamic_state": dyn_eager,
+        "plain_ms_dynamic_state": dyn_plain,
+        "bound_ms_dynamic_state": dyn_work["bound_ms"],
+        "bound_by_dynamic_state": dyn_work["bound_by"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Public user API: ``gpirt_mcmc`` on the port's slice.
 
 Counterpart of ``gpirt_tpu/api.py::gpirt_mcmc`` for binary and ordinal
-single-session data on one device: vote-code recoding, prior and cutpoint
-defaults, K chains in lockstep, an optional SMC annealed initialization,
-optional f / f* storage, and the reference output layout
-(``gpirt_tpu/api.py:606``). Arguments the port does not cover yet raise
-``NotImplementedError``.
+data, one session or an (n, m, H) cube of sessions, on one device:
+vote-code recoding, prior and cutpoint defaults, the time-GP settings, K
+chains in lockstep, an optional SMC annealed initialization, optional f /
+f* storage, and the reference output layout (``gpirt_tpu/api.py:606``).
+Arguments the port does not cover yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from gpirt_tpu_torch.utils.response import (
     DEFAULT_VOTE_CODES,
     as_response_matrix,
     encode_categories,
+    recode_cube,
 )
 
 __all__ = ["gpirt_mcmc", "default_thresholds", "full_fp32_matmuls"]
@@ -103,6 +104,9 @@ def gpirt_mcmc(
     beta_prior_sds: Optional[np.ndarray] = None,
     theta_prior_means: Optional[np.ndarray] = None,
     theta_prior_sds: Optional[np.ndarray] = None,
+    theta_os: float = 1.0,
+    theta_ls: float = 10.0,
+    KERNEL: str = "Matern",
     theta_init: Optional[np.ndarray] = None,
     SEED: int = 1,
     *,
@@ -119,12 +123,19 @@ def gpirt_mcmc(
 ) -> List[Dict[str, np.ndarray]]:
     """Posterior samples for the GP-IRT model; one dict per chain.
 
-    Argument semantics follow ``gpirt_tpu.api.gpirt_mcmc``: ``vote_codes``
-    recodes raw votes (None: data already coded 1..C, NaN missing, which is
-    how ordinal data comes in), default priors are beta N(0, 3^2) and theta
-    prior means/sds of zero, cutpoints start at ``thresholds`` ((C+1,),
-    (m, C+1) or (m, C+1, H)) or else at qnorm(i/C), and chain c's theta
-    init is drawn from numpy's generator seeded SEED + c.
+    Argument semantics follow ``gpirt_tpu.api.gpirt_mcmc``: ``data`` is
+    (n, m) or an (n, m, H) cube of H sessions; ``vote_codes`` recodes raw
+    votes (None: data already coded 1..C, NaN missing, which is how ordinal
+    data comes in; a cube is recoded as a whole, an item unanimous over all
+    sessions dropped), default priors are beta N(0, 3^2) and theta prior
+    means/sds of zero, cutpoints start at ``thresholds`` ((C+1,), (m, C+1)
+    or (m, C+1, H)) or else at qnorm(i/C). ``theta_os``, ``theta_ls`` and
+    ``KERNEL`` ("Matern" or "RBF") set the time GP over sessions, and
+    ``theta_ls`` picks the theta regime (``GPIRTConfig.theta_regime``).
+    Chain c's theta init is drawn from numpy's generator seeded SEED + c;
+    a given ``theta_init`` of shape (n,) or (n, 1) is copied across
+    sessions, one of shape (n, H) is taken as it is, and every chain starts
+    from it.
     ``threshold_method`` is "auto" / "ess" (the y-marginal delta ESS) or
     "newton" (``threshold_mh_tries`` Newton-proposal MH tries on the same
     conditional). All sampler randomness comes from one ``torch.Generator``
@@ -153,9 +164,10 @@ def gpirt_mcmc(
         arr = np.asarray(data)
         if arr.ndim == 3 and arr.shape[2] == 1:
             data = arr[:, :, 0]
-        if np.asarray(data).ndim != 2:
-            raise NotImplementedError("multi-session data is not ported yet")
-        data = as_response_matrix(data, vote_codes)
+        if np.asarray(data).ndim == 3:
+            data = recode_cube(data, vote_codes)
+        else:
+            data = as_response_matrix(data, vote_codes)
     row_names = getattr(data, "row_names", None)
     col_names = getattr(data, "col_names", None)
 
@@ -179,6 +191,8 @@ def gpirt_mcmc(
     theta_prior_sds = np.broadcast_to(np.asarray(theta_prior_sds, np.float64), (2, n))
 
     config = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype=dtype,
+                         theta_os=float(theta_os), theta_ls=float(theta_ls),
+                         kernel=KERNEL,
                          jitter=1e-6 if dtype == "float64" else 1e-5,
                          threshold_method=threshold_method,
                          threshold_mh_tries=threshold_mh_tries)
@@ -194,7 +208,8 @@ def gpirt_mcmc(
             th = np.broadcast_to(t0[None, :], (H, n))
         else:
             ti = np.asarray(theta_init, np.float64)
-            th = (ti[:, None] if ti.ndim == 1 else ti).T
+            th = (ti[:, None] if ti.ndim == 1 else ti).T  # (H or 1, n)
+            th = np.broadcast_to(th, (H, n))
         inits.append(np.clip(th, THETA_LO, THETA_HI))
 
     def tensor(a, dt=config.tdtype):

@@ -26,11 +26,14 @@ def _field(src, name):
 
 
 def constants_from_numpy(src, *, device, dtype: torch.dtype) -> GPIRTConstants:
-    return GPIRTConstants(**{
-        f.name: torch.as_tensor(np.array(_field(src, f.name)), dtype=dtype,
-                                device=device)
-        for f in dataclasses.fields(GPIRTConstants)
-    })
+    """The optional time-GP fields (None outside the GP regime) stay None."""
+    def tensor(a):
+        if a is None:
+            return None
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return GPIRTConstants(**{f.name: tensor(_field(src, f.name))
+                             for f in dataclasses.fields(GPIRTConstants)})
 
 
 def state_from_numpy(src, *, device, dtype: torch.dtype) -> GPIRTState:
@@ -49,4 +52,4 @@ def to_numpy(x) -> Dict[str, np.ndarray]:
         items = x._asdict().items()
     else:
         items = ((f.name, getattr(x, f.name)) for f in dataclasses.fields(x))
-    return {k: v.detach().cpu().numpy() for k, v in items}
+    return {k: None if v is None else v.detach().cpu().numpy() for k, v in items}

@@ -1,20 +1,22 @@
 """Static configuration and precomputed constants for the port's sampler.
 
 Counterpart of ``gpirt_tpu/models/config.py``, restricted to what the port
-runs: binary or ordinal data (any C >= 2), one session (H = 1), the
-Albert-Chib conjugate latent sampler, the exact grid draw of theta, and the
-y-marginal cutpoint update by ESS or by Newton-proposal MH. A configuration
-outside that raises ``NotImplementedError``.
+runs: binary or ordinal data (any C >= 2) over any number of sessions in
+the three theta regimes, the Albert-Chib conjugate latent sampler, the
+exact grid draw of theta, and the y-marginal cutpoint update by ESS or by
+Newton-proposal MH. A configuration outside that raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from gpirt_tpu_torch.ops.kernels import icc_gram_np
+from gpirt_tpu_torch.ops.kernels import icc_gram_np, time_gram_np
 from gpirt_tpu_torch.ops.linalg import host_cholesky_f64
 
 __all__ = ["GPIRTConfig", "GPIRTConstants", "make_constants", "THETA_LO", "THETA_HI"]
@@ -35,6 +37,9 @@ class GPIRTConfig:
     horizon: int = 1  # sessions
     C: int = 2  # ordinal categories
     grid_size: int = 1001  # theta* grid resolution on [-5, 5]
+    theta_os: float = 1.0  # time-GP output scale
+    theta_ls: float = 10.0  # time-GP length scale: picks the theta regime
+    kernel: str = "Matern"  # time kernel: "Matern" or "RBF"
     constant_IRF: bool = False
     jitter: float = 1e-6  # model nugget
     dtype: str = "float32"
@@ -61,8 +66,6 @@ class GPIRTConfig:
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {self.dtype!r}")
         outside = []
-        if self.horizon != 1:
-            outside.append(f"horizon={self.horizon} (multi-session data)")
         if self.constant_IRF:
             outside.append("constant_IRF")
         if self.f_method not in ("auto", "conjugate"):
@@ -86,6 +89,22 @@ class GPIRTConfig:
         return "newton" if self.threshold_method == "newton" else "ess"
 
     @property
+    def theta_regime(self) -> str:
+        """The reference's three length-scale regimes
+        (src/draw-theta.cpp:112-236; ``gpirt_tpu/models/config.py:296``):
+
+        "CST": ls >= 3 horizon, one theta a respondent shared by all sessions;
+        "RDM": ls <= 0.1, an independent theta a session;
+        "GP":  otherwise, a GP prior over sessions.
+        One session is CST.
+        """
+        if self.horizon == 1 or self.theta_ls >= 3 * self.horizon:
+            return "CST"
+        if self.theta_ls <= 0.1:
+            return "RDM"
+        return "GP"
+
+    @property
     def grid_step(self) -> float:
         return (THETA_HI - THETA_LO) / (self.grid_size - 1)
 
@@ -107,6 +126,8 @@ class GPIRTConstants:
     beta_prior_sds: torch.Tensor  # (3, m)
     theta_prior_means: torch.Tensor  # (2, n)
     theta_prior_sds: torch.Tensor  # (2, n)
+    L_time: Optional[torch.Tensor] = None  # (H, H) time-GP chol, GP regime only
+    Lambda_time: Optional[torch.Tensor] = None  # (H, H) its precision, GP only
 
 
 def make_constants(
@@ -118,8 +139,9 @@ def make_constants(
     *,
     device,
 ) -> GPIRTConstants:
-    """Host float64 grid Gram, Cholesky and SE eigendecomposition, moved to
-    ``device`` in the config's dtype (``gpirt_tpu/models/config.py:349``)."""
+    """Host float64 grid Gram, Cholesky and SE eigendecomposition, and in the
+    GP regime the time-GP factor and precision, moved to ``device`` in the
+    config's dtype (``gpirt_tpu/models/config.py:349``)."""
     dt = config.tdtype
     N = config.grid_size
     grid64 = np.linspace(THETA_LO, THETA_HI, N)
@@ -141,6 +163,18 @@ def make_constants(
     def t(a):
         return torch.as_tensor(np.array(a, np.float64), dtype=dt, device=device)
 
+    L_time = Lambda_time = None
+    if config.theta_regime == "GP":
+        # The reference builds the time Gram with zeroed prior sds
+        # (src/cholesky-cache.cpp:31), so one (H, H) factor serves every
+        # respondent. Both are inverted here in float64, never on the device.
+        H = config.horizon
+        ts = np.arange(H, dtype=np.float64)
+        Vt = time_gram_np(ts, ts, config.theta_os, config.theta_ls, np.zeros(2),
+                          config.kernel)
+        L_time = t(host_cholesky_f64(Vt, config.jitter, dtype=np.float64))
+        Lambda_time = t(np.linalg.inv(Vt + config.jitter * np.eye(H)))
+
     return GPIRTConstants(
         grid=t(grid64),
         Psi_grid=t(Psi),
@@ -151,4 +185,6 @@ def make_constants(
         beta_prior_sds=t(beta_prior_sds),
         theta_prior_means=t(theta_prior_means),
         theta_prior_sds=t(theta_prior_sds),
+        L_time=L_time,
+        Lambda_time=Lambda_time,
     )

@@ -18,6 +18,8 @@ conditional (``threshold_method="newton"``).
 Layouts put the chain axis first, then the horizon:
   theta_idx (K, H, n) int64, f (K, H, n, m), beta (K, H, 3, m),
   thresholds (K, H, m, C+1), fstar (K, H, N, m); responses y (H, n, m).
+Every block but the theta draw treats the sessions as independent; the
+theta draw couples them as ``config.theta_regime`` says.
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ class SweepDraws(NamedTuple):
     """One sweep's random numbers for K chains; ``cut`` holds those of the
     configured cutpoint update."""
 
-    u_theta: torch.Tensor  # (K, n, N) uniform [0, 1): Gumbel noise of the theta draw
+    u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
+    # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
     u_z: torch.Tensor  # (K, H, n, m) uniform: truncated-normal inverse CDF
     z_q: torch.Tensor  # (K, H, q, m) normal: f* prior, SE eigenbasis part
     z_p: torch.Tensor  # (K, H, 3, m) normal: f* prior, polynomial part
@@ -201,7 +204,7 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
         return torch.randn(shape, generator=gen, device=dev, dtype=dt)
 
     latent = dict(
-        u_theta=rand(K, n, N),
+        u_theta=rand(K, n, N) if config.theta_regime == "CST" else rand(K, H, n, N),
         u_z=rand(K, H, n, m),
         z_q=randn(K, H, q, m),
         z_p=randn(K, H, 3, m),
@@ -285,16 +288,43 @@ def _gumbel_argmax(u: torch.Tensor, logits: torch.Tensor, dim: int) -> torch.Ten
 
 def _draw_theta_grid(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
                      config: GPIRTConfig, u_theta, temp=None) -> torch.Tensor:
-    """Exact grid draw of theta (CST regime: one theta per respondent)."""
+    """Exact grid draw of theta in the configured regime
+    (``gpirt_tpu/models/gibbs.py:1681``): the ll table plus a Gaussian log
+    prior on the grid, one Gumbel-max per draw.
+
+    CST: one draw a respondent from the table summed over sessions, copied
+    to every session; u_theta (K, n, N). RDM: one draw a (session,
+    respondent); u_theta (K, H, n, N). GP: a sequential Gibbs pass over the
+    sessions, session h's prior the time GP's conditional given the other
+    sessions, those before h already redrawn; u_theta (K, H, n, N).
+    """
     K, H, n = state.theta_idx.shape
     _, inv_s = _temp_scales(temp)
     table = _theta_ll_table(state.fstar, mu_star, y, state.thresholds,
                             config.C, inv_s)  # (K, H, N, n)
-    var = 1.0 + torch.square(consts.theta_prior_sds[0])  # (n,)
-    logprior = -0.5 * torch.square(consts.grid)[None, :] / var[:, None]  # (n, N)
-    logits = table.sum(dim=1).mT + logprior  # (K, n, N)
-    idx = _gumbel_argmax(u_theta, logits, dim=-1)  # (K, n)
-    return idx.unsqueeze(1).expand(K, H, n)
+    grid = consts.grid
+    regime = config.theta_regime
+    if regime != "GP":
+        var = 1.0 + torch.square(consts.theta_prior_sds[0])  # (n,)
+        logprior = -0.5 * torch.square(grid)[None, :] / var[:, None]  # (n, N)
+        if regime == "RDM":
+            return _gumbel_argmax(u_theta, table.mT + logprior, dim=-1)  # (K, H, n)
+        logits = table.sum(dim=1).mT + logprior  # (K, n, N)
+        idx = _gumbel_argmax(u_theta, logits, dim=-1)  # (K, n)
+        return idx.unsqueeze(1).expand(K, H, n)
+
+    lam = consts.Lambda_time  # (H, H)
+    theta = theta_from_indices(state.theta_idx, consts)  # (K, H, n)
+    idxs = []
+    for h in range(H):
+        lam_hh = lam[h, h]
+        cross = torch.einsum("g,kgn->kn", lam[h], theta) - lam_hh * theta[:, h]
+        mean = -cross / lam_hh  # (K, n)
+        logprior = -0.5 * torch.square(grid - mean.unsqueeze(-1)) / (1.0 / lam_hh)
+        idx = _gumbel_argmax(u_theta[:, h], table[:, h].mT + logprior, dim=-1)
+        theta[:, h] = grid[idx]  # session h+1 conditions on the new value
+        idxs.append(idx)
+    return torch.stack(idxs, dim=1)
 
 
 def draw_z_truncnorm(g, y, thresholds, u, temp=None) -> torch.Tensor:

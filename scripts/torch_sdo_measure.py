@@ -1,12 +1,14 @@
-"""The port's ordinal path on one CUDA card: where an SDO sampling sweep's
-time goes.
+"""The port on one CUDA card: where a sampling sweep's time goes, on SDO or
+on the dynamic configuration.
 
-    python3 scripts/torch_sdo_measure.py [--threshold-method ess|newton]
-        [--trace-dir DIR]
+    python3 scripts/torch_sdo_measure.py [--config sdo|dynamic]
+        [--threshold-method ess|newton] [--trace-dir DIR]
 
-Runs the SDO survey (1500 respondents x 16 items, C = 5) through
-gpirt_mcmc with 64 chains, burn 200 and 41 draws, and observes the
-sampling sweeps (through models.sampler's call of gibbs_sweep):
+Runs the SDO survey (1500 respondents x 16 items, C = 5), or with
+``--config dynamic`` chip_smoke.py's dynamic configuration (150 x 60 x 10
+sessions, binary, GP theta regime), through gpirt_mcmc with 64 chains,
+burn 200 and 41 draws, and observes the sampling sweeps (through
+models.sampler's call of gibbs_sweep):
 
   sweeps 5-19   the wall by the host clock (a synchronise at each end), and
                 the cutpoint ESS's rounds and host syncs in them;
@@ -32,7 +34,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from chip_smoke import K, SEED, card, log  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    DYN_LS,
+    DYN_VOTES,
+    K,
+    SEED,
+    card,
+    dynamic_inputs,
+    log,
+)
 from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.models import gibbs, sampler  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
@@ -44,8 +54,8 @@ BURN, DRAWS = 200, 41
 # divides by a window of ten sweeps, as here
 WALL_FROM, BLOCKS_FROM, PROF_FROM, PROF_TO = 5, 20, 30, 40
 BLOCKS = ["_draw_theta_grid", "draw_z_truncnorm", "draw_fstar_conjugate",
-          "draw_beta_conjugate", "draw_threshold", "_draw_threshold_newton_ordinal",
-          "ordinal_ll_terms"]
+          "draw_beta_conjugate", "draw_threshold", "_draw_threshold_binary_newton",
+          "_draw_threshold_newton_ordinal", "ordinal_ll_terms"]
 
 
 def timed_blocks(events):
@@ -73,6 +83,7 @@ def timed_blocks(events):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="sdo", choices=["sdo", "dynamic"])
     ap.add_argument("--threshold-method", default="ess", choices=["ess", "newton"])
     ap.add_argument("--trace-dir", help="where the profiler's table and trace go")
     opt = ap.parse_args()
@@ -103,12 +114,17 @@ def main():
             prof.stop()
         return sweep(*args, **kw)
 
+    if opt.config == "sdo":
+        data, kw = load_sdo(), dict(vote_codes=None)
+    else:
+        _, data, init = dynamic_inputs()
+        kw = dict(vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init)
     real = timed_blocks(events)
     sampler.gibbs_sweep = observed
     try:
-        gpirt_mcmc(load_sdo(), DRAWS, BURN, CHAIN=K, SEED=SEED, vote_codes=None,
+        gpirt_mcmc(data, DRAWS, BURN, CHAIN=K, SEED=SEED,
                    threshold_method=opt.threshold_method, dtype="float32",
-                   device="cuda")
+                   device="cuda", **kw)
     finally:
         sampler.gibbs_sweep = sweep
         for name, fn in real.items():
@@ -117,7 +133,7 @@ def main():
     n_wall = BLOCKS_FROM - WALL_FROM
     wall_ms = (stamps[BLOCKS_FROM] - stamps[WALL_FROM]) / n_wall * 1e3
     c0, c1 = counts[WALL_FROM], counts[BLOCKS_FROM]
-    log(f"SDO sampling sweeps on {smi}, cutpoints by {opt.threshold_method}: wall "
+    log(f"{opt.config} sampling sweeps on {smi}, cutpoints by {opt.threshold_method}: wall "
         f"{wall_ms:.4f} ms a sweep (sweeps {WALL_FROM}-{BLOCKS_FROM - 1}); cutpoint "
         f"ESS {(c1[1] - c0[1]) / max(c1[0] - c0[0], 1):.2f} rounds an update, "
         f"{(c1[2] - c0[2]) / n_wall:.2f} host syncs a sweep")

@@ -31,10 +31,10 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(horizon=2), dict(constant_IRF=True), dict(f_method="grid"),
-    dict(f_method="two_stage"), dict(threshold_method="collapsed"),
-    dict(threshold_method="interleave"), dict(theta_method="ess"),
-    dict(C=5, horizon=3),
+    dict(horizon=2, constant_IRF=True), dict(constant_IRF=True),
+    dict(f_method="grid"), dict(f_method="two_stage"),
+    dict(threshold_method="collapsed"), dict(threshold_method="interleave"),
+    dict(theta_method="ess"), dict(horizon=3, theta_method="ess"),
 ])
 def test_config_outside_slice_raises(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -115,8 +115,8 @@ def test_gpirt_mcmc_guards():
     with pytest.raises(NotImplementedError, match="n_temps"):
         gpirt_mcmc(_votes(), 2, 1, n_temps=2, device="cpu")
     multi = np.random.default_rng(1).integers(1, 4, (8, 5, 2)).astype(float)
-    with pytest.raises(NotImplementedError, match="horizon=2"):
-        gpirt_mcmc(multi, 2, 1, vote_codes=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="constant_IRF"):
+        gpirt_mcmc(multi, 2, 1, vote_codes=None, constant_IRF=1, device="cpu")
 
 
 def test_gpirt_mcmc_defaults_to_the_card_and_never_falls_back(monkeypatch):
@@ -136,21 +136,32 @@ def test_default_thresholds_match(C):
 
 
 def test_convert_round_trips():
+    """One session, and H = 3 in the GP regime, whose constants carry the
+    time-GP factor and precision (None outside it)."""
     n, m, N, K = 6, 4, 31, 2
-    jcfg = JConfig(n=n, m=m, grid_size=N, dtype="float64")
-    jconsts = j_make_constants(jcfg, np.zeros((3, m)), np.full((3, m), 2.0),
-                               np.zeros((2, n)), np.ones((2, n)))
-    consts = constants_from_numpy(jconsts, device="cpu", dtype=torch.float64)
-    for name, a in to_numpy(consts).items():
-        np.testing.assert_array_equal(a, np.asarray(getattr(jconsts, name)))
-    keys = jax.random.split(jax.random.key(0), K)
-    y = np.ones((1, n, m), np.int32)
-    thr = default_thresholds(2, m, 1)
-    jstate = jax.vmap(lambda k: jg.init_state(k, np.zeros((1, n)), thr, y,
-                                              jconsts, jcfg))(keys)
-    state = state_from_numpy(jstate, device="cpu", dtype=torch.float64)
-    assert state.theta_idx.dtype == torch.int64
-    for name, a in to_numpy(state).items():
-        np.testing.assert_array_equal(a, np.asarray(getattr(jstate, name)))
-    again = state_from_numpy(to_numpy(state), device="cpu", dtype=torch.float64)
-    assert all(torch.equal(a, b) for a, b in zip(again, state))
+    for H, ls in ((1, 10.0), (3, 2.0)):
+        jcfg = JConfig(n=n, m=m, horizon=H, grid_size=N, dtype="float64",
+                       theta_ls=ls)
+        jconsts = j_make_constants(jcfg, np.zeros((3, m)), np.full((3, m), 2.0),
+                                   np.zeros((2, n)), np.ones((2, n)))
+        consts = constants_from_numpy(jconsts, device="cpu", dtype=torch.float64)
+        assert (consts.Lambda_time is None) == (H == 1)
+        for name, a in to_numpy(consts).items():
+            if a is None:
+                assert getattr(jconsts, name) is None
+            else:
+                np.testing.assert_array_equal(a, np.asarray(getattr(jconsts, name)))
+        again = constants_from_numpy(to_numpy(consts), device="cpu",
+                                     dtype=torch.float64)
+        assert (again.L_time is None) == (H == 1)
+        keys = jax.random.split(jax.random.key(0), K)
+        y = np.ones((H, n, m), np.int32)
+        thr = default_thresholds(2, m, H)
+        jstate = jax.vmap(lambda k: jg.init_state(k, np.zeros((H, n)), thr, y,
+                                                  jconsts, jcfg))(keys)
+        state = state_from_numpy(jstate, device="cpu", dtype=torch.float64)
+        assert state.theta_idx.dtype == torch.int64
+        for name, a in to_numpy(state).items():
+            np.testing.assert_array_equal(a, np.asarray(getattr(jstate, name)))
+        again = state_from_numpy(to_numpy(state), device="cpu", dtype=torch.float64)
+        assert all(torch.equal(a, b) for a, b in zip(again, state))

@@ -50,3 +50,20 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     out = capsys.readouterr()
     assert out.out == ""
     assert "is_available() is false" in out.err
+
+
+@pytest.mark.parametrize("C", [2, 5])
+def test_gp_sweep_check_inputs_stay_clear_of_float32_tails(C):
+    """The GP sweep check's inputs: one state shared by the chains and y
+    drawn from the model there, so its float32 sweep lies within 1e-4 of
+    the same sweep in float64 in f, beta and the cutpoints (and f* within
+    1e-3) on the CPU: the card is held to 1e-3 against a margin of 10x."""
+    cfg, _, state0, _, y = chip_smoke.sweep_inputs(C, H=3, theta_ls=2.0)
+    assert cfg.theta_regime == "GP"
+    assert all(torch.equal(a[1:], a[:1].expand_as(a[1:])) for a in state0)
+    assert y.shape == (3, 12, 9) and (y[:, 0, :3] == 0).all()
+    assert set(np.unique(y[:, 1:])) <= set(range(1, C + 1))
+    (s32, _), (s64, _), _, _ = chip_smoke.sweep_vs_float64(C, H=3, theta_ls=2.0)
+    assert torch.equal(s32.theta_idx, s64.theta_idx)
+    for name, tol in (("f", 1e-4), ("beta", 1e-4), ("thresholds", 1e-4), ("fstar", 1e-3)):
+        assert chip_smoke.max_diff(getattr(s32, name), getattr(s64, name))[0] < tol, name

@@ -7,8 +7,9 @@ from that file's ``_stats``, and states pass between the packages as
 numpy. If every block of the port targets its exact conditional, moments
 of the chain agree with forward draws from the prior up to MC error.
 
-The three oracles run 12,000 sweeps each and are ``slow``; a short chain
-checks finite, ordered cutpoints in the fast tier.
+The oracles run 12,000 sweeps each and are ``slow``: three of one session
+and two of two sessions, in the RDM and GP theta regimes. Short chains
+check finite, ordered cutpoints in the fast tier.
 """
 
 import jax
@@ -29,24 +30,25 @@ from test_geweke import _stats
 NAMES = ["th", "th2", "b", "b2", "fs", "fs2", "t1", "t12", "ti", "ti2"]
 
 
-def _model(n, m, C, method, N=61):
-    jcfg = JConfig(n=n, m=m, horizon=1, C=C, grid_size=N, dtype="float64",
-                   f_method="conjugate", threshold_method=method)
+def _model(n, m, C, method, N=61, H=1, ls=10.0):
+    jcfg = JConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
+                   f_method="conjugate", threshold_method=method, theta_ls=ls)
     jconsts = j_make_constants(jcfg, beta_prior_means=np.zeros((3, m)),
                                beta_prior_sds=np.full((3, m), 1.5),
                                theta_prior_means=np.zeros((2, n)),
                                theta_prior_sds=np.zeros((2, n)))
-    cfg = GPIRTConfig(n=n, m=m, C=C, grid_size=N, dtype="float64",
-                      threshold_method=method)
+    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
+                      threshold_method=method, theta_ls=ls)
     return jcfg, jconsts, cfg, constants_from_numpy(jconsts, device="cpu",
                                                     dtype=torch.float64)
 
 
-def _chain(n, m, C, method, sweeps, seed=0, mask=None):
+def _chain(n, m, C, method, sweeps, seed=0, mask=None, **model):
     """The successive-conditional chain: the port's sweep given y, then y
     redrawn given the state. Returns the (sweeps, 10) statistics, the
-    cutpoints of every sweep and the forward model."""
-    jcfg, jconsts, cfg, consts = _model(n, m, C, method)
+    cutpoints of every sweep and the forward model. ``model`` takes the
+    horizon H and the time-GP length scale ls."""
+    jcfg, jconsts, cfg, consts = _model(n, m, C, method, **model)
     k0, k1, kr = jax.random.split(jax.random.key(seed + 1), 3)
     st0 = sample_prior_state(k0, jconsts, jcfg)
     y = sample_responses(k1, st0, jconsts, jcfg, mask=mask)
@@ -66,8 +68,8 @@ def _chain(n, m, C, method, sweeps, seed=0, mask=None):
     return np.stack(out), np.stack(thr), (jcfg, jconsts)
 
 
-def _run_geweke_sweep(n, m, C, method, seed=0, mask=None):
-    sc, _, (jcfg, jconsts) = _chain(n, m, C, method, 12000, seed, mask)
+def _run_geweke_sweep(n, m, C, method, seed=0, mask=None, **model):
+    sc, _, (jcfg, jconsts) = _chain(n, m, C, method, 12000, seed, mask, **model)
     sc = sc[500::3]
 
     @jax.jit
@@ -110,6 +112,16 @@ def test_geweke_ordinal_newton_c5():
     _run_geweke_sweep(6, 3, 5, "newton", seed=7)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("regime, ls", [("RDM", 0.05), ("GP", 1.0)])
+def test_geweke_regimes(regime, ls):
+    """Two sessions, C = 3, an independent theta a session (RDM) or the
+    time-GP prior (GP): TestGewekeRegimes' sizes without its affine moves,
+    which the port does not run."""
+    assert JConfig(n=5, m=3, horizon=2, theta_ls=ls).theta_regime == regime
+    _run_geweke_sweep(5, 3, 3, "auto", H=2, ls=ls)
+
+
 @pytest.mark.parametrize("C, method", [(3, "ess"), (5, "newton")])
 def test_successive_conditional_smoke(C, method):
     """200 sweeps of the chain above: finite statistics and finite,
@@ -119,3 +131,13 @@ def test_successive_conditional_smoke(C, method):
     t = thr[..., 1:-1]
     assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
     assert np.std(t[:, :, :, 0], axis=0).min() > 0  # every cutpoint moves
+
+
+def test_successive_conditional_smoke_gp():
+    """200 sweeps of the chain in the GP regime over two sessions: finite
+    statistics and finite, strictly increasing cutpoints that move."""
+    sc, thr, _ = _chain(5, 3, 3, "auto", 200, H=2, ls=1.0)
+    assert np.isfinite(sc).all()
+    t = thr[..., 1:-1]
+    assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
+    assert np.std(t[:, :, :, 0], axis=0).min() > 0

@@ -1,12 +1,13 @@
 """Port tests that need the card: the CUDA kernel against its plain version,
 over shapes (every thread-group size the kernel chooses from n) and edge
 cases; whole sweeps on the card against the same sweeps on the CPU (binary,
-and ordinal with the cutpoints by ESS and by Newton); and gpirt_mcmc on the
-card by default.
+ordinal with the cutpoints by ESS and by Newton, and over three sessions in
+the GP theta regime); and gpirt_mcmc on the card by default.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
-This file imports no JAX, so on a machine with an NVIDIA GPU and nvcc but
-no JAX it runs without the suite's conftest:
+This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
+shares), so on a machine with an NVIDIA GPU and nvcc but no JAX it runs
+without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 """
@@ -15,10 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gpirt_tpu_torch import gpirt_mcmc
-from gpirt_tpu_torch.api import default_thresholds
 from gpirt_tpu_torch.models import gibbs
-from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants
+from gpirt_tpu_torch.models.config import make_constants
 from gpirt_tpu_torch.ops.threshold_ess import (
     binary_threshold_ess,
     binary_threshold_ess_reference,
@@ -131,26 +132,14 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         binary_threshold_ess(args[0].mT.contiguous().mT, *args[1:], _C)
 
 
-def _sweep_on_both(device, C=2, method="auto", temp=4.0):
+def _sweep_on_both(device, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
     """One float32 sweep from the same state and draws on the CPU and on
-    ``device``: theta identical, the rest within 1e-3 (float32 products and
-    solves in another order)."""
-    K, n, m, N = 3, 12, 9, 101
-    rng = np.random.default_rng(1)
-    y = rng.integers(1, C + 1, (1, n, m)).astype(np.int32)
-    y[0, 0, :3] = 0
-    cfg = GPIRTConfig(n=n, m=m, C=C, grid_size=N, dtype="float32", jitter=1e-5,
-                      threshold_method=method)
-    priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
-              np.zeros((2, n)))
+    ``device`` (chip_smoke.py's sweep inputs; over sessions y is drawn from
+    the model at one state shared by the chains): theta identical, the
+    rest within 1e-3 (float32 products and solves in another order)."""
+    cfg, priors, state0, draws, y = chip_smoke.sweep_inputs(C, method, H, theta_ls)
     cpu = torch.device("cpu")
-    gen = torch.Generator().manual_seed(0)
     consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, device)}
-    state0 = gibbs.init_state(
-        torch.as_tensor(rng.uniform(-1, 1, (K, 1, n))),
-        torch.as_tensor(default_thresholds(C, m, 1)),
-        consts[cpu], cfg, gibbs.init_draws(gen, K, consts[cpu], cfg))
-    draws = gibbs.sweep_draws(gen, K, consts[cpu], cfg)
     out = {}
     for d in (cpu, device):
         out[d] = gibbs.gibbs_sweep(
@@ -185,6 +174,17 @@ def test_ordinal_sweep_on_card_matches_cpu(cuda_device, method, temp):
     t = state.thresholds[..., 1:-1]
     assert bool((t[..., 1:] > t[..., :-1]).all())
     assert bool((state.thresholds != state0.thresholds.to(t.device)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [2, 5])
+def test_gp_sweep_on_card_matches_cpu(cuda_device, C):
+    """A tempered sweep over three sessions in the GP theta regime (theta_ls
+    = 2): the sequential session draws agree; at C = 2 the kernel runs once."""
+    before = binary_threshold_ess.launches
+    state0, state = _sweep_on_both(cuda_device, C=C, H=3, theta_ls=2.0)
+    assert binary_threshold_ess.launches == before + (C == 2)
+    assert not bool((state.theta_idx == state.theta_idx[:, :1]).all())
 
 
 @pytest.mark.gpu
