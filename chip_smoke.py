@@ -35,9 +35,35 @@ Phases, each of which stops the run with a non-zero exit on failure:
      the n H parameters and ESS per second, and the sign-aligned
      correlation of the posterior means with the true trait;
  11. kernel at the dynamic path's state: phase 6 on the inputs of its last
-     sweep.
-A kernel time is the mean over 50 back-to-back launches captured in one
-CUDA graph and timed by CUDA events after a warm-up ("ms"), and over 50
+     sweep;
+ 12. two-stage sweep check: one untempered f_method="two_stage" sweep on the
+     card against the CPU at C = 2 and 5, f* by Matheron's rule and by the
+     posterior Cholesky, y drawn from the model at a state shared by the
+     chains: theta equal, draw_f's f, beta and the cutpoints within 1e-3,
+     f* and the f read from it within 1e-3 + 1e-3 |x| plus four times the
+     lane's own float32 rounding spread on the CPU, all finite;
+ 13. two-stage path: senate116 through gpirt_mcmc(f_method="two_stage",
+     store_f=True) with 64 chains from bench.py's spread init, burn 100 and
+     200 draws, no SMC; checked for one kernel launch per sweep, finite ll
+     and f, cutpoints that moved; prints the sweep rate, theta ESS and ESS per second, the ESS
+     rounds an update and the host syncs a sweep;
+ 14. recovery: recover_fstar_batch over one chain's 200 stored draws of
+     phase 13 (shape, finite, the same twice under one seed), and one draw's
+     _recover_one on the card against the CPU given the same draws (draw_f
+     within 1e-3, f* as in phase 12);
+ 15. fstar10k: bench.py::bench_fstar10k, simulate_2pl(0, n=100, m=50)
+     through gpirt_mcmc(2 draws, store_f) and recover_fstar at a 10001-point
+     grid twice (seeds 1 and 2), the second timed, the host constants
+     apart;
+ 16. synthetic: bench.py::bench_synthetic, simulate_2pl(0, n=5000, m=1000,
+     missing=0.1) on the conjugate path with 64 chains from spread inits,
+     burn 30 and 150 draws, through run_chains; checked for one kernel
+     launch per sweep, finite ll, cutpoints that moved; prints the sweep
+     rate, theta ESS per second and the peak device memory, then phase 6 on
+     the inputs of its last sweep (the kernel's streaming variant).
+Each phase prints its wall time. A kernel time is the mean over 50
+back-to-back launches captured in one CUDA graph and timed by CUDA events
+after a warm-up ("ms"), and over 50
 eager calls, which adds the wrapper's host time where that is the longer
 ("ms_eager"). The last lines are the kernels as JSON, the card as
 nvidia-smi reports it, and {"ok": true, "device": {...}}.
@@ -56,10 +82,17 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
-from gpirt_tpu_torch.api import default_thresholds, full_fp32_matmuls  # noqa: E402
+from gpirt_tpu_torch import api, gpirt_mcmc  # noqa: E402
+from gpirt_tpu_torch.api import (  # noqa: E402
+    _recover_one,
+    default_thresholds,
+    full_fp32_matmuls,
+    recover_fstar,
+    recover_fstar_batch,
+)
 from gpirt_tpu_torch.models import gibbs  # noqa: E402
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants  # noqa: E402
+from gpirt_tpu_torch.models.sampler import run_chains  # noqa: E402
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
 from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds  # noqa: E402
@@ -67,16 +100,26 @@ from gpirt_tpu_torch.parallel.smc import WARM_STEPS  # noqa: E402
 from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     load_sdo,
     senate116_response_matrix,
+    simulate_2pl,
     simulate_dynamic,
 )
 from gpirt_tpu_torch.utils.diagnostics import effective_sample_size_device  # noqa: E402
-from gpirt_tpu_torch.utils.response import encode_categories  # noqa: E402
+from gpirt_tpu_torch.utils.response import as_response_matrix, encode_categories  # noqa: E402
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
 SDO_BURN, SDO_DRAWS = 200, 500
 # bench.py::bench_dynamic's data, regime and run lengths
 DYN_N, DYN_M, DYN_H, DYN_LS, DYN_BURN, DYN_DRAWS = 150, 60, 10, 2.0, 100, 300
 DYN_VOTES = {"yea": 1, "nay": 0, "missing": None}
+TS_BURN, TS_DRAWS = 100, 200  # the two-stage path on senate116
+# bench.py::bench_fstar10k and bench_synthetic (64 chains, not bench's 4:
+# those were a 16 GB TPU's limit)
+F10K_N, F10K_M, F10K_GRID = 100, 50, 10001
+SYN_N, SYN_M, SYN_MISSING, SYN_K, SYN_BURN, SYN_DRAWS = 5000, 1000, 0.1, 64, 30, 150
+# The posterior Cholesky of f* in float32 needs a nugget above the rounding
+# of K** - V^T V (~n eps32 max K** ~ 8e-3 at the sweep check's n = 12,
+# N = 101); at 1e-5 it is NaN on every device, in JAX too.
+CHOL_JITTER = 5e-2
 REPS = 50
 _C = 0.7071067811865476
 _TWO_PI = 6.283185307179586
@@ -197,12 +240,12 @@ def kernel_check(args, label, temps=(1.0, T_MAX)):
     return worst, flipped
 
 
-def kernel_times(args, c):
+def kernel_times(args, c, plain_reps=10):
     """(graph ms, eager ms, plain ms) of one update of ``args``."""
     ms = graph_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
     eager = loop_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
-    plain = loop_ms(
-        lambda: threshold_ess.binary_threshold_ess_reference(*args, c), reps=10)
+    plain = loop_ms(lambda: threshold_ess.binary_threshold_ess_reference(*args, c),
+                    reps=plain_reps)
     return ms, eager, plain
 
 
@@ -318,11 +361,14 @@ def model_responses(state, consts, C, rng):
     return y
 
 
-def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None):
+def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None,
+                 f_method="auto", fstar_method="matheron"):
     """The sweep check's float32 configuration, priors, state (3 chains on
-    the CPU), draws and responses. y is uniform over 1..C; with
-    ``model_y`` (by default when H > 1) the chains share chain 0's state
-    and y is drawn from the model there. Uniform y against prior-drawn
+    the CPU), draws and responses, for the sampler ``f_method`` (f* by
+    ``fstar_method`` under "two_stage", with the nugget CHOL_JITTER under
+    "chol"). y is uniform over 1..C; with ``model_y`` (by default when
+    H > 1) the chains share chain 0's state and y is drawn from the model
+    there. Uniform y against prior-drawn
     states (|g| up to ~9) leaves cells whose interval holds under 1e-5 of
     z's mass, where float32 rounding of p moves f past 1e-3 (on the CPU as
     on the card, against float64: scripts/torch_sweep_precision.py), and 3 H
@@ -332,7 +378,9 @@ def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None):
     y = rng.integers(1, C + 1, (H, n, m)).astype(np.int32)
     y[:, 0, :3] = 0
     cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float32",
-                      jitter=1e-5, threshold_method=method, theta_ls=theta_ls)
+                      jitter=CHOL_JITTER if fstar_method == "chol" else 1e-5,
+                      threshold_method=method, theta_ls=theta_ls, f_method=f_method,
+                      fstar_method=fstar_method)
     priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
               np.zeros((2, n)))
     gen = torch.Generator().manual_seed(0)
@@ -347,13 +395,14 @@ def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None):
     return cfg, priors, state0, gibbs.sweep_draws(gen, Ks, consts, cfg), y
 
 
-def sweep_vs_float64(C=2, H=1, theta_ls=10.0, model_y=None, temp=4.0):
+def sweep_vs_float64(C=2, H=1, theta_ls=10.0, model_y=None, temp=4.0, **sampler):
     """The sweep check's float32 sweep and the same sweep with its state,
     draws and constants in float64, on the CPU: the yardstick for the
-    card's differences. Returns ((state, z draw) in float32, the same in
-    float64, y, the float32 config)."""
+    card's differences. ``sampler`` takes f_method and fstar_method (then
+    ``temp`` must be None). Returns ((state, z draw) in float32, the same
+    in float64, y, the float32 config)."""
     cfg, priors, state0, draws, y = sweep_inputs(C, H=H, theta_ls=theta_ls,
-                                                 model_y=model_y)
+                                                 model_y=model_y, **sampler)
     cfg64 = dataclasses.replace(cfg, dtype="float64")
     cpu = torch.device("cpu")
 
@@ -362,9 +411,7 @@ def sweep_vs_float64(C=2, H=1, theta_ls=10.0, model_y=None, temp=4.0):
 
     out32 = sweep_on(cpu, state0, draws, y,
                      {cpu: make_constants(cfg, *priors, device=cpu)}, cfg, temp)
-    out64 = sweep_on(cpu, gibbs.GPIRTState(*map(f64, state0)),
-                     gibbs.SweepDraws(*map(f64, draws[:-1]),
-                                      type(draws.cut)(*map(f64, draws.cut))),
+    out64 = sweep_on(cpu, gibbs.GPIRTState(*map(f64, state0)), draws.to(torch.float64),
                      y, {cpu: make_constants(cfg64, *priors, device=cpu)}, cfg64, temp)
     return out32, out64, y, cfg
 
@@ -414,6 +461,17 @@ def sweep_check(dev, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
               f"sweep fstar differs beyond 1e-3 + 1e-3 |f*| ({label})")
     moved = (s_gpu.thresholds.cpu() != state0.thresholds)[..., 1:-1]
     check(float(moved.float().mean()) > 0.2, f"cutpoints did not move ({label})")
+
+
+def theta_ess(theta, dev):
+    """Median over parameters of the within-chain theta ESS summed over the
+    chains, and of the pooled ESS: theta (K, S, P)."""
+    th = torch.as_tensor(theta, device=dev)
+    within = sum(effective_sample_size_device(th[c:c + 1]) for c in range(th.shape[0]))
+    within_med = float(np.median(within.cpu().numpy()))
+    pooled_med = float(np.median(effective_sample_size_device(th).cpu().numpy()))
+    check(np.isfinite(within_med) and within_med > 0, "theta ESS not positive")
+    return within_med, pooled_med
 
 
 def observe_kernel(run, before_call=None, kernel=None):
@@ -593,6 +651,315 @@ def dynamic_path(dev, smi):
     return launches, state_args
 
 
+def two_stage_sweep_on(d, state0, draws, y, consts, cfg):
+    """One two-stage sweep on device ``d``: (state, ll, draw_f's output)."""
+    seen = {}
+    draw_f = gibbs.draw_f
+
+    def observe(*args):
+        seen["f"] = draw_f(*args)
+        return seen["f"]
+
+    gibbs.draw_f = observe
+    try:
+        state, ll = gibbs.gibbs_sweep(
+            gibbs.GPIRTState(*(a.to(d) for a in state0)), draws.to(d),
+            torch.as_tensor(y, device=d), consts, cfg)
+    finally:
+        gibbs.draw_f = draw_f
+    return state, ll, seen["f"]
+
+
+def rounding_spread(run, f, consts, reps=4):
+    """The CPU's own float32 spread of ``run(f, consts)``, a dict of
+    tensors: the largest change of each, over ``reps`` tries, when f, the
+    eigenbasis U_se and the grid Gram are each moved by about one float32
+    rounding (relative N(0, 1.2e-7) noise, symmetric in the Gram) and
+    nothing else changes."""
+    gen = torch.Generator().manual_seed(0)
+    base = run(f, consts)
+    spread = {k: torch.zeros_like(v) for k, v in base.items()}
+
+    def ulp(a):
+        return a * (1.0 + 1.2e-7 * torch.randn(a.shape, generator=gen, dtype=a.dtype))
+
+    for _ in range(reps):
+        gram = ulp(consts.grid_gram)
+        out = run(ulp(f), dataclasses.replace(consts, U_se=ulp(consts.U_se),
+                                              grid_gram=0.5 * (gram + gram.mT)))
+        for k in spread:
+            spread[k] = torch.maximum(spread[k], (out[k] - base[k]).abs())
+    return spread
+
+
+def sweep_spread(state0, draws, y, consts, cfg, reps=4):
+    """:func:`rounding_spread` of a two-stage sweep's f and f* on the CPU,
+    from the state's f; the rounding must not move a theta draw."""
+    def run(f, c):
+        s, _, _ = two_stage_sweep_on(torch.device("cpu"), state0._replace(f=f), draws, y,
+                                     c, cfg)
+        return {"theta_idx": s.theta_idx, "f": s.f, "fstar": s.fstar}
+
+    spread = rounding_spread(run, state0.f, consts, reps)
+    check(not bool(spread.pop("theta_idx").any()), "rounding moved a theta draw")
+    return spread
+
+
+def held_to_spread(got, want, spread):
+    """``got`` against ``want`` (the CPU's) under 1e-3 + 1e-3 |want| plus
+    four times the CPU's own rounding spread of the lane, its largest over
+    the lane's grid points or sites (axis -2; a few random tries estimate
+    one point's spread too noisily): (the largest share of that tolerance
+    used, the largest widening of the 1e-3 rule)."""
+    rule = 1e-3 + 1e-3 * want.abs()
+    tol = rule + 4.0 * spread.amax(dim=-2, keepdim=True)
+    return (float(((got.cpu() - want).abs() / tol).max()), float((tol / rule).max()))
+
+
+def two_stage_check(dev, C, fstar_method):
+    """One untempered two-stage sweep on the card against the CPU from the
+    same state and draws (:func:`sweep_inputs`, y drawn from the model at a
+    state shared by the chains): theta equal; draw_f's f, beta and the
+    cutpoints within 1e-3; every field finite; at C = 2 one kernel launch.
+    f* and the f read from it are held to 1e-3 + 1e-3 |x| plus 4 times the
+    lane's own rounding spread on the CPU (:func:`sweep_spread`,
+    :func:`held_to_spread`): Matheron's smoother (U^T U + 1e-4 I)^{-1} over
+    a site basis of rank below q + 3 = 35 amplifies float32 rounding by up
+    to ~1e4, and f* carries it beyond the sites' span; the posterior
+    Cholesky of "chol" does the same (PERF.md, section 6). The widening is
+    printed."""
+    cfg, priors, state0, draws, y = sweep_inputs(
+        C, model_y=True, f_method="two_stage", fstar_method=fstar_method)
+    cpu = torch.device("cpu")
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
+    launches = threshold_ess.binary_threshold_ess.launches
+    s_cpu, ll_cpu, f_cpu = two_stage_sweep_on(cpu, state0, draws, y, consts[cpu], cfg)
+    s_gpu, ll_gpu, f_gpu = two_stage_sweep_on(dev, state0, draws, y, consts[dev], cfg)
+    label = f"C={C}, f* by {fstar_method}, jitter {cfg.jitter:g}"
+    check(threshold_ess.binary_threshold_ess.launches == launches + (C == 2),
+          f"two-stage sweep: kernel launches ({label})")
+    for st in (s_cpu, s_gpu):
+        for k in ("f", "beta", "fstar"):
+            check(bool(torch.isfinite(getattr(st, k)).all()),
+                  f"two-stage sweep {k} not finite ({label})")
+        check(bool(torch.isfinite(st.thresholds[..., 1:-1]).all()),
+              f"two-stage sweep cutpoints not finite ({label})")
+    check(torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu()),
+          f"two-stage sweep theta differs ({label})")
+    errs = {"draw_f": max_diff(f_gpu, f_cpu)[0]}
+    errs.update({k: max_diff(getattr(s_gpu, k), getattr(s_cpu, k))[0]
+                 for k in ("beta", "thresholds", "f", "fstar")})
+    errs["ll"] = max_diff(ll_gpu, ll_cpu)[0]
+    spread = sweep_spread(state0, draws, y, consts[cpu], cfg)
+    line = []
+    for k in ("f", "fstar"):
+        ratio, widen = held_to_spread(getattr(s_gpu, k), getattr(s_cpu, k), spread[k])
+        check(ratio <= 1.0, f"two-stage sweep {k} beyond its tolerance ({label}): "
+              f"{ratio:.3g} of it")
+        line.append(f"{k} at {ratio:.3g} of 1e-3 + 1e-3 |{k}| + 4 spread (widened up to "
+                    f"{widen:.3g}x)")
+    log(f"two-stage sweep check (card vs CPU, float32, T=1, {label}): max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + "; " + "; ".join(line))
+    for k in ("draw_f", "beta", "thresholds"):
+        check(errs[k] < 1e-3, f"two-stage sweep {k} differs by {errs[k]:.3g} ({label})")
+    moved = (s_gpu.thresholds.cpu() != state0.thresholds)[..., 1:-1]
+    check(float(moved.float().mean()) > 0.2, f"cutpoints did not move ({label})")
+
+
+def two_stage_path(rm, dev, smi):
+    """gpirt_mcmc on senate116 with the two-stage sampler, checked; prints
+    its rates and counts. Returns chain 0's draws and the kernel's launches
+    in the run."""
+    # bench.py's spread senate116 init: from theta = 0 (the default init
+    # under zero prior sds) every site is one grid point, U^T U has rank 1,
+    # and float32 cannot factor Matheron's capacitance (JAX's f* is NaN there)
+    init = np.random.default_rng(0).permutation(np.linspace(-2, 2, rm.shape[0]))
+    ess_update.calls = ess_update.rounds = ess_update.syncs = 0
+    threshold_ess.binary_threshold_ess.launches = 0
+    out = gpirt_mcmc(rm, TS_DRAWS, TS_BURN, CHAIN=K, SEED=SEED, f_method="two_stage",
+                     store_f=True, theta_init=init, dtype="float32", device=dev)
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = TS_BURN + TS_DRAWS
+    check(launches == sweeps, f"two-stage: {launches} kernel launches for {sweeps} sweeps")
+    check(len(out) == K, "one result per chain")
+    n, m = out[0]["f"].shape[1:3]
+    ll = np.stack([d["ll"] for d in out])
+    thr = np.stack([d["threshold"] for d in out])  # (K, S, m, 3, 1)
+    check(ll.shape == (K, TS_DRAWS) and np.isfinite(ll).all(), "two-stage ll not finite")
+    check(np.isfinite(thr[..., 1, :]).all(), "two-stage cutpoints not finite")
+    check(np.mean(thr[:, -1, :, 1, 0] != 0.0) > 0.99, "two-stage cutpoints did not move")
+    for d in out:
+        check(d["f"].shape == (TS_DRAWS, n, m, 1) and bool(np.isfinite(d["f"]).all()),
+              "two-stage f not finite")
+    samp_s = out[0]["seconds"]["sampling"]
+    within, pooled = theta_ess(np.stack([d["theta"][:, :, 0] for d in out]), dev)
+    log(f"two-stage path on {smi}: senate116 {n} x {m}, {K} chains, {sweeps} sweeps "
+        f"in {samp_s:.3f} s ({sweeps / samp_s:.2f} sweeps/s), f stored; {launches} "
+        f"kernel launches; theta ESS median within-chain (summed over {K} chains) "
+        f"{within:.1f}, pooled {pooled:.1f}; ess/sec {within / samp_s:.2f} (sampling "
+        f"wall); ESS (f, beta, no cutpoint ESS at C=2) {ess_update.calls} updates, "
+        f"{ess_update.rounds / ess_update.calls:.2f} rounds an update, "
+        f"{ess_update.syncs / sweeps:.2f} host syncs a sweep")
+    return out[0], launches
+
+
+def recovery_check(chain, rm, dev, smi):
+    """recover_fstar_batch over one chain's stored draws on the card (shape,
+    finite, repeatable under one seed), and one draw's _recover_one on the
+    card against the CPU given the same draws: draw_f's f within 1e-3, f*
+    within 1e-3 + 1e-3 |f*| plus four times the lane's own rounding spread
+    on the CPU (:func:`rounding_spread`, :func:`held_to_spread`; Matheron's
+    f* in float32, as in :func:`two_stage_check`)."""
+    S, n, m = chain["f"].shape[:3]
+    t = time.perf_counter()
+    batch = recover_fstar_batch(3, chain, rm, device=dev)
+    wall = time.perf_counter() - t
+    check(batch.shape == (S, 1001, m, 1), f"recover_fstar_batch shape {batch.shape}")
+    check(bool(np.isfinite(batch).all()), "recovered f* not finite")
+    check(np.array_equal(batch, recover_fstar_batch(3, chain, rm, device=dev)),
+          "recover_fstar_batch differs under one seed")
+    y, C, _ = encode_categories(np.asarray(rm))
+    cfg = GPIRTConfig(n=n, m=m, C=C, dtype="float32", jitter=1e-5, mean_degree=1)
+    priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)), np.zeros((2, n)))
+    cpu = torch.device("cpu")
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
+    gen = torch.Generator().manual_seed(4)
+    rand = (gibbs.f_draws(gen, 1, consts[cpu], cfg), gibbs.fstar_draws(gen, 1, consts[cpu], cfg))
+    stored = [np.ascontiguousarray(chain[k][-1:].transpose(0, 3, 1, 2))
+              for k in ("f", "beta", "threshold")]
+    stored.insert(1, np.ascontiguousarray(chain["theta"][-1:].transpose(0, 2, 1)))
+
+    def one(d, f=None, c=None):
+        """_recover_one on device d: {"fstar", "f": draw_f's output}."""
+        args = [torch.as_tensor(a, dtype=torch.float32, device=d) for a in stored]
+        seen = {}
+        draw_f = api.draw_f
+
+        def observe(*a):
+            seen["f"] = draw_f(*a)
+            return seen["f"]
+
+        api.draw_f = observe
+        try:
+            fstar = _recover_one(args[0] if f is None else f, *args[1:],
+                                 torch.as_tensor(y, device=d), consts[d] if c is None else c,
+                                 cfg, *(gibbs.draws_to(r, d) for r in rand))
+        finally:
+            api.draw_f = draw_f
+        return {"fstar": fstar, "f": seen["f"]}
+
+    want, got = one(cpu), one(dev)
+    check(bool(torch.isfinite(got["fstar"]).all()), "recovered f* on the card not finite")
+    f_err = max_diff(got["f"], want["f"])[0]
+    check(f_err < 1e-3, f"recovery's draw_f card vs CPU differs by {f_err:.3g}")
+    spread = rounding_spread(lambda f, c: one(cpu, f, c), torch.as_tensor(stored[0]),
+                             consts[cpu])
+    err, i = max_diff(got["fstar"], want["fstar"])
+    ratio, widen = held_to_spread(got["fstar"], want["fstar"], spread["fstar"])
+    check(ratio <= 1.0, f"recovered f* card vs CPU beyond 1e-3 + 1e-3 |f*| + 4 spread "
+          f"({ratio:.3g} of it, max abs diff {err:.3g})")
+    log(f"recovery on {smi}: recover_fstar_batch over {S} stored draws of one chain, "
+        f"f* {batch.shape}, finite, equal under one seed, {wall:.3f} s wall; one draw's "
+        f"_recover_one card vs CPU: draw_f max abs diff {f_err:.3g}, f* {err:.3g} at |f*| "
+        f"{abs(float(want['fstar'][i])):.4g} (theta {float(consts[cpu].grid[i[2]]):.2f}), "
+        f"{ratio:.3g} of 1e-3 + 1e-3 |f*| + 4 spread (widened up to {widen:.3g}x; the "
+        f"CPU's own spread of f* up to {float(spread['fstar'].max()):.3g})")
+
+
+def fstar10k(dev, smi):
+    """bench.py::bench_fstar10k on the card: returns the timed recovery's
+    seconds."""
+    _, raw = simulate_2pl(0, n=F10K_N, m=F10K_M)
+    out = gpirt_mcmc(raw, 2, 0, vote_codes=DYN_VOTES, store_f=True, dtype="float32",
+                     device=dev)
+    d = out[0]
+    rm = np.asarray(as_response_matrix(raw, DYN_VOTES, verbose=False))
+    args = (d["f"][-1], rm, d["theta"][-1], d["beta"][-1], d["threshold"][-1])
+    t = time.perf_counter()
+    first = recover_fstar(1, *args, grid_size=F10K_GRID, device=dev)
+    first_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    rec = recover_fstar(2, *args, grid_size=F10K_GRID, device=dev)
+    wall = time.perf_counter() - t
+    m = d["beta"].shape[2]
+    for r in (first, rec):
+        check(r["fstar"].shape == (F10K_GRID, m, 1), f"fstar10k shape {r['fstar'].shape}")
+        check(bool(np.isfinite(r["fstar"]).all()), "fstar10k f* not finite")
+    check(not np.array_equal(first["fstar"], rec["fstar"]), "seeds 1 and 2 gave one f*")
+    log(f"fstar10k host constants at N={F10K_GRID}: {first['seconds']['constants']:.3f} s "
+        f"(float64 Gram, Cholesky and eigendecomposition, then to the card)")
+    log(f"fstar10k on {smi}: n={F10K_N}, m={m}, N={F10K_GRID}; first call {first_wall:.3f} s "
+        f"(constants included), second call {wall:.5f} s wall ({rec['seconds']['recovery']:.5f} "
+        f"s recovery, constants cached); f* {rec['fstar'].shape}, finite")
+    return wall
+
+
+def synthetic_inputs(dev, n=SYN_N, m=SYN_M, K=SYN_K):
+    """bench.py::bench_synthetic's data, configuration and inits on ``dev``:
+    (y (1, n, m) int32, theta inits (K, 1, n), cutpoints (1, m, 3), constants,
+    config)."""
+    _, raw = simulate_2pl(0, n=n, m=m, missing=SYN_MISSING)
+    y, C, _ = encode_categories(raw)
+    cfg = GPIRTConfig(n=n, m=m, horizon=1, C=C, dtype="float32")
+    consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
+                            np.zeros((2, n)), np.zeros((2, n)), device=dev)
+    rng = np.random.default_rng(0)
+    ti = np.stack([rng.permutation(np.linspace(-3, 3, n))[None] for _ in range(K)])
+
+    def t32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+
+    return (torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32, device=dev),
+            t32(ti), t32(default_thresholds(C, m, 1)), consts, cfg)
+
+
+def synthetic_run(dev, inputs, burn=SYN_BURN, draws=SYN_DRAWS):
+    """run_chains on the synthetic configuration (:func:`synthetic_inputs`),
+    its kernel launches counted from 0: (draws, launches, sampling seconds,
+    the kernel's inputs at the last sweep)."""
+    y, ti, thr, consts, cfg = inputs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    threshold_ess.binary_threshold_ess.launches = 0
+    t = time.perf_counter()
+    out, args = observe_kernel(lambda: run_chains(
+        gen, y, ti, thr, consts, cfg, sample_iterations=draws, burn_iterations=burn))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return out, threshold_ess.binary_threshold_ess.launches, wall, args
+
+
+def synthetic_path(dev, smi):
+    """The synthetic configuration at full size, checked; prints its rates,
+    theta ESS and peak memory. Returns the kernel's launches and its inputs
+    at the last sweep."""
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, wall, args = synthetic_run(dev, synthetic_inputs(dev))
+    peak = torch.cuda.max_memory_allocated()
+    sweeps = SYN_BURN + SYN_DRAWS
+    check(launches == sweeps, f"synthetic: {launches} kernel launches for {sweeps} sweeps")
+    ll, thr = out["ll"].cpu().numpy(), out["threshold"].cpu().numpy()  # (K, S, 1, m, 3)
+    check(ll.shape == (SYN_K, SYN_DRAWS) and np.isfinite(ll).all(), "synthetic ll not finite")
+    check(np.isfinite(thr[..., 1]).all(), "synthetic cutpoints not finite")
+    check(np.mean(thr[:, -1, ..., 1] != 0.0) > 0.99, "synthetic cutpoints did not move")
+    within, pooled = theta_ess(out["theta"][:, :, 0], dev)
+    log(f"synthetic path on {smi}: {SYN_N} x {SYN_M} binary ({SYN_MISSING:g} missing), "
+        f"conjugate, {SYN_K} chains, {sweeps} sweeps in {wall:.3f} s ({sweeps / wall:.3f} "
+        f"sweeps/s); {launches} kernel launches; peak device memory "
+        f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); theta ESS median "
+        f"within-chain (summed over {SYN_K} chains) {within:.1f}, pooled {pooled:.1f}; "
+        f"ess/sec {within / wall:.3f} within, {pooled / wall:.3f} pooled (sampling wall)")
+    return launches, args
+
+
+def timed(label, fn, *args):
+    """fn(*args), its wall time printed under ``label``."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t:.2f} s wall")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -612,13 +979,13 @@ def main():
     y, _, _ = encode_categories(np.asarray(rm))
     y_dev = torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32, device=dev)
     rand_args = random_lanes(y_dev)
-    worst, flipped = kernel_check(rand_args, "random lanes")
+    worst, flipped = timed("3 (kernel check)", kernel_check, rand_args, "random lanes")
     rand_times = {t: kernel_times(rand_args, _C / np.sqrt(t)) for t in (1.0, T_MAX)}
     for t, (ms, eager, plain) in rand_times.items():
         log(f"kernel time, random lanes, T={t:g}: {ms:.5f} ms (graph), "
             f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
-    sweep_check(dev)
-    launches, state_args = main_path(rm, dev, smi)
+    timed("4 (sweep check)", sweep_check, dev)
+    launches, state_args = timed("5 (main path)", main_path, rm, dev, smi)
 
     w, f = kernel_check(state_args, "main path's state")
     worst, flipped = max(worst, w), flipped + f
@@ -627,17 +994,36 @@ def main():
         f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
     work = kernel_bound(state_args, _C)
     for method in ("ess", "newton"):
-        sweep_check(dev, C=5, method=method)
-    sdo_path(dev, smi)
+        timed(f"7 (C=5 sweep check, {method})", sweep_check, dev, 5, method)
+    timed("8 (SDO path)", sdo_path, dev, smi)
     for C in (2, 5):
-        sweep_check(dev, C=C, H=3, theta_ls=DYN_LS)
-    dyn_launches, dyn_args = dynamic_path(dev, smi)
+        timed(f"9 (GP sweep check, C={C})", sweep_check, dev, C, "auto", 4.0, 3, DYN_LS)
+    dyn_launches, dyn_args = timed("10 (dynamic path)", dynamic_path, dev, smi)
     dyn_worst, dyn_flipped = kernel_check(dyn_args, "dynamic path's state")
     dyn_ms, dyn_eager, dyn_plain = kernel_times(dyn_args, _C)
     log(f"kernel time, dynamic path's state, T=1: {dyn_ms:.5f} ms (graph), "
         f"{dyn_eager:.5f} ms (eager), plain {dyn_plain:.4f} ms")
     dyn_work = kernel_bound(dyn_args, _C, "dynamic path's state")
     worst, flipped = max(worst, dyn_worst), flipped + dyn_flipped
+
+    for C in (2, 5):
+        for fstar_method in ("matheron", "chol"):
+            timed(f"12 (two-stage sweep check, C={C}, {fstar_method})",
+                  two_stage_check, dev, C, fstar_method)
+    chain, ts_launches = timed("13 (two-stage path)", two_stage_path, rm, dev, smi)
+    timed("14 (recovery)", recovery_check, chain, rm, dev, smi)
+    del chain
+    timed("15 (fstar10k)", fstar10k, dev, smi)
+    syn_launches, syn_args = timed("16 (synthetic path)", synthetic_path, dev, smi)
+    t = time.perf_counter()
+    syn_worst, syn_flipped = kernel_check(syn_args, "synthetic state")
+    syn_ms, syn_eager, syn_plain = kernel_times(syn_args, _C, plain_reps=3)
+    log(f"kernel time, synthetic state (streaming variant, n={SYN_N}), T=1: "
+        f"{syn_ms:.5f} ms (graph), {syn_eager:.5f} ms (eager), plain {syn_plain:.4f} ms "
+        f"(3 calls)")
+    syn_work = kernel_bound(syn_args, _C, "synthetic state")
+    log(f"phase 16 (kernel at the synthetic state): {time.perf_counter() - t:.2f} s wall")
+    worst, flipped = max(worst, syn_worst), flipped + syn_flipped
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -668,6 +1054,16 @@ def main():
         "plain_ms_dynamic_state": dyn_plain,
         "bound_ms_dynamic_state": dyn_work["bound_ms"],
         "bound_by_dynamic_state": dyn_work["bound_by"],
+        "launches_two_stage": ts_launches,
+        "launches_synthetic": syn_launches,
+        "max_abs_err_synthetic": syn_worst,
+        "lanes_over_1e-5_synthetic": syn_flipped,
+        "ms_synthetic_state": syn_ms,
+        "ms_eager_synthetic_state": syn_eager,
+        "plain_ms_synthetic_state": syn_plain,
+        "bound_ms_synthetic_state": syn_work["bound_ms"],
+        "bound_by_synthetic_state": syn_work["bound_by"],
+        "rounds_mean_synthetic_state": syn_work["rounds_mean"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""Public user API: ``gpirt_mcmc`` on the port's slice.
+"""Public user API: ``gpirt_mcmc``, ``recover_fstar`` and
+``recover_fstar_batch`` on the port's slice.
 
-Counterpart of ``gpirt_tpu/api.py::gpirt_mcmc`` for binary and ordinal
-data, one session or an (n, m, H) cube of sessions, on one device:
-vote-code recoding, prior and cutpoint defaults, the time-GP settings, K
-chains in lockstep, an optional SMC annealed initialization, optional f /
-f* storage, and the reference output layout (``gpirt_tpu/api.py:606``).
+Counterpart of ``gpirt_tpu/api.py`` for binary and ordinal data, one
+session or an (n, m, H) cube of sessions, on one device: vote-code
+recoding, prior and cutpoint defaults, the time-GP settings, the conjugate
+or two-stage sampler, K chains in lockstep, an optional SMC annealed
+initialization, optional f / f* storage, the reference output layout
+(``gpirt_tpu/api.py:606``), and f* recovered from stored f draws. The
+host constants are built once per configuration, priors and device.
 Arguments the port does not cover yet raise ``NotImplementedError``.
 """
 
@@ -13,7 +16,7 @@ from __future__ import annotations
 import statistics
 import sys
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,7 +25,17 @@ from gpirt_tpu_torch.models.config import (
     THETA_HI,
     THETA_LO,
     GPIRTConfig,
+    GPIRTConstants,
     make_constants,
+)
+from gpirt_tpu_torch.models.gibbs import (
+    compute_mu,
+    compute_mu_star,
+    draw_f,
+    draw_fstar,
+    f_draws,
+    fstar_draws,
+    snap_indices,
 )
 from gpirt_tpu_torch.models.sampler import run_chains
 from gpirt_tpu_torch.parallel.smc import anneal_init
@@ -33,7 +46,19 @@ from gpirt_tpu_torch.utils.response import (
     recode_cube,
 )
 
-__all__ = ["gpirt_mcmc", "default_thresholds", "full_fp32_matmuls"]
+__all__ = [
+    "gpirt_mcmc",
+    "recover_fstar",
+    "recover_fstar_batch",
+    "default_thresholds",
+    "full_fp32_matmuls",
+]
+
+# Host constants (the float64 grid Gram, its Cholesky and the SE
+# eigendecomposition: about a minute at a 10001-point grid) are kept across
+# calls with the same configuration, priors and device.
+_CONSTS_CACHE: Dict[tuple, GPIRTConstants] = {}
+_CONSTS_CACHE_MAX = 8
 
 
 def full_fp32_matmuls() -> None:
@@ -93,6 +118,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _device(device, caller: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller} runs on a CUDA device, and torch.cuda.is_available() "
+            "is false; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _cached_constants(config: GPIRTConfig, device: torch.device, beta_prior_means,
+                      beta_prior_sds, theta_prior_means,
+                      theta_prior_sds) -> GPIRTConstants:
+    """:func:`make_constants`, built once per configuration, priors and
+    device (``gpirt_tpu/api.py:51``)."""
+    priors = (beta_prior_means, beta_prior_sds, theta_prior_means, theta_prior_sds)
+    key = (config, str(device)) + tuple(
+        np.ascontiguousarray(a, np.float64).tobytes() for a in priors)
+    if key not in _CONSTS_CACHE:
+        if len(_CONSTS_CACHE) >= _CONSTS_CACHE_MAX:
+            _CONSTS_CACHE.pop(next(iter(_CONSTS_CACHE)))
+        _CONSTS_CACHE[key] = make_constants(config, *priors, device=device)
+    return _CONSTS_CACHE[key]
+
+
+def _beta_priors(beta_prior_means, beta_prior_sds, m: int):
+    """The beta prior means and sds as (3, m) float64, N(0, 3^2) by default."""
+    if beta_prior_means is None:
+        beta_prior_means = np.zeros((3, m))
+    if beta_prior_sds is None:
+        beta_prior_sds = np.full((3, m), 3.0)
+    return (np.broadcast_to(np.asarray(beta_prior_means, np.float64), (3, m)),
+            np.broadcast_to(np.asarray(beta_prior_sds, np.float64), (3, m)))
+
+
 def gpirt_mcmc(
     data,
     sample_iterations: int,
@@ -115,6 +175,9 @@ def gpirt_mcmc(
     store_fstar: bool = False,
     threshold_method: str = "auto",
     threshold_mh_tries: int = 2,
+    f_method: str = "auto",
+    fstar_method: str = "matheron",
+    grid_size: int = 1001,
     smc_steps: int = 0,
     smc_max_temp: float = 64.0,
     dtype: str = "float32",
@@ -138,10 +201,13 @@ def gpirt_mcmc(
     from it.
     ``threshold_method`` is "auto" / "ess" (the y-marginal delta ESS) or
     "newton" (``threshold_mh_tries`` Newton-proposal MH tries on the same
-    conditional). All sampler randomness comes from one ``torch.Generator``
-    on ``device`` seeded with SEED. ``smc_steps > 0`` prepends the SMC
-    annealed initialization from ``smc_max_temp``. The run is on the CUDA
-    card unless ``device`` says otherwise; without a card it raises.
+    conditional). ``f_method`` is "auto" / "conjugate" (Albert-Chib) or
+    "two_stage" (the reference's ESS on f, then f* | f by ``fstar_method``,
+    "matheron" or "chol"); ``grid_size`` is the theta grid's N. All sampler
+    randomness comes from one ``torch.Generator`` on ``device`` seeded with
+    SEED. ``smc_steps > 0`` prepends the SMC annealed initialization from
+    ``smc_max_temp`` (conjugate only). The run is on the CUDA card unless
+    ``device`` says otherwise; without a card it raises.
 
     Each dict holds theta (S, n, H), beta (S, 3, m, H), threshold
     (S, m, C+1, H) and ll (S,); f (S, n, m, H) with ``store_f`` and fstar
@@ -153,11 +219,7 @@ def gpirt_mcmc(
         raise NotImplementedError(
             "gpirt_mcmc arguments not ported to gpirt_tpu_torch yet: "
             + ", ".join(sorted(unsupported)))
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "gpirt_mcmc runs on a CUDA device, and torch.cuda.is_available() "
-            "is false; pass device='cpu' to run on the CPU")
+    device = _device(device, "gpirt_mcmc")
     full_fp32_matmuls()
 
     if vote_codes is not None:
@@ -177,27 +239,23 @@ def gpirt_mcmc(
     y, C, _ = encode_categories(cube)  # (H, n, m)
     H, n, m = y.shape
 
-    if beta_prior_means is None:
-        beta_prior_means = np.zeros((3, m))
-    if beta_prior_sds is None:
-        beta_prior_sds = np.full((3, m), 3.0)
+    beta_prior_means, beta_prior_sds = _beta_priors(beta_prior_means, beta_prior_sds, m)
     if theta_prior_means is None:
         theta_prior_means = np.zeros((2, n))
     if theta_prior_sds is None:
         theta_prior_sds = np.zeros((2, n))
-    beta_prior_means = np.broadcast_to(np.asarray(beta_prior_means, np.float64), (3, m))
-    beta_prior_sds = np.broadcast_to(np.asarray(beta_prior_sds, np.float64), (3, m))
     theta_prior_means = np.broadcast_to(np.asarray(theta_prior_means, np.float64), (2, n))
     theta_prior_sds = np.broadcast_to(np.asarray(theta_prior_sds, np.float64), (2, n))
 
-    config = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype=dtype,
+    config = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=grid_size, dtype=dtype,
                          theta_os=float(theta_os), theta_ls=float(theta_ls),
                          kernel=KERNEL,
                          jitter=1e-6 if dtype == "float64" else 1e-5,
                          threshold_method=threshold_method,
-                         threshold_mh_tries=threshold_mh_tries)
-    consts = make_constants(config, beta_prior_means, beta_prior_sds,
-                            theta_prior_means, theta_prior_sds, device=device)
+                         threshold_mh_tries=threshold_mh_tries,
+                         f_method=f_method, fstar_method=fstar_method)
+    consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
+                               theta_prior_means, theta_prior_sds)
 
     # per-chain theta inits ~ N(prior mean, prior sd), copied across sessions
     inits = []
@@ -253,3 +311,161 @@ def gpirt_mcmc(
         d["seconds"] = {"smc": t1 - t0, "sampling": t2 - t1}
         out.append(d)
     return out
+
+
+def _as_cube(data) -> np.ndarray:
+    """(n, m) or (n, m, H) float responses, NaN missing."""
+    arr = np.asarray(data, dtype=np.float64)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if arr.ndim != 3:
+        raise ValueError(f"data must be (n, m) or (n, m, H); got {arr.shape}")
+    return arr
+
+
+def _recover_one(f, theta, beta, thresholds, y, consts: GPIRTConstants,
+                 config: GPIRTConfig, f_rand, fstar_rand) -> torch.Tensor:
+    """One seeded draw_f + draw_fstar pass a lane (the reference's
+    recover_fstar core, src/recover_fstar.cpp:80-93;
+    ``gpirt_tpu/api.py:782``), the lanes the leading axis: f (S, H, n, m),
+    theta (S, H, n) as stored, beta (S, H, 3, m), thresholds (S, H, m, C+1);
+    f_rand and fstar_rand the two blocks' draws for the S lanes.
+
+    ``config.mean_degree == 1`` zeroes the quadratic coefficient, the
+    reference's linear mean; the parametric mean takes the stored theta,
+    f* the snapped one. Returns f* + mu* (S, H, N, m).
+    """
+    theta_idx = snap_indices(theta, config)
+    if config.mean_degree == 1:
+        beta = beta.clone()
+        beta[..., 2, :] = 0.0
+    mu = compute_mu(theta, beta)
+    f_new = draw_f(f, theta_idx, thresholds, mu, y, consts, config, f_rand)
+    fstar = draw_fstar(f_new, theta_idx, consts, config, fstar_rand)
+    return fstar + compute_mu_star(consts, beta)
+
+
+def _recover(seed: int, y: np.ndarray, C: int, f, theta, beta, thresholds,
+             beta_prior_means, beta_prior_sds, constant_IRF, dtype: str,
+             grid_size: int, mean_degree: int, device) -> Dict[str, Any]:
+    """f* of S stored draws in one batched pass on ``device``: y (H, n, m)
+    categories, f (S, H, n, m), theta (S, H, n), beta (S, H, p, m) with
+    p >= mean_degree + 1 rows, thresholds (S, H, m, C+1). Returns
+    {"fstar": (S, H, N, m) numpy, "seconds": {"constants", "recovery"}}."""
+    device = _device(device, "recover_fstar")
+    full_fp32_matmuls()
+    H, n, m = y.shape
+    p = mean_degree + 1
+    beta_mean = np.zeros(beta.shape[:2] + (3, m))
+    beta_mean[:, :, :p] = beta[:, :, :p]
+    beta_prior_means, beta_prior_sds = _beta_priors(beta_prior_means, beta_prior_sds, m)
+    config = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=grid_size,
+                         constant_IRF=bool(constant_IRF), dtype=dtype,
+                         jitter=1e-6 if dtype == "float64" else 1e-5,
+                         mean_degree=mean_degree)
+    t0 = time.perf_counter()
+    consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
+                               np.zeros((2, n)), np.zeros((2, n)))
+    _sync(device)
+    t1 = time.perf_counter()
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, order="C"), dtype=config.tdtype, device=device)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    S = f.shape[0]
+    fstar = _recover_one(
+        tensor(f), tensor(theta), tensor(beta_mean), tensor(thresholds),
+        torch.as_tensor(y, dtype=torch.int32, device=device), consts, config,
+        f_draws(gen, S, consts, config), fstar_draws(gen, S, consts, config))
+    out = fstar.cpu().numpy()
+    t2 = time.perf_counter()
+    return {"fstar": out, "seconds": {"constants": t1 - t0, "recovery": t2 - t1}}
+
+
+def recover_fstar(
+    seed: int,
+    f: np.ndarray,
+    data,
+    theta: np.ndarray,
+    beta: np.ndarray,
+    thresholds: np.ndarray,
+    beta_prior_means: Optional[np.ndarray] = None,
+    beta_prior_sds: Optional[np.ndarray] = None,
+    constant_IRF: int = 0,
+    *,
+    dtype: str = "float32",
+    grid_size: int = 1001,
+    mean_degree: int = 1,
+    device="cuda",
+) -> Dict[str, Any]:
+    """f* of one stored f draw, redrawn under ``seed`` without f* having
+    been stored during sampling (src/recover_fstar.cpp:8-94;
+    ``gpirt_tpu/api.py:682``): one ESS draw of f, then f* | f.
+
+    The reference uses a linear parametric mean here though its sampler's
+    is quadratic; ``mean_degree=1`` reproduces that, 2 does not.
+
+    Args:
+      f: (n, m) or (n, m, H) stored latent draw.
+      data: responses coded as the sampler saw them (ordinal 1..C or a
+        response matrix, NaN missing); only the missing pattern matters.
+      theta: (n,) or (n, H); beta: (p, m) or (p, m, H), p >= mean_degree + 1;
+      thresholds: (C+1,), (m, C+1) or (m, C+1, H).
+
+    Randomness comes from a ``torch.Generator`` on ``device`` seeded with
+    ``seed``. The run is on the CUDA card unless ``device`` says otherwise;
+    without a card it raises. Returns {"fstar": (N, m, H), "seconds":
+    {"constants": host constants (0 when cached), "recovery": the rest}}.
+    """
+    y, C, _ = encode_categories(_as_cube(data))
+    H, _, m = y.shape
+    fa = np.asarray(f, np.float64)
+    fa = fa[:, :, None] if fa.ndim == 2 else fa
+    ta = np.asarray(theta, np.float64)
+    ta = ta[:, None] if ta.ndim == 1 else ta
+    ba = np.asarray(beta, np.float64)
+    ba = ba[:, :, None] if ba.ndim == 2 else ba
+    thr = _coerce_thresholds(np.asarray(thresholds, np.float64), m, C, H)
+    out = _recover(seed, y, C, np.moveaxis(fa, 2, 0)[None], ta.T[None],
+                   np.moveaxis(ba, 2, 0)[None], thr[None], beta_prior_means,
+                   beta_prior_sds, constant_IRF, dtype, grid_size, mean_degree, device)
+    return {"fstar": np.moveaxis(out["fstar"][0], 0, 2), "seconds": out["seconds"]}
+
+
+def recover_fstar_batch(
+    seed: int,
+    samples: Dict[str, np.ndarray],
+    data,
+    beta_prior_means: Optional[np.ndarray] = None,
+    beta_prior_sds: Optional[np.ndarray] = None,
+    constant_IRF: int = 0,
+    *,
+    dtype: str = "float32",
+    grid_size: int = 1001,
+    mean_degree: int = 1,
+    device="cuda",
+) -> np.ndarray:
+    """f* of every stored draw of one chain in one batched pass, the draw
+    axis the lane axis (``gpirt_tpu/api.py:812``).
+
+    Args:
+      samples: a chain dict of ``gpirt_mcmc(..., store_f=True)``: "f"
+        (S, n, m, H), "theta" (S, n, H), "beta" (S, 3, m, H) and
+        "threshold" (S, m, C+1, H).
+      data: responses coded as the sampler saw them.
+
+    Draw s takes its numbers from one ``torch.Generator`` on ``device``
+    seeded with ``seed``, as the s-th lane of the batch. Returns
+    (S, N, m, H) f* draws, the parametric mean included.
+    """
+    y, C, _ = encode_categories(_as_cube(data))
+    out = _recover(seed, y, C,
+                   np.moveaxis(np.asarray(samples["f"], np.float64), 3, 1),
+                   np.swapaxes(np.asarray(samples["theta"], np.float64), 1, 2),
+                   np.moveaxis(np.asarray(samples["beta"], np.float64), 3, 1),
+                   np.moveaxis(np.asarray(samples["threshold"], np.float64), 3, 1),
+                   beta_prior_means, beta_prior_sds, constant_IRF, dtype, grid_size,
+                   mean_degree, device)
+    return np.moveaxis(out["fstar"], 1, 3)

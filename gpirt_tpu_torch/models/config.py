@@ -2,10 +2,11 @@
 
 Counterpart of ``gpirt_tpu/models/config.py``, restricted to what the port
 runs: binary or ordinal data (any C >= 2) over any number of sessions in
-the three theta regimes, the Albert-Chib conjugate latent sampler, the
-exact grid draw of theta, and the y-marginal cutpoint update by ESS or by
-Newton-proposal MH. A configuration outside that raises
-``NotImplementedError``.
+the three theta regimes, the Albert-Chib conjugate latent sampler and the
+reference's two-stage pipeline (ESS on f, then f* | f by Matheron's rule
+or a posterior Cholesky), the exact grid draw of theta, and the
+y-marginal cutpoint update by ESS or by Newton-proposal MH. A
+configuration outside that raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +49,11 @@ class GPIRTConfig:
     threshold_method: str = "auto"  # "auto" / "ess" (y-marginal delta ESS)
     # or "newton" (Newton-proposal independence MH, same conditional)
     threshold_mh_tries: int = 2  # MH tries per sweep under "newton"
-    f_method: str = "auto"
+    f_method: str = "auto"  # "auto" / "conjugate" (Albert-Chib) or
+    # "two_stage" (the reference's draw_f + draw_fstar pipeline)
+    fstar_method: str = "matheron"  # two-stage f* | f: "matheron" (pathwise,
+    # rank-(q+3) eigenbasis) or "chol" (the reference's posterior Cholesky)
+    mean_degree: int = 2  # quadratic parametric mean (recover_fstar uses 1)
 
     def __post_init__(self):
         if min(self.n, self.m, self.horizon) < 1:
@@ -65,10 +70,13 @@ class GPIRTConfig:
                 f"threshold_mh_tries must be >= 1, got {self.threshold_mh_tries}")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {self.dtype!r}")
+        if self.fstar_method not in ("matheron", "chol"):
+            raise ValueError(
+                f"fstar_method must be 'matheron' or 'chol', got {self.fstar_method!r}")
         outside = []
         if self.constant_IRF:
             outside.append("constant_IRF")
-        if self.f_method not in ("auto", "conjugate"):
+        if self.f_method not in ("auto", "conjugate", "two_stage"):
             outside.append(f"f_method={self.f_method!r}")
         if self.threshold_method not in ("auto", "ess", "newton"):
             outside.append(f"threshold_method={self.threshold_method!r}")
@@ -83,10 +91,33 @@ class GPIRTConfig:
         return _DTYPES[self.dtype]
 
     @property
+    def resolved_f_method(self) -> str:
+        """"auto" is the conjugate sampler, as in the JAX package without
+        constant_IRF (``gpirt_tpu/models/config.py:219``)."""
+        return "conjugate" if self.f_method == "auto" else self.f_method
+
+    @property
     def resolved_threshold_method(self) -> str:
-        """"auto" is the y-marginal ESS, as in the JAX package on the
-        conjugate path."""
+        """"auto" is the y-marginal ESS, as in the JAX package on every
+        f_method the port runs (the two-stage path has no Albert-Chib
+        latents, so nothing else could serve it)."""
         return "newton" if self.threshold_method == "newton" else "ess"
+
+    @property
+    def chol_normalized(self) -> bool:
+        """Correlation-form theta-Gram Cholesky (the float32 stability mode)."""
+        return self.dtype == "float32"
+
+    @property
+    def device_jitter(self) -> float:
+        """Nugget of the theta-Gram factorizations and prior perturbations:
+        the model nugget in float64; in float32 a correlation-scale nugget
+        with an n-aware floor, max(jitter, 1e-4, 4 eps32 n), since the
+        normalized Cholesky's rounding error grows as n eps32
+        (``gpirt_tpu/models/config.py:282``)."""
+        if self.dtype != "float32":
+            return self.jitter
+        return max(self.jitter, 1e-4, 4 * 1.19e-7 * self.n)
 
     @property
     def theta_regime(self) -> str:
@@ -118,6 +149,7 @@ class GPIRTConstants:
     """
 
     grid: torch.Tensor  # (N,) theta* grid
+    grid_gram: torch.Tensor  # (N, N) ICC Gram over the grid (no jitter)
     Psi_grid: torch.Tensor  # (N, 3) [sd0, sd1 t, sd2 t^2]: K = K_SE + Psi Psi^T
     U_se: torch.Tensor  # (N, q) eigenbasis factor, K_SE ~= U_se U_se^T
     L_grid: torch.Tensor  # (N, N) chol(grid Gram + jitter I), f64-computed
@@ -177,6 +209,7 @@ def make_constants(
 
     return GPIRTConstants(
         grid=t(grid64),
+        grid_gram=t(gram64),
         Psi_grid=t(Psi),
         U_se=t(U_se64),
         L_grid=t(L_grid),

@@ -1,19 +1,32 @@
-"""The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path.
+"""The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path and the
+reference's two-stage pipeline.
 
-Counterpart of the conjugate branch of ``gpirt_tpu/models/gibbs.py``. Chains
-are a written-out leading K axis. Every block is a pure function of the
-state and of its random draws, passed in as tensors; :func:`sweep_draws`
-makes one sweep's draws from a ``torch.Generator`` and :func:`gibbs_sweep`
-applies the blocks in the order of src/gpirtMCMC.cpp:261-331:
+Counterpart of the conjugate and two-stage branches of
+``gpirt_tpu/models/gibbs.py``. Chains are a written-out leading K axis.
+Every block is a pure function of the state and of its random draws,
+passed in as tensors; :func:`sweep_draws` makes one sweep's draws from a
+``torch.Generator`` and :func:`gibbs_sweep` applies the blocks of
+``config.resolved_f_method``.
+
+The conjugate sweep (Albert-Chib latents z; the block order of
+src/gpirtMCMC.cpp:261-331 with theta first):
 
   theta | f*  ->  z | theta, f*  ->  f* | z  ->  beta | z, f  ->  t | f, mu
   ->  ll.
+
+The two-stage sweep (``f_method="two_stage"``, src/gpirtMCMC.cpp:261-331
+as the reference runs it):
+
+  f | theta, beta, t (ESS)  ->  f* | f (Matheron or posterior Cholesky)
+  ->  theta | f*  ->  f := f*(theta)  ->  beta | f, theta (ESS)
+  ->  t | f, mu  ->  ll.
 
 The cutpoint block is the y-marginal update of the reference: an ESS in
 the delta parametrization (the binary one through the hand-written CUDA
 kernel on the card, ``ops/threshold_ess.py``; the ordinal one through
 ``ops/ess.py``), or Newton-proposal independence MH on the same
-conditional (``threshold_method="newton"``).
+conditional (``threshold_method="newton"``). The ESS of f and beta run
+through ``ops/ess.py``.
 
 Layouts put the chain axis first, then the horizon:
   theta_idx (K, H, n) int64, f (K, H, n, m), beta (K, H, 3, m),
@@ -39,10 +52,11 @@ from gpirt_tpu_torch.ops.ess import ess_update
 from gpirt_tpu_torch.ops.likelihood import (
     cutpoint_bounds,
     delta_to_threshold,
+    ll_terms_from_bounds,
     ordinal_ll_terms,
     threshold_to_delta,
 )
-from gpirt_tpu_torch.ops.linalg import chol3, tri3_solve, tri_solve
+from gpirt_tpu_torch.ops.linalg import chol3, chol_with_jitter, tri3_solve, tri_solve
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
 
 __all__ = [
@@ -51,17 +65,32 @@ __all__ = [
     "ESSDraws",
     "NewtonDraws",
     "SweepDraws",
+    "ESSLoopDraws",
+    "draws_to",
+    "FDraws",
+    "FStarDraws",
+    "BetaDraws",
+    "TwoStageInitDraws",
+    "TwoStageDraws",
     "snap_indices",
     "theta_from_indices",
     "compute_mu",
     "compute_mu_star",
     "theta_site_basis",
+    "gather_theta_gram",
+    "theta_chol",
+    "theta_prior_perturbation",
     "init_draws",
     "init_state",
     "sweep_draws",
+    "f_draws",
+    "fstar_draws",
     "draw_z_truncnorm",
     "draw_fstar_conjugate",
     "draw_beta_conjugate",
+    "draw_f",
+    "draw_fstar",
+    "draw_beta",
     "draw_threshold",
     "gibbs_sweep",
 ]
@@ -103,9 +132,15 @@ class NewtonDraws(NamedTuple):
     logu: torch.Tensor  # (tries, K, H, m) log uniform: accept
 
 
+def draws_to(draws, device):
+    """A (nested) tuple of draws with every tensor moved to ``device``."""
+    return type(draws)(*(a.to(device) if torch.is_tensor(a) else draws_to(a, device)
+                         for a in draws))
+
+
 class SweepDraws(NamedTuple):
-    """One sweep's random numbers for K chains; ``cut`` holds those of the
-    configured cutpoint update."""
+    """One conjugate sweep's random numbers for K chains; ``cut`` holds
+    those of the configured cutpoint update."""
 
     u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
     # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
@@ -118,8 +153,61 @@ class SweepDraws(NamedTuple):
     cut: Union[ESSDraws, NewtonDraws]
 
     def to(self, device) -> "SweepDraws":
-        cut = type(self.cut)(*(a.to(device) for a in self.cut))
-        return SweepDraws(*(a.to(device) for a in self[:-1]), cut)
+        return draws_to(self, device)
+
+
+class ESSLoopDraws(NamedTuple):
+    """:func:`ess_update`'s own uniforms for a batch of lanes ``*B``."""
+
+    logu: torch.Tensor  # (*B) log uniform: slice level
+    eps0: torch.Tensor  # (*B) uniform [0, 2 pi): initial angle
+    rs: torch.Tensor  # (R, *B) uniform: bracket shrink per round
+
+
+class FDraws(NamedTuple):
+    """draw_f's random numbers: its prior perturbation and its ESS."""
+
+    z_u: torch.Tensor  # (K, H, q+3, m) normal: eigenbasis part
+    z_site: torch.Tensor  # (K, H, n, m) normal: site nugget
+    ess: ESSLoopDraws  # lanes (K, H, m)
+
+
+class FStarDraws(NamedTuple):
+    """draw_fstar's normals. Matheron's rule takes all three as the parts of
+    its grid prior draw; "chol" takes z_n alone, the posterior factor's
+    normal."""
+
+    z_q: torch.Tensor  # (K, H, q, m) SE eigenbasis part
+    z_p: torch.Tensor  # (K, H, 3, m) polynomial part
+    z_n: torch.Tensor  # (K, H, N, m) grid nugget
+
+
+class BetaDraws(NamedTuple):
+    """draw_beta's random numbers."""
+
+    z: torch.Tensor  # (K, H, m, 3) normal: prior draw before the prior sds
+    ess: ESSLoopDraws  # lanes (K, H, m)
+
+
+class TwoStageInitDraws(NamedTuple):
+    z_beta: torch.Tensor  # (K, H, 3, m) standard normal
+    z_u: torch.Tensor  # (K, H, q+3, m) normal: f's prior draw, eigenbasis part
+    z_site: torch.Tensor  # (K, H, n, m) normal: its site nugget
+    fstar: FStarDraws  # the initial f* | f draw
+
+
+class TwoStageDraws(NamedTuple):
+    """One two-stage sweep's random numbers for K chains."""
+
+    f: FDraws
+    fstar: FStarDraws
+    u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
+    # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
+    beta: BetaDraws
+    cut: Union[ESSDraws, NewtonDraws]
+
+    def to(self, device) -> "TwoStageDraws":
+        return draws_to(self, device)
 
 
 # ---------------------------------------------------------------------------
@@ -181,21 +269,10 @@ def _onehot(y, C: int, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
-               config: GPIRTConfig) -> InitDraws:
+def _samplers(gen: torch.Generator, consts: GPIRTConstants, config: GPIRTConfig):
+    """(rand, randn): uniform [0, 1) and standard normal tensors of a shape,
+    from ``gen`` on the constants' device in the config's dtype."""
     dev, dt = consts.grid.device, config.tdtype
-    H, m, N = config.horizon, config.m, config.grid_size
-    return InitDraws(
-        z_beta=torch.randn((K, H, 3, m), generator=gen, device=dev, dtype=dt),
-        z_fstar=torch.randn((K, H, N, m), generator=gen, device=dev, dtype=dt),
-    )
-
-
-def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
-                config: GPIRTConfig) -> SweepDraws:
-    dev, dt = consts.grid.device, config.tdtype
-    H, n, m, N = config.horizon, config.n, config.m, config.grid_size
-    q = consts.U_se.shape[1]
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev, dtype=dt)
@@ -203,26 +280,89 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=dt)
 
+    return rand, randn
+
+
+def _ess_loop_draws(rand, lanes, rounds: int) -> ESSLoopDraws:
+    return ESSLoopDraws(logu=torch.log(rand(*lanes)), eps0=rand(*lanes) * _TWO_PI,
+                        rs=rand(rounds, *lanes))
+
+
+def _theta_uniforms(rand, K: int, config: GPIRTConfig) -> torch.Tensor:
+    n, N = config.n, config.grid_size
+    return rand(K, n, N) if config.theta_regime == "CST" else rand(K, config.horizon, n, N)
+
+
+def f_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
+            config: GPIRTConfig) -> FDraws:
+    """draw_f's draws for K lanes (chains, or stored draws in recovery)."""
+    rand, randn = _samplers(gen, consts, config)
+    H, n, m = config.horizon, config.n, config.m
+    k = consts.U_se.shape[1] + 3
+    return FDraws(z_u=randn(K, H, k, m), z_site=randn(K, H, n, m),
+                  ess=_ess_loop_draws(rand, (K, H, m), config.ess_max_rounds))
+
+
+def fstar_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
+                config: GPIRTConfig) -> FStarDraws:
+    """draw_fstar's normals for K lanes."""
+    _, randn = _samplers(gen, consts, config)
+    H, m, N = config.horizon, config.m, config.grid_size
+    return FStarDraws(z_q=randn(K, H, consts.U_se.shape[1], m), z_p=randn(K, H, 3, m),
+                      z_n=randn(K, H, N, m))
+
+
+def init_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
+               config: GPIRTConfig) -> Union[InitDraws, TwoStageInitDraws]:
+    """The initial state's draws for ``config.resolved_f_method``."""
+    rand, randn = _samplers(gen, consts, config)
+    H, n, m, N = config.horizon, config.n, config.m, config.grid_size
+    z_beta = randn(K, H, 3, m)
+    if config.resolved_f_method == "two_stage":
+        k = consts.U_se.shape[1] + 3
+        return TwoStageInitDraws(z_beta=z_beta, z_u=randn(K, H, k, m),
+                                 z_site=randn(K, H, n, m),
+                                 fstar=fstar_draws(gen, K, consts, config))
+    return InitDraws(z_beta=z_beta, z_fstar=randn(K, H, N, m))
+
+
+def _cut_draws(rand, randn, K: int, config: GPIRTConfig) -> Union[ESSDraws, NewtonDraws]:
+    H, m, d = config.horizon, config.m, config.C - 1
+    if config.resolved_threshold_method == "newton":
+        tries = config.threshold_mh_tries
+        return NewtonDraws(z=randn(tries, K, H, m, d), logu=torch.log(rand(tries, K, H, m)))
+    return ESSDraws(
+        nu=randn(K, H, m, d),
+        logu=torch.log(rand(K, H, m)),
+        eps0=rand(K, H, m) * _TWO_PI,
+        rs=rand(config.ess_max_rounds, K, H, m),
+    )
+
+
+def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
+                config: GPIRTConfig) -> Union[SweepDraws, TwoStageDraws]:
+    """One sweep's draws for ``config.resolved_f_method``."""
+    rand, randn = _samplers(gen, consts, config)
+    H, n, m, N = config.horizon, config.n, config.m, config.grid_size
+    if config.resolved_f_method == "two_stage":
+        return TwoStageDraws(
+            f=f_draws(gen, K, consts, config),
+            fstar=fstar_draws(gen, K, consts, config),
+            u_theta=_theta_uniforms(rand, K, config),
+            beta=BetaDraws(z=randn(K, H, m, 3),
+                           ess=_ess_loop_draws(rand, (K, H, m), config.ess_max_rounds)),
+            cut=_cut_draws(rand, randn, K, config),
+        )
     latent = dict(
-        u_theta=rand(K, n, N) if config.theta_regime == "CST" else rand(K, H, n, N),
+        u_theta=_theta_uniforms(rand, K, config),
         u_z=rand(K, H, n, m),
-        z_q=randn(K, H, q, m),
+        z_q=randn(K, H, consts.U_se.shape[1], m),
         z_p=randn(K, H, 3, m),
         z_n=randn(K, H, N, m),
         eps_f=randn(K, H, n, m),
         zeta=randn(K, H, m, 3),
     )
-    d = config.C - 1
-    if config.resolved_threshold_method == "newton":
-        tries = config.threshold_mh_tries
-        return SweepDraws(**latent, cut=NewtonDraws(
-            z=randn(tries, K, H, m, d), logu=torch.log(rand(tries, K, H, m))))
-    return SweepDraws(**latent, cut=ESSDraws(
-        nu=randn(K, H, m, d),
-        logu=torch.log(rand(K, H, m)),
-        eps0=rand(K, H, m) * _TWO_PI,
-        rs=rand(config.ess_max_rounds, K, H, m),
-    ))
+    return SweepDraws(**latent, cut=_cut_draws(rand, randn, K, config))
 
 
 # ---------------------------------------------------------------------------
@@ -230,11 +370,40 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
 # ---------------------------------------------------------------------------
 
 
+def gather_theta_gram(theta_idx: torch.Tensor, consts: GPIRTConstants) -> torch.Tensor:
+    """K(theta, theta) gathered from the grid Gram: (..., n) -> (..., n, n)."""
+    return consts.grid_gram[theta_idx.unsqueeze(-1), theta_idx.unsqueeze(-2)]
+
+
+def theta_chol(theta_idx: torch.Tensor, consts: GPIRTConstants,
+               config: GPIRTConfig) -> torch.Tensor:
+    """Cholesky of the gathered theta Gram plus ``config.device_jitter``,
+    in correlation form in float32: (..., n) -> (..., n, n)."""
+    return chol_with_jitter(gather_theta_gram(theta_idx, consts), config.device_jitter,
+                            normalized=config.chol_normalized)
+
+
+def theta_prior_perturbation(theta_idx, consts: GPIRTConstants, config: GPIRTConfig,
+                             z_u, z_site) -> torch.Tensor:
+    """An N(0, K(theta, theta) + device_jitter I) draw at the snapped sites
+    through the gathered eigenbasis, with no (n, n) factorization
+    (``gpirt_tpu/models/gibbs.py:287``; the reference factors K_theta for
+    it, src/draw-f.cpp:59-66).
+
+    theta_idx (..., n); z_u (..., q+3, m), z_site (..., n, m) normal ->
+    (..., n, m).
+    """
+    U = theta_site_basis(theta_idx, consts)
+    return U @ z_u + math.sqrt(config.device_jitter) * z_site
+
+
 def init_state(theta_init: torch.Tensor, thresholds_init: torch.Tensor,
                consts: GPIRTConstants, config: GPIRTConfig,
-               draws: InitDraws) -> GPIRTState:
-    """Prior draws of beta and f* on the grid (src/gpirtMCMC.cpp:148-227);
-    f is f* at the snapped theta_init.
+               draws: Union[InitDraws, TwoStageInitDraws]) -> GPIRTState:
+    """Prior draws of beta, and of f* on the grid (f its rows at the
+    snapped theta_init) for the conjugate sampler, or of f at the sites
+    followed by one f* | f draw for the two-stage one
+    (src/gpirtMCMC.cpp:148-227).
 
     theta_init (K, H, n) or (H, n); thresholds_init (H, m, C+1).
     """
@@ -243,11 +412,16 @@ def init_state(theta_init: torch.Tensor, thresholds_init: torch.Tensor,
     theta_idx = snap_indices(theta_init.to(dt), config)
     theta_idx = theta_idx.expand(K, H, config.n).contiguous()
     beta = consts.beta_prior_means + draws.z_beta * consts.beta_prior_sds
-    fstar = consts.L_grid @ draws.z_fstar
+    if config.resolved_f_method == "two_stage":
+        f = theta_prior_perturbation(theta_idx, consts, config, draws.z_u, draws.z_site)
+        fstar = draw_fstar(f, theta_idx, consts, config, draws.fstar)
+    else:
+        fstar = consts.L_grid @ draws.z_fstar
+        f = _rows(fstar, theta_idx)
     thresholds = thresholds_init.to(dt).expand((K,) + tuple(thresholds_init.shape))
     return GPIRTState(
         theta_idx=theta_idx,
-        f=_rows(fstar, theta_idx),
+        f=f,
         beta=beta,
         thresholds=thresholds.contiguous(),
         fstar=fstar,
@@ -363,33 +537,19 @@ def draw_z_truncnorm(g, y, thresholds, u, temp=None) -> torch.Tensor:
     return torch.where(tail, fallback, z)
 
 
-def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
-                         consts: GPIRTConstants, z_q, z_p, z_n, eps,
-                         temp=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact Gaussian draw of f* | z (pathwise, push-through form).
-
-    f* = u* + K_{*theta} (K_theta + T I)^{-1} (z - mu - u - eps'), with the
-    prior draw u* = U_grid z_c + sqrt(jitter) z_n factored through the grid
-    basis U_grid = [U_se, Psi]. The smoother runs in the rank-(q+3) basis:
-    U^T (U U^T + T I)^{-1} = (U^T U + T I)^{-1} U^T, one equilibrated
-    (q+3)-square Cholesky with one refinement step.
-
-    z_resid: (K, H, n, m) z - mu. Returns (fstar (K, H, N, m), f (K, H, n, m)).
-    """
-    idx = state.theta_idx
-    sqrt_t, _ = _temp_scales(temp)
-    zc = torch.cat([z_q, z_p], dim=-2)  # (K, H, q+3, m)
-    sj = math.sqrt(config.jitter)
-    U_theta = theta_site_basis(idx, consts)  # (K, H, n, q+3)
-    u_theta = U_theta @ zc + sj * _rows(z_n, idx)
-    if sqrt_t is not None:
-        eps = eps * sqrt_t  # tempered observation noise sd sqrt(T)
-    t = 1.0 if temp is None else float(temp)
-
-    g_k = U_theta.mT @ (z_resid - u_theta - eps)  # (K, H, k, m)
+def _pathwise_fstar(U_theta, resid, diag: float, zc, z_n, consts: GPIRTConstants,
+                    config: GPIRTConfig) -> torch.Tensor:
+    """f* = u* + K_{*theta} (K_theta + diag I)^{-1} resid on the grid, where
+    resid is the target at the sites minus the prior draw u* there, and u*
+    = U_grid zc + sqrt(jitter) z_n is factored through the grid basis
+    U_grid = [U_se, Psi] (U_theta its rows at the sites, (..., n, q+3)).
+    The smoother runs in that rank-(q+3) basis: U^T (U U^T + diag I)^{-1} =
+    (U^T U + diag I)^{-1} U^T, one equilibrated (q+3)-square Cholesky with
+    one refinement step. Returns f* (..., N, m)."""
+    g_k = U_theta.mT @ resid  # (..., k, m)
     k_dim = U_theta.shape[-1]
-    eye = torch.eye(k_dim, dtype=z_resid.dtype, device=z_resid.device)
-    C = t * eye + U_theta.mT @ U_theta  # (K, H, k, k)
+    eye = torch.eye(k_dim, dtype=resid.dtype, device=resid.device)
+    C = diag * eye + U_theta.mT @ U_theta  # (..., k, k)
     inv_sc = 1.0 / torch.sqrt(torch.diagonal(C, dim1=-2, dim2=-1))
     Lc = torch.linalg.cholesky(C * (inv_sc.unsqueeze(-1) * inv_sc.unsqueeze(-2)))
 
@@ -400,8 +560,104 @@ def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
     ua = c_solve(g_k)
     ua = ua + c_solve(g_k - C @ ua)
     U_grid = torch.cat([consts.U_se, consts.Psi_grid], dim=-1)  # (N, q+3)
-    fstar = U_grid @ (zc + ua) + sj * z_n
+    return U_grid @ (zc + ua) + math.sqrt(config.jitter) * z_n
+
+
+def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
+                         consts: GPIRTConstants, z_q, z_p, z_n, eps,
+                         temp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact Gaussian draw of f* | z (pathwise, push-through form):
+    f* = u* + K_{*theta} (K_theta + T I)^{-1} (z - mu - u - eps'), with the
+    prior draw u* = U_grid z_c + sqrt(jitter) z_n (:func:`_pathwise_fstar`).
+
+    z_resid: (K, H, n, m) z - mu. Returns (fstar (K, H, N, m), f (K, H, n, m)).
+    """
+    idx = state.theta_idx
+    sqrt_t, _ = _temp_scales(temp)
+    zc = torch.cat([z_q, z_p], dim=-2)  # (K, H, q+3, m)
+    U_theta = theta_site_basis(idx, consts)  # (K, H, n, q+3)
+    u_theta = U_theta @ zc + math.sqrt(config.jitter) * _rows(z_n, idx)
+    if sqrt_t is not None:
+        eps = eps * sqrt_t  # tempered observation noise sd sqrt(T)
+    t = 1.0 if temp is None else float(temp)
+    fstar = _pathwise_fstar(U_theta, z_resid - u_theta - eps, t, zc, z_n, consts, config)
     return fstar, _rows(fstar, idx)
+
+
+def _fstar_matheron(f, theta_idx, consts: GPIRTConstants, config: GPIRTConfig,
+                    z_q, z_p, z_n) -> torch.Tensor:
+    """The zero-mean GP conditional f* | f on the grid by Matheron's rule,
+    f the noise-free values at the sites up to ``device_jitter``
+    (``gpirt_tpu/models/gibbs.py:304``): the push-through of
+    :func:`_pathwise_fstar` with diag = device_jitter."""
+    zc = torch.cat([z_q, z_p], dim=-2)
+    U = theta_site_basis(theta_idx, consts)
+    u_theta = U @ zc + math.sqrt(config.jitter) * _rows(z_n, theta_idx)
+    return _pathwise_fstar(U, f - u_theta, config.device_jitter, zc, z_n, consts, config)
+
+
+def _fstar_chol(f, theta_idx, L, consts: GPIRTConstants, config: GPIRTConfig,
+                z) -> torch.Tensor:
+    """The reference's posterior Cholesky draw of f* | f (src/draw-fstar.cpp:20-57;
+    ``gpirt_tpu/models/gibbs.py:367``), zero-mean: mean V^T L^{-1} f and
+    covariance K** - V^T V with V = L^{-1} K_{theta *}, L the theta Gram's
+    factor, z (..., N, m) normal. The posterior factor takes the raw model
+    nugget; where float32 cannot factor it, f* is NaN, as in JAX."""
+    kstar = consts.grid_gram[theta_idx]  # (..., n, N)
+    V = tri_solve(L, kstar)
+    L_post = chol_with_jitter(consts.grid_gram - V.mT @ V, config.jitter)
+    return V.mT @ tri_solve(L, f) + L_post @ z
+
+
+def draw_fstar(f, theta_idx, consts: GPIRTConstants, config: GPIRTConfig,
+               draws: FStarDraws) -> torch.Tensor:
+    """Zero-mean draw of f* | f on the grid by ``config.fstar_method``
+    (``gpirt_tpu/models/gibbs.py:416``); mu* is added where f* is used or
+    stored. f (..., n, m), theta_idx (..., n) -> (..., N, m)."""
+    if config.fstar_method == "matheron":
+        return _fstar_matheron(f, theta_idx, consts, config, *draws)
+    return _fstar_chol(f, theta_idx, theta_chol(theta_idx, consts, config), consts,
+                       config, draws.z_n)
+
+
+def draw_f(f, theta_idx, thresholds, mu, y, consts: GPIRTConstants,
+           config: GPIRTConfig, draws: FDraws) -> torch.Tensor:
+    """ESS redraw of f, one lane per (chain, horizon, item) over the n
+    sites, prior N(0, K(theta, theta) + device_jitter I) drawn by
+    :func:`theta_prior_perturbation` (``gpirt_tpu/models/gibbs.py:159``).
+
+    f, mu (K, H, n, m); theta_idx (K, H, n); thresholds (K, H, m, C+1).
+    """
+    nu = theta_prior_perturbation(theta_idx, consts, config, draws.z_u, draws.z_site)
+    z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)  # hoisted out of the rounds
+
+    def loglik(xt):  # (K, H, m, n) -> (K, H, m)
+        return ll_terms_from_bounds(xt.mT + mu, z_lo, z_hi, mask).sum(dim=-2)
+
+    return ess_update(f.mT, nu.mT, loglik, *draws.ess).mT.contiguous()
+
+
+def draw_beta(beta, theta, f, thresholds, y, consts: GPIRTConstants,
+              config: GPIRTConfig, draws: BetaDraws) -> torch.Tensor:
+    """ESS redraw of the 3 mean coefficients per (chain, horizon, item)
+    (``gpirt_tpu/models/gibbs.py:1800``). The prior is N(0, diag(sds^2 +
+    1e-6)): the reference's ESS rotates beta around the origin whatever
+    beta_prior_means says (src/draw-beta.cpp:16). An item with no
+    observation in a session keeps its beta (src/draw-beta.cpp:97-99).
+
+    beta (K, H, 3, m); theta (K, H, n); f (K, H, n, m) -> (K, H, 3, m).
+    """
+    X = build_X(theta)  # (K, H, n, 3)
+    sd = torch.sqrt(torch.square(consts.beta_prior_sds) + 1e-6)  # (3, m)
+    z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)
+
+    def loglik(xt):  # (K, H, m, 3) -> (K, H, m)
+        return ll_terms_from_bounds(f + X @ xt.mT, z_lo, z_hi, mask).sum(dim=-2)
+
+    x = beta.mT
+    x_new = ess_update(x, draws.z * sd.mT, loglik, *draws.ess)
+    has_obs = (y > 0).any(dim=-2)  # (H, m)
+    return torch.where(has_obs.unsqueeze(-1), x_new, x).mT.contiguous()
 
 
 def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
@@ -610,14 +866,31 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
     return delta_to_threshold(d_cur)
 
 
-def gibbs_sweep(state: GPIRTState, draws: SweepDraws, y: torch.Tensor,
-                consts: GPIRTConstants, config: GPIRTConfig,
-                temp: Optional[float] = None) -> Tuple[GPIRTState, torch.Tensor]:
-    """One conjugate Gibbs sweep of K chains. Returns (state, ll (K,)).
+def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None):
+    """The configured cutpoint update: Newton-proposal MH, or the y-marginal
+    ESS of :func:`draw_threshold`."""
+    if config.resolved_threshold_method == "newton":
+        newton = (_draw_threshold_binary_newton if config.C == 2
+                  else _draw_threshold_newton_ordinal)
+        return newton(thresholds, f + mu, y, *cut, _temp_scales(temp)[1])
+    return draw_threshold(thresholds, f, mu, y, config, *cut, temp)
 
-    ``temp`` (None = 1) tempers the observation noise to sd sqrt(T); the
-    returned ll is each chain's own tempered log-likelihood.
+
+def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, TwoStageDraws],
+                y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
+                temp: Optional[float] = None) -> Tuple[GPIRTState, torch.Tensor]:
+    """One Gibbs sweep of K chains by ``config.resolved_f_method`` (block
+    orders in the module docstring). Returns (state, ll (K,)).
+
+    ``temp`` (None = 1) tempers the observation noise to sd sqrt(T), on the
+    conjugate path only (as in JAX); the returned ll is each chain's own
+    tempered log-likelihood.
     """
+    if config.resolved_f_method == "two_stage":
+        if temp is not None:
+            raise NotImplementedError(
+                "tempering is implemented for f_method='conjugate' only")
+        return _two_stage_sweep(state, draws, y, consts, config)
     _, inv_s = _temp_scales(temp)
     mu_star = compute_mu_star(consts, state.beta)
     theta_idx = _draw_theta_grid(state, mu_star, y, consts, config,
@@ -630,14 +903,33 @@ def gibbs_sweep(state: GPIRTState, draws: SweepDraws, y: torch.Tensor,
                                     draws.z_p, draws.z_n, draws.eps_f, temp)
     beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp)
     mu = compute_mu(theta, beta)
-    if config.resolved_threshold_method == "newton":
-        newton = (_draw_threshold_binary_newton if config.C == 2
-                  else _draw_threshold_newton_ordinal)
-        thresholds = newton(state.thresholds, f + mu, y, *draws.cut, inv_s)
-    else:
-        thresholds = draw_threshold(state.thresholds, f, mu, y, config,
-                                    *draws.cut, temp)
+    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
                        thresholds=thresholds, fstar=fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds, inv_s).sum(dim=(-3, -2, -1))
+    return state, ll
+
+
+def _two_stage_sweep(state: GPIRTState, draws: TwoStageDraws, y, consts: GPIRTConstants,
+                     config: GPIRTConfig) -> Tuple[GPIRTState, torch.Tensor]:
+    """The reference pipeline (``gpirt_tpu/models/gibbs.py:2768-2808``, one
+    latent pass): f by ESS at the current theta, f* | f, theta | f* on the
+    grid with f its rows there, beta by ESS, the cutpoints, the ll."""
+    mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
+    theta = theta_from_indices(state.theta_idx, consts)
+    mu = compute_mu(theta, state.beta)
+    f = draw_f(state.f, state.theta_idx, state.thresholds, mu, y, consts, config,
+               draws.f)
+    fstar = draw_fstar(f, state.theta_idx, consts, config, draws.fstar)
+    state = state._replace(f=f, fstar=fstar)
+    theta_idx = _draw_theta_grid(state, mu_star, y, consts, config, draws.u_theta)
+    f = _rows(fstar, theta_idx)
+    theta = theta_from_indices(theta_idx, consts)
+    beta = draw_beta(state.beta, theta, f, state.thresholds, y, consts, config,
+                     draws.beta)
+    mu = compute_mu(theta, beta)
+    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut)
+    state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
+                       thresholds=thresholds, fstar=fstar)
+    ll = ordinal_ll_terms(f + mu, y, thresholds).sum(dim=(-3, -2, -1))
     return state, ll

@@ -1,9 +1,11 @@
-"""Dense linear-algebra helpers: closed-form 3x3 factors and triangular solves.
+"""Dense linear-algebra helpers: jittered Cholesky factors, closed-form 3x3
+factors and triangular solves.
 
-Counterpart of ``gpirt_tpu/ops/linalg.py`` for the slice. ``chol3`` and
-``tri3_solve`` keep the JAX package's closed form: the beta block factors
-one 3x3 matrix per (chain, horizon, item), and the scalar recurrence is a
-few elementwise passes over that batch.
+Counterpart of ``gpirt_tpu/ops/linalg.py``. ``chol3`` and ``tri3_solve``
+keep the JAX package's closed form: the beta block factors one 3x3 matrix
+per (chain, horizon, item), and the scalar recurrence is a few elementwise
+passes over that batch. A failed factorization gives NaN, as
+``jnp.linalg.cholesky`` does, and never a host sync to find out.
 """
 
 from __future__ import annotations
@@ -11,7 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["host_cholesky_f64", "chol3", "tri3_solve", "tri_solve"]
+__all__ = [
+    "host_cholesky_f64",
+    "cholesky",
+    "chol_with_jitter",
+    "double_solve",
+    "chol3",
+    "tri3_solve",
+    "tri_solve",
+]
 
 
 def host_cholesky_f64(gram: np.ndarray, jitter: float, dtype=np.float32) -> np.ndarray:
@@ -20,6 +30,40 @@ def host_cholesky_f64(gram: np.ndarray, jitter: float, dtype=np.float32) -> np.n
     n = gram.shape[-1]
     L = np.linalg.cholesky(gram + jitter * np.eye(n))
     return L.astype(dtype)
+
+
+def cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor over the trailing (n, n) axes; a matrix whose
+    factorization fails gives all NaN. ``torch.linalg.cholesky`` would
+    raise instead, and on the card it syncs with the host to check."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def chol_with_jitter(gram: torch.Tensor, jitter: float, *,
+                     normalized: bool = False) -> torch.Tensor:
+    """Lower Cholesky of ``gram + jitter I`` over the trailing (n, n) axes.
+
+    ``normalized`` is the float32 stability mode: factor the correlation
+    form, K = D^{1/2} C D^{1/2} with unit-diagonal C, as
+    D^{1/2} chol(C + jitter I). The ICC Gram's diagonal spans ~4 orders of
+    magnitude (its quadratic term grows as theta^4), and normalizing bounds
+    the rounding error by ~n eps32 whatever the kernel's scale; the nugget
+    becomes relative, jitter k(theta_i, theta_i) a point
+    (``gpirt_tpu/ops/linalg.py:28``).
+    """
+    eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
+    if not normalized:
+        return cholesky(gram + jitter * eye)
+    d = torch.sqrt(torch.diagonal(gram, dim1=-2, dim2=-1))  # (..., n)
+    inv = 1.0 / d
+    C = gram * (inv.unsqueeze(-1) * inv.unsqueeze(-2))
+    return d.unsqueeze(-1) * cholesky(C + jitter * eye)
+
+
+def double_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(L L^T)^{-1} b`` by two triangular solves (reference double_solve)."""
+    return tri_solve(L, tri_solve(L, b), trans=True)
 
 
 def chol3(M: torch.Tensor) -> torch.Tensor:

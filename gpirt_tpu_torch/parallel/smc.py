@@ -80,6 +80,8 @@ def anneal_init(
     holds the annealing steps' weight-ESS trace, the resample count (the
     final resample included) and the final weight ESS.
     """
+    if config.resolved_f_method != "conjugate":
+        raise NotImplementedError("anneal_init needs f_method='conjugate'")
     K = theta_init.shape[0]
     dt, dev = config.tdtype, consts.grid.device
     # the ladder in the working precision, as the JAX package holds it

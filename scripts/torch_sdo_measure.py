@@ -1,17 +1,21 @@
-"""The port on one CUDA card: where a sampling sweep's time goes, on SDO or
-on the dynamic configuration.
+"""The port on one CUDA card: where a sampling sweep's time goes, on SDO,
+the dynamic, the synthetic or the two-stage configuration.
 
-    python3 scripts/torch_sdo_measure.py [--config sdo|dynamic]
+    python3 scripts/torch_sdo_measure.py
+        [--config sdo|dynamic|synthetic|two_stage]
         [--threshold-method ess|newton] [--trace-dir DIR]
 
-Runs the SDO survey (1500 respondents x 16 items, C = 5), or with
-``--config dynamic`` chip_smoke.py's dynamic configuration (150 x 60 x 10
-sessions, binary, GP theta regime), through gpirt_mcmc with 64 chains,
-burn 200 and 41 draws, and observes the sampling sweeps (through
-models.sampler's call of gibbs_sweep):
+Runs the SDO survey (1500 respondents x 16 items, C = 5), or one of
+chip_smoke.py's configurations: ``dynamic`` (150 x 60 x 10 sessions,
+binary, GP theta regime), ``synthetic`` (simulate_2pl 5000 x 1000, 10%
+missing, every chain from one spread init) or ``two_stage`` (senate116
+through f_method="two_stage" from bench.py's spread init), through
+gpirt_mcmc with 64 chains, burn 200 and 41 draws, and observes the sampling
+sweeps (through models.sampler's call of gibbs_sweep):
 
   sweeps 5-19   the wall by the host clock (a synchronise at each end), and
-                the cutpoint ESS's rounds and host syncs in them;
+                the rounds and host syncs of ess_update (the cutpoint ESS;
+                f and beta under two_stage) in them;
   sweeps 20-29  each block of the sweep timed by CUDA events around its
                 call (the stream's time from the block's first launch to
                 its last, idle gaps included);
@@ -34,11 +38,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
+
 from chip_smoke import (  # noqa: E402
     DYN_LS,
     DYN_VOTES,
     K,
     SEED,
+    SYN_M,
+    SYN_MISSING,
+    SYN_N,
     card,
     dynamic_inputs,
     log,
@@ -46,7 +55,11 @@ from chip_smoke import (  # noqa: E402
 from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.models import gibbs, sampler  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
-from gpirt_tpu_torch.utils.datasets import load_sdo  # noqa: E402
+from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
+    load_sdo,
+    senate116_response_matrix,
+    simulate_2pl,
+)
 from torch_threshold_ess_measure import report_profile  # noqa: E402
 
 BURN, DRAWS = 200, 41
@@ -54,8 +67,9 @@ BURN, DRAWS = 200, 41
 # divides by a window of ten sweeps, as here
 WALL_FROM, BLOCKS_FROM, PROF_FROM, PROF_TO = 5, 20, 30, 40
 BLOCKS = ["_draw_theta_grid", "draw_z_truncnorm", "draw_fstar_conjugate",
-          "draw_beta_conjugate", "draw_threshold", "_draw_threshold_binary_newton",
-          "_draw_threshold_newton_ordinal", "ordinal_ll_terms"]
+          "draw_beta_conjugate", "draw_f", "draw_fstar", "draw_beta", "draw_threshold",
+          "_draw_threshold_binary_newton", "_draw_threshold_newton_ordinal",
+          "ordinal_ll_terms"]
 
 
 def timed_blocks(events):
@@ -83,7 +97,8 @@ def timed_blocks(events):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="sdo", choices=["sdo", "dynamic"])
+    ap.add_argument("--config", default="sdo",
+                    choices=["sdo", "dynamic", "synthetic", "two_stage"])
     ap.add_argument("--threshold-method", default="ess", choices=["ess", "newton"])
     ap.add_argument("--trace-dir", help="where the profiler's table and trace go")
     opt = ap.parse_args()
@@ -116,9 +131,17 @@ def main():
 
     if opt.config == "sdo":
         data, kw = load_sdo(), dict(vote_codes=None)
-    else:
+    elif opt.config == "dynamic":
         _, data, init = dynamic_inputs()
         kw = dict(vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init)
+    elif opt.config == "synthetic":
+        _, data = simulate_2pl(0, n=SYN_N, m=SYN_M, missing=SYN_MISSING)
+        init = np.random.default_rng(0).permutation(np.linspace(-3, 3, SYN_N))
+        kw = dict(vote_codes=DYN_VOTES, theta_init=init)
+    else:
+        data, _, _ = senate116_response_matrix()
+        init = np.random.default_rng(0).permutation(np.linspace(-2, 2, data.shape[0]))
+        kw = dict(f_method="two_stage", theta_init=init)
     real = timed_blocks(events)
     sampler.gibbs_sweep = observed
     try:
@@ -134,8 +157,8 @@ def main():
     wall_ms = (stamps[BLOCKS_FROM] - stamps[WALL_FROM]) / n_wall * 1e3
     c0, c1 = counts[WALL_FROM], counts[BLOCKS_FROM]
     log(f"{opt.config} sampling sweeps on {smi}, cutpoints by {opt.threshold_method}: wall "
-        f"{wall_ms:.4f} ms a sweep (sweeps {WALL_FROM}-{BLOCKS_FROM - 1}); cutpoint "
-        f"ESS {(c1[1] - c0[1]) / max(c1[0] - c0[0], 1):.2f} rounds an update, "
+        f"{wall_ms:.4f} ms a sweep (sweeps {WALL_FROM}-{BLOCKS_FROM - 1}); ess_update "
+        f"{(c1[1] - c0[1]) / max(c1[0] - c0[0], 1):.2f} rounds an update, "
         f"{(c1[2] - c0[2]) / n_wall:.2f} host syncs a sweep")
     torch.cuda.synchronize()
     n_blk = PROF_FROM - BLOCKS_FROM

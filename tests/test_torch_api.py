@@ -32,7 +32,7 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("kw", [
     dict(horizon=2, constant_IRF=True), dict(constant_IRF=True),
-    dict(f_method="grid"), dict(f_method="two_stage"),
+    dict(f_method="grid"), dict(f_method="two_stage", horizon=2, constant_IRF=True),
     dict(threshold_method="collapsed"), dict(threshold_method="interleave"),
     dict(theta_method="ess"), dict(horizon=3, theta_method="ess"),
 ])
@@ -42,7 +42,8 @@ def test_config_outside_slice_raises(kw):
 
 
 def test_config_in_slice_accepted_and_validated():
-    for kw in ({}, dict(f_method="conjugate", threshold_method="ess")):
+    for kw in ({}, dict(f_method="conjugate", threshold_method="ess"),
+               dict(f_method="two_stage", fstar_method="chol")):
         assert GPIRTConfig(n=5, m=4, **kw).grid_step == 0.01
     with pytest.raises(ValueError):
         GPIRTConfig(n=0, m=4)

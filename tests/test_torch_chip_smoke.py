@@ -1,12 +1,18 @@
 """What chip_smoke.py computes without a card: the round count that its
-kernel bound rests on, and its refusal to run without CUDA."""
+kernel bound rests on, its refusal to run without CUDA, and the inputs and
+setup of its sweep checks and of the synthetic path at a reduced size."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from gpirt_tpu_torch import gpirt_mcmc
+from gpirt_tpu_torch.models import gibbs
+from gpirt_tpu_torch.models.config import make_constants
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess_reference
+from gpirt_tpu_torch.utils.datasets import simulate_2pl
+from gpirt_tpu_torch.utils.response import as_response_matrix
 
 _C = 0.7071067811865476
 _TWO_PI = 6.283185307179586
@@ -50,6 +56,60 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     out = capsys.readouterr()
     assert out.out == ""
     assert "is_available() is false" in out.err
+
+
+def test_synthetic_run_at_reduced_size():
+    """Phase 16's setup and run (bench.py::bench_synthetic's data, one
+    permutation of linspace(-3, 3, n) a chain, the conjugate sampler through
+    run_chains) at n = 300, m = 40 and 2 chains on the CPU."""
+    cpu = torch.device("cpu")
+    inputs = chip_smoke.synthetic_inputs(cpu, n=300, m=40, K=2)
+    y, ti, thr, _, cfg = inputs
+    assert cfg.resolved_f_method == "conjugate" and cfg.C == 2
+    assert y.shape == (1, 300, 40) and y.dtype == torch.int32
+    assert 0.05 < float((y == 0).double().mean()) < 0.15  # 10% missing
+    assert ti.shape == (2, 1, 300) and not torch.equal(ti[0], ti[1])
+    for c in range(2):
+        np.testing.assert_allclose(np.sort(ti[c, 0].numpy()), np.linspace(-3, 3, 300),
+                                   atol=1e-6)
+    assert thr.shape == (1, 40, 3)
+    out, launches, wall, args = chip_smoke.synthetic_run(cpu, inputs, 2, 3)
+    assert launches == 0 and wall > 0  # the CPU runs the plain version
+    assert out["ll"].shape == (2, 3) and bool(torch.isfinite(out["ll"]).all())
+    assert out["theta"].shape == (2, 3, 1, 300)
+    assert bool((out["threshold"][:, -1, ..., 1] != 0).all())
+    assert tuple(args[0].shape) == (2, 1, 300, 40) and torch.equal(args[1], y)
+
+
+@pytest.mark.parametrize("C, fstar_method", [(2, "matheron"), (2, "chol"),
+                                             (5, "matheron"), (5, "chol")])
+def test_two_stage_sweep_check_inputs_are_finite(C, fstar_method):
+    """Phase 12's float32 two-stage sweep on the CPU: every field finite,
+    the cutpoints moved, and a finite rounding spread of f and f*."""
+    cpu = torch.device("cpu")
+    cfg, priors, state0, draws, y = chip_smoke.sweep_inputs(
+        C, model_y=True, f_method="two_stage", fstar_method=fstar_method)
+    assert isinstance(draws, gibbs.TwoStageDraws)
+    consts = make_constants(cfg, *priors, device=cpu)
+    state, ll, f = chip_smoke.two_stage_sweep_on(cpu, state0, draws, y, consts, cfg)
+    for a in (state.f, state.beta, state.fstar, ll, f):
+        assert bool(torch.isfinite(a).all())
+    assert float((state.thresholds != state0.thresholds)[..., 1:-1].double().mean()) > 0.2
+    spread = chip_smoke.sweep_spread(state0, draws, y, consts, cfg, reps=1)
+    assert all(bool(torch.isfinite(s).all()) for s in spread.values())
+
+
+def test_recovery_check_on_the_cpu(capsys):
+    """Phase 14 with the CPU in the card's place, on a small two-stage
+    chain: the batch's shape and seed, one draw against itself within its
+    own rounding spread."""
+    _, votes = simulate_2pl(2, n=20, m=8)
+    rm = np.asarray(as_response_matrix(votes, chip_smoke.DYN_VOTES, verbose=False))
+    chain = gpirt_mcmc(votes, 3, 2, CHAIN=1, vote_codes=chip_smoke.DYN_VOTES,
+                       f_method="two_stage", store_f=True,
+                       theta_init=np.linspace(-2, 2, 20), device="cpu")[0]
+    chip_smoke.recovery_check(chain, rm, torch.device("cpu"), "cpu")
+    assert "draw_f max abs diff 0, f* 0 " in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("C", [2, 5])

@@ -7,9 +7,10 @@ from that file's ``_stats``, and states pass between the packages as
 numpy. If every block of the port targets its exact conditional, moments
 of the chain agree with forward draws from the prior up to MC error.
 
-The oracles run 12,000 sweeps each and are ``slow``: three of one session
-and two of two sessions, in the RDM and GP theta regimes. Short chains
-check finite, ordered cutpoints in the fast tier.
+The oracles run 12,000 sweeps each and are ``slow``: three of one session,
+two of two sessions, in the RDM and GP theta regimes, and one of the
+two-stage sampler (``f_method="two_stage"``). Short chains check finite,
+ordered cutpoints in the fast tier.
 """
 
 import jax
@@ -30,15 +31,17 @@ from test_geweke import _stats
 NAMES = ["th", "th2", "b", "b2", "fs", "fs2", "t1", "t12", "ti", "ti2"]
 
 
-def _model(n, m, C, method, N=61, H=1, ls=10.0):
+def _model(n, m, C, method, N=61, H=1, ls=10.0, f_method="conjugate",
+           fstar_method="matheron"):
+    sampler = dict(f_method=f_method, fstar_method=fstar_method)
     jcfg = JConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
-                   f_method="conjugate", threshold_method=method, theta_ls=ls)
+                   threshold_method=method, theta_ls=ls, **sampler)
     jconsts = j_make_constants(jcfg, beta_prior_means=np.zeros((3, m)),
                                beta_prior_sds=np.full((3, m), 1.5),
                                theta_prior_means=np.zeros((2, n)),
                                theta_prior_sds=np.zeros((2, n)))
     cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
-                      threshold_method=method, theta_ls=ls)
+                      threshold_method=method, theta_ls=ls, **sampler)
     return jcfg, jconsts, cfg, constants_from_numpy(jconsts, device="cpu",
                                                     dtype=torch.float64)
 
@@ -47,7 +50,8 @@ def _chain(n, m, C, method, sweeps, seed=0, mask=None, **model):
     """The successive-conditional chain: the port's sweep given y, then y
     redrawn given the state. Returns the (sweeps, 10) statistics, the
     cutpoints of every sweep and the forward model. ``model`` takes the
-    horizon H and the time-GP length scale ls."""
+    horizon H, the time-GP length scale ls, and the sampler's f_method and
+    fstar_method."""
     jcfg, jconsts, cfg, consts = _model(n, m, C, method, **model)
     k0, k1, kr = jax.random.split(jax.random.key(seed + 1), 3)
     st0 = sample_prior_state(k0, jconsts, jcfg)
@@ -122,6 +126,13 @@ def test_geweke_regimes(regime, ls):
     _run_geweke_sweep(5, 3, 3, "auto", H=2, ls=ls)
 
 
+@pytest.mark.slow
+def test_geweke_two_stage():
+    """The two-stage sweep (ESS on f, Matheron's f* | f, ESS on beta, the
+    ordinal cutpoint ESS): TestGewekeTwoStage's sizes (tests/test_geweke.py)."""
+    _run_geweke_sweep(6, 3, 3, "auto", f_method="two_stage")
+
+
 @pytest.mark.parametrize("C, method", [(3, "ess"), (5, "newton")])
 def test_successive_conditional_smoke(C, method):
     """200 sweeps of the chain above: finite statistics and finite,
@@ -137,6 +148,19 @@ def test_successive_conditional_smoke_gp():
     """200 sweeps of the chain in the GP regime over two sessions: finite
     statistics and finite, strictly increasing cutpoints that move."""
     sc, thr, _ = _chain(5, 3, 3, "auto", 200, H=2, ls=1.0)
+    assert np.isfinite(sc).all()
+    t = thr[..., 1:-1]
+    assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
+    assert np.std(t[:, :, :, 0], axis=0).min() > 0
+
+
+@pytest.mark.parametrize("C, fstar_method", [(2, "matheron"), (3, "chol")])
+def test_successive_conditional_smoke_two_stage(C, fstar_method):
+    """200 sweeps of the chain with the two-stage sampler, binary (the
+    cutpoint ESS's plain version) and ordinal: finite statistics and finite,
+    strictly increasing cutpoints that move."""
+    sc, thr, _ = _chain(6, 3, C, "auto", 200, mask=_mask(42, 6, 3), f_method="two_stage",
+                        fstar_method=fstar_method)
     assert np.isfinite(sc).all()
     t = thr[..., 1:-1]
     assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()

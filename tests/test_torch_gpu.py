@@ -1,8 +1,9 @@
 """Port tests that need the card: the CUDA kernel against its plain version,
 over shapes (every thread-group size the kernel chooses from n) and edge
 cases; whole sweeps on the card against the same sweeps on the CPU (binary,
-ordinal with the cutpoints by ESS and by Newton, and over three sessions in
-the GP theta regime); and gpirt_mcmc on the card by default.
+ordinal with the cutpoints by ESS and by Newton, over three sessions in the
+GP theta regime, and the two-stage sampler with f* by both methods); and
+gpirt_mcmc, recover_fstar and recover_fstar_batch on the card by default.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -197,3 +198,53 @@ def test_gpirt_mcmc_runs_on_the_card_by_default(cuda_device):
     out = gpirt_mcmc(votes, sample_iterations=3, burn_iterations=2, CHAIN=2)
     assert binary_threshold_ess.launches == before + 5
     assert all(np.isfinite(d["ll"]).all() for d in out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fstar_method", ["matheron", "chol"])
+@pytest.mark.parametrize("C", [2, 5])
+def test_two_stage_sweep_on_card_matches_cpu(cuda_device, C, fstar_method):
+    """An untempered two-stage sweep (chip_smoke.py's phase 12 inputs): theta
+    identical, draw_f's f, beta and the cutpoints within 1e-3, f and f*
+    within 1e-3 + 1e-3 |x| plus four times the lane's own rounding spread
+    on the CPU (Matheron's smoother and the posterior Cholesky amplify
+    float32 rounding); at C = 2 the kernel runs once."""
+    cfg, priors, state0, draws, y = chip_smoke.sweep_inputs(
+        C, model_y=True, f_method="two_stage", fstar_method=fstar_method)
+    cpu = torch.device("cpu")
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, cuda_device)}
+    before = binary_threshold_ess.launches
+    s_cpu, ll_cpu, f_cpu = chip_smoke.two_stage_sweep_on(cpu, state0, draws, y,
+                                                         consts[cpu], cfg)
+    s_gpu, ll_gpu, f_gpu = chip_smoke.two_stage_sweep_on(cuda_device, state0, draws, y,
+                                                         consts[cuda_device], cfg)
+    assert binary_threshold_ess.launches == before + (C == 2)
+    assert torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu())
+    for got, want in ((f_gpu, f_cpu), (s_gpu.beta, s_cpu.beta),
+                      (s_gpu.thresholds, s_cpu.thresholds)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+    spread = chip_smoke.sweep_spread(state0, draws, y, consts[cpu], cfg)
+    for k in ("f", "fstar"):
+        ratio, _ = chip_smoke.held_to_spread(getattr(s_gpu, k), getattr(s_cpu, k), spread[k])
+        assert ratio <= 1.0, (k, ratio)
+    assert bool(torch.isfinite(ll_gpu).all())
+
+
+@pytest.mark.gpu
+def test_recover_fstar_runs_on_the_card_by_default(cuda_device):
+    """recover_fstar and recover_fstar_batch with no ``device`` argument:
+    finite f* of the reference shapes, the same under one seed."""
+    from gpirt_tpu_torch import recover_fstar, recover_fstar_batch
+
+    rng = np.random.default_rng(1)
+    votes = np.where(rng.random((20, 12)) < 0.5, 1.0, 6.0)
+    d = gpirt_mcmc(votes, sample_iterations=3, burn_iterations=1, CHAIN=1,
+                   f_method="two_stage", store_f=True,
+                   theta_init=np.linspace(-2, 2, 20))[0]
+    rm = np.where(votes == 1.0, 1.0, 0.0)
+    args = (d["f"][-1], rm, d["theta"][-1], d["beta"][-1], d["threshold"][-1])
+    rec = recover_fstar(5, *args)
+    assert rec["fstar"].shape == (1001, 12, 1) and np.isfinite(rec["fstar"]).all()
+    np.testing.assert_array_equal(rec["fstar"], recover_fstar(5, *args)["fstar"])
+    batch = recover_fstar_batch(5, d, rm)
+    assert batch.shape == (3, 1001, 12, 1) and np.isfinite(batch).all()
