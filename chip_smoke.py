@@ -54,7 +54,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
  15. fstar10k: bench.py::bench_fstar10k, simulate_2pl(0, n=100, m=50)
      through gpirt_mcmc(2 draws, store_f) and recover_fstar at a 10001-point
      grid twice (seeds 1 and 2), the second timed, the host constants
-     apart;
+     apart; checked for one kernel launch per sampling sweep;
  16. synthetic: bench.py::bench_synthetic, simulate_2pl(0, n=5000, m=1000,
      missing=0.1) on the conjugate path with 64 chains from spread inits,
      burn 30 and 150 draws, through run_chains; checked for one kernel
@@ -867,11 +867,14 @@ def recovery_check(chain, rm, dev, smi):
 
 
 def fstar10k(dev, smi):
-    """bench.py::bench_fstar10k on the card: returns the timed recovery's
-    seconds."""
+    """bench.py::bench_fstar10k on the card: returns the kernel's launches in
+    its two sampling sweeps."""
     _, raw = simulate_2pl(0, n=F10K_N, m=F10K_M)
+    threshold_ess.binary_threshold_ess.launches = 0
     out = gpirt_mcmc(raw, 2, 0, vote_codes=DYN_VOTES, store_f=True, dtype="float32",
                      device=dev)
+    launches = threshold_ess.binary_threshold_ess.launches
+    check(launches == 2, f"fstar10k: {launches} kernel launches for 2 sweeps")
     d = out[0]
     rm = np.asarray(as_response_matrix(raw, DYN_VOTES, verbose=False))
     args = (d["f"][-1], rm, d["theta"][-1], d["beta"][-1], d["threshold"][-1])
@@ -890,8 +893,9 @@ def fstar10k(dev, smi):
         f"(float64 Gram, Cholesky and eigendecomposition, then to the card)")
     log(f"fstar10k on {smi}: n={F10K_N}, m={m}, N={F10K_GRID}; first call {first_wall:.3f} s "
         f"(constants included), second call {wall:.5f} s wall ({rec['seconds']['recovery']:.5f} "
-        f"s recovery, constants cached); f* {rec['fstar'].shape}, finite")
-    return wall
+        f"s recovery, constants cached); f* {rec['fstar'].shape}, finite; {launches} "
+        f"kernel launches in its 2 sampling sweeps")
+    return launches
 
 
 def synthetic_inputs(dev, n=SYN_N, m=SYN_M, K=SYN_K):
@@ -1013,7 +1017,7 @@ def main():
     chain, ts_launches = timed("13 (two-stage path)", two_stage_path, rm, dev, smi)
     timed("14 (recovery)", recovery_check, chain, rm, dev, smi)
     del chain
-    timed("15 (fstar10k)", fstar10k, dev, smi)
+    f10k_launches = timed("15 (fstar10k)", fstar10k, dev, smi)
     syn_launches, syn_args = timed("16 (synthetic path)", synthetic_path, dev, smi)
     t = time.perf_counter()
     syn_worst, syn_flipped = kernel_check(syn_args, "synthetic state")
@@ -1055,6 +1059,7 @@ def main():
         "bound_ms_dynamic_state": dyn_work["bound_ms"],
         "bound_by_dynamic_state": dyn_work["bound_by"],
         "launches_two_stage": ts_launches,
+        "launches_fstar10k": f10k_launches,
         "launches_synthetic": syn_launches,
         "max_abs_err_synthetic": syn_worst,
         "lanes_over_1e-5_synthetic": syn_flipped,
