@@ -60,7 +60,38 @@ Phases, each of which stops the run with a non-zero exit on failure:
      burn 30 and 150 draws, through run_chains; checked for one kernel
      launch per sweep, finite ll, cutpoints that moved; prints the sweep
      rate, theta ESS per second and the peak device memory, then phase 6 on
-     the inputs of its last sweep (the kernel's streaming variant).
+     the inputs of its last sweep (the kernel's streaming variant);
+ 17. per-chain c: phase 3 on its random lanes with each chain at its own
+     temperature on a geometric ladder from 1 to 64, and the kernel timed
+     there against the same lanes with one scalar c;
+ 18. tempered sweep check: phase 4 (and, at C = 5, phase 7) with one
+     temperature a chain (1, 4 and 16), at C = 2 and 5: the card against
+     the CPU, every field within 1e-3 but f* within 1e-3 + 1e-3 |f*| (the
+     untempered chain's f* reaches ~70 at the grid's edge, where float32
+     alone moves it by ~1e-3), and its largest distance from the same sweep
+     on the CPU in float64 printed;
+ 19. tempering path: senate116 through gpirt_mcmc(CHAIN=64, n_temps=4,
+     max_temp=4.0, swap_every=1), burn 100 and 500 draws, no SMC (256
+     lanes); checked for one kernel launch per sweep, each with 4 distinct
+     c values, finite cold draws and swap rates; prints the swap rate by
+     rung, the cold theta ESS and the sweep rate, then phase 6 on the inputs
+     of its last sweep with their per-chain c;
+ 20. campaigns8: bench.py::bench_campaigns8 on one card, gpirt_campaigns on
+     senate116 at campaign_schedule(2) (8 campaigns of 64 chains, SMC 160
+     steps from T = 64, burn 25, 100 draws, Newton cutpoints: 512 lanes),
+     a warm call (SEED 990001) and the timed one (SEED 100000); checked
+     for finite output and no kernel launch; prints the pooled ESS per
+     second, the batch wall, the campaign ESS and theta SE medians and the
+     final weight ESS;
+ 21. chains64: bench.py::bench_chains64, 64 chains from spread inits, burn
+     100 and 300 draws, no SMC, through run_chains; checked for one kernel
+     launch per sweep; prints split R-hat's maximum and the pooled ESS per
+     second of the sign-aligned draws;
+ 22. campaign agreement: phase 20's sign-aligned grand mean against the
+     JAX package's (tests/fixtures/campaigns8_senate116_jax.npz, written
+     by scripts/jax_campaign_fixture.py): Pearson r >= 0.99 and |z| <= 4
+     for at least 95 of the 100 senators, z the difference over the root
+     sum of the two campaign-replicated squared standard errors.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -82,7 +113,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gpirt_tpu_torch import api, gpirt_mcmc  # noqa: E402
+from gpirt_tpu_torch import api, campaign_schedule, gpirt_campaigns, gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.api import (  # noqa: E402
     _recover_one,
     default_thresholds,
@@ -103,7 +134,12 @@ from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     simulate_2pl,
     simulate_dynamic,
 )
-from gpirt_tpu_torch.utils.diagnostics import effective_sample_size_device  # noqa: E402
+from gpirt_tpu_torch.utils.diagnostics import (  # noqa: E402
+    align_theta_signs,
+    effective_sample_size,
+    effective_sample_size_device,
+    split_rhat,
+)
 from gpirt_tpu_torch.utils.response import as_response_matrix, encode_categories  # noqa: E402
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
@@ -116,6 +152,15 @@ TS_BURN, TS_DRAWS = 100, 200  # the two-stage path on senate116
 # those were a 16 GB TPU's limit)
 F10K_N, F10K_M, F10K_GRID = 100, 50, 10001
 SYN_N, SYN_M, SYN_MISSING, SYN_K, SYN_BURN, SYN_DRAWS = 5000, 1000, 0.1, 64, 30, 150
+# the tempering path (gpirt_mcmc's n_temps), bench.py::bench_chains64 and
+# bench_campaigns8 on senate116
+PT_TEMPS, PT_MAX_TEMP, PT_BURN, PT_DRAWS = 4, 4.0, 100, 500
+C64_BURN, C64_DRAWS = 100, 300
+CAMPAIGNS, CAMPAIGN_WARM_SEED, CAMPAIGN_SEED = 8, 990001, 100000
+CAMPAIGN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                "fixtures", "campaigns8_senate116_jax.npz")
+# per-chain temperatures of the tempered sweep check's 3 chains
+SWEEP_TEMPS = (1.0, 4.0, 16.0)
 # The posterior Cholesky of f* in float32 needs a nugget above the rounding
 # of K** - V^T V (~n eps32 max K** ~ 8e-3 at the sweep check's n = 12,
 # N = 101); at 1e-5 it is NaN on every device, in JAX too.
@@ -214,15 +259,30 @@ def random_lanes(y_dev):
             torch.log(rand(K, H, m)), rand(K, H, m) * _TWO_PI, rand(64, K, H, m))
 
 
-def kernel_check(args, label, temps=(1.0, T_MAX)):
+def c_of(temp):
+    """The kernel's scale 1/sqrt(2 T): a float, or a (K,) tensor of one a
+    chain for a (K,) tensor of temperatures."""
+    return _C / (torch.sqrt(temp) if torch.is_tensor(temp) else np.sqrt(temp))
+
+
+def temp_label(temp):
+    if torch.is_tensor(temp):
+        return f"per chain {float(temp.min()):g} to {float(temp.max()):g}"
+    return f"{temp:g}"
+
+
+def kernel_check(args, label, temps=(1.0, T_MAX), c=None):
     """The kernel against its plain version on ``args``: at most 0.1% of
     lanes over 1e-5 (a near-tie accept may flip, the site sum being taken
-    in another order), finite, and most lanes moved. Returns the largest
-    error of the other lanes and the count of lanes over 1e-5."""
+    in another order), finite, and most lanes moved; at each of ``temps``
+    (a temperature may be a (K,) tensor of one a chain), or at the scale
+    ``c`` alone when it is given. Returns the largest error of the other
+    lanes and the count of lanes over 1e-5."""
     L = args[2].numel()
     worst, flipped = 0.0, 0
-    for temp in temps:
-        c = _C / np.sqrt(temp)
+    scales = ([(temp_label(t), c_of(t)) for t in temps] if c is None
+              else [(f"{temp_label((_C / c) ** 2)} (c as given)", c)])
+    for tl, c in scales:
         got = threshold_ess.binary_threshold_ess(*args, c)
         torch.cuda.synchronize()
         want = threshold_ess.binary_threshold_ess_reference(*args, c)
@@ -230,12 +290,12 @@ def kernel_check(args, label, temps=(1.0, T_MAX)):
         err = (got - want).abs()
         over = int((err > 1e-5).sum())
         check(bool(torch.isfinite(got).all()), f"{label}: kernel output not finite")
-        check(over <= 0.001 * L,
-              f"{label} T={temp:g}: {over} of {L} lanes differ by more than 1e-5")
+        check(over <= 0.001 * L, f"{label} T={tl}: {over} of {L} lanes "
+              "differ by more than 1e-5")
         check(float((got != args[2]).float().mean()) > 0.8, f"{label}: lanes did not move")
         rest = float(err[err <= 1e-5].max())
         worst, flipped = max(worst, rest), flipped + over
-        log(f"kernel check, {label}, T={temp:g}: lanes={L} over_1e-5={over} "
+        log(f"kernel check, {label}, T={tl}: lanes={L} over_1e-5={over} "
             f"max_abs_err(rest)={rest:.3g}")
     return worst, flipped
 
@@ -252,7 +312,10 @@ def kernel_times(args, c, plain_reps=10):
 def lane_rounds(g, y, t1, nu, logu, eps0, rs, c):
     """Each lane's proposals up to its accept, R for a lane at the cap, and
     the mask of lanes at the cap: a copy of the plain version's loop
-    (gpirt_tpu_torch/ops/threshold_ess.py) that counts."""
+    (gpirt_tpu_torch/ops/threshold_ess.py) that counts; ``c`` a float or a
+    (K,) tensor."""
+    if torch.is_tensor(c):
+        c = c.reshape(-1, 1, 1, 1)
     obs = (y > 0).to(g.dtype)
     sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
 
@@ -283,15 +346,16 @@ def lane_rounds(g, y, t1, nu, logu, eps0, rs, c):
 
 def kernel_bound(args, c, label="main path's state"):
     """The work this launch needs and the least time the card could take
-    for it: each input read once (of rs, the values a shrink uses), the
-    output written once, and every observed site evaluated once per ll."""
+    for it: each input read once (of rs, the values a shrink uses; c a
+    (K,) vector), the output written once, and every observed site
+    evaluated once per ll."""
     g, y, t1 = args[0], args[1], args[2]
     rounds, capped = lane_rounds(*args, c)
     n_obs = (y > 0).sum(dim=1)  # (H, m), shared by the chains
     site_evals = int(((1 + rounds) * n_obs).sum())
     shrinks = int(torch.where(capped, rounds, rounds - 1).sum())
     L = t1.numel()
-    nbytes = 4 * (g.numel() + y.numel() + 5 * L + shrinks)
+    nbytes = 4 * (g.numel() + y.numel() + 5 * L + shrinks + g.shape[0])
     ops = OPS_PER_SITE * site_evals
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / FP32_OPS_PER_S * 1e3
@@ -332,6 +396,8 @@ def sweep_on(d, state0, draws, y, consts, cfg, temp, z_given=None):
         seen.update(g=g, thr=thr, u=u, z=z)
         return z
 
+    if torch.is_tensor(temp):
+        temp = temp.to(device=d, dtype=cfg.tdtype)
     gibbs.draw_z_truncnorm = observe
     try:
         state, _ = gibbs.gibbs_sweep(
@@ -421,7 +487,10 @@ def sweep_check(dev, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
     (:func:`sweep_inputs`): theta equal, the rest within 1e-3. At C > 2 f*
     is held to 1e-3 given the CPU's z draw, and to 1e-3 + 1e-3 |f*| on its
     own draw; the cells that set both differences are printed. ``H``
-    sessions and ``theta_ls`` pick the theta regime."""
+    sessions and ``theta_ls`` pick the theta regime; ``temp`` is a float or
+    a (3,) tensor of one temperature a chain, and then f* is held to
+    1e-3 + 1e-3 |f*| at any C and the card's largest distance from the same
+    sweep on the CPU in float64 is printed too."""
     cfg, priors, state0, draws, y = sweep_inputs(C, method, H, theta_ls)
     cpu = torch.device("cpu")
     consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
@@ -431,6 +500,17 @@ def sweep_check(dev, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
     label = f"C={C}, cutpoints by {method}"
     if H > 1:
         label += f", H={H}, {cfg.theta_regime} regime"
+    if torch.is_tensor(temp):
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        s64, _ = sweep_on(cpu, gibbs.GPIRTState(*(a.double() if a.is_floating_point()
+                                                   else a for a in state0)),
+                          draws.to(torch.float64), y,
+                          {cpu: make_constants(cfg64, *priors, device=cpu)}, cfg64, temp)
+        log(f"tempered sweep (card, float32, T {temp_label(temp)}, {label}) against "
+            "the CPU in float64: theta equal "
+            f"{torch.equal(s64.theta_idx, s_gpu.theta_idx.cpu())}, max abs diff "
+            + ", ".join(f"{k} {max_diff(getattr(s_gpu, k), getattr(s64, k))[0]:.3g}"
+                        for k in ("f", "beta", "thresholds", "fstar")))
     check(torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu()), f"sweep theta differs ({label})")
     errs = {k: max_diff(getattr(s_gpu, k), getattr(s_cpu, k))[0]
             for k in ("f", "beta", "thresholds", "fstar")}
@@ -441,7 +521,7 @@ def sweep_check(dev, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
         dz, iz = max_diff(z_gpu["z"], z_cpu["z"])
         g, u = float(z_cpu["g"][iz]), float(z_cpu["u"][iz])
         lo, hi, _ = cutpoint_bounds(torch.as_tensor(y), z_cpu["thr"])
-        sd = float(np.sqrt(temp))
+        sd = float(temp[iz[0]] if torch.is_tensor(temp) else temp) ** 0.5
         a, b = (float(lo[iz]) - g) / sd, (float(hi[iz]) - g) / sd
         cdf_a, cdf_b = 0.5 * math.erfc(-a / math.sqrt(2)), 0.5 * math.erfc(-b / math.sqrt(2))
         p = cdf_a + u * (cdf_b - cdf_a)
@@ -452,11 +532,19 @@ def sweep_check(dev, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
                  f"{float(z_gpu['z'][iz]):.4f} (card), bounds {a:.4g} and {b:.4g} sd from g, "
                  f"interval mass {cdf_b - cdf_a:.3g}, p {p:.9g}; f* differs most at "
                  f"cell {i_f} (theta {theta_f:.2f}), |f*| {abs(float(s_cpu.fstar[i_f])):.4g}")
-    log(f"sweep check (card vs CPU, float32, T={temp:g}, {label}): max abs diff " + line)
+    log(f"sweep check (card vs CPU, float32, T={temp_label(temp)}, {label}): max abs "
+        "diff " + line)
+    # f* by PERF.md's 1e-3 + 1e-3 |f*| where a far-tail cell (C > 2) or an
+    # untempered chain's grid edge (one temperature a chain: |f*| ~70 at
+    # theta = -5, where float32 alone moves f* by ~1e-3 on the CPU) sets it
+    relative_fstar = C > 2 or torch.is_tensor(temp)
     for k, v in errs.items():
-        if k != "fstar" or C == 2:
+        if k != "fstar" or not relative_fstar:
             check(v < 1e-3, f"sweep {k} differs by {v:.3g} ({label})")
-    if C > 2:
+    if relative_fstar:
+        _, i_f = max_diff(s_gpu.fstar, s_cpu.fstar)
+        log(f"sweep check f* ({label}): largest difference at |f*| "
+            f"{abs(float(s_cpu.fstar[i_f])):.4g}, held to 1e-3 + 1e-3 |f*|")
         check(bool(torch.isclose(s_gpu.fstar.cpu(), s_cpu.fstar, rtol=1e-3, atol=1e-3).all()),
               f"sweep fstar differs beyond 1e-3 + 1e-3 |f*| ({label})")
     moved = (s_gpu.thresholds.cpu() != state0.thresholds)[..., 1:-1]
@@ -474,11 +562,13 @@ def theta_ess(theta, dev):
     return within_med, pooled_med
 
 
-def observe_kernel(run, before_call=None, kernel=None):
+def observe_kernel(run, before_call=None, kernel=None, scales=None):
     """Runs ``run()`` with the sweep's call of the kernel wrapper (through
     gibbs, once a sweep) observed: ``before_call(i)``, when given, runs
-    before the i-th call, and ``kernel``, when given, is called in the
-    wrapper's place. Returns run's result and the inputs of the last call."""
+    before the i-th call, ``kernel``, when given, is called in the
+    wrapper's place, and each call's c is appended to the list ``scales``
+    when one is given. Returns run's result and the inputs of the last
+    call."""
     seen = {"calls": 0, "args": None}
     wrapper = gibbs.binary_threshold_ess
     launch = wrapper if kernel is None else kernel
@@ -486,6 +576,8 @@ def observe_kernel(run, before_call=None, kernel=None):
     def observe(*args):
         if before_call is not None:
             before_call(seen["calls"])
+        if scales is not None:
+            scales.append(args[7])
         seen["calls"] += 1
         seen["args"] = args[:7]
         return launch(*args)
@@ -956,6 +1048,174 @@ def synthetic_path(dev, smi):
     return launches, args
 
 
+def ladder(K, t_max=T_MAX, dev=None):
+    """(K,) float32 temperatures on a geometric ladder from 1 to ``t_max``."""
+    return torch.as_tensor(t_max ** (np.arange(K) / (K - 1)), dtype=torch.float32,
+                           device=dev)
+
+
+def per_chain_c(rand_args):
+    """Phase 17: the kernel on the random lanes with each chain at its own
+    temperature (:func:`ladder`) against its plain version, and its graph
+    time there against the same lanes with one scalar c (T = 1). Returns
+    (largest error of the other lanes, lanes over 1e-5, per-chain ms,
+    scalar ms)."""
+    temps = ladder(rand_args[0].shape[0], dev=rand_args[0].device)
+    worst, flipped = kernel_check(rand_args, "random lanes", temps=(temps,))
+    c = c_of(temps)
+    ms_chain = graph_ms(lambda: threshold_ess.binary_threshold_ess(*rand_args, c))
+    ms_scalar = graph_ms(lambda: threshold_ess.binary_threshold_ess(*rand_args, _C))
+    ms_chain_again = graph_ms(lambda: threshold_ess.binary_threshold_ess(*rand_args, c))
+    log(f"kernel time, random lanes: one c a chain (T {temp_label(temps)}) "
+        f"{ms_chain:.5f} / {ms_chain_again:.5f} ms (graph, before and after), one "
+        f"scalar c (T=1) {ms_scalar:.5f} ms (graph)")
+    return worst, flipped, ms_chain, ms_scalar
+
+
+def cold_draws(out):
+    """theta (K, S, n) of session 0 from gpirt_mcmc's chain dicts."""
+    return np.stack([d["theta"][:, :, 0] for d in out])
+
+
+def tempering_path(rm, dev, smi, chains=K, burn=PT_BURN, draws=PT_DRAWS):
+    """Phase 19: gpirt_mcmc with n_temps on senate116, checked; prints its
+    swap rates, cold theta ESS and sweep rate. Returns the kernel's
+    launches, the inputs of its last call and that call's per-chain c."""
+    scales = []
+    threshold_ess.binary_threshold_ess.launches = 0
+    out, args = observe_kernel(lambda: gpirt_mcmc(
+        rm, draws, burn, CHAIN=chains, SEED=SEED, n_temps=PT_TEMPS,
+        max_temp=PT_MAX_TEMP, swap_every=1, dtype="float32", device=dev,
+        verbose=False), scales=scales)
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = burn + draws
+    check(len(scales) == sweeps and launches == (sweeps if dev.type == "cuda" else 0),
+          f"tempering: {launches} kernel launches ({len(scales)} calls) for {sweeps} sweeps")
+    lanes = chains * PT_TEMPS
+    distinct = {int(torch.unique(c).numel()) for c in scales}
+    check(all(torch.is_tensor(c) and c.shape == (lanes,) for c in scales) and
+          distinct == {PT_TEMPS}, f"tempering: distinct c values a launch {distinct}")
+    check(len(out) == chains, "one result per chain")
+    ll = np.stack([d["ll"] for d in out])
+    theta = cold_draws(out)
+    rate = out[0]["swap_rate"]
+    check(ll.shape == (chains, draws) and np.isfinite(ll).all(), "tempering ll not finite")
+    check(np.isfinite(theta).all(), "tempering theta not finite")
+    check(rate.shape == (PT_TEMPS - 1,) and bool(((rate >= 0) & (rate <= 1)).all()),
+          f"tempering swap rates {rate}")
+    samp_s = out[0]["seconds"]["sampling"]
+    within, pooled = theta_ess(theta, dev)
+    log(f"tempering path on {smi}: senate116, {chains} chains x {PT_TEMPS} temperatures "
+        f"(ladder to {PT_MAX_TEMP:g}) = {lanes} lanes, {sweeps} sweeps in {samp_s:.3f} s "
+        f"({sweeps / samp_s:.2f} sweeps/s); {launches} kernel launches, each with "
+        f"{PT_TEMPS} distinct c values; swap rate by rung "
+        + ", ".join(f"{r:.4f}" for r in rate)
+        + f"; cold theta ESS median within-chain (summed over {chains} chains) {within:.1f}, "
+        f"pooled {pooled:.1f}; ess/sec {within / samp_s:.2f} (sampling wall)")
+    return launches, args, scales[-1]
+
+
+def campaigns8(rm, dev, smi, **schedule):
+    """Phase 20: bench.py::bench_campaigns8 on one card, checked; prints its
+    rates. ``schedule`` overrides campaign_schedule(2)'s fields. Returns the
+    timed call's result and the kernel's launches in it."""
+    kw = dict(n_campaigns=CAMPAIGNS, vote_codes=None, store_draws=False,
+              verbose=False, device=dev, **schedule)
+    data = np.asarray(rm)
+    gpirt_campaigns(data, SEED=CAMPAIGN_WARM_SEED, **kw)
+    threshold_ess.binary_threshold_ess.launches = 0
+    out = gpirt_campaigns(data, SEED=CAMPAIGN_SEED, **kw)
+    launches = threshold_ess.binary_threshold_ess.launches
+    sched = out["schedule"]
+    check(sched == dict(campaign_schedule(2), **schedule, n_campaigns=CAMPAIGNS),
+          f"campaigns8 schedule {sched}")
+    check(launches == 0, f"campaigns8: {launches} kernel launches under Newton cutpoints")
+    n = data.shape[0]
+    check(out["theta_mean"].shape == (n, 1) and np.isfinite(out["theta_mean"]).all(),
+          "campaigns8 grand mean not finite")
+    check(np.isfinite(out["theta_se"]).all() and (out["theta_se"] > 0).all(),
+          "campaigns8 standard errors not positive")
+    we = out["final_weight_ess"]
+    check(we.shape == (CAMPAIGNS,) and np.isfinite(we).all(), "final weight ESS")
+    w = out["walls"]["total_sec"]
+    pooled = float(np.sum(out["pooled_ess_per_campaign"]))
+    log(f"campaigns8 on {smi}: {CAMPAIGNS} campaigns x {sched['n_chains']} chains "
+        f"({CAMPAIGNS * sched['n_chains']} lanes), SMC {sched['smc_steps']} steps from "
+        f"T={sched['smc_max_temp']:g}, burn {sched['burn_iterations']}, "
+        f"{sched['sample_iterations']} draws, cutpoints by {sched['threshold_method']}; "
+        f"batch wall {w:.3f} s (smc {out['walls']['smc_sec']:.3f}, sampling "
+        f"{out['walls']['sampling_sec']:.3f}); pooled ESS sum {pooled:.1f}, "
+        f"{pooled / w:.2f} ESS/s; ess_campaign_median {out['ess_campaign_median']:.2f} "
+        f"({out['ess_campaign_median'] / w:.3f}/s); theta_se median "
+        f"{float(np.median(out['theta_se'])):.5f}; final weight ESS min/median "
+        f"{we.min():.2f}/{np.median(we):.2f} of {sched['n_chains']}; {launches} kernel "
+        "launches")
+    return out, launches
+
+
+def chains64(rm, dev, smi, chains=K, burn=C64_BURN, draws=C64_DRAWS):
+    """Phase 21: bench.py::bench_chains64 on one card, checked; prints split
+    R-hat's maximum and the pooled ESS per second. Returns the kernel's
+    launches and split R-hat's maximum."""
+    y, C, _ = encode_categories(np.asarray(rm))
+    H, n, m = y.shape
+    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype="float32")
+    consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
+                            np.zeros((2, n)), np.zeros((2, n)), device=dev)
+    rng = np.random.default_rng(0)
+    ti = np.stack([rng.permutation(np.linspace(-2, 2, n))[None] for _ in range(chains)])
+
+    def t32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    threshold_ess.binary_threshold_ess.launches = 0
+    t = time.perf_counter()
+    d = run_chains(gen, torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32,
+                                        device=dev),
+                   t32(ti), t32(default_thresholds(C, m, H)), consts, cfg,
+                   sample_iterations=draws, burn_iterations=burn)
+    theta = d["theta"][:, :, 0].cpu().numpy()  # (K, S, n)
+    wall = time.perf_counter() - t
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = burn + draws
+    check(launches == (sweeps if dev.type == "cuda" else 0),
+          f"chains64: {launches} kernel launches for {sweeps} sweeps")
+    check(np.isfinite(theta).all() and bool(torch.isfinite(d["ll"]).all()),
+          "chains64 draws not finite")
+    aligned = np.stack([align_theta_signs(c, reference=theta[0, 0]) for c in theta])
+    ess = effective_sample_size(aligned)
+    rhat_max = float(np.nanmax(split_rhat(aligned)))
+    check(np.isfinite(rhat_max) and rhat_max >= 1.0, f"chains64 rhat_max {rhat_max}")
+    log(f"chains64 on {smi}: senate116, {chains} chains, {sweeps} sweeps in {wall:.3f} s "
+        f"({sweeps / wall:.2f} sweeps/s); {launches} kernel launches; rhat_max "
+        f"{rhat_max:.4f}; pooled theta ESS median {float(np.median(ess)):.1f}, "
+        f"{float(np.median(ess)) / wall:.3f} ESS/s (wall of the run)")
+    return launches, rhat_max
+
+
+def campaign_agreement(out, fixture=CAMPAIGN_FIXTURE):
+    """Phase 22: the grand mean of a gpirt_campaigns run (``out``) against
+    the JAX package's, sign-aligned to it: Pearson r >= 0.99 and at least
+    95% of the respondents within |z| <= 4, z the difference over the root
+    sum of both squared standard errors. Returns (r, worst |z|, count)."""
+    with np.load(fixture) as f:
+        jax_mean, jax_se = f["campaign_means"].mean(axis=0), f["theta_se"]
+        sched = {k: f[k].item() for k in ("n_campaigns", "n_chains", "smc_steps",
+                                          "burn_iterations", "sample_iterations")}
+    port = align_theta_signs(out["theta_mean"][:, 0][None], reference=jax_mean)[0]
+    z = (port - jax_mean) / np.sqrt(out["theta_se"][:, 0] ** 2 + jax_se ** 2)
+    r = float(np.corrcoef(port, jax_mean)[0, 1])
+    within = int(np.sum(np.abs(z) <= 4.0))
+    n = jax_mean.size
+    log(f"campaign agreement with the JAX package ({sched}): Pearson r {r:.5f}, "
+        f"|z| <= 4 for {within} of {n}, worst |z| {float(np.abs(z).max()):.3f} "
+        f"(respondent {int(np.abs(z).argmax())}), median |z| {float(np.median(np.abs(z))):.3f}")
+    check(r >= 0.99, f"campaign grand means correlate at r = {r:.5f} < 0.99")
+    check(within >= 0.95 * n, f"only {within} of {n} respondents within |z| <= 4")
+    return r, float(np.abs(z).max()), within
+
+
 def timed(label, fn, *args):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
@@ -1029,6 +1289,25 @@ def main():
     log(f"phase 16 (kernel at the synthetic state): {time.perf_counter() - t:.2f} s wall")
     worst, flipped = max(worst, syn_worst), flipped + syn_flipped
 
+    pc_worst, pc_flipped, ms_pc, ms_scalar = timed("17 (per-chain c)", per_chain_c,
+                                                   rand_args)
+    worst, flipped = max(worst, pc_worst), flipped + pc_flipped
+    sweep_temps = torch.tensor(SWEEP_TEMPS)
+    for C in (2, 5):
+        timed(f"18 (tempered sweep check, C={C})", sweep_check, dev, C, "auto",
+              sweep_temps)
+    pt_launches, pt_args, pt_c = timed("19 (tempering path)", tempering_path, rm, dev, smi)
+    t = time.perf_counter()
+    pt_worst, pt_flipped = kernel_check(pt_args, "tempering state", c=pt_c)
+    pt_ms, pt_eager, pt_plain = kernel_times(pt_args, pt_c)
+    log(f"kernel time, tempering state (c per chain, T {temp_label((_C / pt_c) ** 2)}): "
+        f"{pt_ms:.5f} ms (graph), {pt_eager:.5f} ms (eager), plain {pt_plain:.4f} ms")
+    pt_work = kernel_bound(pt_args, pt_c, "tempering state")
+    log(f"phase 19 (kernel at the tempering state): {time.perf_counter() - t:.2f} s wall")
+    camp, camp_launches = timed("20 (campaigns8)", campaigns8, rm, dev, smi)
+    c64_launches, _ = timed("21 (chains64)", chains64, rm, dev, smi)
+    timed("22 (campaign agreement)", campaign_agreement, camp)
+
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
         "route": "cuda",
@@ -1069,6 +1348,20 @@ def main():
         "bound_ms_synthetic_state": syn_work["bound_ms"],
         "bound_by_synthetic_state": syn_work["bound_by"],
         "rounds_mean_synthetic_state": syn_work["rounds_mean"],
+        "ms_random_per_chain_c": ms_pc,
+        "ms_random_scalar_c": ms_scalar,
+        "max_abs_err_random_per_chain_c": pc_worst,
+        "lanes_over_1e-5_random_per_chain_c": pc_flipped,
+        "launches_tempering": pt_launches,
+        "max_abs_err_tempering": pt_worst,
+        "lanes_over_1e-5_tempering": pt_flipped,
+        "ms_tempering_state": pt_ms,
+        "ms_eager_tempering_state": pt_eager,
+        "plain_ms_tempering_state": pt_plain,
+        "bound_ms_tempering_state": pt_work["bound_ms"],
+        "bound_by_tempering_state": pt_work["bound_by"],
+        "launches_campaigns8": camp_launches,
+        "launches_chains64": c64_launches,
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ Counterpart of ``gpirt_tpu/api.py`` for binary and ordinal data, one
 session or an (n, m, H) cube of sessions, on one device: vote-code
 recoding, prior and cutpoint defaults, the time-GP settings, the conjugate
 or two-stage sampler, K chains in lockstep, an optional SMC annealed
-initialization, optional f / f* storage, the reference output layout
-(``gpirt_tpu/api.py:606``), and f* recovered from stored f draws. The
-host constants are built once per configuration, priors and device.
-Arguments the port does not cover yet raise ``NotImplementedError``.
+initialization or parallel tempering, optional f / f* storage, the
+reference output layout (``gpirt_tpu/api.py:606``), an end-of-run
+convergence summary, and f* recovered from stored f draws. The host
+constants are built once per configuration, priors and device. Arguments
+the port does not cover yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from gpirt_tpu_torch.models.gibbs import (
 )
 from gpirt_tpu_torch.models.sampler import run_chains
 from gpirt_tpu_torch.parallel.smc import anneal_init
+from gpirt_tpu_torch.parallel.tempering import run_tempered_chains
+from gpirt_tpu_torch.utils.diagnostics import align_theta_signs, basin_clusters, summarize
 from gpirt_tpu_torch.utils.response import (
     DEFAULT_VOTE_CODES,
     as_response_matrix,
@@ -168,20 +171,25 @@ def gpirt_mcmc(
     theta_ls: float = 10.0,
     KERNEL: str = "Matern",
     theta_init: Optional[np.ndarray] = None,
-    SEED: int = 1,
-    *,
     thresholds: Optional[np.ndarray] = None,
+    SEED: int = 1,
+    constant_IRF: int = 0,
     store_f: bool = False,
     store_fstar: bool = False,
+    *,
     threshold_method: str = "auto",
     threshold_mh_tries: int = 2,
     f_method: str = "auto",
     fstar_method: str = "matheron",
     grid_size: int = 1001,
+    n_temps: int = 1,
+    max_temp: float = 4.0,
+    swap_every: int = 1,
     smc_steps: int = 0,
     smc_max_temp: float = 64.0,
     dtype: str = "float32",
     device="cuda",
+    verbose: bool = True,
     **unsupported,
 ) -> List[Dict[str, np.ndarray]]:
     """Posterior samples for the GP-IRT model; one dict per chain.
@@ -206,30 +214,39 @@ def gpirt_mcmc(
     "matheron" or "chol"); ``grid_size`` is the theta grid's N. All sampler
     randomness comes from one ``torch.Generator`` on ``device`` seeded with
     SEED. ``smc_steps > 0`` prepends the SMC annealed initialization from
-    ``smc_max_temp`` (conjugate only). The run is on the CUDA card unless
+    ``smc_max_temp`` (conjugate only). ``n_temps > 1`` runs each chain as a
+    parallel-tempering group of ``n_temps`` lanes on a geometric ladder up
+    to ``max_temp``, with adjacent swaps every ``swap_every`` sweeps
+    (conjugate only, not with ``smc_steps``); the draws are the cold lanes'.
+    ``constant_IRF`` must be 0 (not ported). ``verbose`` prints the recode's
+    messages, the SMC line and the end-of-run convergence summary (theta
+    ESS, R-hat, basins) to stderr. The run is on the CUDA card unless
     ``device`` says otherwise; without a card it raises.
 
     Each dict holds theta (S, n, H), beta (S, 3, m, H), threshold
     (S, m, C+1, H) and ll (S,); f (S, n, m, H) with ``store_f`` and fstar
     (S, N, m, H), f* plus its parametric mean, with ``store_fstar``;
-    "respondents" / "items" when the data carried labels; and "seconds",
-    the wall time of the SMC and sampling phases (device work included).
+    "swap_rate" (n_temps - 1,) under tempering; "respondents" / "items"
+    when the data carried labels; and "seconds", the wall time of the SMC
+    and sampling phases (device work included).
     """
     if unsupported:
         raise NotImplementedError(
             "gpirt_mcmc arguments not ported to gpirt_tpu_torch yet: "
             + ", ".join(sorted(unsupported)))
+    if n_temps > 1 and smc_steps > 0:
+        raise ValueError(
+            "smc_steps and n_temps > 1 are mutually exclusive (SMC annealing "
+            "and fixed-ladder tempering are alternative basin strategies)")
     device = _device(device, "gpirt_mcmc")
     full_fp32_matmuls()
 
     if vote_codes is not None:
-        arr = np.asarray(data)
-        if arr.ndim == 3 and arr.shape[2] == 1:
-            data = arr[:, :, 0]
+        data = _strip_h(data)
         if np.asarray(data).ndim == 3:
-            data = recode_cube(data, vote_codes)
+            data = recode_cube(data, vote_codes, verbose=verbose)
         else:
-            data = as_response_matrix(data, vote_codes)
+            data = as_response_matrix(data, vote_codes, verbose=verbose)
     row_names = getattr(data, "row_names", None)
     col_names = getattr(data, "col_names", None)
 
@@ -249,7 +266,7 @@ def gpirt_mcmc(
 
     config = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=grid_size, dtype=dtype,
                          theta_os=float(theta_os), theta_ls=float(theta_ls),
-                         kernel=KERNEL,
+                         kernel=KERNEL, constant_IRF=bool(constant_IRF),
                          jitter=1e-6 if dtype == "float64" else 1e-5,
                          threshold_method=threshold_method,
                          threshold_mh_tries=threshold_mh_tries,
@@ -288,29 +305,74 @@ def gpirt_mcmc(
     if smc_steps > 0:
         states, info = anneal_init(gen, yt, th_inits, thr_init, consts, config,
                                    n_steps=smc_steps, max_temp=smc_max_temp)
-        print(f"[gpirt] SMC init: {smc_steps} steps from T={smc_max_temp}, "
-              f"{info['n_resamples']} resamples, final weight-ESS "
-              f"{info['final_weight_ess']:.1f}/{CHAIN}", file=sys.stderr)
+        if verbose:
+            print(f"[gpirt] SMC init: {smc_steps} steps from T={smc_max_temp}, "
+                  f"{info['n_resamples']} resamples, final weight-ESS "
+                  f"{info['final_weight_ess']:.1f}/{CHAIN}", file=sys.stderr)
     _sync(device)
     t1 = time.perf_counter()
-    draws = run_chains(gen, yt, th_inits, thr_init, consts, config,
-                       sample_iterations=sample_iterations,
-                       burn_iterations=burn_iterations, thin=THIN,
-                       initial_states=states, store_f=store_f,
-                       store_fstar=store_fstar)
+    run = dict(sample_iterations=sample_iterations, burn_iterations=burn_iterations,
+               thin=THIN, store_f=store_f, store_fstar=store_fstar)
+    if n_temps > 1:
+        draws = run_tempered_chains(gen, yt, th_inits, thr_init, consts, config,
+                                    n_temps=n_temps, max_temp=max_temp,
+                                    swap_every=swap_every, **run)
+    else:
+        draws = run_chains(gen, yt, th_inits, thr_init, consts, config,
+                           initial_states=states, **run)
     _sync(device)
     t2 = time.perf_counter()
     host = {k: v.cpu().numpy() for k, v in draws.items()}
+    swap_rate = host.pop("swap_rate", None)
     out = []
     for c in range(CHAIN):
         d = _to_reference_layout({k: v[c] for k, v in host.items()})
+        if swap_rate is not None:
+            d["swap_rate"] = swap_rate
         if row_names is not None:
             d["respondents"] = list(row_names)
         if col_names is not None:
             d["items"] = list(col_names)
         d["seconds"] = {"smc": t1 - t0, "sampling": t2 - t1}
         out.append(d)
+    if verbose and CHAIN > 1 and out[0]["theta"].shape[0] >= 8:
+        _print_convergence_summary(out)
     return out
+
+
+def _print_convergence_summary(chains) -> None:
+    """The end-of-run convergence report on stderr (``gpirt_tpu/api.py:648``):
+    theta ESS, tail ESS, split and rank-normalized R-hat of the
+    sign-aligned draws of session 0, and the chains' posterior basins. It
+    never breaks a finished run."""
+    e = sys.stderr
+    try:
+        theta = np.stack([np.asarray(d["theta"])[:, :, 0] for d in chains])
+        aligned = align_theta_signs(theta.reshape(-1, theta.shape[-1])).reshape(theta.shape)
+        s = summarize(aligned)
+        b = basin_clusters(aligned)
+        print(f"[gpirt] theta ESS min/median {s['ess_min']:.0f}/"
+              f"{s['ess_median']:.0f}, tail-ESS min {s['ess_tail_min']:.0f}, "
+              f"split R-hat max {s['rhat_max']:.2f} "
+              f"(rank-normalized {s['rhat_rank_max']:.2f})", file=e)
+        if b["n_clusters"] > 1:
+            print(f"[gpirt] chains occupy {b['n_clusters']} posterior basins "
+                  f"(sizes {b['sizes']}, between-basin corr max "
+                  f"{b['between_corr_max']:.2f}): high R-hat reflects multi-basin "
+                  "structure, not (only) slow mixing; pooled estimates weight "
+                  "basins by chain placement. SMC init (smc_steps=...) weights "
+                  "basins correctly.", file=e)
+    except Exception as exc:  # diagnostics must never break a finished run
+        print(f"[gpirt] convergence summary skipped: {exc!r}", file=e)
+
+
+def _strip_h(data):
+    """An (n, m, 1) array as (n, m), so a one-session array takes the
+    response-matrix recode; anything else as it is."""
+    arr = np.asarray(data)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        return arr[:, :, 0]
+    return data
 
 
 def _as_cube(data) -> np.ndarray:

@@ -7,7 +7,11 @@
 //     ll(t) = sum_i obs_i * log(0.5 * (1 + erf(sgn_i * (t - g_i) * c)) + 1e-6)
 //
 // over the n respondents i, with sgn = +1 for y = 1, -1 for y = 2 and
-// obs = (y > 0). The slice level is ll(t0) + log u, each proposal is
+// obs = (y > 0), and c = c[k] the scale of the lane's chain: 1/sqrt(2) over
+// sqrt(T), one value for every chain in a plain or SMC sweep and the
+// chain's own under parallel tempering, where each lane keeps its
+// temperature. A lane reads c[k] once, before its rounds. The slice level
+// is ll(t0) + log u, each proposal is
 // t0 cos(eps) + nu sin(eps), and the bracket starts at [eps - 2 pi, 2 pi]
 // and shrinks toward 0 with the uniform rs[r, lane] of round r. A lane
 // still active after R rounds keeps t0 (the identity move of the round cap).
@@ -146,8 +150,8 @@ __global__ void __launch_bounds__(kBlock) ess_regs_kernel(
     const float* __restrict__ g, const int32_t* __restrict__ y,
     const float* __restrict__ t1, const float* __restrict__ nu,
     const float* __restrict__ logu, const float* __restrict__ eps0,
-    const float* __restrict__ rs, float c, float* __restrict__ out,
-    int H, int n, int m, int R) {
+    const float* __restrict__ rs, const float* __restrict__ c,
+    float* __restrict__ out, int H, int n, int m, int R) {
   constexpr int NG = kBlock / G;  // groups in the block
   static_assert(TJ % NG == 0 && (G <= 32 || TJ == NG), "tile of whole groups");
   constexpr int P = TJ + 1;  // odd row pitch: a column walk is conflict-free
@@ -164,6 +168,7 @@ __global__ void __launch_bounds__(kBlock) ess_regs_kernel(
   const int tile = min(TJ, m - j0);  // items of this tile
   const int64_t h = kh % H;
   const int64_t L = static_cast<int64_t>(gridDim.x / tiles) * m;
+  const float ck = __ldg(c + kh / H);  // the chain's scale
 
   // 1. the (n x tile) slab, row by row: neighbouring items on neighbouring
   //    threads
@@ -222,7 +227,7 @@ __global__ void __launch_bounds__(kBlock) ess_regs_kernel(
     for (int q = 0; q < S; ++q) {
       const int p = rank + G * q;
       gr[q] = q < mine ? sg[p * P + jj] : 0.0f;
-      sr[q] = q < mine ? ss[p * P + jj] * c : 0.0f;
+      sr[q] = q < mine ? ss[p * P + jj] * ck : 0.0f;
     }
     auto partial = [&](float t) {
       float acc = 0.0f;
@@ -250,13 +255,14 @@ __global__ void __launch_bounds__(kBlock) ess_stream_kernel(
     const float* __restrict__ g, const int32_t* __restrict__ y,
     const float* __restrict__ t1, const float* __restrict__ nu,
     const float* __restrict__ logu, const float* __restrict__ eps0,
-    const float* __restrict__ rs, float c, float* __restrict__ out,
-    int H, int n, int m, int R) {
+    const float* __restrict__ rs, const float* __restrict__ c,
+    float* __restrict__ out, int H, int n, int m, int R) {
   __shared__ float red[2 * kWarps];
   const int64_t lane = blockIdx.x;
   const int64_t L = gridDim.x;
   const int64_t kh = lane / m;
   const int64_t j = lane % m;
+  const float ck = __ldg(c + kh / H);  // the chain's scale
   const float* gl = g + kh * n * m + j;
   const int32_t* yl = y + (kh % H) * n * m + j;
   auto partial = [&](float t) {
@@ -264,7 +270,7 @@ __global__ void __launch_bounds__(kBlock) ess_stream_kernel(
     for (int i = threadIdx.x; i < n; i += kBlock) {
       const int64_t off = static_cast<int64_t>(i) * m;
       const int32_t yy = __ldg(yl + off);
-      if (yy > 0) acc += site_ll(t, __ldg(gl + off), yy == 1 ? c : -c);
+      if (yy > 0) acc += site_ll(t, __ldg(gl + off), yy == 1 ? ck : -ck);
     }
     return acc;
   };
@@ -275,8 +281,8 @@ __global__ void __launch_bounds__(kBlock) ess_stream_kernel(
 template <int G, int S, int TJ = kBlock / G>
 int launch_regs(const float* g, const int32_t* y, const float* t1,
                 const float* nu, const float* logu, const float* eps0,
-                const float* rs, float c, float* out, int K, int H, int n,
-                int m, int R, cudaStream_t stream) {
+                const float* rs, const float* c, float* out, int K, int H,
+                int n, int m, int R, cudaStream_t stream) {
   const int64_t blocks = static_cast<int64_t>(K) * H * ((m + TJ - 1) / TJ);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
@@ -290,9 +296,10 @@ int launch_regs(const float* g, const int32_t* y, const float* t1,
 
 // A group of 8 threads a lane up to n = 32, a warp up to 256 and the block
 // up to 2048, each with the sites in registers; the streaming path beyond.
+// c is a (K,) vector, one scale a chain.
 extern "C" int gpirt_binary_threshold_ess(
     const float* g, const int32_t* y, const float* t1, const float* nu,
-    const float* logu, const float* eps0, const float* rs, float c,
+    const float* logu, const float* eps0, const float* rs, const float* c,
     float* out, int K, int H, int n, int m, int R, void* stream) {
   const int64_t L = static_cast<int64_t>(K) * H * m;
   if (L == 0) return static_cast<int>(cudaSuccess);

@@ -252,11 +252,23 @@ def _rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _temp_scales(temp):
-    """(sqrt_T, 1/sqrt_T), or (None, None) untempered."""
+    """(sqrt_T, 1/sqrt_T): (None, None) untempered, Python floats for one
+    temperature, (K,) tensors for a temperature a chain."""
     if temp is None:
         return None, None
+    if torch.is_tensor(temp):
+        s = torch.sqrt(temp)
+        return s, 1.0 / s
     s = math.sqrt(float(temp))
     return s, 1.0 / s
+
+
+def _per_chain(v, ndim: int):
+    """A (K,) per-chain scale shaped to broadcast over a (K, ...) tensor of
+    ``ndim`` axes; a float or None as it is."""
+    if torch.is_tensor(v):
+        return v.reshape((-1,) + (1,) * (ndim - 1))
+    return v
 
 
 def _onehot(y, C: int, dtype) -> torch.Tensor:
@@ -432,7 +444,7 @@ def _category_logprobs(g, thresholds, C: int, inv_s=None) -> torch.Tensor:
     """log P(y = c | g) for every category: (..., m) g -> (..., m, C);
     one Phi per interior cutpoint."""
     z = thresholds[..., 1:C] - g.unsqueeze(-1)
-    c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
+    c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * _per_chain(inv_s, z.ndim)
     cdf = 0.5 * (1.0 + torch.erf(z * c))
     zero = torch.zeros(cdf.shape[:-1] + (1,), dtype=g.dtype, device=g.device)
     cdf = torch.cat([zero, cdf, zero + 1.0], dim=-1)
@@ -514,6 +526,7 @@ def draw_z_truncnorm(g, y, thresholds, u, temp=None) -> torch.Tensor:
     """
     big = 1e30
     sqrt_t, inv_s = _temp_scales(temp)
+    sqrt_t, inv_s = _per_chain(sqrt_t, g.ndim), _per_chain(inv_s, g.ndim)
     c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
     if thresholds.shape[-1] == 3:
@@ -578,8 +591,8 @@ def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
     U_theta = theta_site_basis(idx, consts)  # (K, H, n, q+3)
     u_theta = U_theta @ zc + math.sqrt(config.jitter) * _rows(z_n, idx)
     if sqrt_t is not None:
-        eps = eps * sqrt_t  # tempered observation noise sd sqrt(T)
-    t = 1.0 if temp is None else float(temp)
+        eps = eps * _per_chain(sqrt_t, eps.ndim)  # tempered observation noise sd sqrt(T)
+    t = 1.0 if temp is None else _per_chain(temp, 4) if torch.is_tensor(temp) else float(temp)
     fstar = _pathwise_fstar(U_theta, z_resid - u_theta - eps, t, zc, z_n, consts, config)
     return fstar, _rows(fstar, idx)
 
@@ -682,8 +695,8 @@ def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
     ], -2)  # (K, H, 3, 3)
     XtX = Xt.mT @ Xt  # (K, H, 3, 3)
     Xtz = Xt.mT @ z_minus_f  # (K, H, 3, m)
-    if temp is not None:
-        inv_t = 1.0 / float(temp)  # noise variance T
+    if temp is not None:  # noise variance T
+        inv_t = 1.0 / (_per_chain(temp, XtX.ndim) if torch.is_tensor(temp) else float(temp))
         XtX = XtX * inv_t
         Xtz = Xtz * inv_t
     d_inv = 1.0 / (torch.square(consts.beta_prior_sds) + 1e-6)  # (3, m)
@@ -710,7 +723,8 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     summed against the one-hot of y.
 
     thresholds (K, H, m, C+1); nu (K, H, m, C-1), or (K, H, m) when
-    binary; logu, eps0 (K, H, m); rs (R, K, H, m).
+    binary; logu, eps0 (K, H, m); rs (R, K, H, m). ``temp`` is None, a
+    float, or a (K,) tensor of one temperature a chain.
     """
     C = thresholds.shape[-1] - 1
     _, inv_s = _temp_scales(temp)
@@ -748,14 +762,15 @@ def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
     obs = y > 0
     sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs  # (H, n, m)
     cscale = 1.0 if inv_s is None else inv_s
+    cs_site, cs_lane = _per_chain(cscale, 4), _per_chain(cscale, 3)
 
     def stats(t1):  # (K, H, m) -> psi, proposal mean, proposal variance
-        u = sgn * (t1.unsqueeze(-2) - g) * cscale  # (K, H, n, m)
+        u = sgn * (t1.unsqueeze(-2) - g) * cs_site  # (K, H, n, m)
         phi_cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2)) + 1e-6
         r = _INV_SQRT2PI * torch.exp(-0.5 * u * u) / phi_cdf
         psi = -0.5 * t1 * t1 + (torch.log(phi_cdf) * obs).sum(dim=-2)
-        dpsi = -t1 + cscale * (sgn * r).sum(dim=-2)
-        d2psi = -1.0 + cscale * cscale * ((r * (-u - r)) * obs).sum(dim=-2)
+        dpsi = -t1 + cs_lane * (sgn * r).sum(dim=-2)
+        d2psi = -1.0 + cs_lane * cs_lane * ((r * (-u - r)) * obs).sum(dim=-2)
         d2psi = torch.clamp(d2psi, max=-1.0)  # concave up to the 1e-6 floors
         return psi, t1 + torch.clamp(-dpsi / d2psi, -3.0, 3.0), -1.21 / d2psi
 
@@ -797,6 +812,7 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
     q = C - 1
     dt, dev = g.dtype, g.device
     cscale = 1.0 if inv_s is None else inv_s
+    cs_site, cs_lane = _per_chain(cscale, 5), _per_chain(cscale, 4)
     eta = 1.1
     obs = y > 0
     onehot = _onehot(y, C, dt)  # (H, n, m, C)
@@ -809,7 +825,7 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
 
     def stats(d):  # (K, H, m, q) -> psi, proposal mean, chol(A), logdet(A)
         t_int = delta_to_threshold(d)[..., 1:C]
-        u = (t_int.unsqueeze(-3) - g.unsqueeze(-1)) * cscale  # (K, H, n, m, q)
+        u = (t_int.unsqueeze(-3) - g.unsqueeze(-1)) * cs_site  # (K, H, n, m, q)
         cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
         pdf = _INV_SQRT2PI * torch.exp(-0.5 * u * u)
         zero = torch.zeros(cdf.shape[:-1] + (1,), dtype=dt, device=dev)
@@ -817,14 +833,14 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
         p_cell = ((cdf_full[..., 1:] - cdf_full[..., :-1]) * onehot).sum(-1) + 1e-6
         pc = p_cell.unsqueeze(-1)
         ll_sum = (torch.log(p_cell) * obs).sum(dim=-2)  # (K, H, m)
-        grad_t = (sgn_b * pdf / pc).sum(dim=-3) * cscale  # (K, H, m, q)
+        grad_t = (sgn_b * pdf / pc).sum(dim=-3) * cs_lane  # (K, H, m, q)
         # pdf'(u) = -u pdf; (up - lo)^2 = up + lo, the two being disjoint
         diag_c = (-u * pdf * sgn_b - pdf * pdf * (up + lo) / pc) / pc
-        Ht = torch.diag_embed(diag_c.sum(dim=-3) * cscale * cscale)
+        Ht = torch.diag_embed(diag_c.sum(dim=-3) * cs_lane * cs_lane)
         if q > 1:
             # cells with y = c+1 have lower bound c and upper bound c+1
             off_c = pdf[..., :-1] * pdf[..., 1:] * lo[..., :-1] / (pc ** 2)
-            off_t = off_c.sum(dim=-3) * cscale * cscale
+            off_t = off_c.sum(dim=-3) * cs_lane * cs_lane
             Ht = Ht + torch.diag_embed(off_t, 1) + torch.diag_embed(off_t, -1)
         # t_c = d_1 + sum_{2<=j<=c} exp(d_j): J[c, j] = 1 (j = 1), exp(d_j)
         # (2 <= j <= c), 0 (j > c)
@@ -883,8 +899,10 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, TwoStageDraws],
     orders in the module docstring). Returns (state, ll (K,)).
 
     ``temp`` (None = 1) tempers the observation noise to sd sqrt(T), on the
-    conjugate path only (as in JAX); the returned ll is each chain's own
-    tempered log-likelihood.
+    conjugate path only (as in JAX): one float for every chain, or a (K,)
+    tensor of one temperature a chain (parallel tempering's lanes; as
+    ``jax.vmap(gibbs_sweep)`` over the temperatures). The returned ll is
+    each chain's own tempered log-likelihood.
     """
     if config.resolved_f_method == "two_stage":
         if temp is not None:
@@ -906,7 +924,8 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, TwoStageDraws],
     thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
                        thresholds=thresholds, fstar=fstar)
-    ll = ordinal_ll_terms(f + mu, y, thresholds, inv_s).sum(dim=(-3, -2, -1))
+    ll = ordinal_ll_terms(f + mu, y, thresholds,
+                          _per_chain(inv_s, 4)).sum(dim=(-3, -2, -1))
     return state, ll
 
 

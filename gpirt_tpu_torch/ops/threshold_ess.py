@@ -12,7 +12,10 @@ group size from n at launch.
 
 The uniforms (``logu``, ``eps0`` and the per-round table ``rs``) are inputs,
 so the kernel and :func:`binary_threshold_ess_reference` compute the same
-update from the same numbers. The round cap is ``rs.shape[0]``.
+update from the same numbers. The round cap is ``rs.shape[0]``. The scale
+``c`` is one float for every chain or a (K,) tensor of one a chain (the
+lanes of parallel tempering, each at its own temperature); the kernel always
+reads a (K,) vector, and a float becomes a cached one on the lanes' device.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ _BUILD = os.path.join(_PKG, "_build")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
+# (value, K, device) -> a (K,) float32 vector of one c, so that a sweep
+# with a float c allocates nothing and never syncs with the host
+_C_VECTORS = {}
+_C_VECTORS_MAX = 1024
 
 
 def _nvcc() -> str:
@@ -92,13 +99,12 @@ def load_library(path: str):
     ``gpirt_binary_threshold_ess`` and declare that entry's signature."""
     lib = ctypes.CDLL(path)
     lib.gpirt_binary_threshold_ess.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.gpirt_binary_threshold_ess.restype = ctypes.c_int
     return lib
 
 
-def _check(g, y, t1, nu, logu, eps0, rs):
+def _check(g, y, t1, nu, logu, eps0, rs, c):
     if g.ndim != 4:
         raise ValueError(f"g must be (K, H, n, m), got {tuple(g.shape)}")
     K, H, n, m = g.shape
@@ -119,9 +125,32 @@ def _check(g, y, t1, nu, logu, eps0, rs):
     for v in (y, t1, nu, logu, eps0, rs):
         if v.device != g.device:
             raise ValueError(f"inputs on {v.device} and {g.device}")
+    if torch.is_tensor(c):
+        if tuple(c.shape) != (K,):
+            raise ValueError(f"c must be a float or (K,) = ({K},), got {tuple(c.shape)}")
+        if c.dtype != g.dtype or c.device != g.device:
+            raise ValueError(f"c is {c.dtype} on {c.device}, g is {g.dtype} on {g.device}")
 
 
-def binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c: float):
+def _per_chain_c(c, g):
+    """``c`` shaped to broadcast over g (K, H, n, m): a float as it is, a
+    (K,) tensor as (K, 1, 1, 1)."""
+    return c.reshape(-1, 1, 1, 1) if torch.is_tensor(c) else c
+
+
+def _c_vector(c: float, K: int, device) -> torch.Tensor:
+    """The cached (K,) float32 vector of one ``c`` on ``device``."""
+    key = (float(c), K, str(device))
+    vec = _C_VECTORS.get(key)
+    if vec is None:
+        if len(_C_VECTORS) >= _C_VECTORS_MAX:
+            _C_VECTORS.pop(next(iter(_C_VECTORS)))
+        vec = _C_VECTORS[key] = torch.full((K,), float(c), dtype=torch.float32,
+                                           device=device)
+    return vec
+
+
+def binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c):
     """Plain PyTorch version of the kernel: a loop over rounds with an
     active mask.
 
@@ -132,11 +161,13 @@ def binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c: float):
       logu: (K, H, m) log of the slice uniform.
       eps0: (K, H, m) initial angle in [0, 2 pi).
       rs: (R, K, H, m) shrink uniforms, one row per round; R is the cap.
-      c: 1/sqrt(2), times 1/sqrt(T) when tempered.
+      c: 1/sqrt(2), times 1/sqrt(T) when tempered: a float, or a (K,)
+        tensor of one a chain.
     Returns:
       (K, H, m) updated cutpoints.
     """
-    _check(g, y, t1, nu, logu, eps0, rs)
+    _check(g, y, t1, nu, logu, eps0, rs, c)
+    c = _per_chain_c(c, g)
     obs = (y > 0).to(g.dtype)
     sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
 
@@ -172,36 +203,41 @@ def _launch(g, y, t1, nu, logu, eps0, rs, c, lib=None):
         raise ValueError(f"the CUDA kernel takes float32, got {g.dtype}")
     if y.dtype != torch.int32:
         raise ValueError(f"the CUDA kernel takes int32 y, got {y.dtype}")
+    K, H, n, m = g.shape
+    if torch.is_tensor(c):
+        if not c.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors")
+    else:
+        if not math.isfinite(c):
+            raise ValueError(f"c must be finite, got {c}")
+        c = _c_vector(c, K, g.device)
     for v in (g, y, t1, nu, logu, eps0, rs):
         if not v.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors")
-    if not math.isfinite(c):
-        raise ValueError(f"c must be finite, got {c}")
-    K, H, n, m = g.shape
     if lib is None:
         if _lib is None:
             build()
         lib = _lib
     out = torch.empty_like(t1)
-    ptrs = [v.data_ptr() for v in (g, y, t1, nu, logu, eps0, rs)]
+    ptrs = [v.data_ptr() for v in (g, y, t1, nu, logu, eps0, rs, c)]
     dims = [K, H, n, m, rs.shape[0]]
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.gpirt_binary_threshold_ess(*ptrs, c, out.data_ptr(), *dims, stream)
+        err = lib.gpirt_binary_threshold_ess(*ptrs, out.data_ptr(), *dims, stream)
     if err != 0:
         raise RuntimeError(f"binary_threshold_ess launch failed: cudaError {err}")
     return out
 
 
-def binary_threshold_ess(g, y, t1, nu, logu, eps0, rs, c: float):
+def binary_threshold_ess(g, y, t1, nu, logu, eps0, rs, c):
     """One ESS update of every lane's binary cutpoint (arguments as in
-    :func:`binary_threshold_ess_reference`).
+    :func:`binary_threshold_ess_reference`; ``c`` a float or a (K,) tensor).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on
     the current stream (float32, contiguous, ``y`` int32) or raise; each
     launch adds one to ``binary_threshold_ess.launches``.
     """
-    _check(g, y, t1, nu, logu, eps0, rs)
+    _check(g, y, t1, nu, logu, eps0, rs, c)
     if g.device.type == "cpu":
         return binary_threshold_ess_reference(g, y, t1, nu, logu, eps0, rs, c)
     if g.device.type != "cuda":

@@ -52,16 +52,19 @@ def load_senate116(path: Optional[str] = None) -> Dict[str, np.ndarray]:
         }
 
 
-def load_sdo(path: Optional[str] = None) -> np.ndarray:
+def load_sdo(path: Optional[str] = None, with_names: bool = False):
     """The SDO ordinal survey: (1500, 16) float with codes 1..5, NaN
-    missing. ``path`` names an ``.npz`` archive with a "responses" array;
-    the default is the one bundled under ``data/``."""
+    missing; with ``with_names`` also the list of item (column) names.
+    ``path`` names an ``.npz`` archive with "responses" and "item_names"
+    arrays; the default is the one bundled under ``data/``."""
     npz = path or os.path.join(_LOCAL_DATA, "SDO.npz")
     if not npz.endswith(".npz"):
         raise NotImplementedError(
             f"only .npz archives are read by the port (got {npz!r})")
     with np.load(npz) as z:
-        return z["responses"].astype(np.float64)
+        mat = z["responses"].astype(np.float64)
+        names = [str(s) for s in z["item_names"]]
+    return (mat, names) if with_names else mat
 
 
 def senate116_response_matrix(

@@ -1,17 +1,22 @@
 """The port on one CUDA card: where a sampling sweep's time goes, on SDO,
-the dynamic, the synthetic or the two-stage configuration.
+the dynamic, the synthetic, the two-stage, the tempering or the campaigns8
+configuration.
 
     python3 scripts/torch_sdo_measure.py
-        [--config sdo|dynamic|synthetic|two_stage]
+        [--config sdo|dynamic|synthetic|two_stage|tempering|campaigns8]
         [--threshold-method ess|newton] [--trace-dir DIR]
 
 Runs the SDO survey (1500 respondents x 16 items, C = 5), or one of
 chip_smoke.py's configurations: ``dynamic`` (150 x 60 x 10 sessions,
 binary, GP theta regime), ``synthetic`` (simulate_2pl 5000 x 1000, 10%
-missing, every chain from one spread init) or ``two_stage`` (senate116
-through f_method="two_stage" from bench.py's spread init), through
-gpirt_mcmc with 64 chains, burn 200 and 41 draws, and observes the sampling
-sweeps (through models.sampler's call of gibbs_sweep):
+missing, every chain from one spread init), ``two_stage`` (senate116
+through f_method="two_stage" from bench.py's spread init) or
+``tempering`` (senate116, 4 temperatures to T = 4 a chain: 256 lanes, the
+swap phase timed as a block), through gpirt_mcmc with 64 chains, burn 200
+and 41 draws; or ``campaigns8`` (senate116 through gpirt_campaigns, 8
+campaigns of 64 chains, Newton cutpoints: 512 lanes, with 2 SMC steps and
+the same burn and draws). It observes the sampling sweeps (through
+models.sampler's, or parallel.tempering's, call of gibbs_sweep):
 
   sweeps 5-19   the wall by the host clock (a synchronise at each end), and
                 the rounds and host syncs of ess_update (the cutpoint ESS;
@@ -52,8 +57,9 @@ from chip_smoke import (  # noqa: E402
     dynamic_inputs,
     log,
 )
-from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
+from gpirt_tpu_torch import gpirt_campaigns, gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.models import gibbs, sampler  # noqa: E402
+from gpirt_tpu_torch.parallel import tempering  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
 from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     load_sdo,
@@ -66,16 +72,17 @@ BURN, DRAWS = 200, 41
 # sampling-sweep indices; report_profile labels the wall window 5-19 and
 # divides by a window of ten sweeps, as here
 WALL_FROM, BLOCKS_FROM, PROF_FROM, PROF_TO = 5, 20, 30, 40
-BLOCKS = ["_draw_theta_grid", "draw_z_truncnorm", "draw_fstar_conjugate",
-          "draw_beta_conjugate", "draw_f", "draw_fstar", "draw_beta", "draw_threshold",
-          "_draw_threshold_binary_newton", "_draw_threshold_newton_ordinal",
-          "ordinal_ll_terms"]
+BLOCKS = [(gibbs, name) for name in (
+    "_draw_theta_grid", "draw_z_truncnorm", "draw_fstar_conjugate",
+    "draw_beta_conjugate", "draw_f", "draw_fstar", "draw_beta", "draw_threshold",
+    "_draw_threshold_binary_newton", "_draw_threshold_newton_ordinal",
+    "ordinal_ll_terms")] + [(tempering, "_swap")]
 
 
 def timed_blocks(events):
     """Wrap the sweep's blocks so that each call records a pair of CUDA
     events into ``events[name]`` while ``events["on"]`` is set."""
-    real = {name: getattr(gibbs, name) for name in BLOCKS}
+    real = {(mod, name): getattr(mod, name) for mod, name in BLOCKS}
 
     def wrap(name, fn):
         def timed(*args, **kw):
@@ -90,15 +97,16 @@ def timed_blocks(events):
             return out
         return timed
 
-    for name, fn in real.items():
-        setattr(gibbs, name, wrap(name, fn))
+    for (mod, name), fn in real.items():
+        setattr(mod, name, wrap(name, fn))
     return real
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="sdo",
-                    choices=["sdo", "dynamic", "synthetic", "two_stage"])
+                    choices=["sdo", "dynamic", "synthetic", "two_stage", "tempering",
+                             "campaigns8"])
     ap.add_argument("--threshold-method", default="ess", choices=["ess", "newton"])
     ap.add_argument("--trace-dir", help="where the profiler's table and trace go")
     opt = ap.parse_args()
@@ -112,7 +120,8 @@ def main():
     events = defaultdict(list)
     events["on"] = False
     stamps, counts = {}, {}
-    sweep = sampler.gibbs_sweep
+    chain_loop = tempering if opt.config == "tempering" else sampler
+    sweep = chain_loop.gibbs_sweep
     calls = [0]
 
     def observed(*args, **kw):
@@ -138,20 +147,32 @@ def main():
         _, data = simulate_2pl(0, n=SYN_N, m=SYN_M, missing=SYN_MISSING)
         init = np.random.default_rng(0).permutation(np.linspace(-3, 3, SYN_N))
         kw = dict(vote_codes=DYN_VOTES, theta_init=init)
-    else:
+    elif opt.config == "two_stage":
         data, _, _ = senate116_response_matrix()
         init = np.random.default_rng(0).permutation(np.linspace(-2, 2, data.shape[0]))
         kw = dict(f_method="two_stage", theta_init=init)
+    else:  # tempering, campaigns8
+        data, _, _ = senate116_response_matrix()
+        kw = dict(n_temps=4, max_temp=4.0)
+
+    def run():
+        if opt.config == "campaigns8":
+            return gpirt_campaigns(np.asarray(data), n_campaigns=8, vote_codes=None,
+                                   sample_iterations=DRAWS, burn_iterations=BURN,
+                                   smc_steps=2, SEED=SEED, store_draws=False,
+                                   verbose=False, device="cuda")
+        return gpirt_mcmc(data, DRAWS, BURN, CHAIN=K, SEED=SEED,
+                          threshold_method=opt.threshold_method, dtype="float32",
+                          device="cuda", verbose=False, **kw)
+
     real = timed_blocks(events)
-    sampler.gibbs_sweep = observed
+    chain_loop.gibbs_sweep = observed
     try:
-        gpirt_mcmc(data, DRAWS, BURN, CHAIN=K, SEED=SEED,
-                   threshold_method=opt.threshold_method, dtype="float32",
-                   device="cuda", **kw)
+        run()
     finally:
-        sampler.gibbs_sweep = sweep
-        for name, fn in real.items():
-            setattr(gibbs, name, fn)
+        chain_loop.gibbs_sweep = sweep
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
 
     n_wall = BLOCKS_FROM - WALL_FROM
     wall_ms = (stamps[BLOCKS_FROM] - stamps[WALL_FROM]) / n_wall * 1e3
@@ -165,7 +186,7 @@ def main():
     blk_wall = (stamps[PROF_FROM] - stamps[BLOCKS_FROM]) / n_blk * 1e3
     log(f"blocks, sweeps {BLOCKS_FROM}-{PROF_FROM - 1} (wall {blk_wall:.4f} ms a "
         f"sweep with the events):")
-    for name in BLOCKS:
+    for _, name in BLOCKS:
         if events[name]:
             ms = sum(a.elapsed_time(b) for a, b in events[name]) / n_blk
             log(f"  block {name}: {ms:.4f} ms a sweep ({len(events[name]) // n_blk} "

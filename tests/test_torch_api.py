@@ -1,6 +1,8 @@
 """The port's public surface: import isolation, slice guards, precision
-settings, parameter conversion and gpirt_mcmc's output layout."""
+settings, parameter conversion, the entry points' positional parameters,
+gpirt_mcmc's output layout and its tempered runs."""
 
+import inspect
 import subprocess
 import sys
 
@@ -13,7 +15,7 @@ from gpirt_tpu.api import default_thresholds as j_default_thresholds
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
 from gpirt_tpu.models.config import make_constants as j_make_constants
-from gpirt_tpu_torch import gpirt_mcmc
+from gpirt_tpu_torch import api, gpirt_mcmc
 from gpirt_tpu_torch.api import default_thresholds
 from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy, to_numpy
 from gpirt_tpu_torch.models import gibbs
@@ -21,7 +23,9 @@ from gpirt_tpu_torch.models.config import GPIRTConfig
 
 
 def test_import_pulls_in_neither_jax_nor_reference():
-    code = ("import sys, gpirt_tpu_torch, gpirt_tpu_torch.convert; "
+    code = ("import sys, gpirt_tpu_torch, gpirt_tpu_torch.convert, "
+            "gpirt_tpu_torch.campaigns, gpirt_tpu_torch.parallel.tempering, "
+            "gpirt_tpu_torch.parallel.smc, gpirt_tpu_torch.utils.diagnostics; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'gpirt_tpu' or m.startswith('gpirt_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -113,11 +117,84 @@ def test_gpirt_mcmc_hands_the_kernel_contiguous_tensors(monkeypatch):
 
 
 def test_gpirt_mcmc_guards():
-    with pytest.raises(NotImplementedError, match="n_temps"):
-        gpirt_mcmc(_votes(), 2, 1, n_temps=2, device="cpu")
+    """JAX's guards: tempering with SMC is a ValueError (before any work),
+    tempering under the two-stage sampler is not implemented, nor is
+    constant_IRF."""
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        gpirt_mcmc(_votes(), 2, 1, n_temps=2, smc_steps=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="conjugate"):
+        gpirt_mcmc(_votes(), 2, 1, n_temps=2, f_method="two_stage", dtype="float64",
+                   grid_size=101, device="cpu")
     multi = np.random.default_rng(1).integers(1, 4, (8, 5, 2)).astype(float)
     with pytest.raises(NotImplementedError, match="constant_IRF"):
         gpirt_mcmc(multi, 2, 1, vote_codes=None, constant_IRF=1, device="cpu")
+
+
+def _positional(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
+
+
+def test_positional_parameters_are_the_references():
+    """A call written for the JAX package binds its positional arguments to
+    the same parameters in the port (gpirt_mcmc's end ``theta_init,
+    thresholds, SEED, constant_IRF, store_f, store_fstar``)."""
+    from gpirt_tpu import api as japi
+    from gpirt_tpu import campaigns as jcampaigns
+    from gpirt_tpu_torch import api as tapi
+    from gpirt_tpu_torch import campaigns as tcampaigns
+
+    for name in ("gpirt_mcmc", "recover_fstar", "recover_fstar_batch"):
+        assert _positional(getattr(tapi, name)) == _positional(getattr(japi, name)), name
+    assert (_positional(tcampaigns.gpirt_campaigns)
+            == _positional(jcampaigns.gpirt_campaigns))
+    assert _positional(tapi.gpirt_mcmc)[-6:] == [
+        "theta_init", "thresholds", "SEED", "constant_IRF", "store_f", "store_fstar"]
+
+
+def test_gpirt_mcmc_takes_the_references_positional_call():
+    """Cutpoints, SEED and store_f passed by position land where the JAX
+    package puts them."""
+    v = _votes()
+    thr = np.array([-np.inf, 0.4, np.inf])
+    args = (v, 3, 1, 1, 2, api.DEFAULT_VOTE_CODES, None, None, None, None, 1.0, 10.0,
+            "Matern", None, thr, 5, 0, True)
+    pos = gpirt_mcmc(*args, dtype="float64", grid_size=101, device="cpu", verbose=False)
+    kw = gpirt_mcmc(v, 3, 1, CHAIN=2, thresholds=thr, SEED=5, store_f=True,
+                    dtype="float64", grid_size=101, device="cpu", verbose=False)
+    for a, b in zip(pos, kw):
+        assert "f" in a
+        for k in ("theta", "beta", "threshold", "ll", "f"):
+            np.testing.assert_array_equal(a[k], b[k])
+    with pytest.raises(NotImplementedError, match="constant_IRF"):
+        gpirt_mcmc(*args[:16], 1, device="cpu")
+
+
+def test_load_sdo_with_names_matches():
+    from gpirt_tpu.utils.datasets import load_sdo as j_load_sdo
+    from gpirt_tpu_torch.utils.datasets import load_sdo
+
+    mat, names = load_sdo(with_names=True)
+    j_mat, j_names = j_load_sdo(with_names=True)
+    np.testing.assert_array_equal(mat, j_mat)
+    assert names == j_names and len(names) == mat.shape[1] == 16
+    np.testing.assert_array_equal(load_sdo(), mat)
+
+
+def test_gpirt_mcmc_tempered_layout():
+    """n_temps > 1: the cold lanes' draws in the reference layout, each
+    chain dict carrying the ensemble's swap rate by rung."""
+    out = gpirt_mcmc(_votes(), 6, 2, CHAIN=2, n_temps=3, max_temp=4.0, swap_every=1,
+                     dtype="float64", grid_size=101, device="cpu", verbose=False)
+    assert len(out) == 2
+    for d in out:
+        m = d["beta"].shape[2]
+        assert d["theta"].shape == (6, 10, 1) and d["threshold"].shape == (6, m, 3, 1)
+        assert d["ll"].shape == (6,) and np.isfinite(d["ll"]).all()
+        assert d["swap_rate"].shape == (2,)
+        np.testing.assert_array_equal(d["swap_rate"], out[0]["swap_rate"])
+    assert "swap_rate" not in gpirt_mcmc(_votes(), 2, 1, CHAIN=2, dtype="float64",
+                                         grid_size=101, device="cpu", verbose=False)[0]
 
 
 def test_gpirt_mcmc_defaults_to_the_card_and_never_falls_back(monkeypatch):

@@ -127,3 +127,76 @@ def test_gp_sweep_check_inputs_stay_clear_of_float32_tails(C):
     assert torch.equal(s32.theta_idx, s64.theta_idx)
     for name, tol in (("f", 1e-4), ("beta", 1e-4), ("thresholds", 1e-4), ("fstar", 1e-3)):
         assert chip_smoke.max_diff(getattr(s32, name), getattr(s64, name))[0] < tol, name
+
+
+def _small_votes():
+    """A 20 x 8 response matrix (1 yea, 0 nay), as senate116_response_matrix
+    gives senate116's."""
+    _, votes = simulate_2pl(3, n=20, m=8)
+    return as_response_matrix(votes, chip_smoke.DYN_VOTES, verbose=False)
+
+
+def test_per_chain_lane_rounds_and_ladder():
+    """Phase 17's ladder (geometric, 1 to 64) and the round count with one
+    c a chain: each chain's rounds are those of its own scalar c."""
+    temps = chip_smoke.ladder(3)
+    np.testing.assert_allclose(temps.numpy(), [1.0, 8.0, 64.0], rtol=1e-6)
+    args = _lanes()
+    c = chip_smoke.c_of(temps.double())
+    rounds, capped = chip_smoke.lane_rounds(*args, c)
+    g, y, t1, nu, logu, eps0, rs = args
+    for k in range(3):
+        one = [a[k:k + 1] for a in (g, t1, nu, logu, eps0)]
+        one = one[:1] + [y] + one[1:] + [rs[:, k:k + 1]]
+        r_k, cap_k = chip_smoke.lane_rounds(*one, float(c[k]))
+        assert torch.equal(rounds[k:k + 1], r_k) and torch.equal(capped[k:k + 1], cap_k)
+
+
+def test_tempering_path_at_reduced_size(capsys):
+    """Phase 19 on the CPU with 2 groups of 4 temperatures: one call of the
+    kernel's wrapper a sweep, each with 4 distinct c values, swap rates by
+    rung; the plain version runs, so no launch is counted."""
+    launches, args, c = chip_smoke.tempering_path(_small_votes(), torch.device("cpu"),
+                                                  "cpu", chains=2, burn=2, draws=8)
+    assert launches == 0
+    assert c.shape == (8,) and torch.unique(c).numel() == 4
+    assert tuple(args[0].shape) == (8, 1, 20, 8)
+    assert "swap rate by rung" in capsys.readouterr().out
+
+
+def test_campaigns8_and_chains64_at_reduced_size(capsys):
+    """Phases 20 and 21 on the CPU at a few chains and sweeps: campaign
+    outputs checked, no kernel launch under Newton cutpoints, and split
+    R-hat of the sign-aligned chains."""
+    rm = _small_votes()
+    cpu = torch.device("cpu")
+    out, launches = chip_smoke.campaigns8(rm, cpu, "cpu", n_chains=2, smc_steps=3,
+                                          burn_iterations=1, sample_iterations=4)
+    assert launches == 0
+    assert out["campaign_means"].shape == (chip_smoke.CAMPAIGNS, 20, 1)
+    assert out["schedule"]["threshold_method"] == "newton"
+    launches, rhat = chip_smoke.chains64(rm, cpu, "cpu", chains=3, burn=1, draws=8)
+    assert launches == 0 and rhat >= 1.0
+    text = capsys.readouterr().out
+    assert "campaigns8 on cpu" in text and "rhat_max" in text
+
+
+def test_campaign_agreement_rule(tmp_path):
+    """Phase 22's rule: a grand mean within its standard errors of the
+    fixture's (reflected, which the sign alignment undoes) passes; one that
+    is 5 standard errors off for 6 of 100 respondents fails."""
+    rng = np.random.default_rng(0)
+    jax_means = rng.standard_normal((8, 100)) * 0.05 + np.linspace(-2, 2, 100)
+    se = np.full(100, 0.05)
+    path = tmp_path / "fixture.npz"
+    np.savez(path, campaign_means=jax_means, theta_se=se, n_campaigns=8, n_chains=64,
+             smc_steps=160, burn_iterations=25, sample_iterations=100)
+    port = -(jax_means.mean(axis=0) + 0.5 * rng.standard_normal(100) * 0.05)
+    out = {"theta_mean": port[:, None], "theta_se": se[:, None]}
+    r, worst, within = chip_smoke.campaign_agreement(out, path)
+    assert r > 0.99 and within >= 95 and worst < 4
+    bad = port.copy()
+    bad[:6] -= 5 * np.sqrt(2) * 0.05 * np.sign(bad[:6])
+    with pytest.raises(RuntimeError, match="within"):
+        chip_smoke.campaign_agreement({"theta_mean": bad[:, None],
+                                       "theta_se": se[:, None]}, path)

@@ -1,9 +1,11 @@
 """Port tests that need the card: the CUDA kernel against its plain version,
-over shapes (every thread-group size the kernel chooses from n) and edge
-cases; whole sweeps on the card against the same sweeps on the CPU (binary,
-ordinal with the cutpoints by ESS and by Newton, over three sessions in the
-GP theta regime, and the two-stage sampler with f* by both methods); and
-gpirt_mcmc, recover_fstar and recover_fstar_batch on the card by default.
+over shapes (every thread-group size the kernel chooses from n), edge cases
+and one c a chain; whole sweeps on the card against the same sweeps on the
+CPU (binary, ordinal with the cutpoints by ESS and by Newton, over three
+sessions in the GP theta regime, with one temperature a chain, and the
+two-stage sampler with f* by both methods); and gpirt_mcmc (tempered too),
+gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
+default.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -146,7 +148,8 @@ def _sweep_on_both(device, C=2, method="auto", temp=4.0, H=1, theta_ls=10.0):
         out[d] = gibbs.gibbs_sweep(
             gibbs.GPIRTState(*(a.to(d) for a in state0)),
             draws.to(d),
-            torch.as_tensor(y, device=d), consts[d], cfg, temp=temp)
+            torch.as_tensor(y, device=d), consts[d], cfg,
+            temp=temp.to(d) if torch.is_tensor(temp) else temp)
     (s_cpu, ll_cpu), (s_gpu, ll_gpu) = out[cpu], out[device]
     assert torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu())
     for a, b in zip(s_cpu[1:], s_gpu[1:]):
@@ -248,3 +251,66 @@ def test_recover_fstar_runs_on_the_card_by_default(cuda_device):
     np.testing.assert_array_equal(rec["fstar"], recover_fstar(5, *args)["fstar"])
     batch = recover_fstar_batch(5, d, rm)
     assert batch.shape == (3, 1001, 12, 1) and np.isfinite(batch).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [20, 100, 200, 1000, 2100])
+def test_kernel_one_c_a_chain(cuda_device, n):
+    """Chip_smoke's phase 17 at small sizes, on every path the kernel
+    chooses from n: each chain at its own temperature (a ladder from 1 to
+    64) against the plain version; a vector of one value gives bit for bit
+    what that float gives."""
+    K = 16
+    args = _lane_inputs(cuda_device, K=K, n=n, m=97, seed=n)
+    c = chip_smoke.c_of(chip_smoke.ladder(K, dev=cuda_device))
+    got = binary_threshold_ess(*args, c)
+    _assert_matches_plain(got, binary_threshold_ess_reference(*args, c))
+    for k in (0, K - 1):  # each chain as it is at its scalar c
+        one = [args[0][k:k + 1], args[1]] + [a[k:k + 1] for a in args[2:6]] + [
+            args[6][:, k:k + 1].contiguous()]
+        torch.testing.assert_close(binary_threshold_ess(*one, float(c[k])), got[k:k + 1],
+                                   rtol=0, atol=0)
+    same = torch.full((K,), _C, device=cuda_device)
+    assert torch.equal(binary_threshold_ess(*args, same), binary_threshold_ess(*args, _C))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [2, 5])
+def test_tempered_sweep_on_card_matches_cpu(cuda_device, C):
+    """Chip_smoke's phase 18: one sweep with one temperature a chain; at
+    C = 2 the kernel runs once, with one c a chain."""
+    before = binary_threshold_ess.launches
+    _sweep_on_both(cuda_device, C=C, temp=torch.tensor(chip_smoke.SWEEP_TEMPS))
+    assert binary_threshold_ess.launches == before + (C == 2)
+
+
+@pytest.mark.gpu
+def test_tempered_gpirt_mcmc_on_the_card(cuda_device):
+    """Chip_smoke's phase 19 at a small size: one launch a sweep, each with
+    as many distinct c values as rungs."""
+    rng = np.random.default_rng(2)
+    votes = np.where(rng.random((20, 12)) < 0.5, 1.0, 6.0)
+    scales = []
+    binary_threshold_ess.launches = 0
+    out, _ = chip_smoke.observe_kernel(lambda: gpirt_mcmc(
+        votes, 4, 2, CHAIN=2, n_temps=3, max_temp=4.0, verbose=False), scales=scales)
+    assert binary_threshold_ess.launches == len(scales) == 6
+    assert all(int(torch.unique(c).numel()) == 3 for c in scales)
+    assert out[0]["swap_rate"].shape == (2,)
+    assert all(np.isfinite(d["ll"]).all() for d in out)
+
+
+@pytest.mark.gpu
+def test_gpirt_campaigns_on_the_card(cuda_device):
+    """Chip_smoke's phase 20 at a small size: no device argument, Newton
+    cutpoints (no launch), finite estimates."""
+    from gpirt_tpu_torch import gpirt_campaigns
+
+    rng = np.random.default_rng(3)
+    votes = np.where(rng.random((20, 12)) < 0.5, 1.0, 6.0)
+    before = binary_threshold_ess.launches
+    out = gpirt_campaigns(votes, n_campaigns=3, n_chains=4, sample_iterations=6,
+                          burn_iterations=2, smc_steps=6, verbose=False)
+    assert binary_threshold_ess.launches == before
+    assert out["theta_mean"].shape == (20, 1) and np.isfinite(out["theta_mean"]).all()
+    assert np.isfinite(out["theta_se"]).all()
