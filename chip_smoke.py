@@ -91,7 +91,29 @@ Phases, each of which stops the run with a non-zero exit on failure:
      JAX package's (tests/fixtures/campaigns8_senate116_jax.npz, written
      by scripts/jax_campaign_fixture.py): Pearson r >= 0.99 and |z| <= 4
      for at least 95 of the 100 senators, z the difference over the root
-     sum of the two campaign-replicated squared standard errors.
+     sum of the two campaign-replicated squared standard errors;
+ 23. shared-IRF sweep checks: one sweep on the card against the CPU over
+     three sessions (GP regime, y drawn from the model) for the grid
+     sampler with one IRF shared by the sessions (constant_IRF) and
+     without, the conjugate one under constant_IRF with one temperature a
+     chain (1, 4, 16), and the two-stage one under constant_IRF (f* from
+     100 inducing points), at C = 2: theta equal, one kernel launch, every
+     field within 1e-3 but f* within 1e-3 + 1e-3 |f*| when tempered, and
+     the two-stage f and f* within that plus four times the lane's own
+     float32 spread on the CPU; f* and the cutpoints one a chain;
+ 24. shared-IRF path: simulate_dynamic's 150 x 60 x 10 sessions through
+     gpirt_mcmc(constant_IRF=1), the grid sampler (f* by ESS over the
+     1001-point grid, the cutpoints by the kernel over one session of
+     1500 stacked sites), 64 chains from the dynamic path's spread init,
+     burn 100 and 300 draws; checked for one kernel launch and one f* ESS
+     a sweep, finite ll, one cutpoint vector for the sessions, theta that
+     differs between sessions and the truth correlation (|r| > 0.5);
+     prints the sweep rate, theta ESS, the f* ESS's rounds and host syncs
+     a sweep and the peak device memory, then phase 6 at the pooled state;
+ 25. shared-IRF recovery: recover_fstar(constant_IRF=1) on the card from a
+     short shared-IRF run's stored draw (shape, finite, one f* for the
+     sessions, repeatable), and that draw's _recover_one on the card
+     against the CPU as in phase 14.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -140,7 +162,11 @@ from gpirt_tpu_torch.utils.diagnostics import (  # noqa: E402
     effective_sample_size_device,
     split_rhat,
 )
-from gpirt_tpu_torch.utils.response import as_response_matrix, encode_categories  # noqa: E402
+from gpirt_tpu_torch.utils.response import (  # noqa: E402
+    as_response_matrix,
+    encode_categories,
+    recode_cube,
+)
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
 SDO_BURN, SDO_DRAWS = 200, 500
@@ -428,11 +454,12 @@ def model_responses(state, consts, C, rng):
 
 
 def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None,
-                 f_method="auto", fstar_method="matheron"):
+                 f_method="auto", fstar_method="matheron", constant_IRF=False):
     """The sweep check's float32 configuration, priors, state (3 chains on
     the CPU), draws and responses, for the sampler ``f_method`` (f* by
     ``fstar_method`` under "two_stage", with the nugget CHOL_JITTER under
-    "chol"). y is uniform over 1..C; with ``model_y`` (by default when
+    "chol"), one IRF shared by the sessions with ``constant_IRF``. y is
+    uniform over 1..C; with ``model_y`` (by default when
     H > 1) the chains share chain 0's state and y is drawn from the model
     there. Uniform y against prior-drawn
     states (|g| up to ~9) leaves cells whose interval holds under 1e-5 of
@@ -446,7 +473,7 @@ def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None,
     cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float32",
                       jitter=CHOL_JITTER if fstar_method == "chol" else 1e-5,
                       threshold_method=method, theta_ls=theta_ls, f_method=f_method,
-                      fstar_method=fstar_method)
+                      fstar_method=fstar_method, constant_IRF=constant_IRF)
     priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
               np.zeros((2, n)))
     gen = torch.Generator().manual_seed(0)
@@ -762,12 +789,13 @@ def two_stage_sweep_on(d, state0, draws, y, consts, cfg):
     return state, ll, seen["f"]
 
 
-def rounding_spread(run, f, consts, reps=4):
+def rounding_spread(run, f, consts, reps=4, sds=False):
     """The CPU's own float32 spread of ``run(f, consts)``, a dict of
     tensors: the largest change of each, over ``reps`` tries, when f, the
-    eigenbasis U_se and the grid Gram are each moved by about one float32
-    rounding (relative N(0, 1.2e-7) noise, symmetric in the Gram) and
-    nothing else changes."""
+    eigenbasis U_se and the grid Gram (and with ``sds`` the beta prior sds,
+    the ICC kernel's of the constant_IRF f* | f) are each moved by about one
+    float32 rounding (relative N(0, 1.2e-7) noise, symmetric in the Gram)
+    and nothing else changes."""
     gen = torch.Generator().manual_seed(0)
     base = run(f, consts)
     spread = {k: torch.zeros_like(v) for k, v in base.items()}
@@ -777,8 +805,10 @@ def rounding_spread(run, f, consts, reps=4):
 
     for _ in range(reps):
         gram = ulp(consts.grid_gram)
-        out = run(ulp(f), dataclasses.replace(consts, U_se=ulp(consts.U_se),
-                                              grid_gram=0.5 * (gram + gram.mT)))
+        moved = dict(U_se=ulp(consts.U_se), grid_gram=0.5 * (gram + gram.mT))
+        if sds:
+            moved["beta_prior_sds"] = ulp(consts.beta_prior_sds)
+        out = run(ulp(f), dataclasses.replace(consts, **moved))
         for k in spread:
             spread[k] = torch.maximum(spread[k], (out[k] - base[k]).abs())
     return spread
@@ -786,13 +816,14 @@ def rounding_spread(run, f, consts, reps=4):
 
 def sweep_spread(state0, draws, y, consts, cfg, reps=4):
     """:func:`rounding_spread` of a two-stage sweep's f and f* on the CPU,
-    from the state's f; the rounding must not move a theta draw."""
+    from the state's f (the beta prior sds moved too under constant_IRF);
+    the rounding must not move a theta draw."""
     def run(f, c):
         s, _, _ = two_stage_sweep_on(torch.device("cpu"), state0._replace(f=f), draws, y,
                                      c, cfg)
         return {"theta_idx": s.theta_idx, "f": s.f, "fstar": s.fstar}
 
-    spread = rounding_spread(run, state0.f, consts, reps)
+    spread = rounding_spread(run, state0.f, consts, reps, sds=cfg.constant_IRF)
     check(not bool(spread.pop("theta_idx").any()), "rounding moved a theta draw")
     return spread
 
@@ -1216,6 +1247,254 @@ def campaign_agreement(out, fixture=CAMPAIGN_FIXTURE):
     return r, float(np.abs(z).max()), within
 
 
+def fed_fstar_sweep(d, state0, draws, y, consts, cfg, fstar=None):
+    """One two-stage sweep on device ``d`` with its f* | f draw observed, or
+    replaced by ``fstar`` when given: (state, ll, draw_f's f, the f*)."""
+    seen = {}
+    draw_fstar = gibbs.draw_fstar
+
+    def observe(*args):
+        seen["fstar"] = draw_fstar(*args) if fstar is None else fstar.to(d)
+        return seen["fstar"]
+
+    gibbs.draw_fstar = observe
+    try:
+        state, ll, f = two_stage_sweep_on(d, state0, draws, y, consts, cfg)
+    finally:
+        gibbs.draw_fstar = draw_fstar
+    return state, ll, f, seen["fstar"]
+
+
+def shared_irf_check(dev, f_method, constant_IRF=True, temp=None, C=2, H=3):
+    """Phase 23: one sweep of ``f_method`` on the card against the CPU from
+    the same state and draws (:func:`sweep_inputs` over H sessions in the
+    GP regime, y drawn from the model at a state shared by the chains):
+    theta equal, one kernel launch at C = 2, every field within 1e-3; f*
+    within 1e-3 + 1e-3 |f*| under one temperature a chain (``temp`` a (3,)
+    tensor). The two-stage constant_IRF f* interpolates f onto 100 inducing
+    points whose float32 Gram is conditioned ~1e6, so the card's own f* can
+    move a theta draw: the card's sweep is fed the CPU's f* (then draw_f's
+    f and every field within 1e-3), and its own f* | f from the CPU's f is
+    held to 1e-3 + 1e-3 |f*| plus four times the lane's own float32 spread
+    on the CPU (f, U_se, the grid Gram and the beta prior sds of the
+    inducing points' Gram moved by one rounding). Under constant_IRF the
+    card's f* and cutpoints are one a chain."""
+    cfg, priors, state0, draws, y = sweep_inputs(
+        C, H=H, theta_ls=DYN_LS, model_y=True, f_method=f_method, constant_IRF=constant_IRF)
+    cpu = torch.device("cpu")
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
+    label = (f"f_method={cfg.resolved_f_method}, constant_IRF={int(constant_IRF)}, C={C}, "
+             f"H={H}, T={temp_label(temp) if temp is not None else 1}")
+    launches = threshold_ess.binary_threshold_ess.launches
+    exact = ["f", "beta", "thresholds", "fstar"]
+    if f_method == "two_stage":
+        s_cpu, ll_cpu, f_cpu, fs_cpu = fed_fstar_sweep(cpu, state0, draws, y, consts[cpu], cfg)
+        s_gpu, ll_gpu, f_gpu, _ = fed_fstar_sweep(dev, state0, draws, y, consts[dev], cfg,
+                                                  fstar=fs_cpu)
+
+        def fstar_on(f, c, d=cpu):
+            return {"fstar": gibbs.draw_fstar(f.to(d), state0.theta_idx.to(d), c, cfg,
+                                              gibbs.draws_to(draws.fstar, d))}
+
+        own = fstar_on(f_cpu, consts[dev], dev)["fstar"]
+        spread = rounding_spread(fstar_on, f_cpu, consts[cpu], sds=True)["fstar"]
+        ratio, widen = held_to_spread(own, fs_cpu, spread)
+        extra = (f"; the card's own f* | f "
+                 f"{max_diff(own, fs_cpu)[0]:.3g}, {ratio:.3g} of 1e-3 + 1e-3 |f*| + 4 spread "
+                 f"(widened up to {widen:.3g}x)")
+        exact.append("draw_f")
+    else:
+        def run(d):
+            t = temp.to(device=d, dtype=cfg.tdtype) if torch.is_tensor(temp) else temp
+            return gibbs.gibbs_sweep(gibbs.GPIRTState(*(a.to(d) for a in state0)),
+                                     draws.to(d), torch.as_tensor(y, device=d), consts[d],
+                                     cfg, temp=t)
+
+        (s_cpu, ll_cpu), (s_gpu, ll_gpu) = run(cpu), run(dev)
+        extra = ""
+    check(threshold_ess.binary_threshold_ess.launches == launches + (C == 2),
+          f"shared-IRF sweep check: kernel launches ({label})")
+    check(torch.equal(s_cpu.theta_idx, s_gpu.theta_idx.cpu()), f"sweep theta differs ({label})")
+    for k in ("f", "beta", "fstar"):
+        check(bool(torch.isfinite(getattr(s_gpu, k)).all()), f"sweep {k} not finite ({label})")
+    errs = {k: max_diff(getattr(s_gpu, k), getattr(s_cpu, k))[0]
+            for k in ("f", "beta", "thresholds", "fstar")}
+    errs["ll"] = max_diff(ll_gpu, ll_cpu)[0]
+    if f_method == "two_stage":
+        errs["draw_f"] = max_diff(f_gpu, f_cpu)[0]
+    line = ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + extra
+    log(f"shared-IRF sweep check (card vs CPU, float32, {label}): max abs diff {line}")
+    if f_method == "two_stage":
+        check(ratio <= 1.0, f"the card's f* | f beyond its tolerance ({label}): {ratio:.3g}")
+    elif torch.is_tensor(temp):
+        exact.remove("fstar")
+        check(bool(torch.isclose(s_gpu.fstar.cpu(), s_cpu.fstar, rtol=1e-3, atol=1e-3).all()),
+              f"sweep fstar differs beyond 1e-3 + 1e-3 |f*| ({label})")
+    for k in exact:
+        check(errs[k] < 1e-3, f"sweep {k} differs by {errs[k]:.3g} ({label})")
+    if constant_IRF:
+        check(torch.equal(s_gpu.fstar[:, 0], s_gpu.fstar[:, -1])
+              and torch.equal(s_gpu.thresholds[:, 0], s_gpu.thresholds[:, -1]),
+              f"f* or cutpoints differ between sessions ({label})")
+    moved = (s_gpu.thresholds.cpu() != state0.thresholds)[..., 1:-1]
+    check(float(moved.float().mean()) > 0.2, f"cutpoints did not move ({label})")
+
+
+def shared_irf_path(dev, smi):
+    """Phase 24: the dynamic data through gpirt_mcmc(constant_IRF=1), the
+    grid sampler (f* by ESS a (chain, item) over N grid points, the pooled
+    cutpoint kernel over H n sites), 64 chains, burn 100 and 300 draws;
+    checked for one kernel launch and one f* ESS a sweep, the pooled
+    layout at the kernel, finite ll, cutpoints that moved and one a chain
+    across sessions, theta that differs between sessions and a truth
+    correlation |r| > 0.5. Returns the kernel's launches, its inputs at the
+    last sweep and the run's numbers."""
+    truth, raw, init = dynamic_inputs()
+    fstar_ess = {"calls": 0, "rounds": 0, "syncs": 0}
+    direct = gibbs.draw_fstar_direct
+
+    def observe_fstar(*args):
+        rounds, syncs = ess_update.rounds, ess_update.syncs
+        out = direct(*args)
+        fstar_ess["calls"] += 1
+        fstar_ess["rounds"] += ess_update.rounds - rounds
+        fstar_ess["syncs"] += ess_update.syncs - syncs
+        return out
+
+    ess_update.calls = ess_update.rounds = ess_update.syncs = 0
+    gibbs.draw_fstar_direct = observe_fstar
+    torch.cuda.reset_peak_memory_stats()
+    threshold_ess.binary_threshold_ess.launches = 0
+    try:
+        out, state_args = observe_kernel(
+            lambda: gpirt_mcmc(raw, DYN_DRAWS, DYN_BURN, CHAIN=K, SEED=SEED,
+                               vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init,
+                               constant_IRF=1, dtype="float32", device=dev))
+    finally:
+        gibbs.draw_fstar_direct = direct
+    peak = torch.cuda.max_memory_allocated()
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = DYN_BURN + DYN_DRAWS
+    check(launches == fstar_ess["calls"] == sweeps,
+          f"shared IRF: {launches} kernel launches, {fstar_ess['calls']} f* ESS for "
+          f"{sweeps} sweeps")
+    m = out[0]["beta"].shape[2]
+    g, y = state_args[0], state_args[1]
+    check(tuple(g.shape) == (K, 1, DYN_N * DYN_H, m) and tuple(y.shape) == (1, DYN_N * DYN_H, m),
+          f"the kernel's pooled layout: g {tuple(g.shape)}, y {tuple(y.shape)}")
+    ll = np.stack([d["ll"] for d in out])
+    thr = np.stack([d["threshold"] for d in out])  # (K, S, m, 3, H)
+    theta = np.stack([d["theta"] for d in out])  # (K, S, n, H)
+    check(ll.shape == (K, DYN_DRAWS) and np.isfinite(ll).all(), "shared-IRF ll not finite")
+    check(np.isfinite(thr[..., 1, :]).all(), "shared-IRF cutpoints not finite")
+    check(bool((thr[..., 1, :] == thr[..., 1, :1]).all()), "cutpoints differ between sessions")
+    check(np.mean(thr[:, -1, :, 1, 0] != 0.0) > 0.99, "shared-IRF cutpoints did not move")
+    varies = np.mean(np.ptp(theta, axis=-1) > 0)
+    check(varies > 0.5, f"theta differs between sessions in {varies:.3f} of draws")
+    samp_s = out[0]["seconds"]["sampling"]
+    within, pooled = theta_ess(theta.reshape(K, DYN_DRAWS, -1), dev)
+    ch_means = theta.mean(axis=1).transpose(0, 2, 1)  # (K, H, n)
+    tt = truth.T
+    sign = np.sign(np.sum(ch_means * tt[None], axis=(1, 2), keepdims=True))
+    sign[sign == 0] = 1
+    r = abs(np.corrcoef((ch_means * sign).mean(axis=0).ravel(), tt.ravel())[0, 1])
+    check(np.isfinite(r) and r > 0.5, f"shared-IRF truth correlation {r}")
+    res = {
+        "sweeps_per_s": sweeps / samp_s,
+        "sampling_s": samp_s,
+        "ess_within": within,
+        "ess_pooled": pooled,
+        "truth_r": r,
+        "fstar_ess_rounds_per_sweep": fstar_ess["rounds"] / sweeps,
+        "fstar_ess_syncs_per_sweep": fstar_ess["syncs"] / sweeps,
+        "ess_syncs_per_sweep": ess_update.syncs / sweeps,
+        "peak_gib": peak / 2**30,
+    }
+    log(f"shared-IRF path on {smi}: {DYN_N} x {m} (of {DYN_M}) x {DYN_H} sessions, one IRF "
+        f"(constant_IRF=1, f_method grid), GP regime (theta_ls={DYN_LS:g}), {K} chains, "
+        f"{sweeps} sweeps in {samp_s:.3f} s ({res['sweeps_per_s']:.2f} sweeps/s); {launches} "
+        f"kernel launches ({K * m} lanes of {DYN_N * DYN_H} sites); theta ESS over "
+        f"{DYN_N * DYN_H} parameters, median within-chain (summed over {K} chains) "
+        f"{within:.1f}, pooled {pooled:.1f}; ess/sec {within / samp_s:.2f} (sampling wall); "
+        f"truth correlation {r:.4f}; f* ESS {res['fstar_ess_rounds_per_sweep']:.2f} rounds "
+        f"and {res['fstar_ess_syncs_per_sweep']:.2f} host syncs a sweep (all ESS loops "
+        f"{res['ess_syncs_per_sweep']:.2f}); peak device memory {res['peak_gib']:.3f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    return launches, state_args, res
+
+
+def shared_irf_recovery(dev, smi):
+    """Phase 25: recover_fstar(constant_IRF=1) on the card from one stored
+    draw of a short shared-IRF run on the dynamic data (shape, finite, one
+    f* for the sessions, the same twice under one seed), and that draw's
+    _recover_one on the card against the CPU given the same draws: draw_f
+    within 1e-3, f* within 1e-3 + 1e-3 |f*| plus four times the lane's own
+    float32 spread on the CPU (the inducing points' Gram moved too)."""
+    _, raw, init = dynamic_inputs()
+    d = gpirt_mcmc(raw, 2, 1, vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init,
+                   constant_IRF=1, store_f=True, dtype="float32", device=dev,
+                   verbose=False)[0]
+    rm = recode_cube(raw, DYN_VOTES, verbose=False)
+    args = (d["f"][-1], rm, d["theta"][-1], d["beta"][-1], d["threshold"][-1])
+    t = time.perf_counter()
+    rec = recover_fstar(3, *args, constant_IRF=1, device=dev)
+    wall = time.perf_counter() - t
+    fs = rec["fstar"]
+    m = d["beta"].shape[2]
+    check(fs.shape == (1001, m, DYN_H) and bool(np.isfinite(fs).all()),
+          f"shared-IRF recovered f* {fs.shape}, finite {bool(np.isfinite(fs).all())}")
+    check(bool((fs == fs[..., :1]).all()), "recovered f* differs between sessions")
+    check(np.array_equal(fs, recover_fstar(3, *args, constant_IRF=1, device=dev)["fstar"]),
+          "recover_fstar differs under one seed")
+    y, C, _ = encode_categories(np.asarray(rm))
+    cfg = GPIRTConfig(n=DYN_N, m=m, horizon=DYN_H, C=C, dtype="float32", jitter=1e-5,
+                      mean_degree=1, constant_IRF=True)
+    priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, DYN_N)),
+              np.zeros((2, DYN_N)))
+    cpu = torch.device("cpu")
+    consts = {dv: make_constants(cfg, *priors, device=dv) for dv in (cpu, dev)}
+    gen = torch.Generator().manual_seed(4)
+    rand = (gibbs.f_draws(gen, 1, consts[cpu], cfg), gibbs.fstar_draws(gen, 1, consts[cpu], cfg))
+    stored = [np.ascontiguousarray(d[k][-1:].transpose(0, 3, 1, 2))
+              for k in ("f", "beta", "threshold")]
+    stored.insert(1, np.ascontiguousarray(d["theta"][-1:].transpose(0, 2, 1)))
+
+    def one(dv, f=None, c=None):
+        """_recover_one on device dv: {"fstar", "f": draw_f's output}."""
+        a = [torch.as_tensor(v, dtype=torch.float32, device=dv) for v in stored]
+        seen = {}
+        draw_f = api.draw_f
+
+        def observe(*x):
+            seen["f"] = draw_f(*x)
+            return seen["f"]
+
+        api.draw_f = observe
+        try:
+            fstar = _recover_one(a[0] if f is None else f, *a[1:], torch.as_tensor(y, device=dv),
+                                 consts[dv] if c is None else c, cfg,
+                                 *(gibbs.draws_to(r, dv) for r in rand))
+        finally:
+            api.draw_f = draw_f
+        return {"fstar": fstar, "f": seen["f"]}
+
+    want, got = one(cpu), one(dev)
+    f_err = max_diff(got["f"], want["f"])[0]
+    spread = rounding_spread(lambda f, c: one(cpu, f, c), torch.as_tensor(stored[0]),
+                             consts[cpu], sds=True)
+    err, i = max_diff(got["fstar"], want["fstar"])
+    ratio, widen = held_to_spread(got["fstar"], want["fstar"], spread["fstar"])
+    log(f"shared-IRF recovery on {smi}: recover_fstar(constant_IRF=1) f* {fs.shape}, finite, "
+        f"one for the {DYN_H} sessions, equal under one seed, {wall:.3f} s wall "
+        f"({rec['seconds']['recovery']:.4f} s recovery); one draw's _recover_one card vs CPU: "
+        f"draw_f max abs diff {f_err:.3g}, f* {err:.3g} at |f*| "
+        f"{abs(float(want['fstar'][i])):.4g}, {ratio:.3g} of 1e-3 + 1e-3 |f*| + 4 spread "
+        f"(widened up to {widen:.3g}x; the CPU's own spread of f* up to "
+        f"{float(spread['fstar'].max()):.3g})")
+    check(f_err < 1e-3, f"shared-IRF recovery's draw_f card vs CPU differs by {f_err:.3g}")
+    check(ratio <= 1.0, f"shared-IRF recovered f* card vs CPU beyond its tolerance ({ratio:.3g})")
+
+
 def timed(label, fn, *args):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
@@ -1308,6 +1587,24 @@ def main():
     c64_launches, _ = timed("21 (chains64)", chains64, rm, dev, smi)
     timed("22 (campaign agreement)", campaign_agreement, camp)
 
+    for f_method, shared, temp in (("grid", True, None), ("grid", False, None),
+                                   ("conjugate", True, sweep_temps),
+                                   ("two_stage", True, None)):
+        timed(f"23 (sweep check, {f_method}, constant_IRF={int(shared)})", shared_irf_check,
+              dev, f_method, shared, temp)
+    sh_launches, sh_args, sh_res = timed("24 (shared-IRF path)", shared_irf_path, dev, smi)
+    t = time.perf_counter()
+    sh_worst, sh_flipped = kernel_check(sh_args, "shared-IRF (pooled) state")
+    sh_ms, sh_eager, sh_plain = kernel_times(sh_args, _C)
+    log(f"kernel time, shared-IRF (pooled) state ({sh_args[2].numel()} lanes of "
+        f"{sh_args[0].shape[2]} sites), T=1: {sh_ms:.5f} ms (graph), {sh_eager:.5f} ms "
+        f"(eager), plain {sh_plain:.4f} ms")
+    sh_work = kernel_bound(sh_args, _C, "shared-IRF (pooled) state")
+    log(f"phase 24 (kernel at the pooled state): {time.perf_counter() - t:.2f} s wall")
+    worst, flipped = max(worst, sh_worst), flipped + sh_flipped
+    del sh_args
+    timed("25 (shared-IRF recovery)", shared_irf_recovery, dev, smi)
+
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
         "route": "cuda",
@@ -1362,6 +1659,17 @@ def main():
         "bound_by_tempering_state": pt_work["bound_by"],
         "launches_campaigns8": camp_launches,
         "launches_chains64": c64_launches,
+        "launches_constant_irf": sh_launches,
+        "max_abs_err_pooled": sh_worst,
+        "lanes_over_1e-5_pooled": sh_flipped,
+        "ms_pooled_state": sh_ms,
+        "ms_eager_pooled_state": sh_eager,
+        "plain_ms_pooled_state": sh_plain,
+        "bound_ms_pooled_state": sh_work["bound_ms"],
+        "bound_by_pooled_state": sh_work["bound_by"],
+        "rounds_mean_pooled_state": sh_work["rounds_mean"],
+        "constant_irf_sweeps_per_s": sh_res["sweeps_per_s"],
+        "constant_irf_fstar_ess_syncs_per_sweep": sh_res["fstar_ess_syncs_per_sweep"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 
 Counterpart of ``gpirt_tpu/api.py`` for binary and ordinal data, one
 session or an (n, m, H) cube of sessions, on one device: vote-code
-recoding, prior and cutpoint defaults, the time-GP settings, the conjugate
-or two-stage sampler, K chains in lockstep, an optional SMC annealed
+recoding, prior and cutpoint defaults, the time-GP settings, one item
+response function a session or one shared by all (``constant_IRF``), the
+conjugate, grid or two-stage sampler, K chains in lockstep, an optional SMC annealed
 initialization or parallel tempering, optional f / f* storage, the
 reference output layout (``gpirt_tpu/api.py:606``), an end-of-run
 convergence summary, and f* recovered from stored f draws. The host
@@ -31,12 +32,12 @@ from gpirt_tpu_torch.models.config import (
 )
 from gpirt_tpu_torch.models.gibbs import (
     compute_mu,
-    compute_mu_star,
     draw_f,
     draw_fstar,
     f_draws,
     fstar_draws,
     snap_indices,
+    stored_fstar,
 )
 from gpirt_tpu_torch.models.sampler import run_chains
 from gpirt_tpu_torch.parallel.smc import anneal_init
@@ -209,23 +210,27 @@ def gpirt_mcmc(
     from it.
     ``threshold_method`` is "auto" / "ess" (the y-marginal delta ESS) or
     "newton" (``threshold_mh_tries`` Newton-proposal MH tries on the same
-    conditional). ``f_method`` is "auto" / "conjugate" (Albert-Chib) or
-    "two_stage" (the reference's ESS on f, then f* | f by ``fstar_method``,
-    "matheron" or "chol"); ``grid_size`` is the theta grid's N. All sampler
+    conditional). A nonzero ``constant_IRF`` shares one item response
+    function (f* and the cutpoints) across the sessions. ``f_method`` is
+    "auto" (Albert-Chib, or "grid" under ``constant_IRF``), "conjugate",
+    "grid" (one ESS on each item's grid function f*) or "two_stage" (the
+    reference's ESS on f, then f* | f by ``fstar_method``, "matheron" or
+    "chol"); ``grid_size`` is the theta grid's N. All sampler
     randomness comes from one ``torch.Generator`` on ``device`` seeded with
     SEED. ``smc_steps > 0`` prepends the SMC annealed initialization from
     ``smc_max_temp`` (conjugate only). ``n_temps > 1`` runs each chain as a
     parallel-tempering group of ``n_temps`` lanes on a geometric ladder up
     to ``max_temp``, with adjacent swaps every ``swap_every`` sweeps
     (conjugate only, not with ``smc_steps``); the draws are the cold lanes'.
-    ``constant_IRF`` must be 0 (not ported). ``verbose`` prints the recode's
+    ``verbose`` prints the recode's
     messages, the SMC line and the end-of-run convergence summary (theta
     ESS, R-hat, basins) to stderr. The run is on the CUDA card unless
     ``device`` says otherwise; without a card it raises.
 
     Each dict holds theta (S, n, H), beta (S, 3, m, H), threshold
     (S, m, C+1, H) and ll (S,); f (S, n, m, H) with ``store_f`` and fstar
-    (S, N, m, H), f* plus its parametric mean, with ``store_fstar``;
+    (S, N, m, H), f* plus its parametric mean (session 0's under
+    ``constant_IRF``), with ``store_fstar``;
     "swap_rate" (n_temps - 1,) under tempering; "respondents" / "items"
     when the data carried labels; and "seconds", the wall time of the SMC
     and sampling phases (device work included).
@@ -395,7 +400,8 @@ def _recover_one(f, theta, beta, thresholds, y, consts: GPIRTConstants,
 
     ``config.mean_degree == 1`` zeroes the quadratic coefficient, the
     reference's linear mean; the parametric mean takes the stored theta,
-    f* the snapped one. Returns f* + mu* (S, H, N, m).
+    f* the snapped one. Returns f* + mu* (S, H, N, m), session 0's mu*
+    under constant_IRF (``gpirt_tpu/api.py:805-808``).
     """
     theta_idx = snap_indices(theta, config)
     if config.mean_degree == 1:
@@ -404,7 +410,7 @@ def _recover_one(f, theta, beta, thresholds, y, consts: GPIRTConstants,
     mu = compute_mu(theta, beta)
     f_new = draw_f(f, theta_idx, thresholds, mu, y, consts, config, f_rand)
     fstar = draw_fstar(f_new, theta_idx, consts, config, fstar_rand)
-    return fstar + compute_mu_star(consts, beta)
+    return stored_fstar(fstar, beta, consts, config)
 
 
 def _recover(seed: int, y: np.ndarray, C: int, f, theta, beta, thresholds,
@@ -467,7 +473,10 @@ def recover_fstar(
     ``gpirt_tpu/api.py:682``): one ESS draw of f, then f* | f.
 
     The reference uses a linear parametric mean here though its sampler's
-    is quadratic; ``mean_degree=1`` reproduces that, 2 does not.
+    is quadratic; ``mean_degree=1`` reproduces that, 2 does not. A nonzero
+    ``constant_IRF`` redraws the one shared f* from the stacked sites
+    (inducing points, ``gpirt_tpu/models/gibbs.py:380``) and adds session
+    0's mean to every session.
 
     Args:
       f: (n, m) or (n, m, H) stored latent draw.

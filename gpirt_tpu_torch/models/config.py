@@ -2,11 +2,13 @@
 
 Counterpart of ``gpirt_tpu/models/config.py``, restricted to what the port
 runs: binary or ordinal data (any C >= 2) over any number of sessions in
-the three theta regimes, the Albert-Chib conjugate latent sampler and the
-reference's two-stage pipeline (ESS on f, then f* | f by Matheron's rule
-or a posterior Cholesky), the exact grid draw of theta, and the
-y-marginal cutpoint update by ESS or by Newton-proposal MH. A
-configuration outside that raises ``NotImplementedError``.
+the three theta regimes, one item response function a session or one
+shared by every session (``constant_IRF``), the Albert-Chib conjugate
+latent sampler, the grid-native ESS on f*, and the reference's two-stage
+pipeline (ESS on f, then f* | f by Matheron's rule or a posterior
+Cholesky), the exact grid draw of theta, and the y-marginal cutpoint
+update by ESS or by Newton-proposal MH. A configuration outside that
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ class GPIRTConfig:
     theta_os: float = 1.0  # time-GP output scale
     theta_ls: float = 10.0  # time-GP length scale: picks the theta regime
     kernel: str = "Matern"  # time kernel: "Matern" or "RBF"
-    constant_IRF: bool = False
+    constant_IRF: bool = False  # one IRF (f*, cutpoints) shared by all sessions
+    n_inducing: int = 100  # inducing points of the two-stage constant_IRF f*
     jitter: float = 1e-6  # model nugget
     dtype: str = "float32"
     ess_max_rounds: int = 64  # cutpoint ESS round cap
@@ -49,8 +52,9 @@ class GPIRTConfig:
     threshold_method: str = "auto"  # "auto" / "ess" (y-marginal delta ESS)
     # or "newton" (Newton-proposal independence MH, same conditional)
     threshold_mh_tries: int = 2  # MH tries per sweep under "newton"
-    f_method: str = "auto"  # "auto" / "conjugate" (Albert-Chib) or
-    # "two_stage" (the reference's draw_f + draw_fstar pipeline)
+    f_method: str = "auto"  # "auto", "conjugate" (Albert-Chib), "grid"
+    # (one ESS on each item's grid function f*) or "two_stage" (the
+    # reference's draw_f + draw_fstar pipeline)
     fstar_method: str = "matheron"  # two-stage f* | f: "matheron" (pathwise,
     # rank-(q+3) eigenbasis) or "chol" (the reference's posterior Cholesky)
     mean_degree: int = 2  # quadratic parametric mean (recover_fstar uses 1)
@@ -73,11 +77,12 @@ class GPIRTConfig:
         if self.fstar_method not in ("matheron", "chol"):
             raise ValueError(
                 f"fstar_method must be 'matheron' or 'chol', got {self.fstar_method!r}")
+        if self.f_method not in ("auto", "grid", "two_stage", "conjugate"):
+            raise ValueError("f_method must be 'auto', 'grid', 'two_stage' or "
+                             f"'conjugate', got {self.f_method!r}")
+        if self.n_inducing < 2:
+            raise ValueError(f"n_inducing must be >= 2, got {self.n_inducing}")
         outside = []
-        if self.constant_IRF:
-            outside.append("constant_IRF")
-        if self.f_method not in ("auto", "conjugate", "two_stage"):
-            outside.append(f"f_method={self.f_method!r}")
         if self.threshold_method not in ("auto", "ess", "newton"):
             outside.append(f"threshold_method={self.threshold_method!r}")
         if self.theta_method != "grid":
@@ -92,15 +97,18 @@ class GPIRTConfig:
 
     @property
     def resolved_f_method(self) -> str:
-        """"auto" is the conjugate sampler, as in the JAX package without
-        constant_IRF (``gpirt_tpu/models/config.py:219``)."""
-        return "conjugate" if self.f_method == "auto" else self.f_method
+        """"auto" is the conjugate sampler, and the grid-native ESS on f*
+        under constant_IRF, as in the JAX package
+        (``gpirt_tpu/models/config.py:219``)."""
+        if self.f_method != "auto":
+            return self.f_method
+        return "grid" if self.constant_IRF else "conjugate"
 
     @property
     def resolved_threshold_method(self) -> str:
         """"auto" is the y-marginal ESS, as in the JAX package on every
-        f_method the port runs (the two-stage path has no Albert-Chib
-        latents, so nothing else could serve it)."""
+        f_method the port runs (the grid and two-stage paths have no
+        Albert-Chib latents, so nothing else could serve them)."""
         return "newton" if self.threshold_method == "newton" else "ess"
 
     @property

@@ -1,18 +1,24 @@
-"""The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path and the
-reference's two-stage pipeline.
+"""The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path, the
+grid-native ESS on f* and the reference's two-stage pipeline.
 
-Counterpart of the conjugate and two-stage branches of
-``gpirt_tpu/models/gibbs.py``. Chains are a written-out leading K axis.
-Every block is a pure function of the state and of its random draws,
-passed in as tensors; :func:`sweep_draws` makes one sweep's draws from a
-``torch.Generator`` and :func:`gibbs_sweep` applies the blocks of
-``config.resolved_f_method``.
+Counterpart of ``gpirt_tpu/models/gibbs.py`` (one latent pass a sweep).
+Chains are a written-out leading K axis. Every block is a pure function of
+the state and of its random draws, passed in as tensors; :func:`sweep_draws`
+makes one sweep's draws from a ``torch.Generator`` and :func:`gibbs_sweep`
+applies the blocks of ``config.resolved_f_method``.
 
 The conjugate sweep (Albert-Chib latents z; the block order of
 src/gpirtMCMC.cpp:261-331 with theta first):
 
   theta | f*  ->  z | theta, f*  ->  f* | z  ->  beta | z, f  ->  t | f, mu
   ->  ll.
+
+The grid sweep (``f_method="grid"``): one ESS move of each item's whole
+grid function f*, its likelihood gathered at the snapped theta, in place
+of draw_f + draw_fstar:
+
+  f* | theta, beta, t (ESS)  ->  theta | f*  ->  beta | f, theta (ESS)
+  ->  t | f, mu  ->  ll.
 
 The two-stage sweep (``f_method="two_stage"``, src/gpirtMCMC.cpp:261-331
 as the reference runs it):
@@ -24,15 +30,23 @@ as the reference runs it):
 The cutpoint block is the y-marginal update of the reference: an ESS in
 the delta parametrization (the binary one through the hand-written CUDA
 kernel on the card, ``ops/threshold_ess.py``; the ordinal one through
-``ops/ess.py``), or Newton-proposal independence MH on the same
-conditional (``threshold_method="newton"``). The ESS of f and beta run
-through ``ops/ess.py``.
+``ops/ess.py``), or Newton-proposal MH on the same conditional
+(``threshold_method="newton"``). The ESS of f, f* and beta run through
+``ops/ess.py``.
 
 Layouts put the chain axis first, then the horizon:
   theta_idx (K, H, n) int64, f (K, H, n, m), beta (K, H, 3, m),
   thresholds (K, H, m, C+1), fstar (K, H, N, m); responses y (H, n, m).
 Every block but the theta draw treats the sessions as independent; the
 theta draw couples them as ``config.theta_regime`` says.
+
+Under ``constant_IRF`` one item response function serves every session:
+f* and the cutpoints are one value a chain, shared by the sessions (f* an
+``expand`` view over H), beta stays one a session as in JAX. Each block
+that draws them (f, f*, the cutpoints) runs as the H = 1 block on one
+session of H n stacked sites, the reference's stacked (n H) GP
+(src/draw-f.cpp:84-138, src/draw-fstar.cpp:58-125,
+src/draw_threshold.cpp:181-204), and its draws have a session axis of 1.
 """
 
 from __future__ import annotations
@@ -49,6 +63,8 @@ from gpirt_tpu_torch.models.config import (
     THETA_LO,
 )
 from gpirt_tpu_torch.ops.ess import ess_update
+from gpirt_tpu_torch.ops.interp import interp
+from gpirt_tpu_torch.ops.kernels import icc_gram
 from gpirt_tpu_torch.ops.likelihood import (
     cutpoint_bounds,
     delta_to_threshold,
@@ -72,10 +88,12 @@ __all__ = [
     "BetaDraws",
     "TwoStageInitDraws",
     "TwoStageDraws",
+    "GridDraws",
     "snap_indices",
     "theta_from_indices",
     "compute_mu",
     "compute_mu_star",
+    "stored_fstar",
     "theta_site_basis",
     "gather_theta_gram",
     "theta_chol",
@@ -90,6 +108,7 @@ __all__ = [
     "draw_beta_conjugate",
     "draw_f",
     "draw_fstar",
+    "draw_fstar_direct",
     "draw_beta",
     "draw_threshold",
     "gibbs_sweep",
@@ -112,12 +131,15 @@ class GPIRTState(NamedTuple):
 
 
 class InitDraws(NamedTuple):
+    """H is 1 under constant_IRF: one beta and one f* a chain, shared."""
+
     z_beta: torch.Tensor  # (K, H, 3, m) standard normal
     z_fstar: torch.Tensor  # (K, H, N, m) standard normal
 
 
 class ESSDraws(NamedTuple):
-    """The cutpoint ESS's random numbers."""
+    """The cutpoint ESS's random numbers; under constant_IRF the session
+    axis H is 1 (one cutpoint vector a chain)."""
 
     nu: torch.Tensor  # (K, H, m, C-1) normal: prior draw
     logu: torch.Tensor  # (K, H, m) log uniform: slice level
@@ -126,7 +148,8 @@ class ESSDraws(NamedTuple):
 
 
 class NewtonDraws(NamedTuple):
-    """Newton-proposal MH's random numbers, one row per try."""
+    """Newton-proposal MH's random numbers, one row per try; H is 1 under
+    constant_IRF."""
 
     z: torch.Tensor  # (tries, K, H, m, C-1) normal: proposal
     logu: torch.Tensor  # (tries, K, H, m) log uniform: accept
@@ -140,7 +163,8 @@ def draws_to(draws, device):
 
 class SweepDraws(NamedTuple):
     """One conjugate sweep's random numbers for K chains; ``cut`` holds
-    those of the configured cutpoint update."""
+    those of the configured cutpoint update. Under constant_IRF the f*
+    prior's H is 1 (one draw gathered at every session's sites)."""
 
     u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
     # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
@@ -165,7 +189,8 @@ class ESSLoopDraws(NamedTuple):
 
 
 class FDraws(NamedTuple):
-    """draw_f's random numbers: its prior perturbation and its ESS."""
+    """draw_f's random numbers: its prior perturbation and its ESS. Under
+    constant_IRF H is 1 and the sites are the H n stacked ones."""
 
     z_u: torch.Tensor  # (K, H, q+3, m) normal: eigenbasis part
     z_site: torch.Tensor  # (K, H, n, m) normal: site nugget
@@ -173,9 +198,9 @@ class FDraws(NamedTuple):
 
 
 class FStarDraws(NamedTuple):
-    """draw_fstar's normals. Matheron's rule takes all three as the parts of
-    its grid prior draw; "chol" takes z_n alone, the posterior factor's
-    normal."""
+    """draw_fstar's normals. Matheron's rule, the constant_IRF draw (H = 1
+    there) and the grid ESS take all three as the parts of their grid
+    prior draw; "chol" takes z_n alone, the posterior factor's normal."""
 
     z_q: torch.Tensor  # (K, H, q, m) SE eigenbasis part
     z_p: torch.Tensor  # (K, H, 3, m) polynomial part
@@ -190,6 +215,8 @@ class BetaDraws(NamedTuple):
 
 
 class TwoStageInitDraws(NamedTuple):
+    """H is 1 under constant_IRF: one beta and one f a chain, shared."""
+
     z_beta: torch.Tensor  # (K, H, 3, m) standard normal
     z_u: torch.Tensor  # (K, H, q+3, m) normal: f's prior draw, eigenbasis part
     z_site: torch.Tensor  # (K, H, n, m) normal: its site nugget
@@ -207,6 +234,21 @@ class TwoStageDraws(NamedTuple):
     cut: Union[ESSDraws, NewtonDraws]
 
     def to(self, device) -> "TwoStageDraws":
+        return draws_to(self, device)
+
+
+class GridDraws(NamedTuple):
+    """One grid sweep's random numbers for K chains; the f* ESS has lanes
+    (K, H, m), H 1 under constant_IRF."""
+
+    fstar: FStarDraws  # the ESS's grid prior draw of f*
+    ess: ESSLoopDraws  # its slice level, initial angle and shrinks
+    u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
+    # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
+    beta: BetaDraws
+    cut: Union[ESSDraws, NewtonDraws]
+
+    def to(self, device) -> "GridDraws":
         return draws_to(self, device)
 
 
@@ -240,6 +282,17 @@ def compute_mu_star(consts: GPIRTConstants, beta: torch.Tensor) -> torch.Tensor:
     return consts.Xstar @ beta
 
 
+def stored_fstar(fstar, beta, consts: GPIRTConstants, config: GPIRTConfig) -> torch.Tensor:
+    """f* as it is stored and returned, with the parametric mean mu* added;
+    under constant_IRF every session takes session 0's mu*, as the JAX
+    package does (``gpirt_tpu/parallel/chains.py:295``,
+    src/draw-fstar.cpp:115-124). fstar (..., H, N, m), beta (..., H, 3, m)."""
+    ms = compute_mu_star(consts, beta)
+    if config.constant_IRF:
+        ms = ms[..., :1, :, :].expand(ms.shape)
+    return fstar + ms
+
+
 def theta_site_basis(theta_idx: torch.Tensor, consts: GPIRTConstants) -> torch.Tensor:
     """Rows of [U_se, Psi_grid] at the snapped indices: (..., n) -> (..., n, q+3);
     U U^T = K(theta, theta) to the eigenbasis truncation."""
@@ -269,6 +322,25 @@ def _per_chain(v, ndim: int):
     if torch.is_tensor(v):
         return v.reshape((-1,) + (1,) * (ndim - 1))
     return v
+
+
+def _stack_sessions(a: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The sessions (``dim``) and respondents (``dim + 1``) of ``a`` as one
+    session of H n stacked sites, in [h n + i] order: (.., H, n, ...) ->
+    (.., 1, H n, ...)."""
+    return a.flatten(dim, dim + 1).unsqueeze(dim)
+
+
+def _share(a: torch.Tensor, H: int) -> torch.Tensor:
+    """One value a chain shared by H sessions: (K, 1, ...) -> (K, H, ...),
+    a view."""
+    return a.expand((a.shape[0], H) + tuple(a.shape[2:]))
+
+
+def _irf_sessions(config: GPIRTConfig) -> int:
+    """The session axis of what belongs to the IRF (f*, f's ESS lanes, the
+    cutpoints) and of its draws: 1 under constant_IRF, else H."""
+    return 1 if config.constant_IRF else config.horizon
 
 
 def _onehot(y, C: int, dtype) -> torch.Tensor:
@@ -311,15 +383,17 @@ def f_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     rand, randn = _samplers(gen, consts, config)
     H, n, m = config.horizon, config.n, config.m
     k = consts.U_se.shape[1] + 3
+    if config.constant_IRF:  # one session of H n stacked sites
+        H, n = 1, H * n
     return FDraws(z_u=randn(K, H, k, m), z_site=randn(K, H, n, m),
                   ess=_ess_loop_draws(rand, (K, H, m), config.ess_max_rounds))
 
 
 def fstar_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
                 config: GPIRTConfig) -> FStarDraws:
-    """draw_fstar's normals for K lanes."""
+    """draw_fstar's (or the grid ESS's) normals for K lanes."""
     _, randn = _samplers(gen, consts, config)
-    H, m, N = config.horizon, config.m, config.grid_size
+    H, m, N = _irf_sessions(config), config.m, config.grid_size
     return FStarDraws(z_q=randn(K, H, consts.U_se.shape[1], m), z_p=randn(K, H, 3, m),
                       z_n=randn(K, H, N, m))
 
@@ -328,7 +402,7 @@ def init_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
                config: GPIRTConfig) -> Union[InitDraws, TwoStageInitDraws]:
     """The initial state's draws for ``config.resolved_f_method``."""
     rand, randn = _samplers(gen, consts, config)
-    H, n, m, N = config.horizon, config.n, config.m, config.grid_size
+    H, n, m, N = _irf_sessions(config), config.n, config.m, config.grid_size
     z_beta = randn(K, H, 3, m)
     if config.resolved_f_method == "two_stage":
         k = consts.U_se.shape[1] + 3
@@ -339,7 +413,7 @@ def init_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
 
 
 def _cut_draws(rand, randn, K: int, config: GPIRTConfig) -> Union[ESSDraws, NewtonDraws]:
-    H, m, d = config.horizon, config.m, config.C - 1
+    H, m, d = _irf_sessions(config), config.m, config.C - 1
     if config.resolved_threshold_method == "newton":
         tries = config.threshold_mh_tries
         return NewtonDraws(z=randn(tries, K, H, m, d), logu=torch.log(rand(tries, K, H, m)))
@@ -356,21 +430,34 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     """One sweep's draws for ``config.resolved_f_method``."""
     rand, randn = _samplers(gen, consts, config)
     H, n, m, N = config.horizon, config.n, config.m, config.grid_size
-    if config.resolved_f_method == "two_stage":
+    Hi, R = _irf_sessions(config), config.ess_max_rounds
+    method = config.resolved_f_method
+
+    def beta():
+        return BetaDraws(z=randn(K, H, m, 3), ess=_ess_loop_draws(rand, (K, H, m), R))
+
+    if method == "two_stage":
         return TwoStageDraws(
             f=f_draws(gen, K, consts, config),
             fstar=fstar_draws(gen, K, consts, config),
             u_theta=_theta_uniforms(rand, K, config),
-            beta=BetaDraws(z=randn(K, H, m, 3),
-                           ess=_ess_loop_draws(rand, (K, H, m), config.ess_max_rounds)),
+            beta=beta(),
+            cut=_cut_draws(rand, randn, K, config),
+        )
+    if method == "grid":
+        return GridDraws(
+            fstar=fstar_draws(gen, K, consts, config),
+            ess=_ess_loop_draws(rand, (K, Hi, m), R),
+            u_theta=_theta_uniforms(rand, K, config),
+            beta=beta(),
             cut=_cut_draws(rand, randn, K, config),
         )
     latent = dict(
         u_theta=_theta_uniforms(rand, K, config),
         u_z=rand(K, H, n, m),
-        z_q=randn(K, H, consts.U_se.shape[1], m),
-        z_p=randn(K, H, 3, m),
-        z_n=randn(K, H, N, m),
+        z_q=randn(K, Hi, consts.U_se.shape[1], m),
+        z_p=randn(K, Hi, 3, m),
+        z_n=randn(K, Hi, N, m),
         eps_f=randn(K, H, n, m),
         zeta=randn(K, H, m, 3),
     )
@@ -413,28 +500,32 @@ def init_state(theta_init: torch.Tensor, thresholds_init: torch.Tensor,
                consts: GPIRTConstants, config: GPIRTConfig,
                draws: Union[InitDraws, TwoStageInitDraws]) -> GPIRTState:
     """Prior draws of beta, and of f* on the grid (f its rows at the
-    snapped theta_init) for the conjugate sampler, or of f at the sites
-    followed by one f* | f draw for the two-stage one
-    (src/gpirtMCMC.cpp:148-227).
+    snapped theta_init) for the conjugate and grid samplers, or of f at the
+    sites followed by one f* | f draw for the two-stage one
+    (src/gpirtMCMC.cpp:148-227; ``gpirt_tpu/models/gibbs.py:2500``). Under
+    constant_IRF beta and f* (two-stage: f, from session 0's sites) are one
+    draw a chain copied to every session.
 
     theta_init (K, H, n) or (H, n); thresholds_init (H, m, C+1).
     """
-    K, H, _, m = draws.z_beta.shape
-    dt = config.tdtype
+    K, m = draws.z_beta.shape[0], draws.z_beta.shape[-1]
+    H, dt = config.horizon, config.tdtype
     theta_idx = snap_indices(theta_init.to(dt), config)
     theta_idx = theta_idx.expand(K, H, config.n).contiguous()
     beta = consts.beta_prior_means + draws.z_beta * consts.beta_prior_sds
     if config.resolved_f_method == "two_stage":
-        f = theta_prior_perturbation(theta_idx, consts, config, draws.z_u, draws.z_site)
+        idx = theta_idx[:, :1] if config.constant_IRF else theta_idx
+        f = theta_prior_perturbation(idx, consts, config, draws.z_u, draws.z_site)
+        f = _share(f, H)
         fstar = draw_fstar(f, theta_idx, consts, config, draws.fstar)
     else:
-        fstar = consts.L_grid @ draws.z_fstar
+        fstar = _share(consts.L_grid @ draws.z_fstar, H)
         f = _rows(fstar, theta_idx)
     thresholds = thresholds_init.to(dt).expand((K,) + tuple(thresholds_init.shape))
     return GPIRTState(
         theta_idx=theta_idx,
         f=f,
-        beta=beta,
+        beta=_share(beta, H).contiguous(),
         thresholds=thresholds.contiguous(),
         fstar=fstar,
     )
@@ -583,9 +674,18 @@ def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
     f* = u* + K_{*theta} (K_theta + T I)^{-1} (z - mu - u - eps'), with the
     prior draw u* = U_grid z_c + sqrt(jitter) z_n (:func:`_pathwise_fstar`).
 
-    z_resid: (K, H, n, m) z - mu. Returns (fstar (K, H, N, m), f (K, H, n, m)).
+    Under constant_IRF the regression is the stacked (H n)-site GP on one
+    shared grid function (``_fstar_conjugate_pooled``,
+    ``gpirt_tpu/models/gibbs.py:590``): z_q, z_p, z_n have H = 1, every
+    session's sites gather from that one draw, and the capacitance pools
+    the basis Gram over the sessions, C = T I + sum_h U_h^T U_h.
+
+    z_resid, eps: (K, H, n, m), z_resid = z - mu. ``temp`` is None, a float,
+    or a (K,) tensor. Returns (fstar (K, H, N, m), f (K, H, n, m)).
     """
     idx = state.theta_idx
+    if config.constant_IRF:
+        idx, z_resid, eps = (_stack_sessions(a) for a in (idx, z_resid, eps))
     sqrt_t, _ = _temp_scales(temp)
     zc = torch.cat([z_q, z_p], dim=-2)  # (K, H, q+3, m)
     U_theta = theta_site_basis(idx, consts)  # (K, H, n, q+3)
@@ -594,7 +694,8 @@ def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
         eps = eps * _per_chain(sqrt_t, eps.ndim)  # tempered observation noise sd sqrt(T)
     t = 1.0 if temp is None else _per_chain(temp, 4) if torch.is_tensor(temp) else float(temp)
     fstar = _pathwise_fstar(U_theta, z_resid - u_theta - eps, t, zc, z_n, consts, config)
-    return fstar, _rows(fstar, idx)
+    fstar = _share(fstar, config.horizon)
+    return fstar, _rows(fstar, state.theta_idx)
 
 
 def _fstar_matheron(f, theta_idx, consts: GPIRTConstants, config: GPIRTConfig,
@@ -622,11 +723,51 @@ def _fstar_chol(f, theta_idx, L, consts: GPIRTConstants, config: GPIRTConfig,
     return V.mT @ tri_solve(L, f) + L_post @ z
 
 
+def _grid_prior(consts: GPIRTConstants, config: GPIRTConfig, z_q, z_p, z_n) -> torch.Tensor:
+    """A GP prior draw on the grid through the rank-(q+3) eigenbasis,
+    U_se z_q + Psi z_p + sqrt(jitter) z_n (``grid_prior_draw``,
+    ``gpirt_tpu/models/gibbs.py:252``): (..., q, m), (..., 3, m),
+    (..., N, m) -> (..., N, m)."""
+    return consts.U_se @ z_q + consts.Psi_grid @ z_p + math.sqrt(config.jitter) * z_n
+
+
+def _fstar_constant_irf(f, theta_idx, consts: GPIRTConstants, config: GPIRTConfig,
+                        z_q, z_p, z_n) -> torch.Tensor:
+    """The constant_IRF f* | f draw (``gpirt_tpu/models/gibbs.py:380``;
+    src/draw-fstar.cpp:58-125, Matheron-ized): the stacked f of all H n
+    sites interpolated onto ``config.n_inducing`` points spread over
+    [min theta, max theta], and one shared grid prior draw conditioned on
+    those values. f (K, H, n, m), theta_idx (K, H, n); z_q, z_p, z_n with
+    H = 1. Returns f* (K, H, N, m), one function a chain shared (a view).
+
+    Where every theta is equal the inducing points coincide and their Gram
+    is singular: f* is NaN in float32, in JAX too.
+    """
+    H, p = f.shape[1], config.n_inducing
+    theta_all = _stack_sessions(theta_from_indices(theta_idx, consts))  # (K, 1, H n)
+    lo = theta_all.amin(dim=-1, keepdim=True)
+    hi = theta_all.amax(dim=-1, keepdim=True)
+    inducing = lo + (hi - lo) * torch.arange(p, dtype=f.dtype, device=f.device) / (p - 1)
+    order = torch.argsort(theta_all, dim=-1, stable=True)  # jnp.argsort is stable
+    f_ind = interp(inducing, torch.take_along_dim(theta_all, order, -1),
+                   torch.take_along_dim(_stack_sessions(f), order.unsqueeze(-1), -2))
+    sds = consts.beta_prior_sds[:, 0]
+    L_ind = chol_with_jitter(icc_gram(inducing, inducing, sds), config.device_jitter,
+                             normalized=config.chol_normalized)  # (K, 1, p, p)
+    ustar = _grid_prior(consts, config, z_q, z_p, z_n)  # (K, 1, N, m)
+    V = tri_solve(L_ind, icc_gram(inducing, consts.grid, sds))  # (K, 1, p, N)
+    w = tri_solve(L_ind, f_ind - interp(inducing, consts.grid, ustar))  # (K, 1, p, m)
+    return _share(ustar + V.mT @ w, H)
+
+
 def draw_fstar(f, theta_idx, consts: GPIRTConstants, config: GPIRTConfig,
                draws: FStarDraws) -> torch.Tensor:
-    """Zero-mean draw of f* | f on the grid by ``config.fstar_method``
-    (``gpirt_tpu/models/gibbs.py:416``); mu* is added where f* is used or
-    stored. f (..., n, m), theta_idx (..., n) -> (..., N, m)."""
+    """Zero-mean draw of f* | f on the grid: the constant_IRF draw, or by
+    ``config.fstar_method`` (``gpirt_tpu/models/gibbs.py:416``); mu* is
+    added where f* is used or stored. f (..., n, m), theta_idx (..., n) ->
+    (..., N, m)."""
+    if config.constant_IRF:
+        return _fstar_constant_irf(f, theta_idx, consts, config, *draws)
     if config.fstar_method == "matheron":
         return _fstar_matheron(f, theta_idx, consts, config, *draws)
     return _fstar_chol(f, theta_idx, theta_chol(theta_idx, consts, config), consts,
@@ -638,16 +779,49 @@ def draw_f(f, theta_idx, thresholds, mu, y, consts: GPIRTConstants,
     """ESS redraw of f, one lane per (chain, horizon, item) over the n
     sites, prior N(0, K(theta, theta) + device_jitter I) drawn by
     :func:`theta_prior_perturbation` (``gpirt_tpu/models/gibbs.py:159``).
+    Under constant_IRF one lane per (chain, item) over the H n stacked
+    sites, with session 0's cutpoints (``:194-212``).
 
     f, mu (K, H, n, m); theta_idx (K, H, n); thresholds (K, H, m, C+1).
     """
+    shape = f.shape
+    if config.constant_IRF:
+        f, theta_idx, mu = (_stack_sessions(a) for a in (f, theta_idx, mu))
+        y, thresholds = _stack_sessions(y, 0), thresholds[:, :1]
     nu = theta_prior_perturbation(theta_idx, consts, config, draws.z_u, draws.z_site)
     z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)  # hoisted out of the rounds
 
     def loglik(xt):  # (K, H, m, n) -> (K, H, m)
         return ll_terms_from_bounds(xt.mT + mu, z_lo, z_hi, mask).sum(dim=-2)
 
-    return ess_update(f.mT, nu.mT, loglik, *draws.ess).mT.contiguous()
+    return ess_update(f.mT, nu.mT, loglik, *draws.ess).mT.contiguous().view(shape)
+
+
+def draw_fstar_direct(state: GPIRTState, mu, y, consts: GPIRTConstants,
+                      config: GPIRTConfig, draws: FStarDraws,
+                      ess: ESSLoopDraws) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid-native latent update (``gpirt_tpu/models/gibbs.py:435``):
+    one ESS move of each item's whole grid function f*, one lane per
+    (chain, horizon, item) over the N grid points, its prior the grid
+    prior draw of ``draws`` and its likelihood the f* rows at the snapped
+    theta. Under constant_IRF one lane per (chain, item), the likelihood
+    summed over all H n sites.
+
+    mu (K, H, n, m). Returns (fstar (K, H, N, m), f (K, H, n, m)).
+    """
+    idx, fstar, thresholds = state.theta_idx, state.fstar, state.thresholds
+    if config.constant_IRF:
+        idx, mu = _stack_sessions(idx), _stack_sessions(mu)
+        fstar, thresholds, y = fstar[:, :1], thresholds[:, :1], _stack_sessions(y, 0)
+    nu = _grid_prior(consts, config, *draws)  # (K, H, N, m)
+    z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)
+
+    def loglik(xt):  # (K, H, m, N) -> (K, H, m)
+        return ll_terms_from_bounds(_rows(xt.mT, idx) + mu, z_lo, z_hi, mask).sum(dim=-2)
+
+    fstar = ess_update(fstar.mT, nu.mT, loglik, *ess).mT.contiguous()
+    fstar = _share(fstar, config.horizon)
+    return fstar, _rows(fstar, state.theta_idx)
 
 
 def draw_beta(beta, theta, f, thresholds, y, consts: GPIRTConstants,
@@ -718,9 +892,15 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     identity prior (src/draw_threshold.cpp), one lane per (chain, horizon,
     item).
 
-    Binary data goes through the binary cutpoint ESS kernel. Ordinal data
-    goes through :func:`ess_update`, its loglik the category log-probs
-    summed against the one-hot of y.
+    Binary data goes through the binary cutpoint ESS kernel, on every
+    binary ESS update of every path (the JAX package keeps its Pallas
+    kernel opt-in, and off under constant_IRF and tempering,
+    ``gpirt_tpu/models/gibbs.py:2299-2301``). Ordinal data goes through
+    :func:`ess_update`, its loglik the category log-probs summed against
+    the one-hot of y. The pooled constant_IRF update
+    (:func:`_draw_cutpoints`) calls this with one session of H n stacked
+    sites: g (K, 1, H n, m), y (1, H n, m), one t_1 a (chain, item), which
+    is the JAX package's ``_binary_ll(t1, pool_horizons=True)``.
 
     thresholds (K, H, m, C+1); nu (K, H, m, C-1), or (K, H, m) when
     binary; logu, eps0 (K, H, m); rs (R, K, H, m). ``temp`` is None, a
@@ -884,15 +1064,26 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
 
 def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None):
     """The configured cutpoint update: Newton-proposal MH, or the y-marginal
-    ESS of :func:`draw_threshold`."""
+    ESS of :func:`draw_threshold`. Under constant_IRF one cutpoint vector a
+    chain, its likelihood summed over every session's sites
+    (``gpirt_tpu/models/gibbs.py:2288-2296``, ``:2362-2374``, and the pooled
+    Newton ``:1862``, ``:1963``): the update of one session of H n stacked
+    sites from session 0's cutpoints, shared back to the H sessions; ``cut``
+    has H = 1."""
+    H = thresholds.shape[1]
+    if config.constant_IRF:
+        thresholds, y = thresholds[:, :1], _stack_sessions(y, 0)
+        f, mu = _stack_sessions(f), _stack_sessions(mu)
     if config.resolved_threshold_method == "newton":
         newton = (_draw_threshold_binary_newton if config.C == 2
                   else _draw_threshold_newton_ordinal)
-        return newton(thresholds, f + mu, y, *cut, _temp_scales(temp)[1])
-    return draw_threshold(thresholds, f, mu, y, config, *cut, temp)
+        thresholds = newton(thresholds, f + mu, y, *cut, _temp_scales(temp)[1])
+    else:
+        thresholds = draw_threshold(thresholds, f, mu, y, config, *cut, temp)
+    return _share(thresholds, H).contiguous()
 
 
-def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, TwoStageDraws],
+def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageDraws],
                 y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
                 temp: Optional[float] = None) -> Tuple[GPIRTState, torch.Tensor]:
     """One Gibbs sweep of K chains by ``config.resolved_f_method`` (block
@@ -904,11 +1095,13 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, TwoStageDraws],
     ``jax.vmap(gibbs_sweep)`` over the temperatures). The returned ll is
     each chain's own tempered log-likelihood.
     """
-    if config.resolved_f_method == "two_stage":
+    method = config.resolved_f_method
+    if method != "conjugate":
         if temp is not None:
             raise NotImplementedError(
                 "tempering is implemented for f_method='conjugate' only")
-        return _two_stage_sweep(state, draws, y, consts, config)
+        sweep = _two_stage_sweep if method == "two_stage" else _grid_sweep
+        return sweep(state, draws, y, consts, config)
     _, inv_s = _temp_scales(temp)
     mu_star = compute_mu_star(consts, state.beta)
     theta_idx = _draw_theta_grid(state, mu_star, y, consts, config,
@@ -933,7 +1126,7 @@ def _two_stage_sweep(state: GPIRTState, draws: TwoStageDraws, y, consts: GPIRTCo
                      config: GPIRTConfig) -> Tuple[GPIRTState, torch.Tensor]:
     """The reference pipeline (``gpirt_tpu/models/gibbs.py:2768-2808``, one
     latent pass): f by ESS at the current theta, f* | f, theta | f* on the
-    grid with f its rows there, beta by ESS, the cutpoints, the ll."""
+    grid, then :func:`_ess_sweep_tail`."""
     mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
     theta = theta_from_indices(state.theta_idx, consts)
     mu = compute_mu(theta, state.beta)
@@ -942,13 +1135,36 @@ def _two_stage_sweep(state: GPIRTState, draws: TwoStageDraws, y, consts: GPIRTCo
     fstar = draw_fstar(f, state.theta_idx, consts, config, draws.fstar)
     state = state._replace(f=f, fstar=fstar)
     theta_idx = _draw_theta_grid(state, mu_star, y, consts, config, draws.u_theta)
-    f = _rows(fstar, theta_idx)
+    return _ess_sweep_tail(state, theta_idx, y, consts, config, draws.beta, draws.cut)
+
+
+def _grid_sweep(state: GPIRTState, draws: GridDraws, y, consts: GPIRTConstants,
+                config: GPIRTConfig) -> Tuple[GPIRTState, torch.Tensor]:
+    """The grid-native sweep (``gpirt_tpu/models/gibbs.py:2753-2767``, one
+    latent pass): f* by ESS at the current theta (:func:`draw_fstar_direct`),
+    theta | f* on the grid, then :func:`_ess_sweep_tail`."""
+    mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
+    theta = theta_from_indices(state.theta_idx, consts)
+    mu = compute_mu(theta, state.beta)
+    fstar, f = draw_fstar_direct(state, mu, y, consts, config, draws.fstar, draws.ess)
+    state = state._replace(f=f, fstar=fstar)
+    theta_idx = _draw_theta_grid(state, mu_star, y, consts, config, draws.u_theta)
+    return _ess_sweep_tail(state, theta_idx, y, consts, config, draws.beta, draws.cut)
+
+
+def _ess_sweep_tail(state: GPIRTState, theta_idx, y, consts: GPIRTConstants,
+                    config: GPIRTConfig, beta_draws: BetaDraws,
+                    cut) -> Tuple[GPIRTState, torch.Tensor]:
+    """The blocks after the latent pass of the grid and two-stage sweeps
+    (``gpirt_tpu/models/gibbs.py:2785-2808``): f := f*(theta), beta by
+    ESS, the cutpoints, the ll."""
+    f = _rows(state.fstar, theta_idx)
     theta = theta_from_indices(theta_idx, consts)
     beta = draw_beta(state.beta, theta, f, state.thresholds, y, consts, config,
-                     draws.beta)
+                     beta_draws)
     mu = compute_mu(theta, beta)
-    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut)
+    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, cut)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
-                       thresholds=thresholds, fstar=fstar)
+                       thresholds=thresholds, fstar=state.fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds).sum(dim=(-3, -2, -1))
     return state, ll

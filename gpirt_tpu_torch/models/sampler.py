@@ -16,10 +16,10 @@ import torch
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
-    compute_mu_star,
     gibbs_sweep,
     init_draws,
     init_state,
+    stored_fstar,
     sweep_draws,
     theta_from_indices,
 )
@@ -73,7 +73,8 @@ def run_chains(
     Returns "theta" (K, S, H, n), "beta" (K, S, H, 3, m),
     "threshold" (K, S, H, m, C+1) and "ll" (K, S); with ``store_f`` also
     "f" (K, S, H, n, m), and with ``store_fstar`` "fstar" (K, S, H, N, m),
-    f* with the parametric mean mu* added (``gpirt_tpu/parallel/chains.py:284``).
+    f* with the parametric mean mu* added (``gpirt_tpu/parallel/chains.py:284``;
+    session 0's mu* under constant_IRF, :func:`stored_fstar`).
     """
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
     K, H, n = theta_init.shape
@@ -113,7 +114,7 @@ def run_chains(
         if store_f:
             out["f"][s] = state.f
         if store_fstar:
-            out["fstar"][s] = state.fstar + compute_mu_star(consts, state.beta)
+            out["fstar"][s] = stored_fstar(state.fstar, state.beta, consts, config)
         for _ in range(thin - 1):
             state, _ = sweep(state)
     return {k: v.transpose(0, 1) for k, v in out.items()}

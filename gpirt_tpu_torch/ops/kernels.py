@@ -1,16 +1,32 @@
-"""Host float64 covariance (Gram) kernels for setup-time factorizations.
+"""Covariance (Gram) kernels: the ICC kernel on tensors, and host float64
+twins for setup-time factorizations.
 
-Numpy twins of ``gpirt_tpu/ops/kernels.py``'s ``icc_gram_np`` and
-``time_gram_np`` (reference: src/covariance-function.cpp:3-44). The port's
-sweep never evaluates a kernel: every Gram it needs is a gather from the
-grid eigenbasis built once by ``make_constants``.
+Counterparts of ``gpirt_tpu/ops/kernels.py``'s ``icc_gram``,
+``icc_gram_np`` and ``time_gram_np`` (reference:
+src/covariance-function.cpp:3-44). The sweep evaluates a kernel only in
+the two-stage constant_IRF f* | f draw, at its inducing points; every
+other Gram is a gather from the grid eigenbasis built once by
+``make_constants``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["icc_gram_np", "time_gram_np"]
+__all__ = ["icc_gram", "icc_gram_np", "time_gram_np"]
+
+
+def icc_gram(x1: torch.Tensor, x2: torch.Tensor, beta_prior_sds: torch.Tensor) -> torch.Tensor:
+    """k(a, b) = exp(-0.5 (a-b)^2) + a sd1^2 b + sd0^2 + (a sd2 b)^2.
+
+    ``x1`` (..., n), ``x2`` (..., m), ``beta_prior_sds`` (3,) -> (..., n, m).
+    """
+    a = x1.unsqueeze(-1)
+    b = x2.unsqueeze(-2)
+    d = a - b
+    sd0, sd1, sd2 = beta_prior_sds[0], beta_prior_sds[1], beta_prior_sds[2]
+    return torch.exp(-0.5 * d * d) + a * (sd1 * sd1) * b + sd0 * sd0 + torch.square(a * sd2 * b)
 
 
 def icc_gram_np(x1, x2, beta_prior_sds):

@@ -27,10 +27,10 @@ import torch
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
-    compute_mu_star,
     gibbs_sweep,
     init_draws,
     init_state,
+    stored_fstar,
     sweep_draws,
     theta_from_indices,
 )
@@ -83,8 +83,10 @@ def _tempered_sweep(states: GPIRTState, draws, u, i: int, temps, swap_every: int
 
 
 def _cold_record(states: GPIRTState, ll, L: int, consts: GPIRTConstants,
-                 store_f: bool, store_fstar: bool) -> Dict[str, torch.Tensor]:
-    """The cold lanes' (l = 0) record of one draw: (G, ...) each."""
+                 config: GPIRTConfig, store_f: bool,
+                 store_fstar: bool) -> Dict[str, torch.Tensor]:
+    """The cold lanes' (l = 0) record of one draw: (G, ...) each; f* as
+    :func:`stored_fstar` stores it (``gpirt_tpu/parallel/tempering.py:193``)."""
     cold = GPIRTState(*(a[::L] for a in states))
     out = {
         "theta": theta_from_indices(cold.theta_idx, consts),
@@ -95,7 +97,7 @@ def _cold_record(states: GPIRTState, ll, L: int, consts: GPIRTConstants,
     if store_f:
         out["f"] = cold.f
     if store_fstar:
-        out["fstar"] = cold.fstar + compute_mu_star(consts, cold.beta)
+        out["fstar"] = stored_fstar(cold.fstar, cold.beta, consts, config)
     return out
 
 
@@ -159,7 +161,8 @@ def run_tempered_chains(
     records: Dict[str, torch.Tensor] = {}
     for s in range(S):
         states, ll = sweep(states)
-        for k, v in _cold_record(states, ll, L, consts, store_f, store_fstar).items():
+        for k, v in _cold_record(states, ll, L, consts, config, store_f,
+                                         store_fstar).items():
             if k not in records:
                 records[k] = torch.empty((S,) + tuple(v.shape), dtype=v.dtype, device=dev)
             records[k][s] = v

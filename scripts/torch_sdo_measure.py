@@ -1,14 +1,15 @@
 """The port on one CUDA card: where a sampling sweep's time goes, on SDO,
-the dynamic, the synthetic, the two-stage, the tempering or the campaigns8
-configuration.
+the dynamic, the shared-IRF, the synthetic, the two-stage, the tempering or
+the campaigns8 configuration.
 
     python3 scripts/torch_sdo_measure.py
-        [--config sdo|dynamic|synthetic|two_stage|tempering|campaigns8]
+        [--config sdo|dynamic|shared_irf|synthetic|two_stage|tempering|campaigns8]
         [--threshold-method ess|newton] [--trace-dir DIR]
 
 Runs the SDO survey (1500 respondents x 16 items, C = 5), or one of
 chip_smoke.py's configurations: ``dynamic`` (150 x 60 x 10 sessions,
-binary, GP theta regime), ``synthetic`` (simulate_2pl 5000 x 1000, 10%
+binary, GP theta regime), ``shared_irf`` (the same data with one IRF
+shared by the sessions, constant_IRF=1: the grid sampler), ``synthetic`` (simulate_2pl 5000 x 1000, 10%
 missing, every chain from one spread init), ``two_stage`` (senate116
 through f_method="two_stage" from bench.py's spread init) or
 ``tempering`` (senate116, 4 temperatures to T = 4 a chain: 256 lanes, the
@@ -20,7 +21,8 @@ models.sampler's, or parallel.tempering's, call of gibbs_sweep):
 
   sweeps 5-19   the wall by the host clock (a synchronise at each end), and
                 the rounds and host syncs of ess_update (the cutpoint ESS;
-                f and beta under two_stage) in them;
+                f and beta under two_stage; f* and beta under shared_irf)
+                in them;
   sweeps 20-29  each block of the sweep timed by CUDA events around its
                 call (the stream's time from the block's first launch to
                 its last, idle gaps included);
@@ -74,7 +76,8 @@ BURN, DRAWS = 200, 41
 WALL_FROM, BLOCKS_FROM, PROF_FROM, PROF_TO = 5, 20, 30, 40
 BLOCKS = [(gibbs, name) for name in (
     "_draw_theta_grid", "draw_z_truncnorm", "draw_fstar_conjugate",
-    "draw_beta_conjugate", "draw_f", "draw_fstar", "draw_beta", "draw_threshold",
+    "draw_beta_conjugate", "draw_f", "draw_fstar", "draw_fstar_direct", "draw_beta",
+    "draw_threshold",
     "_draw_threshold_binary_newton", "_draw_threshold_newton_ordinal",
     "ordinal_ll_terms")] + [(tempering, "_swap")]
 
@@ -105,8 +108,8 @@ def timed_blocks(events):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="sdo",
-                    choices=["sdo", "dynamic", "synthetic", "two_stage", "tempering",
-                             "campaigns8"])
+                    choices=["sdo", "dynamic", "shared_irf", "synthetic", "two_stage",
+                             "tempering", "campaigns8"])
     ap.add_argument("--threshold-method", default="ess", choices=["ess", "newton"])
     ap.add_argument("--trace-dir", help="where the profiler's table and trace go")
     opt = ap.parse_args()
@@ -140,9 +143,10 @@ def main():
 
     if opt.config == "sdo":
         data, kw = load_sdo(), dict(vote_codes=None)
-    elif opt.config == "dynamic":
+    elif opt.config in ("dynamic", "shared_irf"):
         _, data, init = dynamic_inputs()
-        kw = dict(vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init)
+        kw = dict(vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init,
+                  constant_IRF=int(opt.config == "shared_irf"))
     elif opt.config == "synthetic":
         _, data = simulate_2pl(0, n=SYN_N, m=SYN_M, missing=SYN_MISSING)
         init = np.random.default_rng(0).permutation(np.linspace(-3, 3, SYN_N))

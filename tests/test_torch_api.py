@@ -35,8 +35,6 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(horizon=2, constant_IRF=True), dict(constant_IRF=True),
-    dict(f_method="grid"), dict(f_method="two_stage", horizon=2, constant_IRF=True),
     dict(threshold_method="collapsed"), dict(threshold_method="interleave"),
     dict(theta_method="ess"), dict(horizon=3, theta_method="ess"),
 ])
@@ -45,12 +43,21 @@ def test_config_outside_slice_raises(kw):
         GPIRTConfig(n=5, m=4, **kw)
 
 
-def test_config_in_slice_accepted_and_validated():
-    for kw in ({}, dict(f_method="conjugate", threshold_method="ess"),
-               dict(f_method="two_stage", fstar_method="chol")):
-        assert GPIRTConfig(n=5, m=4, **kw).grid_step == 0.01
+@pytest.mark.parametrize("kw, method", [
+    ({}, "conjugate"), (dict(f_method="conjugate", threshold_method="ess"), "conjugate"),
+    (dict(f_method="two_stage", fstar_method="chol"), "two_stage"),
+    (dict(horizon=2, constant_IRF=True), "grid"), (dict(constant_IRF=True), "grid"),
+    (dict(f_method="grid"), "grid"),
+    (dict(f_method="two_stage", horizon=2, constant_IRF=True), "two_stage"),
+])
+def test_config_in_slice_accepted_and_validated(kw, method):
+    """Each configuration runs, its f-method resolved as the JAX package
+    resolves it (constant_IRF's "auto" is the grid sampler)."""
+    cfg = GPIRTConfig(n=5, m=4, **kw)
+    assert cfg.grid_step == 0.01
+    assert cfg.resolved_f_method == JConfig(n=5, m=4, **kw).resolved_f_method == method
     with pytest.raises(ValueError):
-        GPIRTConfig(n=0, m=4)
+        GPIRTConfig(n=0, m=4, **kw)
 
 
 @pytest.mark.parametrize("kw, method", [
@@ -118,16 +125,20 @@ def test_gpirt_mcmc_hands_the_kernel_contiguous_tensors(monkeypatch):
 
 def test_gpirt_mcmc_guards():
     """JAX's guards: tempering with SMC is a ValueError (before any work),
-    tempering under the two-stage sampler is not implemented, nor is
-    constant_IRF."""
+    tempering under the two-stage sampler is not implemented. constant_IRF
+    runs, in the JAX layout, one f* and cutpoint vector for the sessions."""
     with pytest.raises(ValueError, match="mutually exclusive"):
         gpirt_mcmc(_votes(), 2, 1, n_temps=2, smc_steps=4, device="cpu")
     with pytest.raises(NotImplementedError, match="conjugate"):
         gpirt_mcmc(_votes(), 2, 1, n_temps=2, f_method="two_stage", dtype="float64",
                    grid_size=101, device="cpu")
     multi = np.random.default_rng(1).integers(1, 4, (8, 5, 2)).astype(float)
-    with pytest.raises(NotImplementedError, match="constant_IRF"):
-        gpirt_mcmc(multi, 2, 1, vote_codes=None, constant_IRF=1, device="cpu")
+    d = gpirt_mcmc(multi, 2, 1, vote_codes=None, constant_IRF=1, store_fstar=True,
+                   dtype="float64", grid_size=101, device="cpu", verbose=False)[0]
+    assert d["theta"].shape == (2, 8, 2) and d["threshold"].shape == (2, 5, 4, 2)
+    assert d["fstar"].shape == (2, 101, 5, 2) and d["beta"].shape == (2, 3, 5, 2)
+    np.testing.assert_array_equal(d["threshold"][..., 0], d["threshold"][..., 1])
+    np.testing.assert_allclose(d["fstar"][..., 0], d["fstar"][..., 1])
 
 
 def _positional(fn):
@@ -166,8 +177,11 @@ def test_gpirt_mcmc_takes_the_references_positional_call():
         assert "f" in a
         for k in ("theta", "beta", "threshold", "ll", "f"):
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="constant_IRF"):
-        gpirt_mcmc(*args[:16], 1, device="cpu")
+    shared = gpirt_mcmc(*args[:16], 1, dtype="float64", grid_size=101, device="cpu",
+                        verbose=False)  # constant_IRF by position: one session
+    for a, b in zip(shared, kw):
+        assert all(a[k].shape == b[k].shape for k in ("theta", "beta", "threshold", "ll"))
+        assert np.isfinite(a["ll"]).all() and np.isfinite(a["theta"]).all()
 
 
 def test_load_sdo_with_names_matches():

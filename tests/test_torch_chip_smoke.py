@@ -1,6 +1,7 @@
 """What chip_smoke.py computes without a card: the round count that its
 kernel bound rests on, its refusal to run without CUDA, and the inputs and
-setup of its sweep checks and of the synthetic path at a reduced size."""
+setup of its sweep checks (the shared-IRF ones too) and of the synthetic
+path at a reduced size."""
 
 import numpy as np
 import pytest
@@ -127,6 +128,30 @@ def test_gp_sweep_check_inputs_stay_clear_of_float32_tails(C):
     assert torch.equal(s32.theta_idx, s64.theta_idx)
     for name, tol in (("f", 1e-4), ("beta", 1e-4), ("thresholds", 1e-4), ("fstar", 1e-3)):
         assert chip_smoke.max_diff(getattr(s32, name), getattr(s64, name))[0] < tol, name
+
+
+@pytest.mark.parametrize("f_method", ["grid", "conjugate", "two_stage"])
+def test_shared_irf_check_inputs(f_method):
+    """Phase 23's inputs under constant_IRF: the GP regime over three
+    sessions, the shared IRF's draws with a session axis of 1, a float32
+    sweep on the CPU that keeps f* and the cutpoints one a chain; the
+    two-stage sweep fed its own f* is that sweep."""
+    cfg, priors, state0, draws, y = chip_smoke.sweep_inputs(
+        2, H=3, theta_ls=chip_smoke.DYN_LS, model_y=True, f_method=f_method,
+        constant_IRF=True)
+    assert cfg.resolved_f_method == f_method and cfg.theta_regime == "GP"
+    assert draws.cut.nu.shape == (3, 1, 9, 1)
+    cpu = torch.device("cpu")
+    consts = make_constants(cfg, *priors, device=cpu)
+    if f_method == "two_stage":
+        state, ll, _, fstar = chip_smoke.fed_fstar_sweep(cpu, state0, draws, y, consts, cfg)
+        fed = chip_smoke.fed_fstar_sweep(cpu, state0, draws, y, consts, cfg, fstar=fstar)
+        assert all(torch.equal(a, b) for a, b in zip(state, fed[0]))
+    else:
+        state, ll = gibbs.gibbs_sweep(state0, draws, torch.as_tensor(y), consts, cfg)
+    assert torch.equal(state.fstar[:, 0], state.fstar[:, -1])
+    assert torch.equal(state.thresholds[:, 0], state.thresholds[:, -1])
+    assert bool(torch.isfinite(ll).all()) and bool(torch.isfinite(state.fstar).all())
 
 
 def _small_votes():

@@ -8,9 +8,12 @@ numpy. If every block of the port targets its exact conditional, moments
 of the chain agree with forward draws from the prior up to MC error.
 
 The oracles run 12,000 sweeps each and are ``slow``: three of one session,
-two of two sessions, in the RDM and GP theta regimes, and one of the
-two-stage sampler (``f_method="two_stage"``). Short chains check finite,
-ordered cutpoints in the fast tier.
+two of two sessions, in the RDM and GP theta regimes, one of the
+two-stage sampler (``f_method="two_stage"``), and JAX's five constant_IRF
+classes over two sessions (the grid sampler with the cutpoint ESS, binary
+and ordinal, and with Newton cutpoints, binary and ordinal; the conjugate
+sampler's pooled f*). Short chains check finite, ordered cutpoints in the
+fast tier.
 """
 
 import jax
@@ -32,8 +35,9 @@ NAMES = ["th", "th2", "b", "b2", "fs", "fs2", "t1", "t12", "ti", "ti2"]
 
 
 def _model(n, m, C, method, N=61, H=1, ls=10.0, f_method="conjugate",
-           fstar_method="matheron"):
-    sampler = dict(f_method=f_method, fstar_method=fstar_method)
+           fstar_method="matheron", constant_IRF=False):
+    sampler = dict(f_method=f_method, fstar_method=fstar_method,
+                   constant_IRF=constant_IRF)
     jcfg = JConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
                    threshold_method=method, theta_ls=ls, **sampler)
     jconsts = j_make_constants(jcfg, beta_prior_means=np.zeros((3, m)),
@@ -50,8 +54,8 @@ def _chain(n, m, C, method, sweeps, seed=0, mask=None, **model):
     """The successive-conditional chain: the port's sweep given y, then y
     redrawn given the state. Returns the (sweeps, 10) statistics, the
     cutpoints of every sweep and the forward model. ``model`` takes the
-    horizon H, the time-GP length scale ls, and the sampler's f_method and
-    fstar_method."""
+    horizon H, the time-GP length scale ls, and the sampler's f_method,
+    fstar_method and constant_IRF."""
     jcfg, jconsts, cfg, consts = _model(n, m, C, method, **model)
     k0, k1, kr = jax.random.split(jax.random.key(seed + 1), 3)
     st0 = sample_prior_state(k0, jconsts, jcfg)
@@ -133,6 +137,21 @@ def test_geweke_two_stage():
     _run_geweke_sweep(6, 3, 3, "auto", f_method="two_stage")
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("C, method, f_method, seed", [
+    (3, "auto", "grid", 0), (3, "auto", "conjugate", 5), (2, "auto", "grid", 3),
+    (2, "newton", "grid", 3), (3, "newton", "grid", 3),
+])
+def test_geweke_constant_irf(C, method, f_method, seed):
+    """One IRF shared by two sessions: tests/test_geweke.py's
+    test_constant_irf_grid, test_constant_irf_conjugate (the pooled f* | z),
+    test_binary_ess_constant_irf (the pooled binary ESS, the kernel's plain
+    version on one session of 2 n sites), test_binary_newton_constant_irf
+    and test_ordinal_newton_constant_irf, at their sizes and seeds."""
+    _run_geweke_sweep(5, 3, C, method, seed=seed, H=2, f_method=f_method,
+                      constant_IRF=True)
+
+
 @pytest.mark.parametrize("C, method", [(3, "ess"), (5, "newton")])
 def test_successive_conditional_smoke(C, method):
     """200 sweeps of the chain above: finite statistics and finite,
@@ -165,3 +184,16 @@ def test_successive_conditional_smoke_two_stage(C, fstar_method):
     t = thr[..., 1:-1]
     assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
     assert np.std(t[:, :, :, 0], axis=0).min() > 0
+
+
+@pytest.mark.parametrize("C, f_method", [(2, "grid"), (3, "conjugate")])
+def test_successive_conditional_smoke_constant_irf(C, f_method):
+    """200 sweeps of the chain with one IRF shared by two sessions: finite
+    statistics, one cutpoint vector for the sessions, finite, strictly
+    increasing and moving."""
+    sc, thr, _ = _chain(5, 3, C, "auto", 200, H=2, f_method=f_method, constant_IRF=True)
+    assert np.isfinite(sc).all()
+    t = thr[..., 1:-1]
+    assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
+    np.testing.assert_array_equal(t[:, 0], t[:, 1])
+    assert np.std(t[:, 0, :, 0], axis=0).min() > 0

@@ -2,8 +2,10 @@
 over shapes (every thread-group size the kernel chooses from n), edge cases
 and one c a chain; whole sweeps on the card against the same sweeps on the
 CPU (binary, ordinal with the cutpoints by ESS and by Newton, over three
-sessions in the GP theta regime, with one temperature a chain, and the
-two-stage sampler with f* by both methods); and gpirt_mcmc (tempered too),
+sessions in the GP theta regime, with one temperature a chain, the
+two-stage sampler with f* by both methods, and the grid sampler with one
+IRF shared by the sessions and without); the kernel at the pooled
+constant_IRF layout; and gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default.
 
@@ -314,3 +316,37 @@ def test_gpirt_campaigns_on_the_card(cuda_device):
     assert binary_threshold_ess.launches == before
     assert out["theta_mean"].shape == (20, 1) and np.isfinite(out["theta_mean"]).all()
     assert np.isfinite(out["theta_se"]).all()
+
+
+@pytest.mark.gpu
+def test_kernel_pooled_layout(cuda_device):
+    """The constant_IRF cutpoint update's layout at the shared-IRF path's
+    width: g (64, 10, 150, 60) viewed as (64, 1, 1500, 60), y as
+    (1, 1500, 60), one t_1 a (chain, item) (the 256-thread register path),
+    against its plain version on the same views."""
+    rng = np.random.default_rng(3)
+    K, H, n, m = 64, 10, 150, 60
+    g = torch.as_tensor(1.5 * rng.standard_normal((K, H, n, m)), dtype=torch.float32,
+                        device=cuda_device)
+    y = torch.as_tensor(rng.choice([0, 1, 2], size=(H, n, m), p=[0.1, 0.45, 0.45]),
+                        dtype=torch.int32, device=cuda_device)
+    lanes = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+        rng.standard_normal((K, 1, m)), rng.standard_normal((K, 1, m)),
+        np.log(rng.random((K, 1, m))), rng.random((K, 1, m)) * _TWO_PI,
+        rng.random((64, K, 1, m)))]
+    args = (g.view(K, 1, H * n, m), y.view(1, H * n, m), *lanes)
+    before = binary_threshold_ess.launches
+    got = binary_threshold_ess(*args, _C)
+    torch.cuda.synchronize()
+    assert binary_threshold_ess.launches == before + 1
+    _assert_matches_plain(got, binary_threshold_ess_reference(*args, _C))
+    assert float((got != args[2]).float().mean()) > 0.8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("constant_IRF", [True, False])
+def test_grid_sweep_on_card_matches_cpu(cuda_device, constant_IRF):
+    """A grid sweep over three sessions (chip_smoke.py's phase 23), one IRF
+    shared by the sessions or one a session: theta equal, every field
+    within 1e-3, one kernel launch; shared f* and cutpoints on the card."""
+    chip_smoke.shared_irf_check(cuda_device, "grid", constant_IRF)

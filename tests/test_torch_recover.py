@@ -172,9 +172,9 @@ def test_recover_fstar_batch_is_one_draw_at_a_time():
 def test_recover_guards(monkeypatch):
     d, rm = _chain(5, S_=2)
     args = (d["f"][-1], rm, d["theta"][-1], d["beta"][-1], d["threshold"][-1])
-    with pytest.raises(NotImplementedError, match="constant_IRF"):
-        recover_fstar(1, *args, constant_IRF=1, dtype="float64", grid_size=101,
-                      device="cpu")
+    shared = recover_fstar(1, *args, constant_IRF=1, dtype="float64", grid_size=101,
+                           device="cpu")["fstar"]  # one session: the JAX layout
+    assert shared.shape == (101, d["beta"].shape[2], 1) and np.isfinite(shared).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         recover_fstar(1, *args, dtype="float64", grid_size=101)

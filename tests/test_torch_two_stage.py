@@ -471,10 +471,13 @@ def test_gpirt_mcmc_two_stage_shapes_and_stores(fstar_method):
 
 
 def test_gpirt_mcmc_two_stage_guards():
-    kw = dict(vote_codes=None, device="cpu", dtype="float64", grid_size=N)
-    with pytest.raises(NotImplementedError, match="grid"):
-        gpirt_mcmc(_data(), 2, 1, f_method="grid", **kw)
-    with pytest.raises(NotImplementedError, match="constant_IRF"):
-        gpirt_mcmc(_data(), 2, 1, f_method="two_stage", constant_IRF=1, **kw)
+    """SMC needs the conjugate sampler, as in JAX; f_method="grid" and the
+    two-stage sampler under constant_IRF run, in the JAX layout."""
+    kw = dict(vote_codes=None, device="cpu", dtype="float64", grid_size=N, verbose=False)
+    for run in (dict(f_method="grid"), dict(f_method="two_stage", constant_IRF=1,
+                                            theta_init=np.linspace(-1, 1, n))):
+        d = gpirt_mcmc(_data(), 2, 1, store_fstar=True, **run, **kw)[0]
+        assert d["fstar"].shape == (2, N, m, 1) and np.isfinite(d["fstar"]).all()
+        assert d["threshold"].shape == (2, m, 3, 1) and np.isfinite(d["ll"]).all()
     with pytest.raises(NotImplementedError, match="conjugate"):
         gpirt_mcmc(_data(), 2, 1, f_method="two_stage", smc_steps=2, **kw)
