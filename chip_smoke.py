@@ -113,7 +113,33 @@ Phases, each of which stops the run with a non-zero exit on failure:
  25. shared-IRF recovery: recover_fstar(constant_IRF=1) on the card from a
      short shared-IRF run's stored draw (shape, finite, one f* for the
      sessions, repeatable), and that draw's _recover_one on the card
-     against the CPU as in phase 14.
+     against the CPU as in phase 14;
+ 26. sweep checks of the new blocks (OPTION_CHECKS): one sweep on the card
+     against the CPU, y drawn from the model, for theta by ESS in the CST,
+     RDM and GP regimes over three sessions, the collapsed cutpoints at
+     C = 2, 5 and under constant_IRF, interleave on an ESS and a collapsed
+     sweep, the (t, beta0) shift, two latent passes, and the affine moves
+     untempered and with one temperature a chain: theta equal, or its
+     difference a float32 tie by PERF.md section 2's rule, every other
+     field within 1e-3 (f* 1e-3 + 1e-3 |f*| when tempered), the kernel
+     launched once at C = 2 where the y-marginal ESS runs and never under
+     the collapsed draw;
+ 27. ESS theta path: senate116 through gpirt_mcmc(theta_method="ess") with
+     64 chains from bench.py's spread init, burn 100 and 500 draws; checked
+     for one kernel launch and one theta ESS a sweep and finite draws;
+     prints the sweep rate, theta ESS and ESS per second, the theta ESS's
+     rounds and host syncs a sweep, then phase 6 on the inputs of its last
+     sweep;
+ 28. interleave path: senate116 through gpirt_mcmc(threshold_method=
+     "interleave", threshold_ess_every=4, mix_subsweeps=2), 64 chains, burn
+     100 and 500 draws: the kernel launched on every 4th sweep only (150 of
+     600); prints the sweep rate and theta ESS;
+ 29. affine path: scripts/tune_bench.py's affine_shift_max=16,
+     affine_rounds=2 and the moves off, senate116 through run_chains with
+     64 chains from spread inits, burn 100 and 500 draws (tune_bench ran
+     burn 500 and 1000 draws): one kernel launch a sweep each; prints each
+     run's sweep rate, theta ESS, ESS per second and the moves' accept
+     rates, and the ESS and wall ratios of on to off.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -143,7 +169,7 @@ from gpirt_tpu_torch.api import (  # noqa: E402
     recover_fstar,
     recover_fstar_batch,
 )
-from gpirt_tpu_torch.models import gibbs  # noqa: E402
+from gpirt_tpu_torch.models import affine, gibbs  # noqa: E402
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants  # noqa: E402
 from gpirt_tpu_torch.models.sampler import run_chains  # noqa: E402
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
@@ -454,11 +480,14 @@ def model_responses(state, consts, C, rng):
 
 
 def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None,
-                 f_method="auto", fstar_method="matheron", constant_IRF=False):
+                 f_method="auto", fstar_method="matheron", constant_IRF=False,
+                 iteration=0, **options):
     """The sweep check's float32 configuration, priors, state (3 chains on
     the CPU), draws and responses, for the sampler ``f_method`` (f* by
     ``fstar_method`` under "two_stage", with the nugget CHOL_JITTER under
-    "chol"), one IRF shared by the sessions with ``constant_IRF``. y is
+    "chol"), one IRF shared by the sessions with ``constant_IRF``, the
+    further GPIRTConfig fields ``options``, and the draws of sweep
+    ``iteration``. y is
     uniform over 1..C; with ``model_y`` (by default when
     H > 1) the chains share chain 0's state and y is drawn from the model
     there. Uniform y against prior-drawn
@@ -473,7 +502,7 @@ def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None,
     cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float32",
                       jitter=CHOL_JITTER if fstar_method == "chol" else 1e-5,
                       threshold_method=method, theta_ls=theta_ls, f_method=f_method,
-                      fstar_method=fstar_method, constant_IRF=constant_IRF)
+                      fstar_method=fstar_method, constant_IRF=constant_IRF, **options)
     priors = (np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
               np.zeros((2, n)))
     gen = torch.Generator().manual_seed(0)
@@ -485,7 +514,7 @@ def sweep_inputs(C=2, method="auto", H=1, theta_ls=10.0, model_y=None,
     if H > 1 if model_y is None else model_y:
         state0 = gibbs.GPIRTState(*(a[:1].expand(a.shape).contiguous() for a in state0))
         y = model_responses(state0, consts, C, rng)
-    return cfg, priors, state0, gibbs.sweep_draws(gen, Ks, consts, cfg), y
+    return cfg, priors, state0, gibbs.sweep_draws(gen, Ks, consts, cfg, iteration), y
 
 
 def sweep_vs_float64(C=2, H=1, theta_ls=10.0, model_y=None, temp=4.0, **sampler):
@@ -700,11 +729,16 @@ def sdo_path(dev, smi):
         f"{res['syncs_per_sweep']:.2f} host syncs a sweep; binary kernel launches 0")
 
 
+def spread_init(n):
+    """bench.py's spread theta init: a permutation of linspace(-2, 2, n)."""
+    return np.random.default_rng(0).permutation(np.linspace(-2, 2, n))
+
+
 def dynamic_inputs():
     """bench.py::bench_dynamic's data and the spread theta init of its first
     chain: (truth (n, H), responses (n, m, H) in {0, 1, NaN}, init (n,))."""
     truth, raw = simulate_dynamic(0, n=DYN_N, m=DYN_M, horizon=DYN_H, missing=0.1)
-    init = np.random.default_rng(0).permutation(np.linspace(-2, 2, DYN_N))
+    init = spread_init(DYN_N)
     return truth, raw, init
 
 
@@ -896,7 +930,7 @@ def two_stage_path(rm, dev, smi):
     # bench.py's spread senate116 init: from theta = 0 (the default init
     # under zero prior sds) every site is one grid point, U^T U has rank 1,
     # and float32 cannot factor Matheron's capacitance (JAX's f* is NaN there)
-    init = np.random.default_rng(0).permutation(np.linspace(-2, 2, rm.shape[0]))
+    init = spread_init(rm.shape[0])
     ess_update.calls = ess_update.rounds = ess_update.syncs = 0
     threshold_ess.binary_threshold_ess.launches = 0
     out = gpirt_mcmc(rm, TS_DRAWS, TS_BURN, CHAIN=K, SEED=SEED, f_method="two_stage",
@@ -1184,13 +1218,14 @@ def campaigns8(rm, dev, smi, **schedule):
     return out, launches
 
 
-def chains64(rm, dev, smi, chains=K, burn=C64_BURN, draws=C64_DRAWS):
-    """Phase 21: bench.py::bench_chains64 on one card, checked; prints split
-    R-hat's maximum and the pooled ESS per second. Returns the kernel's
-    launches and split R-hat's maximum."""
+def spread_run(rm, dev, chains, burn, draws, **options):
+    """bench.py::bench_chains64's run: senate116 (``rm``) through run_chains
+    with ``chains`` chains, each from its own permutation of linspace(-2, 2,
+    n), the GPIRTConfig fields ``options`` set. Returns (theta (K, S, n)
+    on the host, ll (K, S), the wall to the host copy, kernel launches)."""
     y, C, _ = encode_categories(np.asarray(rm))
     H, n, m = y.shape
-    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype="float32")
+    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype="float32", **options)
     consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
                             np.zeros((2, n)), np.zeros((2, n)), device=dev)
     rng = np.random.default_rng(0)
@@ -1208,12 +1243,19 @@ def chains64(rm, dev, smi, chains=K, burn=C64_BURN, draws=C64_DRAWS):
                    sample_iterations=draws, burn_iterations=burn)
     theta = d["theta"][:, :, 0].cpu().numpy()  # (K, S, n)
     wall = time.perf_counter() - t
-    launches = threshold_ess.binary_threshold_ess.launches
+    check(np.isfinite(theta).all() and bool(torch.isfinite(d["ll"]).all()),
+          f"draws not finite ({options or 'chains64'})")
+    return theta, d["ll"], wall, threshold_ess.binary_threshold_ess.launches
+
+
+def chains64(rm, dev, smi, chains=K, burn=C64_BURN, draws=C64_DRAWS):
+    """Phase 21: bench.py::bench_chains64 on one card, checked; prints split
+    R-hat's maximum and the pooled ESS per second. Returns the kernel's
+    launches and split R-hat's maximum."""
+    theta, _, wall, launches = spread_run(rm, dev, chains, burn, draws)
     sweeps = burn + draws
     check(launches == (sweeps if dev.type == "cuda" else 0),
           f"chains64: {launches} kernel launches for {sweeps} sweeps")
-    check(np.isfinite(theta).all() and bool(torch.isfinite(d["ll"]).all()),
-          "chains64 draws not finite")
     aligned = np.stack([align_theta_signs(c, reference=theta[0, 0]) for c in theta])
     ess = effective_sample_size(aligned)
     rhat_max = float(np.nanmax(split_rhat(aligned)))
@@ -1495,6 +1537,270 @@ def shared_irf_recovery(dev, smi):
     check(ratio <= 1.0, f"shared-IRF recovered f* card vs CPU beyond its tolerance ({ratio:.3g})")
 
 
+# Phase 26's checks: (label, sweep_inputs' arguments, temperature, iteration).
+# theta by ESS in the three regimes over 3 sessions, the collapsed cutpoints
+# at C = 2, 5 and pooled, interleave on its ESS (iteration 0) and collapsed
+# (iteration 1) sweeps, the (t, beta0) shift, two latent passes, and the
+# affine moves at JAX's Geweke setting untempered and on the (3,) ladder
+OPTION_CHECKS = (
+    ("ESS theta, CST", dict(H=3, theta_ls=10.0, theta_method="ess"), None, 0),
+    ("ESS theta, RDM", dict(H=3, theta_ls=0.05, theta_method="ess"), None, 0),
+    ("ESS theta, GP", dict(H=3, theta_ls=DYN_LS, theta_method="ess"), None, 0),
+    ("collapsed, C=2", dict(method="collapsed"), None, 0),
+    ("collapsed, C=5", dict(C=5, method="collapsed"), None, 0),
+    ("collapsed, constant_IRF", dict(method="collapsed", H=3, theta_ls=DYN_LS,
+                                     f_method="conjugate", constant_IRF=True), None, 0),
+    ("interleave, ESS sweep", dict(method="interleave"), None, 0),
+    ("interleave, collapsed sweep", dict(method="interleave"), None, 1),
+    ("threshold_shift", dict(threshold_shift=True), None, 0),
+    ("mix_subsweeps=2", dict(mix_subsweeps=2), None, 0),
+    ("affine, T=1", dict(affine_shift_max=5, affine_rounds=2), None, 0),
+    ("affine, per-chain T", dict(affine_shift_max=5, affine_rounds=2), SWEEP_TEMPS, 0),
+)
+
+
+def option_sweep(d, state0, draws, y, consts, cfg, temp, iteration):
+    """One sweep on device ``d`` at ``iteration``: (state, ll, the argument
+    of the sweep's last theta snap (the ESS theta update's final one))."""
+    seen = {}
+    snap = gibbs.snap_indices
+
+    def observe(theta, config):
+        seen["theta"] = theta
+        return snap(theta, config)
+
+    if temp is not None:
+        temp = torch.as_tensor(temp, device=d, dtype=cfg.tdtype)
+    gibbs.snap_indices = observe
+    try:
+        state, ll = gibbs.gibbs_sweep(
+            gibbs.GPIRTState(*(a.to(d) for a in state0)), draws.to(d),
+            torch.as_tensor(y, device=d), consts, cfg, temp, iteration)
+    finally:
+        gibbs.snap_indices = snap
+    return state, ll, seen.get("theta")
+
+
+def snap_margin(theta, cfg):
+    """Each snapped value's distance, in grid steps, from the rounding
+    boundary between two grid points."""
+    v = (theta.double() - gibbs.THETA_LO) / cfg.grid_step
+    return (v - torch.floor(v) - 0.5).abs()
+
+
+def tie_rule(label, cfg, s_gpu, s_cpu, snap_cpu, run64, perturbed):
+    """PERF.md section 2's rule for a theta decision that differs between
+    the card and the CPU: the chains whose theta differs are found, the
+    float64 run's snap margin of the differing sites is printed (under the
+    ESS theta update), and a chain is let through only when the CPU's own
+    float32 run, its inputs moved by one rounding (``perturbed``, a list of
+    (theta_idx, snap argument)), moves that decision: its theta changes, or
+    the snapped value moves by more than the margin. Returns the chains
+    whose other fields are compared."""
+    differ = (s_gpu.theta_idx.cpu() != s_cpu.theta_idx).flatten(1).any(dim=1)
+    if not bool(differ.any()):
+        return torch.ones_like(differ)
+    s64, snap64 = run64()
+    for k in torch.nonzero(differ).flatten().tolist():
+        sites = s_gpu.theta_idx[k].cpu() != s_cpu.theta_idx[k]
+        flipped = any(bool((t[k] != s_cpu.theta_idx[k]).any()) for t, _ in perturbed)
+        line = (f"tie rule ({label}): chain {k} theta differs at {int(sites.sum())} sites; "
+                f"float64 agrees with the CPU {torch.equal(s64.theta_idx[k], s_cpu.theta_idx[k])}, "
+                f"with the card {torch.equal(s64.theta_idx[k], s_gpu.theta_idx[k].cpu())}; "
+                f"the CPU's perturbed float32 runs change it: {flipped}")
+        if snap64 is not None and cfg.theta_method == "ess":
+            idx = sites if snap64.shape[1:] == sites.shape else sites[0]
+            margin = snap_margin(snap64[k], cfg)[idx]
+            move = max(float(((p[k].double() - snap_cpu[k].double()) / cfg.grid_step).abs()[idx]
+                             .max()) for _, p in perturbed)
+            line += (f"; float64 snap margin {float(margin.min()):.3g} steps, the perturbed "
+                     f"runs move the snapped value by up to {move:.3g} steps")
+            flipped = flipped or move > float(margin.min())
+        log(line)
+        check(flipped, f"theta differs beyond a float32 tie ({label}, chain {k})")
+    return ~differ
+
+
+def option_check(dev, label, inputs, temp, iteration):
+    """Phase 26: one sweep with a new block on the card against the CPU from
+    the same state and draws (:func:`sweep_inputs`, y drawn from the model
+    at a state shared by the chains), float32: theta equal, or its
+    difference a tie (:func:`tie_rule`); every field of the other chains
+    within 1e-3, f* within 1e-3 + 1e-3 |f*| under one temperature a chain;
+    the kernel launched once at C = 2 when the sweep's cutpoints are the
+    y-marginal ESS, else never. Returns the largest differences."""
+    inputs = dict(inputs)
+    C = inputs.pop("C", 2)
+    cfg, priors, state0, draws, y = sweep_inputs(C, model_y=True, iteration=iteration,
+                                                 **inputs)
+    cpu = torch.device("cpu")
+    consts = {d: make_constants(cfg, *priors, device=d) for d in (cpu, dev)}
+    launches = threshold_ess.binary_threshold_ess.launches
+    s_cpu, ll_cpu, snap_cpu = option_sweep(cpu, state0, draws, y, consts[cpu], cfg, temp,
+                                           iteration)
+    s_gpu, ll_gpu, _ = option_sweep(dev, state0, draws, y, consts[dev], cfg, temp, iteration)
+    n_launch = threshold_ess.binary_threshold_ess.launches - launches
+    want = int(C == 2 and gibbs._cut_method(cfg, iteration) == "ess" and dev.type == "cuda")
+    label = f"{label}, C={C}, H={cfg.horizon}, {cfg.theta_regime} regime, T=" + (
+        temp_label(torch.tensor(temp)) if temp is not None else "1")
+    check(n_launch == want, f"option sweep check: {n_launch} kernel launches ({label})")
+
+    def run64():
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        st = gibbs.GPIRTState(*(a.double() if a.is_floating_point() else a for a in state0))
+        out = option_sweep(cpu, st, draws.to(torch.float64), y,
+                           make_constants(cfg64, *priors, device=cpu), cfg64, temp, iteration)
+        return out[0], out[2]
+
+    gen = torch.Generator().manual_seed(0)
+
+    def ulp(a):
+        return a * (1.0 + 1.2e-7 * torch.randn(a.shape, generator=gen, dtype=a.dtype))
+
+    def perturbed_runs(reps=4):
+        out = []
+        for _ in range(reps):
+            c = dataclasses.replace(consts[cpu], U_se=ulp(consts[cpu].U_se),
+                                    Psi_grid=ulp(consts[cpu].Psi_grid))
+            st = state0._replace(fstar=ulp(state0.fstar), beta=ulp(state0.beta))
+            s, _, snap = option_sweep(cpu, st, draws, y, c, cfg, temp, iteration)
+            out.append((s.theta_idx, snap))
+        return out
+
+    differ = (s_gpu.theta_idx.cpu() != s_cpu.theta_idx).flatten(1).any(dim=1)
+    keep = (tie_rule(label, cfg, s_gpu, s_cpu, snap_cpu, run64, perturbed_runs())
+            if bool(differ.any()) else ~differ)
+    for st in (s_cpu, s_gpu):
+        for k in ("f", "beta", "fstar"):
+            check(bool(torch.isfinite(getattr(st, k)).all()), f"sweep {k} not finite ({label})")
+    check(bool(keep.any()), f"no chain left to compare ({label})")
+    errs = {k: max_diff(getattr(s_gpu, k)[keep.to(dev)], getattr(s_cpu, k)[keep])[0]
+            for k in ("f", "beta", "thresholds", "fstar")}
+    errs["ll"] = max_diff(ll_gpu[keep.to(dev)], ll_cpu[keep])[0]
+    log(f"option sweep check (card vs CPU, float32, {label}): theta equal in "
+        f"{int(keep.sum())} of {keep.numel()} chains, {n_launch} kernel launches; max abs "
+        "diff " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    for k in ("f", "beta", "thresholds"):
+        check(errs[k] < 1e-3, f"sweep {k} differs by {errs[k]:.3g} ({label})")
+    if temp is None:
+        check(errs["fstar"] < 1e-3, f"sweep fstar differs by {errs['fstar']:.3g} ({label})")
+    else:
+        check(bool(torch.isclose(s_gpu.fstar.cpu()[keep], s_cpu.fstar[keep], rtol=1e-3,
+                                 atol=1e-3).all()),
+              f"sweep fstar differs beyond 1e-3 + 1e-3 |f*| ({label})")
+    moved = (s_gpu.thresholds.cpu() != state0.thresholds)[..., 1:-1]
+    check(float(moved.float().mean()) > 0.2, f"cutpoints did not move ({label})")
+    return errs
+
+
+def theta_ess_path(rm, dev, smi, chains=K, burn=BURN, draws=DRAWS):
+    """Phase 27: senate116 through gpirt_mcmc(theta_method="ess") from the
+    spread init, checked for one kernel launch a sweep and finite draws;
+    prints the sweep rate, theta ESS and ESS per second, and the theta
+    ESS's rounds and host syncs a sweep. Returns the kernel's launches, the
+    inputs of its last call and the rates."""
+    ess_update.calls = ess_update.rounds = ess_update.syncs = 0
+    threshold_ess.binary_threshold_ess.launches = 0
+    out, args = observe_kernel(lambda: gpirt_mcmc(
+        rm, draws, burn, CHAIN=chains, SEED=SEED, theta_method="ess",
+        theta_init=spread_init(np.asarray(rm).shape[0]), dtype="float32", device=dev,
+        verbose=False))
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = burn + draws
+    check(launches == (sweeps if dev.type == "cuda" else 0),
+          f"ESS theta path: {launches} kernel launches for {sweeps} sweeps")
+    check(ess_update.calls == sweeps, f"ESS theta path: {ess_update.calls} theta ESS updates")
+    theta = cold_draws(out)
+    ll = np.stack([d["ll"] for d in out])
+    check(np.isfinite(theta).all() and np.isfinite(ll).all(), "ESS theta draws not finite")
+    samp_s = out[0]["seconds"]["sampling"]
+    within, pooled = theta_ess(theta, dev)
+    res = {"sweeps_per_s": sweeps / samp_s, "rounds_per_sweep": ess_update.rounds / sweeps,
+           "syncs_per_sweep": ess_update.syncs / sweeps, "within": within, "pooled": pooled}
+    log(f"ESS theta path on {smi}: senate116, {chains} chains, {sweeps} sweeps in "
+        f"{samp_s:.3f} s ({res['sweeps_per_s']:.2f} sweeps/s); {launches} kernel launches; "
+        f"theta ESS rounds {res['rounds_per_sweep']:.2f} and host syncs "
+        f"{res['syncs_per_sweep']:.2f} a sweep; theta ESS median within-chain (summed over "
+        f"{chains} chains) {within:.1f}, pooled {pooled:.1f}; ess/sec {within / samp_s:.2f} "
+        "(sampling wall)")
+    return launches, args, res
+
+
+def interleave_path(rm, dev, smi, chains=K, burn=BURN, draws=DRAWS, every=4):
+    """Phase 28: senate116 through gpirt_mcmc(threshold_method="interleave",
+    threshold_ess_every=4, mix_subsweeps=2): the kernel launched on the
+    sweeps whose index is a multiple of 4 only; prints the sweep rate and
+    theta ESS. Returns the launches and the rate."""
+    threshold_ess.binary_threshold_ess.launches = 0
+    calls = []
+    out, _ = observe_kernel(lambda: gpirt_mcmc(
+        rm, draws, burn, CHAIN=chains, SEED=SEED, threshold_method="interleave",
+        threshold_ess_every=every, mix_subsweeps=2, dtype="float32", device=dev,
+        verbose=False), before_call=calls.append)
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = burn + draws
+    want = len(range(0, sweeps, every))
+    check(len(calls) == want and launches == (want if dev.type == "cuda" else 0),
+          f"interleave path: {launches} kernel launches ({len(calls)} calls) for {sweeps} "
+          f"sweeps at k = {every}")
+    theta = cold_draws(out)
+    check(np.isfinite(theta).all() and all(np.isfinite(d["ll"]).all() for d in out),
+          "interleave draws not finite")
+    samp_s = out[0]["seconds"]["sampling"]
+    within, pooled = theta_ess(theta, dev)
+    log(f"interleave path on {smi}: senate116, {chains} chains, threshold_ess_every={every}, "
+        f"mix_subsweeps=2, {sweeps} sweeps in {samp_s:.3f} s ({sweeps / samp_s:.2f} sweeps/s); "
+        f"{launches} kernel launches of {sweeps} sweeps; theta ESS median within-chain "
+        f"(summed over {chains} chains) {within:.1f}, pooled {pooled:.1f}; ess/sec "
+        f"{within / samp_s:.2f}")
+    return launches, sweeps / samp_s
+
+
+def affine_run(rm, dev, shift_max, rounds, chains=K, burn=BURN, draws=DRAWS):
+    """:func:`spread_run` with the affine moves at (affine_shift_max,
+    affine_rounds): (theta (K, S, n), wall, kernel launches, orbit accepts,
+    orbit moves, dilations accepted)."""
+    affine.counts.update(orbit_accepted=0, orbit_moved=0, dilations_accepted=0)
+    theta, _, wall, launches = spread_run(rm, dev, chains, burn, draws,
+                                          affine_shift_max=shift_max, affine_rounds=rounds)
+    return (theta, wall, launches, *(int(affine.counts[k]) for k in (
+        "orbit_accepted", "orbit_moved", "dilations_accepted")))
+
+
+def affine_path(rm, dev, smi, chains=K, burn=BURN, draws=DRAWS, shift_max=16, rounds=2):
+    """Phase 29: scripts/tune_bench.py's affine setting (affine_shift_max=16,
+    affine_rounds=2) and the moves off, senate116 through run_chains with 64
+    chains from spread inits, burn 100 and 500 draws (tune_bench ran burn
+    500 and 1000 draws); one kernel launch a sweep each; prints each run's
+    sweep rate, theta ESS within and pooled, ESS per second and the moves'
+    accept rates, and the ratios on to off. Returns the launches and the
+    ratios."""
+    sweeps = burn + draws
+    res = {}
+    for key, (w, r) in (("on", (shift_max, rounds)), ("off", (0, 0))):
+        theta, wall, launches, acc, moved, dil = affine_run(rm, dev, w, r, chains, burn, draws)
+        check(launches == (sweeps if dev.type == "cuda" else 0),
+              f"affine path ({key}): {launches} kernel launches for {sweeps} sweeps")
+        within, pooled = theta_ess(theta, dev)
+        res[key] = dict(wall=wall, within=within, pooled=pooled, launches=launches)
+        rates = ""
+        if key == "on":
+            lanes = chains * sweeps
+            rates = (f"; orbit accept rate {acc / lanes:.4f}, moved {moved / lanes:.4f}; "
+                     f"dilation accept rate {dil / (lanes * rounds):.4f}")
+        log(f"affine path on {smi} (affine_shift_max={w}, affine_rounds={r}): senate116, "
+            f"{chains} chains, {sweeps} sweeps in {wall:.3f} s ({sweeps / wall:.2f} "
+            f"sweeps/s); {launches} kernel launches; theta ESS median within-chain (summed "
+            f"over {chains} chains) {within:.1f}, pooled {pooled:.1f}; ess/sec "
+            f"{within / wall:.2f}{rates}")
+    ess_ratio = res["on"]["within"] / res["off"]["within"]
+    wall_ratio = res["on"]["wall"] / res["off"]["wall"]
+    log(f"affine on / off: within-chain theta ESS x{ess_ratio:.3f}, wall x{wall_ratio:.3f}, "
+        f"ESS/s x{ess_ratio / wall_ratio:.3f} (JAX's comment for the TPU: ~1.5x ESS at "
+        "~1.7x wall)")
+    return res["on"]["launches"], ess_ratio, wall_ratio
+
+
 def timed(label, fn, *args):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
@@ -1605,6 +1911,24 @@ def main():
     del sh_args
     timed("25 (shared-IRF recovery)", shared_irf_recovery, dev, smi)
 
+    t = time.perf_counter()
+    opt_errs = {label: option_check(dev, label, inputs, temp, it)
+                for label, inputs, temp, it in OPTION_CHECKS}
+    log(f"phase 26 (sweep checks of the new blocks): {time.perf_counter() - t:.2f} s wall")
+    te_launches, te_args, te_res = timed("27 (ESS theta path)", theta_ess_path, rm, dev, smi)
+    t = time.perf_counter()
+    te_worst, te_flipped = kernel_check(te_args, "ESS theta path's state")
+    te_ms, te_eager, te_plain = kernel_times(te_args, _C)
+    log(f"kernel time, ESS theta path's state, T=1: {te_ms:.5f} ms (graph), "
+        f"{te_eager:.5f} ms (eager), plain {te_plain:.4f} ms")
+    te_work = kernel_bound(te_args, _C, "ESS theta path's state")
+    log(f"phase 27 (kernel at the ESS theta state): {time.perf_counter() - t:.2f} s wall")
+    worst, flipped = max(worst, te_worst), flipped + te_flipped
+    del te_args
+    il_launches, il_rate = timed("28 (interleave path)", interleave_path, rm, dev, smi)
+    af_launches, af_ess_ratio, af_wall_ratio = timed("29 (affine path)", affine_path, rm,
+                                                     dev, smi)
+
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
         "route": "cuda",
@@ -1670,6 +1994,23 @@ def main():
         "rounds_mean_pooled_state": sh_work["rounds_mean"],
         "constant_irf_sweeps_per_s": sh_res["sweeps_per_s"],
         "constant_irf_fstar_ess_syncs_per_sweep": sh_res["fstar_ess_syncs_per_sweep"],
+        "option_sweep_checks_max_abs_diff": {
+            k: max(v[f] for f in ("f", "beta", "thresholds")) for k, v in opt_errs.items()},
+        "launches_theta_ess": te_launches,
+        "max_abs_err_theta_ess": te_worst,
+        "lanes_over_1e-5_theta_ess": te_flipped,
+        "ms_theta_ess_state": te_ms,
+        "ms_eager_theta_ess_state": te_eager,
+        "plain_ms_theta_ess_state": te_plain,
+        "bound_ms_theta_ess_state": te_work["bound_ms"],
+        "bound_by_theta_ess_state": te_work["bound_by"],
+        "theta_ess_sweeps_per_s": te_res["sweeps_per_s"],
+        "theta_ess_rounds_per_sweep": te_res["rounds_per_sweep"],
+        "launches_interleave": il_launches,
+        "interleave_sweeps_per_s": il_rate,
+        "launches_affine": af_launches,
+        "affine_within_ess_ratio": af_ess_ratio,
+        "affine_wall_ratio": af_wall_ratio,
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

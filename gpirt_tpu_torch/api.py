@@ -10,7 +10,8 @@ initialization or parallel tempering, optional f / f* storage, the
 reference output layout (``gpirt_tpu/api.py:606``), an end-of-run
 convergence summary, and f* recovered from stored f draws. The host
 constants are built once per configuration, priors and device. Arguments
-the port does not cover yet raise ``NotImplementedError``.
+the port does not cover yet (checkpointing, a device mesh) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -179,10 +180,14 @@ def gpirt_mcmc(
     store_fstar: bool = False,
     *,
     threshold_method: str = "auto",
+    threshold_ess_every: int = 4,
     threshold_mh_tries: int = 2,
+    theta_method: str = "grid",
+    mix_subsweeps: int = 1,
     f_method: str = "auto",
     fstar_method: str = "matheron",
     grid_size: int = 1001,
+    jitter: Optional[float] = None,
     n_temps: int = 1,
     max_temp: float = 4.0,
     swap_every: int = 1,
@@ -208,14 +213,23 @@ def gpirt_mcmc(
     a given ``theta_init`` of shape (n,) or (n, 1) is copied across
     sessions, one of shape (n, H) is taken as it is, and every chain starts
     from it.
-    ``threshold_method`` is "auto" / "ess" (the y-marginal delta ESS) or
+    ``threshold_method`` is "auto" / "ess" (the y-marginal delta ESS),
     "newton" (``threshold_mh_tries`` Newton-proposal MH tries on the same
-    conditional). A nonzero ``constant_IRF`` shares one item response
+    conditional), or, on the conjugate path, "collapsed" (the exact draw
+    given the Albert-Chib latents) or "interleave" (the ESS every
+    ``threshold_ess_every``-th sweep, collapsed otherwise).
+    ``theta_method`` is "grid" (the exact grid draw) or "ess" (the
+    reference code's ESS and snap; not with ``smc_steps`` or ``n_temps``,
+    which temper). ``mix_subsweeps`` repeats each sweep's latent pass. A
+    nonzero ``constant_IRF`` shares one item response
     function (f* and the cutpoints) across the sessions. ``f_method`` is
     "auto" (Albert-Chib, or "grid" under ``constant_IRF``), "conjugate",
     "grid" (one ESS on each item's grid function f*) or "two_stage" (the
     reference's ESS on f, then f* | f by ``fstar_method``, "matheron" or
-    "chol"); ``grid_size`` is the theta grid's N. All sampler
+    "chol"); ``grid_size`` is the theta grid's N; ``jitter`` the model
+    nugget (1e-6 in float64 and 1e-5 in float32 by default). The
+    (cutpoint, intercept) shift and the affine moves are ``GPIRTConfig``
+    fields only, run through ``run_chains``, as in the JAX package. All sampler
     randomness comes from one ``torch.Generator`` on ``device`` seeded with
     SEED. ``smc_steps > 0`` prepends the SMC annealed initialization from
     ``smc_max_temp`` (conjugate only). ``n_temps > 1`` runs each chain as a
@@ -272,9 +286,12 @@ def gpirt_mcmc(
     config = GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=grid_size, dtype=dtype,
                          theta_os=float(theta_os), theta_ls=float(theta_ls),
                          kernel=KERNEL, constant_IRF=bool(constant_IRF),
-                         jitter=1e-6 if dtype == "float64" else 1e-5,
+                         jitter=jitter if jitter is not None else (
+                             1e-6 if dtype == "float64" else 1e-5),
                          threshold_method=threshold_method,
+                         threshold_ess_every=threshold_ess_every,
                          threshold_mh_tries=threshold_mh_tries,
+                         theta_method=theta_method, mix_subsweeps=mix_subsweeps,
                          f_method=f_method, fstar_method=fstar_method)
     consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
                                theta_prior_means, theta_prior_sds)

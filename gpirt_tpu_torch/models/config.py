@@ -1,14 +1,15 @@
 """Static configuration and precomputed constants for the port's sampler.
 
-Counterpart of ``gpirt_tpu/models/config.py``, restricted to what the port
-runs: binary or ordinal data (any C >= 2) over any number of sessions in
-the three theta regimes, one item response function a session or one
-shared by every session (``constant_IRF``), the Albert-Chib conjugate
-latent sampler, the grid-native ESS on f*, and the reference's two-stage
-pipeline (ESS on f, then f* | f by Matheron's rule or a posterior
-Cholesky), the exact grid draw of theta, and the y-marginal cutpoint
-update by ESS or by Newton-proposal MH. A configuration outside that
-raises ``NotImplementedError``.
+Counterpart of ``gpirt_tpu/models/config.py`` on one device: binary or
+ordinal data (any C >= 2) over any number of sessions in the three theta
+regimes, one item response function a session or one shared by every
+session (``constant_IRF``), the Albert-Chib conjugate latent sampler, the
+grid-native ESS on f*, and the reference's two-stage pipeline (ESS on f,
+then f* | f by Matheron's rule or a posterior Cholesky), theta by the exact
+grid draw or the reference code's ESS and snap, repeated latent passes
+(``mix_subsweeps``), the cutpoints by the y-marginal ESS, Newton-proposal
+MH, the collapsed draw given z or the interleave of the two, the
+(cutpoints, intercept) shift, and the collective affine theta moves.
 """
 
 from __future__ import annotations
@@ -47,11 +48,23 @@ class GPIRTConfig:
     n_inducing: int = 100  # inducing points of the two-stage constant_IRF f*
     jitter: float = 1e-6  # model nugget
     dtype: str = "float32"
-    ess_max_rounds: int = 64  # cutpoint ESS round cap
-    theta_method: str = "grid"
-    threshold_method: str = "auto"  # "auto" / "ess" (y-marginal delta ESS)
-    # or "newton" (Newton-proposal independence MH, same conditional)
+    ess_max_rounds: int = 64  # ESS round cap
+    theta_method: str = "grid"  # "grid" (exact grid draw) or "ess" (the
+    # reference code's ESS and snap, src/draw-theta.cpp:26-84)
+    mix_subsweeps: int = 1  # latent passes a sweep (JAX's extra passes)
+    threshold_method: str = "auto"  # "auto" / "ess" (y-marginal delta ESS),
+    # "newton" (Newton-proposal independence MH, same conditional),
+    # "collapsed" (exact draw given the latents z; conjugate only) or
+    # "interleave" (the ESS every threshold_ess_every-th sweep, collapsed
+    # otherwise; conjugate only)
+    threshold_ess_every: int = 4  # interleave period k
     threshold_mh_tries: int = 2  # MH tries per sweep under "newton"
+    threshold_shift: bool = False  # exact Gibbs draw along the (cutpoints,
+    # beta0) likelihood-null direction each sweep; skipped under constant_IRF
+    affine_rounds: int = 0  # dilation MH rounds a sweep (conjugate only)
+    affine_shift_max: int = 0  # half-window W of the shift-orbit draw
+    # (conjugate only); 0 turns it off
+    affine_dilate_sd: float = 0.02  # sd of the log dilation factor
     f_method: str = "auto"  # "auto", "conjugate" (Albert-Chib), "grid"
     # (one ESS on each item's grid function f*) or "two_stage" (the
     # reference's draw_f + draw_fstar pipeline)
@@ -67,8 +80,21 @@ class GPIRTConfig:
             raise ValueError(f"need at least 2 ordinal categories, got C={self.C}")
         if self.grid_size < 2:
             raise ValueError(f"grid_size must be >= 2, got {self.grid_size}")
+        if self.mix_subsweeps < 1:
+            raise ValueError(
+                f"mix_subsweeps must be >= 1, got {self.mix_subsweeps} "
+                "(each sweep needs at least one latent/trait pass)")
         if self.ess_max_rounds < 1:
             raise ValueError(f"ess_max_rounds must be >= 1, got {self.ess_max_rounds}")
+        if self.affine_rounds < 0:
+            raise ValueError(f"affine_rounds must be >= 0, got {self.affine_rounds}")
+        if self.affine_shift_max < 0:
+            raise ValueError(f"affine_shift_max must be >= 0, got {self.affine_shift_max}")
+        if self.affine_rounds > 0 and self.affine_dilate_sd <= 0:
+            raise ValueError("dilation rounds need affine_dilate_sd > 0")
+        if self.theta_method not in ("grid", "ess"):
+            raise ValueError(
+                f"theta_method must be 'grid' or 'ess', got {self.theta_method!r}")
         if self.threshold_mh_tries < 1:
             raise ValueError(
                 f"threshold_mh_tries must be >= 1, got {self.threshold_mh_tries}")
@@ -80,16 +106,21 @@ class GPIRTConfig:
         if self.f_method not in ("auto", "grid", "two_stage", "conjugate"):
             raise ValueError("f_method must be 'auto', 'grid', 'two_stage' or "
                              f"'conjugate', got {self.f_method!r}")
+        if self.threshold_method not in ("auto", "ess", "collapsed", "interleave",
+                                         "newton"):
+            raise ValueError(
+                "threshold_method must be 'auto', 'ess', 'collapsed', "
+                f"'interleave' or 'newton', got {self.threshold_method!r}")
+        if (self.threshold_method in ("collapsed", "interleave")
+                and self.resolved_f_method != "conjugate"):
+            raise ValueError(
+                f"threshold_method={self.threshold_method!r} needs the "
+                "Albert-Chib latents (f_method='conjugate')")
+        if self.threshold_ess_every < 1:
+            raise ValueError(
+                f"threshold_ess_every must be >= 1, got {self.threshold_ess_every}")
         if self.n_inducing < 2:
             raise ValueError(f"n_inducing must be >= 2, got {self.n_inducing}")
-        outside = []
-        if self.threshold_method not in ("auto", "ess", "newton"):
-            outside.append(f"threshold_method={self.threshold_method!r}")
-        if self.theta_method != "grid":
-            outside.append(f"theta_method={self.theta_method!r}")
-        if outside:
-            raise NotImplementedError(
-                "not ported to gpirt_tpu_torch yet: " + ", ".join(outside))
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -106,10 +137,21 @@ class GPIRTConfig:
 
     @property
     def resolved_threshold_method(self) -> str:
-        """"auto" is the y-marginal ESS, as in the JAX package on every
-        f_method the port runs (the grid and two-stage paths have no
-        Albert-Chib latents, so nothing else could serve them)."""
-        return "newton" if self.threshold_method == "newton" else "ess"
+        """As the JAX package resolves it
+        (``gpirt_tpu/models/config.py:239``): "newton" on any f-method;
+        off the conjugate path, which has no Albert-Chib latents, the
+        y-marginal ESS; on it "auto" is the ESS and "collapsed" and
+        "interleave" are themselves."""
+        if self.threshold_method == "newton":
+            return "newton"
+        if self.resolved_f_method != "conjugate" or self.threshold_method == "auto":
+            return "ess"
+        return self.threshold_method
+
+    @property
+    def affine(self) -> bool:
+        """Whether the conjugate sweep runs the collective affine moves."""
+        return self.affine_rounds > 0 or self.affine_shift_max > 0
 
     @property
     def chol_normalized(self) -> bool:
@@ -158,6 +200,7 @@ class GPIRTConstants:
 
     grid: torch.Tensor  # (N,) theta* grid
     grid_gram: torch.Tensor  # (N, N) ICC Gram over the grid (no jitter)
+    grid_gram_se: torch.Tensor  # (N, N) its squared-exponential part alone
     Psi_grid: torch.Tensor  # (N, 3) [sd0, sd1 t, sd2 t^2]: K = K_SE + Psi Psi^T
     U_se: torch.Tensor  # (N, q) eigenbasis factor, K_SE ~= U_se U_se^T
     L_grid: torch.Tensor  # (N, N) chol(grid Gram + jitter I), f64-computed
@@ -218,6 +261,7 @@ def make_constants(
     return GPIRTConstants(
         grid=t(grid64),
         grid_gram=t(gram64),
+        grid_gram_se=t(gram_se64),
         Psi_grid=t(Psi),
         U_se=t(U_se64),
         L_grid=t(L_grid),

@@ -1,7 +1,7 @@
 """The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path, the
 grid-native ESS on f* and the reference's two-stage pipeline.
 
-Counterpart of ``gpirt_tpu/models/gibbs.py`` (one latent pass a sweep).
+Counterpart of ``gpirt_tpu/models/gibbs.py`` without its sharded forms.
 Chains are a written-out leading K axis. Every block is a pure function of
 the state and of its random draws, passed in as tensors; :func:`sweep_draws`
 makes one sweep's draws from a ``torch.Generator`` and :func:`gibbs_sweep`
@@ -10,8 +10,10 @@ applies the blocks of ``config.resolved_f_method``.
 The conjugate sweep (Albert-Chib latents z; the block order of
 src/gpirtMCMC.cpp:261-331 with theta first):
 
-  theta | f*  ->  z | theta, f*  ->  f* | z  ->  beta | z, f  ->  t | f, mu
-  ->  ll.
+  theta | f*  ->  z | theta, f*  [->  (theta, beta) by the collective affine
+  moves against the z-marginal, models/affine.py]  ->  f* | z  ->
+  beta | z, f  ->  t | f, mu (or t | z, the collapsed draw)  [->  the
+  (t, beta0) shift]  ->  ll.
 
 The grid sweep (``f_method="grid"``): one ESS move of each item's whole
 grid function f*, its likelihood gathered at the snapped theta, in place
@@ -27,12 +29,20 @@ as the reference runs it):
   ->  theta | f*  ->  f := f*(theta)  ->  beta | f, theta (ESS)
   ->  t | f, mu  ->  ll.
 
+``config.mix_subsweeps`` repeats the latent pass (the bracketed part of
+each order above: theta to f* on the conjugate path, f* and theta on the
+grid and two-stage ones), each pass with its own draws, which then carry
+a leading pass axis. theta is drawn on the grid exactly, or by the
+reference code's ESS and snap (``theta_method="ess"``).
+
 The cutpoint block is the y-marginal update of the reference: an ESS in
 the delta parametrization (the binary one through the hand-written CUDA
 kernel on the card, ``ops/threshold_ess.py``; the ordinal one through
 ``ops/ess.py``), or Newton-proposal MH on the same conditional
-(``threshold_method="newton"``). The ESS of f, f* and beta run through
-``ops/ess.py``.
+(``threshold_method="newton"``); on the conjugate path also the exact draw
+given z (``"collapsed"``) or the two in turn (``"interleave"``, the ESS on
+sweeps whose ``iteration`` is a multiple of ``threshold_ess_every``). The
+ESS of theta, f, f* and beta run through ``ops/ess.py``.
 
 Layouts put the chain axis first, then the horizon:
   theta_idx (K, H, n) int64, f (K, H, n, m), beta (K, H, 3, m),
@@ -80,6 +90,9 @@ __all__ = [
     "InitDraws",
     "ESSDraws",
     "NewtonDraws",
+    "CollapsedDraws",
+    "ThetaESSDraws",
+    "AffineDraws",
     "SweepDraws",
     "ESSLoopDraws",
     "draws_to",
@@ -111,6 +124,9 @@ __all__ = [
     "draw_fstar_direct",
     "draw_beta",
     "draw_threshold",
+    "draw_threshold_collapsed",
+    "draw_threshold_shift",
+    "draw_theta",
     "gibbs_sweep",
 ]
 
@@ -137,14 +153,22 @@ class InitDraws(NamedTuple):
     z_fstar: torch.Tensor  # (K, H, N, m) standard normal
 
 
+# A draws tuple names in _ROUND_FIELDS the fields whose leading axis is a
+# round or try axis (the lanes follow it), and in _PASS_FIELDS those that
+# carry a leading pass axis under mix_subsweeps > 1; parallel/smc.py joins
+# campaigns' draws along the lane axis these give.
+
+
 class ESSDraws(NamedTuple):
-    """The cutpoint ESS's random numbers; under constant_IRF the session
-    axis H is 1 (one cutpoint vector a chain)."""
+    """The cutpoint ESS's random numbers, also those of the collapsed
+    draw's ESS at C > 2; under constant_IRF the session axis H is 1 (one
+    cutpoint vector a chain)."""
 
     nu: torch.Tensor  # (K, H, m, C-1) normal: prior draw
     logu: torch.Tensor  # (K, H, m) log uniform: slice level
     eps0: torch.Tensor  # (K, H, m) uniform [0, 2 pi): initial angle
     rs: torch.Tensor  # (R, K, H, m) uniform: bracket shrink per round
+    _ROUND_FIELDS = ("rs",)
 
 
 class NewtonDraws(NamedTuple):
@@ -153,31 +177,14 @@ class NewtonDraws(NamedTuple):
 
     z: torch.Tensor  # (tries, K, H, m, C-1) normal: proposal
     logu: torch.Tensor  # (tries, K, H, m) log uniform: accept
+    _ROUND_FIELDS = ("z", "logu")
 
 
-def draws_to(draws, device):
-    """A (nested) tuple of draws with every tensor moved to ``device``."""
-    return type(draws)(*(a.to(device) if torch.is_tensor(a) else draws_to(a, device)
-                         for a in draws))
+class CollapsedDraws(NamedTuple):
+    """The collapsed binary cutpoint draw's inverse-CDF uniform (C = 2;
+    at C > 2 the collapsed draw is an ESS and takes :class:`ESSDraws`)."""
 
-
-class SweepDraws(NamedTuple):
-    """One conjugate sweep's random numbers for K chains; ``cut`` holds
-    those of the configured cutpoint update. Under constant_IRF the f*
-    prior's H is 1 (one draw gathered at every session's sites)."""
-
-    u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
-    # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
-    u_z: torch.Tensor  # (K, H, n, m) uniform: truncated-normal inverse CDF
-    z_q: torch.Tensor  # (K, H, q, m) normal: f* prior, SE eigenbasis part
-    z_p: torch.Tensor  # (K, H, 3, m) normal: f* prior, polynomial part
-    z_n: torch.Tensor  # (K, H, N, m) normal: f* prior, grid nugget
-    eps_f: torch.Tensor  # (K, H, n, m) normal: f* observation noise
-    zeta: torch.Tensor  # (K, H, m, 3) normal: beta draw
-    cut: Union[ESSDraws, NewtonDraws]
-
-    def to(self, device) -> "SweepDraws":
-        return draws_to(self, device)
+    u: torch.Tensor  # (K, H, m) uniform; H is 1 under constant_IRF
 
 
 class ESSLoopDraws(NamedTuple):
@@ -186,6 +193,92 @@ class ESSLoopDraws(NamedTuple):
     logu: torch.Tensor  # (*B) log uniform: slice level
     eps0: torch.Tensor  # (*B) uniform [0, 2 pi): initial angle
     rs: torch.Tensor  # (R, *B) uniform: bracket shrink per round
+    _ROUND_FIELDS = ("rs",)
+
+
+class ThetaESSDraws(NamedTuple):
+    """The theta ESS's random numbers (``theta_method="ess"``): one lane a
+    respondent, (K, n), in the CST and GP regimes, one a (respondent,
+    session), (K, n, H), in RDM."""
+
+    z: torch.Tensor  # normal: the prior draw before its scale, (K, n, 1) in
+    # CST, (K, n, H) in RDM and GP
+    logu: torch.Tensor  # (*lanes) log uniform: slice level
+    eps0: torch.Tensor  # (*lanes) uniform [0, 2 pi): initial angle
+    rs: torch.Tensor  # (R, *lanes) uniform: bracket shrink per round
+    _ROUND_FIELDS = ("rs",)
+
+
+class AffineDraws(NamedTuple):
+    """The collective affine moves' random numbers (models/affine.py): the
+    shift orbit's, None when affine_shift_max is 0, and the dilation
+    rounds', None when affine_rounds is 0."""
+
+    u_pick: Optional[torch.Tensor]  # (K, 2W+1) uniform: Gumbel noise of the pick
+    u_acc: Optional[torch.Tensor]  # (K,) uniform: its window-normaliser accept
+    ell: Optional[torch.Tensor]  # (rounds, K) normal: log dilation before its sd
+    u_dil: Optional[torch.Tensor]  # (rounds, K) uniform: the dilations' accepts
+    _ROUND_FIELDS = ("ell", "u_dil")
+
+
+def _map_draws(fn, draws):
+    """``draws`` with ``fn`` applied to every tensor of its nested tuples;
+    a None field stays None."""
+    if draws is None or torch.is_tensor(draws):
+        return draws if draws is None else fn(draws)
+    return type(draws)(*(_map_draws(fn, a) for a in draws))
+
+
+def draws_to(draws, device):
+    """A (nested) tuple of draws with every tensor moved to ``device``."""
+    return _map_draws(lambda a: a.to(device), draws)
+
+
+def _stack_passes(per_pass):
+    """The draws of ``mix_subsweeps`` passes as one, a leading pass axis on
+    every tensor; one pass as it is."""
+    first = per_pass[0]
+    if len(per_pass) == 1 or first is None:
+        return first
+    if torch.is_tensor(first):
+        return torch.stack(per_pass)
+    return type(first)(*(_stack_passes([p[i] for p in per_pass])
+                         for i in range(len(first))))
+
+
+def _passes(draws, S: int):
+    """One sweep's draws as the S passes' draws, each pass with its own
+    fields of ``_PASS_FIELDS``."""
+    if S == 1:
+        return [draws]
+    return [draws._replace(**{f: _map_draws(lambda a: a[s], getattr(draws, f))
+                              for f in draws._PASS_FIELDS}) for s in range(S)]
+
+
+class SweepDraws(NamedTuple):
+    """One conjugate sweep's random numbers for K chains; ``cut`` holds
+    those of the configured cutpoint update. Under constant_IRF the f*
+    prior's H is 1 (one draw gathered at every session's sites). The
+    fields of a latent pass (``_PASS_FIELDS``) carry a leading pass axis
+    under mix_subsweeps > 1; ``affine`` and ``shift`` are None unless the
+    config asks for those moves."""
+
+    u_theta: Union[torch.Tensor, ThetaESSDraws]  # the theta draw's: uniform
+    # [0, 1) Gumbel noise, (K, n, N) in the CST regime, (K, H, n, N) in RDM
+    # and GP; or the ESS's numbers
+    u_z: torch.Tensor  # (K, H, n, m) uniform: truncated-normal inverse CDF
+    z_q: torch.Tensor  # (K, H, q, m) normal: f* prior, SE eigenbasis part
+    z_p: torch.Tensor  # (K, H, 3, m) normal: f* prior, polynomial part
+    z_n: torch.Tensor  # (K, H, N, m) normal: f* prior, grid nugget
+    eps_f: torch.Tensor  # (K, H, n, m) normal: f* observation noise
+    zeta: torch.Tensor  # (K, H, m, 3) normal: beta draw
+    cut: Union[ESSDraws, NewtonDraws, CollapsedDraws]
+    affine: Optional[AffineDraws] = None
+    shift: Optional[torch.Tensor] = None  # (K, H, m) normal: the (t, beta0) shift
+    _PASS_FIELDS = ("u_theta", "u_z", "z_q", "z_p", "z_n", "eps_f", "affine")
+
+    def to(self, device) -> "SweepDraws":
+        return draws_to(self, device)
 
 
 class FDraws(NamedTuple):
@@ -224,14 +317,16 @@ class TwoStageInitDraws(NamedTuple):
 
 
 class TwoStageDraws(NamedTuple):
-    """One two-stage sweep's random numbers for K chains."""
+    """One two-stage sweep's random numbers for K chains; the passes'
+    fields as in :class:`SweepDraws`."""
 
     f: FDraws
     fstar: FStarDraws
-    u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
-    # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
+    u_theta: Union[torch.Tensor, ThetaESSDraws]  # as SweepDraws.u_theta
     beta: BetaDraws
     cut: Union[ESSDraws, NewtonDraws]
+    shift: Optional[torch.Tensor] = None  # (K, H, m) normal: the (t, beta0) shift
+    _PASS_FIELDS = ("fstar", "u_theta")
 
     def to(self, device) -> "TwoStageDraws":
         return draws_to(self, device)
@@ -239,14 +334,16 @@ class TwoStageDraws(NamedTuple):
 
 class GridDraws(NamedTuple):
     """One grid sweep's random numbers for K chains; the f* ESS has lanes
-    (K, H, m), H 1 under constant_IRF."""
+    (K, H, m), H 1 under constant_IRF; the passes' fields as in
+    :class:`SweepDraws`."""
 
     fstar: FStarDraws  # the ESS's grid prior draw of f*
     ess: ESSLoopDraws  # its slice level, initial angle and shrinks
-    u_theta: torch.Tensor  # uniform [0, 1): Gumbel noise of the theta draw,
-    # (K, n, N) in the CST regime, (K, H, n, N) in RDM and GP
+    u_theta: Union[torch.Tensor, ThetaESSDraws]  # as SweepDraws.u_theta
     beta: BetaDraws
     cut: Union[ESSDraws, NewtonDraws]
+    shift: Optional[torch.Tensor] = None  # (K, H, m) normal: the (t, beta0) shift
+    _PASS_FIELDS = ("fstar", "ess", "u_theta")
 
     def to(self, device) -> "GridDraws":
         return draws_to(self, device)
@@ -412,11 +509,37 @@ def init_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     return InitDraws(z_beta=z_beta, z_fstar=randn(K, H, N, m))
 
 
-def _cut_draws(rand, randn, K: int, config: GPIRTConfig) -> Union[ESSDraws, NewtonDraws]:
+def _theta_draws(rand, randn, K: int, config: GPIRTConfig):
+    """The theta update's numbers: the grid draw's Gumbel uniforms, or the
+    ESS's (:class:`ThetaESSDraws`) under ``theta_method="ess"``."""
+    if config.theta_method == "grid":
+        return _theta_uniforms(rand, K, config)
+    n, H = config.n, config.horizon
+    regime = config.theta_regime
+    lanes = (K, n, H) if regime == "RDM" else (K, n)
+    z = randn(K, n, 1 if regime == "CST" else H)
+    return ThetaESSDraws(z, *_ess_loop_draws(rand, lanes, config.ess_max_rounds))
+
+
+def _cut_method(config: GPIRTConfig, iteration: int) -> str:
+    """The cutpoint update sweep ``iteration`` runs: "interleave" is the
+    y-marginal ESS when iteration % threshold_ess_every == 0 and the
+    collapsed draw otherwise."""
+    method = config.resolved_threshold_method
+    if method == "interleave":
+        return "ess" if iteration % config.threshold_ess_every == 0 else "collapsed"
+    return method
+
+
+def _cut_draws(rand, randn, K: int, config: GPIRTConfig,
+               iteration: int) -> Union[ESSDraws, NewtonDraws, CollapsedDraws]:
     H, m, d = _irf_sessions(config), config.m, config.C - 1
-    if config.resolved_threshold_method == "newton":
+    method = _cut_method(config, iteration)
+    if method == "newton":
         tries = config.threshold_mh_tries
         return NewtonDraws(z=randn(tries, K, H, m, d), logu=torch.log(rand(tries, K, H, m)))
+    if method == "collapsed" and config.C == 2:
+        return CollapsedDraws(u=rand(K, H, m))
     return ESSDraws(
         nu=randn(K, H, m, d),
         logu=torch.log(rand(K, H, m)),
@@ -425,43 +548,61 @@ def _cut_draws(rand, randn, K: int, config: GPIRTConfig) -> Union[ESSDraws, Newt
     )
 
 
+def _affine_draws(rand, randn, K: int, config: GPIRTConfig) -> Optional[AffineDraws]:
+    if not config.affine:
+        return None
+    W, R = config.affine_shift_max, config.affine_rounds
+    return AffineDraws(u_pick=rand(K, 2 * W + 1) if W else None,
+                       u_acc=rand(K) if W else None,
+                       ell=randn(R, K) if R else None,
+                       u_dil=rand(R, K) if R else None)
+
+
 def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
-                config: GPIRTConfig) -> Union[SweepDraws, TwoStageDraws]:
-    """One sweep's draws for ``config.resolved_f_method``."""
+                config: GPIRTConfig,
+                iteration: int = 0) -> Union[SweepDraws, GridDraws, TwoStageDraws]:
+    """One sweep's draws for ``config.resolved_f_method``: the latent
+    passes' first, pass by pass, then the rest. ``iteration`` is the sweep's
+    index, which picks the cutpoint update under "interleave". A field the
+    config does not ask for is not drawn."""
     rand, randn = _samplers(gen, consts, config)
     H, n, m, N = config.horizon, config.n, config.m, config.grid_size
-    Hi, R = _irf_sessions(config), config.ess_max_rounds
+    Hi, R, S = _irf_sessions(config), config.ess_max_rounds, config.mix_subsweeps
     method = config.resolved_f_method
+
+    def passes(one):
+        per_pass = [one() for _ in range(S)]
+        return {k: _stack_passes([p[k] for p in per_pass]) for k in per_pass[0]}
+
+    def tail():
+        out = dict(cut=_cut_draws(rand, randn, K, config, iteration))
+        if config.threshold_shift and not config.constant_IRF:
+            out["shift"] = randn(K, H, m)
+        return out
 
     def beta():
         return BetaDraws(z=randn(K, H, m, 3), ess=_ess_loop_draws(rand, (K, H, m), R))
 
     if method == "two_stage":
-        return TwoStageDraws(
-            f=f_draws(gen, K, consts, config),
-            fstar=fstar_draws(gen, K, consts, config),
-            u_theta=_theta_uniforms(rand, K, config),
-            beta=beta(),
-            cut=_cut_draws(rand, randn, K, config),
-        )
+        f = f_draws(gen, K, consts, config)
+        latent = passes(lambda: dict(fstar=fstar_draws(gen, K, consts, config),
+                                     u_theta=_theta_draws(rand, randn, K, config)))
+        return TwoStageDraws(f=f, **latent, beta=beta(), **tail())
     if method == "grid":
-        return GridDraws(
-            fstar=fstar_draws(gen, K, consts, config),
-            ess=_ess_loop_draws(rand, (K, Hi, m), R),
-            u_theta=_theta_uniforms(rand, K, config),
-            beta=beta(),
-            cut=_cut_draws(rand, randn, K, config),
-        )
-    latent = dict(
-        u_theta=_theta_uniforms(rand, K, config),
+        latent = passes(lambda: dict(fstar=fstar_draws(gen, K, consts, config),
+                                     ess=_ess_loop_draws(rand, (K, Hi, m), R),
+                                     u_theta=_theta_draws(rand, randn, K, config)))
+        return GridDraws(**latent, beta=beta(), **tail())
+    latent = passes(lambda: dict(
+        u_theta=_theta_draws(rand, randn, K, config),
         u_z=rand(K, H, n, m),
         z_q=randn(K, Hi, consts.U_se.shape[1], m),
         z_p=randn(K, Hi, 3, m),
         z_n=randn(K, Hi, N, m),
         eps_f=randn(K, H, n, m),
-        zeta=randn(K, H, m, 3),
-    )
-    return SweepDraws(**latent, cut=_cut_draws(rand, randn, K, config))
+        affine=_affine_draws(rand, randn, K, config),
+    ))
+    return SweepDraws(**latent, zeta=randn(K, H, m, 3), **tail())
 
 
 # ---------------------------------------------------------------------------
@@ -602,6 +743,61 @@ def _draw_theta_grid(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
         theta[:, h] = grid[idx]  # session h+1 conditions on the new value
         idxs.append(idx)
     return torch.stack(idxs, dim=1)
+
+
+def _table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table (K, H, N, n) at idx (K, H, n) -> (K, H, n), table[k, h, idx, i]."""
+    return torch.take_along_dim(table, idx.unsqueeze(-2), dim=-2).squeeze(-2)
+
+
+def draw_theta(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
+               config: GPIRTConfig, u_theta, temp=None) -> torch.Tensor:
+    """theta_idx (K, H, n) by ``config.theta_method``
+    (``gpirt_tpu/models/gibbs.py:1644``): the exact grid draw, or the
+    reference code's ESS and snap, which has no tempered form."""
+    if config.theta_method == "grid":
+        return _draw_theta_grid(state, mu_star, y, consts, config, u_theta, temp)
+    if temp is not None:
+        raise NotImplementedError("tempering needs theta_method='grid'")
+    return _draw_theta_ess(state, mu_star, y, consts, config, u_theta)
+
+
+def _draw_theta_ess(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
+                    config: GPIRTConfig, draws: ThetaESSDraws) -> torch.Tensor:
+    """The reference code's theta update (src/draw-theta.cpp:26-84,
+    165-168; ``gpirt_tpu/models/gibbs.py:1741``): an ESS whose proposals are
+    clamped to [-5, 5] and whose likelihood reads the ll table at the
+    snapped proposal, then the snap. CST: one lane a respondent, prior sd
+    sqrt(1 + sds^2), the table summed over sessions; RDM: one lane a
+    (respondent, session); GP: one lane of the H sessions a respondent,
+    its prior the time GP's factor L_time."""
+    K, H, n = state.theta_idx.shape
+    table = _theta_ll_table(state.fstar, mu_star, y, state.thresholds, config.C)
+    theta = theta_from_indices(state.theta_idx, consts)  # (K, H, n)
+    loop = (draws.logu, draws.eps0, draws.rs)
+
+    def clamp(v):
+        return torch.clamp(v, THETA_LO, THETA_HI)
+
+    def ll_nH(theta_nH):  # (K, n, H) -> (K, n)
+        return _table_lookup(table, snap_indices(theta_nH, config).mT).sum(dim=1)
+
+    regime = config.theta_regime
+    sd = torch.sqrt(1.0 + torch.square(consts.theta_prior_sds[0])).unsqueeze(-1)
+    if regime == "CST":
+        x_new = ess_update(theta[:, 0].unsqueeze(-1), draws.z * sd,
+                           lambda xt: ll_nH(xt.expand(K, n, H)), *loop, transform=clamp)
+        return snap_indices(x_new[..., 0], config).unsqueeze(1).expand(K, H, n)
+    if regime == "RDM":
+        def loglik(xt):  # (K, n, H, 1) -> (K, n, H)
+            return _table_lookup(table, snap_indices(xt[..., 0], config).mT).mT
+
+        x_new = ess_update(theta.mT.unsqueeze(-1), (draws.z * sd).unsqueeze(-1), loglik,
+                           *loop, transform=clamp)
+        return snap_indices(x_new[..., 0].mT, config)
+    x_new = ess_update(theta.mT, draws.z @ consts.L_time.mT, ll_nH, *loop,
+                       transform=clamp)
+    return snap_indices(x_new.mT, config)
 
 
 def draw_z_truncnorm(g, y, thresholds, u, temp=None) -> torch.Tensor:
@@ -926,6 +1122,65 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     return delta_to_threshold(d_new)
 
 
+def draw_threshold_collapsed(thresholds, z, y, config: GPIRTConfig,
+                             cut: Union[CollapsedDraws, ESSDraws]) -> torch.Tensor:
+    """The cutpoints given the Albert-Chib latents z
+    (``gpirt_tpu/models/gibbs.py:2389``): given z the ordinal likelihood is
+    the box lo_c = max{z : y = c} <= t_c < hi_c = min{z : y = c + 1}, so the
+    conditional is the delta prior N(0, I) restricted to the box, which
+    holds the current cutpoints. C = 2: the exact inverse-CDF draw of t_1 ~
+    N(0, 1) in its box, clamped into it (a far-tail CDF may land outside);
+    C > 2: an ESS on delta against the box indicator. It does not involve
+    the temperature. Under constant_IRF one box pools every session.
+
+    thresholds (K, H, m, C+1); z (K, H, n, m); ``cut`` has H = 1 under
+    constant_IRF.
+    """
+    H, C = thresholds.shape[1], config.C
+    big = 1e30
+    cats = torch.arange(1, C, device=y.device)
+    yb, zb = y.unsqueeze(-1), z.unsqueeze(-1)
+    lo = torch.where(yb == cats, zb, -big).amax(dim=-3)  # (K, H, m, C-1)
+    hi = torch.where(yb == cats + 1, zb, big).amin(dim=-3)
+    if config.constant_IRF:
+        lo, hi = lo.amax(dim=1, keepdim=True), hi.amin(dim=1, keepdim=True)
+        thresholds = thresholds[:, :1]
+    if C == 2:
+        cdf_lo = 0.5 * (1.0 + torch.erf(lo * _INV_SQRT2))
+        cdf_hi = 0.5 * (1.0 + torch.erf(hi * _INV_SQRT2))
+        p = torch.clamp(cdf_lo + cut.u.unsqueeze(-1) * (cdf_hi - cdf_lo), 1e-6, 1.0 - 1e-6)
+        thr = delta_to_threshold(torch.clamp(torch.special.ndtri(p), lo, hi))
+    else:
+        zero = torch.zeros((), dtype=z.dtype, device=z.device)
+
+        def loglik(d):  # (K, H, m, C-1) -> (K, H, m)
+            t_int = delta_to_threshold(d)[..., 1:C]
+            return torch.where(((t_int >= lo) & (t_int < hi)).all(dim=-1), zero, -math.inf)
+
+        thr = delta_to_threshold(ess_update(threshold_to_delta(thresholds), cut.nu, loglik,
+                                            cut.logu, cut.eps0, cut.rs))
+    return _share(thr, H).contiguous()
+
+
+def draw_threshold_shift(thresholds, beta, consts: GPIRTConstants, z):
+    """The exact Gibbs draw along the likelihood-null direction t_jc +=
+    delta_j for every interior cutpoint and beta0_j += delta_j
+    (``gpirt_tpu/models/gibbs.py:2186``): its conditional is the priors on
+    the line, N(0, 1) on t_1 times N(0, sds0^2 + 1e-6) on beta0, a 1-D
+    Gaussian an item. thresholds (K, H, m, C+1), beta (K, H, 3, m), z
+    (K, H, m) normal. Returns (thresholds, beta, delta (K, H, m))."""
+    b0 = beta[..., 0, :]
+    s0sq = torch.square(consts.beta_prior_sds[0]) + 1e-6  # (m,)
+    prec = 1.0 + 1.0 / s0sq
+    mean = -(thresholds[..., 1] + b0 / s0sq) / prec
+    delta = mean + z / torch.sqrt(prec)
+    interior = torch.zeros(thresholds.shape[-1], dtype=torch.bool, device=z.device)
+    interior[1:-1] = True
+    thr = torch.where(interior, thresholds + delta.unsqueeze(-1), thresholds)
+    beta = torch.cat([(b0 + delta).unsqueeze(-2), beta[..., 1:, :]], dim=-2)
+    return thr, beta, delta
+
+
 def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
     """Newton-proposal independence MH on the binary cutpoint t_1, the
     conditional of the binary ESS (prior N(0, 1), likelihood the sum of
@@ -1085,7 +1340,8 @@ def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None):
 
 def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageDraws],
                 y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
-                temp: Optional[float] = None) -> Tuple[GPIRTState, torch.Tensor]:
+                temp: Optional[float] = None,
+                iteration: int = 0) -> Tuple[GPIRTState, torch.Tensor]:
     """One Gibbs sweep of K chains by ``config.resolved_f_method`` (block
     orders in the module docstring). Returns (state, ll (K,)).
 
@@ -1093,7 +1349,9 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     conjugate path only (as in JAX): one float for every chain, or a (K,)
     tensor of one temperature a chain (parallel tempering's lanes; as
     ``jax.vmap(gibbs_sweep)`` over the temperatures). The returned ll is
-    each chain's own tempered log-likelihood.
+    each chain's own tempered log-likelihood. ``iteration``, the sweep's
+    index (a host int), picks the cutpoint update under "interleave" and
+    must be the one ``draws`` were made for.
     """
     method = config.resolved_f_method
     if method != "conjugate":
@@ -1104,17 +1362,31 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
         return sweep(state, draws, y, consts, config)
     _, inv_s = _temp_scales(temp)
     mu_star = compute_mu_star(consts, state.beta)
-    theta_idx = _draw_theta_grid(state, mu_star, y, consts, config,
-                                 draws.u_theta, temp)
-    state = state._replace(theta_idx=theta_idx, f=_rows(state.fstar, theta_idx))
-    theta = theta_from_indices(theta_idx, consts)
-    mu = compute_mu(theta, state.beta)
-    z = draw_z_truncnorm(state.f + mu, y, state.thresholds, draws.u_z, temp)
-    fstar, f = draw_fstar_conjugate(state, z - mu, config, consts, draws.z_q,
-                                    draws.z_p, draws.z_n, draws.eps_f, temp)
+    for d in _passes(draws, config.mix_subsweeps):
+        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta, temp)
+        state = state._replace(theta_idx=theta_idx, f=_rows(state.fstar, theta_idx))
+        theta = theta_from_indices(theta_idx, consts)
+        mu = compute_mu(theta, state.beta)
+        z = draw_z_truncnorm(state.f + mu, y, state.thresholds, d.u_z, temp)
+        if config.affine:  # against the z-marginal, before f* is redrawn
+            # imported here: models.affine imports this module's helpers
+            from gpirt_tpu_torch.models.affine import affine_theta_moves
+
+            theta_idx, beta = affine_theta_moves(theta_idx, z, state.beta, consts, config,
+                                                 d.affine, temp)
+            state = state._replace(theta_idx=theta_idx, beta=beta)
+            theta = theta_from_indices(theta_idx, consts)
+            mu = compute_mu(theta, beta)
+        fstar, f = draw_fstar_conjugate(state, z - mu, config, consts, d.z_q, d.z_p,
+                                        d.z_n, d.eps_f, temp)
+        state = state._replace(fstar=fstar, f=f)
     beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp)
     mu = compute_mu(theta, beta)
-    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp)
+    if _cut_method(config, iteration) == "collapsed":
+        thresholds = draw_threshold_collapsed(state.thresholds, z, y, config, draws.cut)
+    else:
+        thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp)
+    thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
                        thresholds=thresholds, fstar=fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds,
@@ -1122,49 +1394,65 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     return state, ll
 
 
+def _shift(thresholds, beta, mu, consts: GPIRTConstants, config: GPIRTConfig, z):
+    """The (t, beta0) shift after the cutpoint update when the config asks
+    for it (skipped under constant_IRF, as in JAX), mu moved with beta0:
+    (thresholds, beta, mu)."""
+    if not config.threshold_shift or config.constant_IRF:
+        return thresholds, beta, mu
+    thresholds, beta, delta = draw_threshold_shift(thresholds, beta, consts, z)
+    return thresholds, beta, mu + delta.unsqueeze(-2)
+
+
 def _two_stage_sweep(state: GPIRTState, draws: TwoStageDraws, y, consts: GPIRTConstants,
                      config: GPIRTConfig) -> Tuple[GPIRTState, torch.Tensor]:
-    """The reference pipeline (``gpirt_tpu/models/gibbs.py:2768-2808``, one
-    latent pass): f by ESS at the current theta, f* | f, theta | f* on the
-    grid, then :func:`_ess_sweep_tail`."""
+    """The reference pipeline (``gpirt_tpu/models/gibbs.py:2768-2808``): f
+    by ESS at the current theta, then a pass of f* | f and theta | f* (f
+    read from f* at the new theta) per mix_subsweeps, then
+    :func:`_ess_sweep_tail`."""
     mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
     theta = theta_from_indices(state.theta_idx, consts)
     mu = compute_mu(theta, state.beta)
     f = draw_f(state.f, state.theta_idx, state.thresholds, mu, y, consts, config,
                draws.f)
-    fstar = draw_fstar(f, state.theta_idx, consts, config, draws.fstar)
-    state = state._replace(f=f, fstar=fstar)
-    theta_idx = _draw_theta_grid(state, mu_star, y, consts, config, draws.u_theta)
-    return _ess_sweep_tail(state, theta_idx, y, consts, config, draws.beta, draws.cut)
+    state = state._replace(f=f)
+    for d in _passes(draws, config.mix_subsweeps):
+        fstar = draw_fstar(state.f, state.theta_idx, consts, config, d.fstar)
+        state = state._replace(fstar=fstar)
+        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta)
+        state = state._replace(theta_idx=theta_idx, f=_rows(fstar, theta_idx))
+    return _ess_sweep_tail(state, y, consts, config, draws)
 
 
 def _grid_sweep(state: GPIRTState, draws: GridDraws, y, consts: GPIRTConstants,
                 config: GPIRTConfig) -> Tuple[GPIRTState, torch.Tensor]:
-    """The grid-native sweep (``gpirt_tpu/models/gibbs.py:2753-2767``, one
-    latent pass): f* by ESS at the current theta (:func:`draw_fstar_direct`),
-    theta | f* on the grid, then :func:`_ess_sweep_tail`."""
+    """The grid-native sweep (``gpirt_tpu/models/gibbs.py:2753-2767``): a
+    pass per mix_subsweeps of f* by ESS at the current theta
+    (:func:`draw_fstar_direct`) and theta | f* on the grid, then
+    :func:`_ess_sweep_tail`."""
     mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
+    for d in _passes(draws, config.mix_subsweeps):
+        theta = theta_from_indices(state.theta_idx, consts)
+        mu = compute_mu(theta, state.beta)
+        fstar, f = draw_fstar_direct(state, mu, y, consts, config, d.fstar, d.ess)
+        state = state._replace(f=f, fstar=fstar)
+        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta)
+        state = state._replace(theta_idx=theta_idx, f=_rows(fstar, theta_idx))
+    return _ess_sweep_tail(state, y, consts, config, draws)
+
+
+def _ess_sweep_tail(state: GPIRTState, y, consts: GPIRTConstants, config: GPIRTConfig,
+                    draws: Union[GridDraws, TwoStageDraws]) -> Tuple[GPIRTState, torch.Tensor]:
+    """The blocks after the latent passes of the grid and two-stage sweeps
+    (``gpirt_tpu/models/gibbs.py:2785-2808``): beta by ESS at f = f*(theta),
+    the cutpoints, the shift, the ll."""
     theta = theta_from_indices(state.theta_idx, consts)
-    mu = compute_mu(theta, state.beta)
-    fstar, f = draw_fstar_direct(state, mu, y, consts, config, draws.fstar, draws.ess)
-    state = state._replace(f=f, fstar=fstar)
-    theta_idx = _draw_theta_grid(state, mu_star, y, consts, config, draws.u_theta)
-    return _ess_sweep_tail(state, theta_idx, y, consts, config, draws.beta, draws.cut)
-
-
-def _ess_sweep_tail(state: GPIRTState, theta_idx, y, consts: GPIRTConstants,
-                    config: GPIRTConfig, beta_draws: BetaDraws,
-                    cut) -> Tuple[GPIRTState, torch.Tensor]:
-    """The blocks after the latent pass of the grid and two-stage sweeps
-    (``gpirt_tpu/models/gibbs.py:2785-2808``): f := f*(theta), beta by
-    ESS, the cutpoints, the ll."""
-    f = _rows(state.fstar, theta_idx)
-    theta = theta_from_indices(theta_idx, consts)
+    f = state.f
     beta = draw_beta(state.beta, theta, f, state.thresholds, y, consts, config,
-                     beta_draws)
+                     draws.beta)
     mu = compute_mu(theta, beta)
-    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, cut)
-    state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
-                       thresholds=thresholds, fstar=state.fstar)
+    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut)
+    thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
+    state = state._replace(beta=beta, thresholds=thresholds)
     ll = ordinal_ll_terms(f + mu, y, thresholds).sum(dim=(-3, -2, -1))
     return state, ll

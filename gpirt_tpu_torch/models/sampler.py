@@ -84,9 +84,14 @@ def run_chains(
     else:
         state = initial_states
 
-    def sweep(state):
-        return gibbs_sweep(state, sweep_draws(gen, K, consts, config), y,
-                           consts, config)
+    it = 0
+
+    def sweep(state):  # absolute sweep ``it``, the interleave's iteration
+        nonlocal it
+        out = gibbs_sweep(state, sweep_draws(gen, K, consts, config, it), y,
+                          consts, config, None, it)
+        it += 1
+        return out
 
     for _ in range(sched.pre_iterations):
         state, _ = sweep(state)

@@ -15,7 +15,7 @@ run and the syncs made.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -31,6 +31,7 @@ def ess_update(
     logu: torch.Tensor,
     eps0: torch.Tensor,
     rs: torch.Tensor,
+    transform: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One ESS update of a batch of lanes.
 
@@ -41,6 +42,9 @@ def ess_update(
       logu: ``(*B,)`` log of the slice uniform.
       eps0: ``(*B,)`` initial angle in [0, 2 pi).
       rs: ``(R, *B)`` shrink uniforms, one row per round; R is the cap.
+      transform: a map applied to every proposal before its likelihood and
+        before it is kept (the theta update's clamp to [-5, 5],
+        src/draw-theta.cpp:61); the current state is taken as it is.
 
     Returns:
       ``(*B, d)`` new state.
@@ -60,6 +64,8 @@ def ess_update(
             break
         ess_update.rounds += 1
         prop = x * torch.cos(eps).unsqueeze(-1) + nu * torch.sin(eps).unsqueeze(-1)
+        if transform is not None:
+            prop = transform(prop)
         accept = loglik_fn(prop) > log_y
         x_out = torch.where((active & accept).unsqueeze(-1), prop, x_out)
         still = active & ~accept

@@ -28,9 +28,7 @@ import torch
 
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
-    ESSDraws,
     GPIRTState,
-    NewtonDraws,
     compute_mu,
     gibbs_sweep,
     init_draws,
@@ -76,24 +74,33 @@ def _take(states: GPIRTState, idx: torch.Tensor) -> GPIRTState:
     return GPIRTState(*(a[idx] for a in states))
 
 
-def _lane_axis(draws, field: str) -> int:
-    """The lane axis of a field of a draws tuple: 1 for the per-round and
-    per-try tables, 0 otherwise."""
-    if isinstance(draws, NewtonDraws) or (isinstance(draws, ESSDraws) and field == "rs"):
-        return 1
-    return 0
+def _lane_axis(draws, field: str, passes: int = 1) -> int:
+    """The axes before the lanes in a field of a draws tuple: a round or try
+    axis (its ``_ROUND_FIELDS``), after the pass axis of a latent pass's
+    field (its ``_PASS_FIELDS``) when there are several passes."""
+    return (int(passes > 1 and field in getattr(draws, "_PASS_FIELDS", ()))
+            + int(field in getattr(draws, "_ROUND_FIELDS", ())))
 
 
-def _cat_lanes(per_campaign):
+def _cat_lanes(per_campaign, passes: int = 1, lead: int = 0):
     """Draw tuples of B campaigns joined along each field's lane axis,
-    campaign-major."""
+    campaign-major; ``passes`` is the config's mix_subsweeps and ``lead``
+    the axes an enclosing field puts before the tuple's. A field that is
+    None stays None."""
     first = per_campaign[0]
     if len(per_campaign) == 1:
         return first
-    return type(first)(*(
-        _cat_lanes([d[i] for d in per_campaign]) if isinstance(f, tuple)
-        else torch.cat([d[i] for d in per_campaign], dim=_lane_axis(first, name))
-        for i, (name, f) in enumerate(zip(first._fields, first))))
+    out = []
+    for i, (name, f) in enumerate(zip(first._fields, first)):
+        parts = [d[i] for d in per_campaign]
+        axis = lead + _lane_axis(first, name, passes)
+        if f is None:
+            out.append(None)
+        elif isinstance(f, tuple):
+            out.append(_cat_lanes(parts, passes, axis))
+        else:
+            out.append(torch.cat(parts, dim=axis))
+    return type(first)(*out)
 
 
 def _weights(logw, gens, K, dev, dt):
@@ -142,9 +149,12 @@ def anneal_init_batched(
                         _cat_lanes([init_draws(g, K, consts, config) for g in gens]))
     lanes = torch.arange(B * K, device=dev).reshape(B, K)
     logw = torch.zeros(B, K, dtype=dt, device=dev)
+    # the JAX package's step ids, each step's sweeps' iteration: the warm
+    # prologue's n_steps + 1.., then the annealing steps' 1..n_steps - 1
+    ids = list(range(n_steps + 1, n_steps + 1 + WARM_STEPS)) + list(range(1, n_steps))
     steps = [(temps[0], temps[0])] * WARM_STEPS + list(zip(temps[:-1], temps[1:]))
     ess_trace, resampled = [], []
-    for t_prev, t_new in steps:
+    for i, (t_prev, t_new) in zip(ids, steps):
         if t_new != t_prev:  # the warm prologue's ratio is exactly 0
             logw = logw + (_lane_ll(states, t_new, y, consts)
                            - _lane_ll(states, t_prev, y, consts)).reshape(B, K)
@@ -155,8 +165,9 @@ def anneal_init_batched(
         ess_trace.append(ess_w)
         resampled.append(do)
         for _ in range(sweeps_per_step):
-            draws = _cat_lanes([sweep_draws(g, K, consts, config) for g in gens])
-            states, _ = gibbs_sweep(states, draws, y, consts, config, temp=t_new)
+            draws = _cat_lanes([sweep_draws(g, K, consts, config, i) for g in gens],
+                               config.mix_subsweeps)
+            states, _ = gibbs_sweep(states, draws, y, consts, config, t_new, i)
     w, _, src = _weights(logw, gens, K, dev, dt)
     states = _take(states, src.reshape(-1))
     w_final = w.cpu().double().numpy()

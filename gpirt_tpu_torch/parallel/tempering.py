@@ -73,10 +73,10 @@ def _swap(states: GPIRTState, ll_own, temps, u, phase: int, L: int, y,
 
 def _tempered_sweep(states: GPIRTState, draws, u, i: int, temps, swap_every: int,
                     L: int, y, consts: GPIRTConstants, config: GPIRTConfig):
-    """One lockstep tempered sweep of every lane, then the swap phase of
-    sweep ``i`` when ``i % swap_every == 0`` (``u`` its uniforms, None
-    otherwise). Returns (states, ll (K,), accepted pairs (K,))."""
-    states, ll = gibbs_sweep(states, draws, y, consts, config, temp=temps)
+    """One lockstep tempered sweep of every lane, sweep ``i`` (its
+    iteration), then its swap phase when ``i % swap_every == 0`` (``u`` its
+    uniforms, None otherwise). Returns (states, ll (K,), accepted pairs (K,))."""
+    states, ll = gibbs_sweep(states, draws, y, consts, config, temps, i)
     if u is None:
         return states, ll, torch.zeros_like(ll, dtype=torch.bool)
     return _swap(states, ll, temps, u, i // swap_every, L, y, consts)
@@ -145,7 +145,7 @@ def run_tempered_chains(
 
     def sweep(states):
         nonlocal accepted, sweeps
-        draws = sweep_draws(gen, K, consts, config)
+        draws = sweep_draws(gen, K, consts, config, sweeps)
         u = None
         if L > 1 and swap_every > 0 and sweeps % swap_every == 0:
             u = torch.rand(K, generator=gen, device=dev, dtype=dt)

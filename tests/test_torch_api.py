@@ -25,7 +25,8 @@ from gpirt_tpu_torch.models.config import GPIRTConfig
 def test_import_pulls_in_neither_jax_nor_reference():
     code = ("import sys, gpirt_tpu_torch, gpirt_tpu_torch.convert, "
             "gpirt_tpu_torch.campaigns, gpirt_tpu_torch.parallel.tempering, "
-            "gpirt_tpu_torch.parallel.smc, gpirt_tpu_torch.utils.diagnostics; "
+            "gpirt_tpu_torch.parallel.smc, gpirt_tpu_torch.utils.diagnostics, "
+            "gpirt_tpu_torch.models.affine, gpirt_tpu_torch.ops.ess; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'gpirt_tpu' or m.startswith('gpirt_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -35,12 +36,14 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(threshold_method="collapsed"), dict(threshold_method="interleave"),
-    dict(theta_method="ess"), dict(horizon=3, theta_method="ess"),
+    dict(checkpoint_path="run"), dict(mesh=object()), dict(item_axis="items"),
+    dict(respondent_axis="resp"),
 ])
 def test_config_outside_slice_raises(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GPIRTConfig(n=5, m=4, **kw)
+    """What the port has not taken yet (checkpointing, the mesh and its
+    sharded sweeps) is refused by name, before any work."""
+    with pytest.raises(NotImplementedError, match="not ported.*" + next(iter(kw))):
+        gpirt_mcmc(_votes(), 2, 1, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw, method", [
@@ -49,13 +52,21 @@ def test_config_outside_slice_raises(kw):
     (dict(horizon=2, constant_IRF=True), "grid"), (dict(constant_IRF=True), "grid"),
     (dict(f_method="grid"), "grid"),
     (dict(f_method="two_stage", horizon=2, constant_IRF=True), "two_stage"),
+    (dict(threshold_method="collapsed"), "conjugate"),
+    (dict(threshold_method="interleave"), "conjugate"),
+    (dict(theta_method="ess"), "conjugate"),
+    (dict(horizon=3, theta_method="ess"), "conjugate"),
 ])
 def test_config_in_slice_accepted_and_validated(kw, method):
-    """Each configuration runs, its f-method resolved as the JAX package
-    resolves it (constant_IRF's "auto" is the grid sampler)."""
+    """Each configuration runs, its f-method, theta method and cutpoint
+    method resolved as the JAX package resolves them (constant_IRF's "auto"
+    is the grid sampler)."""
     cfg = GPIRTConfig(n=5, m=4, **kw)
+    jcfg = JConfig(n=5, m=4, **kw)
     assert cfg.grid_step == 0.01
-    assert cfg.resolved_f_method == JConfig(n=5, m=4, **kw).resolved_f_method == method
+    assert cfg.resolved_f_method == jcfg.resolved_f_method == method
+    assert cfg.theta_method == jcfg.theta_method
+    assert cfg.resolved_threshold_method == jcfg.resolved_threshold_method
     with pytest.raises(ValueError):
         GPIRTConfig(n=0, m=4, **kw)
 
@@ -229,7 +240,8 @@ def test_default_thresholds_match(C):
 
 def test_convert_round_trips():
     """One session, and H = 3 in the GP regime, whose constants carry the
-    time-GP factor and precision (None outside it)."""
+    time-GP factor and precision (None outside it); the SE Gram the
+    Woodbury factorisation gathers from comes across with the rest."""
     n, m, N, K = 6, 4, 31, 2
     for H, ls in ((1, 10.0), (3, 2.0)):
         jcfg = JConfig(n=n, m=m, horizon=H, grid_size=N, dtype="float64",
@@ -238,6 +250,8 @@ def test_convert_round_trips():
                                    np.zeros((2, n)), np.ones((2, n)))
         consts = constants_from_numpy(jconsts, device="cpu", dtype=torch.float64)
         assert (consts.Lambda_time is None) == (H == 1)
+        np.testing.assert_array_equal(consts.grid_gram_se.numpy(),
+                                      np.asarray(jconsts.grid_gram_se))
         for name, a in to_numpy(consts).items():
             if a is None:
                 assert getattr(jconsts, name) is None

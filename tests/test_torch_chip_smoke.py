@@ -225,3 +225,75 @@ def test_campaign_agreement_rule(tmp_path):
     with pytest.raises(RuntimeError, match="within"):
         chip_smoke.campaign_agreement({"theta_mean": bad[:, None],
                                        "theta_se": se[:, None]}, path)
+
+
+@pytest.mark.parametrize("label, inputs, temp, iteration", chip_smoke.OPTION_CHECKS)
+def test_option_checks_on_the_cpu(label, inputs, temp, iteration, capsys):
+    """Phase 26 with the CPU in the card's place: every check's float32
+    inputs run, the fields finite, the cutpoints moved, and no difference."""
+    errs = chip_smoke.option_check(torch.device("cpu"), label, inputs, temp, iteration)
+    assert all(v == 0.0 for v in errs.values())
+    assert "theta equal in 3 of 3 chains" in capsys.readouterr().out
+
+
+def test_option_checks_draw_what_each_check_names():
+    """The inputs phase 26 names: the ESS theta update in its regime, the
+    collapsed draw's draws, interleave's two sweeps, the options' fields."""
+    by_label = {label: (inputs, it) for label, inputs, _, it in chip_smoke.OPTION_CHECKS}
+
+    def inputs_of(label):
+        inputs, it = by_label[label]
+        inputs = dict(inputs)
+        return chip_smoke.sweep_inputs(inputs.pop("C", 2), model_y=True, iteration=it,
+                                       **inputs)
+
+    for regime in ("CST", "RDM", "GP"):
+        cfg, _, _, draws, _ = inputs_of(f"ESS theta, {regime}")
+        assert cfg.theta_regime == regime and isinstance(draws.u_theta, gibbs.ThetaESSDraws)
+    assert isinstance(inputs_of("collapsed, C=2")[3].cut, gibbs.CollapsedDraws)
+    assert isinstance(inputs_of("collapsed, C=5")[3].cut, gibbs.ESSDraws)
+    assert inputs_of("collapsed, constant_IRF")[3].cut.u.shape == (3, 1, 9)
+    assert isinstance(inputs_of("interleave, ESS sweep")[3].cut, gibbs.ESSDraws)
+    assert isinstance(inputs_of("interleave, collapsed sweep")[3].cut, gibbs.CollapsedDraws)
+    assert inputs_of("threshold_shift")[3].shift.shape == (3, 1, 9)
+    assert inputs_of("mix_subsweeps=2")[3].u_z.shape == (2, 3, 1, 12, 9)
+    assert inputs_of("affine, T=1")[3].affine.u_pick.shape == (3, 11)
+
+
+def test_tie_rule_lets_through_only_a_float32_tie():
+    """A chain whose theta differs passes when the CPU's perturbed float32
+    runs change it too, and fails when they do not."""
+    cfg, _, state0, _, _ = chip_smoke.sweep_inputs(2, model_y=True)
+    cpu_state = state0
+    card = state0._replace(theta_idx=state0.theta_idx.clone())
+    card.theta_idx[1, 0, 4] += 1
+    moved = cpu_state.theta_idx.clone()
+    moved[1, 0, 4] -= 1
+
+    def run64():
+        return cpu_state, None
+
+    keep = chip_smoke.tie_rule("test", cfg, card, cpu_state, None, run64,
+                               [(cpu_state.theta_idx, None), (moved, None)])
+    assert keep.tolist() == [True, False, True]
+    with pytest.raises(RuntimeError, match="float32 tie"):
+        chip_smoke.tie_rule("test", cfg, card, cpu_state, None, run64,
+                            [(cpu_state.theta_idx, None)])
+
+
+def test_new_paths_at_reduced_size(capsys):
+    """Phases 27-29 on the CPU at 2 chains and 10 sweeps: the ESS theta
+    path's one theta ESS a sweep, interleave's kernel calls on every 4th
+    sweep, the affine run's counters; the plain version runs, so no launch
+    is counted."""
+    rm, cpu = _small_votes(), torch.device("cpu")
+    launches, args, res = chip_smoke.theta_ess_path(rm, cpu, "cpu", chains=2, burn=2, draws=8)
+    assert launches == 0 and res["rounds_per_sweep"] >= 1 and res["syncs_per_sweep"] >= 1
+    assert tuple(args[0].shape) == (2, 1, 20, 8)
+    launches, rate = chip_smoke.interleave_path(rm, cpu, "cpu", chains=2, burn=2, draws=8)
+    assert launches == 0 and rate > 0
+    launches, ess_ratio, wall_ratio = chip_smoke.affine_path(rm, cpu, "cpu", chains=2,
+                                                             burn=2, draws=8, shift_max=3)
+    assert launches == 0 and ess_ratio > 0 and wall_ratio > 0
+    text = capsys.readouterr().out
+    assert "theta ESS rounds" in text and "orbit accept rate" in text

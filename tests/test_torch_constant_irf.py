@@ -132,14 +132,17 @@ def setup_for(f_method, C=2, method="ess", pooled=True):
 def _join(per_chain):
     """Per-chain port draw tuples, each with a chain axis of 1, joined along
     the chain axis: axis 1 for the per-round and per-try tables (a
-    NewtonDraws, or a field named rs), axis 0 otherwise."""
+    NewtonDraws, or a field named rs), axis 0 otherwise; a field the sweep
+    does not draw (None) stays None."""
     first = per_chain[0]
     if torch.is_tensor(first):
         return torch.cat(per_chain, 0)
     fields = []
     for i, name in enumerate(first._fields):
         parts = [d[i] for d in per_chain]
-        if isinstance(parts[0], tuple):
+        if parts[0] is None:
+            fields.append(None)
+        elif isinstance(parts[0], tuple):
             fields.append(_join(parts))
         else:
             axis = 1 if isinstance(first, tg.NewtonDraws) or name == "rs" else 0

@@ -8,12 +8,15 @@ numpy. If every block of the port targets its exact conditional, moments
 of the chain agree with forward draws from the prior up to MC error.
 
 The oracles run 12,000 sweeps each and are ``slow``: three of one session,
-two of two sessions, in the RDM and GP theta regimes, one of the
-two-stage sampler (``f_method="two_stage"``), and JAX's five constant_IRF
-classes over two sessions (the grid sampler with the cutpoint ESS, binary
-and ordinal, and with Newton cutpoints, binary and ordinal; the conjugate
-sampler's pooled f*). Short chains check finite, ordered cutpoints in the
-fast tier.
+two of two sessions, in the RDM and GP theta regimes with the affine moves,
+one of the two-stage sampler (``f_method="two_stage"``), JAX's five
+constant_IRF classes over two sessions (the grid sampler with the cutpoint
+ESS, binary and ordinal, and with Newton cutpoints, binary and ordinal;
+the conjugate sampler's pooled f*), and, at JAX's sizes and seeds and
+with its affine moves, TestGewekeTempered, TestGewekeConjugate,
+TestGewekeBinaryCollapsed and TestGewekeThresholdShift, plus the ESS theta
+update at the binary ESS oracle's sizes. Short chains check finite,
+ordered cutpoints in the fast tier.
 """
 
 import jax
@@ -35,9 +38,9 @@ NAMES = ["th", "th2", "b", "b2", "fs", "fs2", "t1", "t12", "ti", "ti2"]
 
 
 def _model(n, m, C, method, N=61, H=1, ls=10.0, f_method="conjugate",
-           fstar_method="matheron", constant_IRF=False):
+           fstar_method="matheron", constant_IRF=False, **options):
     sampler = dict(f_method=f_method, fstar_method=fstar_method,
-                   constant_IRF=constant_IRF)
+                   constant_IRF=constant_IRF, **options)
     jcfg = JConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
                    threshold_method=method, theta_ls=ls, **sampler)
     jconsts = j_make_constants(jcfg, beta_prior_means=np.zeros((3, m)),
@@ -50,25 +53,28 @@ def _model(n, m, C, method, N=61, H=1, ls=10.0, f_method="conjugate",
                                                     dtype=torch.float64)
 
 
-def _chain(n, m, C, method, sweeps, seed=0, mask=None, **model):
+def _chain(n, m, C, method, sweeps, seed=0, mask=None, temp=None, **model):
     """The successive-conditional chain: the port's sweep given y, then y
-    redrawn given the state. Returns the (sweeps, 10) statistics, the
-    cutpoints of every sweep and the forward model. ``model`` takes the
-    horizon H, the time-GP length scale ls, and the sampler's f_method,
-    fstar_method and constant_IRF."""
+    redrawn given the state, both at the temperature ``temp`` (None: 1).
+    Returns the (sweeps, 10) statistics, the cutpoints of every sweep and
+    the forward model. ``model`` takes the horizon H, the time-GP length
+    scale ls, the sampler's f_method, fstar_method and constant_IRF, and
+    any further GPIRTConfig field (the affine moves, the shift, the theta
+    method)."""
     jcfg, jconsts, cfg, consts = _model(n, m, C, method, **model)
     k0, k1, kr = jax.random.split(jax.random.key(seed + 1), 3)
     st0 = sample_prior_state(k0, jconsts, jcfg)
-    y = sample_responses(k1, st0, jconsts, jcfg, mask=mask)
-    respond = jax.jit(lambda k, st: sample_responses(k, st, jconsts, jcfg, mask=mask))
+    y = sample_responses(k1, st0, jconsts, jcfg, mask=mask, temp=temp)
+    respond = jax.jit(lambda k, st: sample_responses(k, st, jconsts, jcfg, mask=mask,
+                                                     temp=temp))
     stats = jax.jit(lambda st: _stats(st, jconsts))
     state = state_from_numpy({k: np.asarray(v)[None] for k, v in st0._asdict().items()},
                              device="cpu", dtype=torch.float64)
     gen = torch.Generator().manual_seed(seed)
     out, thr = [], []
-    for key in jax.random.split(kr, sweeps):
-        state, _ = tg.gibbs_sweep(state, tg.sweep_draws(gen, 1, consts, cfg),
-                                  torch.as_tensor(np.array(y)), consts, cfg)
+    for it, key in enumerate(jax.random.split(kr, sweeps)):
+        state, _ = tg.gibbs_sweep(state, tg.sweep_draws(gen, 1, consts, cfg, it),
+                                  torch.as_tensor(np.array(y)), consts, cfg, temp, it)
         jst = JState(**{k: jnp.asarray(v[0]) for k, v in to_numpy(state).items()})
         y = respond(key, jst)
         out.append(np.asarray(stats(jst)))
@@ -76,8 +82,8 @@ def _chain(n, m, C, method, sweeps, seed=0, mask=None, **model):
     return np.stack(out), np.stack(thr), (jcfg, jconsts)
 
 
-def _run_geweke_sweep(n, m, C, method, seed=0, mask=None, **model):
-    sc, _, (jcfg, jconsts) = _chain(n, m, C, method, 12000, seed, mask, **model)
+def _run_geweke_sweep(n, m, C, method, seed=0, mask=None, temp=None, **model):
+    sc, _, (jcfg, jconsts) = _chain(n, m, C, method, 12000, seed, mask, temp, **model)
     sc = sc[500::3]
 
     @jax.jit
@@ -120,14 +126,55 @@ def test_geweke_ordinal_newton_c5():
     _run_geweke_sweep(6, 3, 5, "newton", seed=7)
 
 
+AFFINE = dict(affine_shift_max=5, affine_rounds=2)  # JAX's oracles' setting
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("regime, ls", [("RDM", 0.05), ("GP", 1.0)])
 def test_geweke_regimes(regime, ls):
     """Two sessions, C = 3, an independent theta a session (RDM) or the
-    time-GP prior (GP): TestGewekeRegimes' sizes without its affine moves,
-    which the port does not run."""
+    time-GP prior (GP), with the affine moves: TestGewekeRegimes'
+    test_rdm_conjugate and test_gp_conjugate."""
     assert JConfig(n=5, m=3, horizon=2, theta_ls=ls).theta_regime == regime
-    _run_geweke_sweep(5, 3, 3, "auto", H=2, ls=ls)
+    _run_geweke_sweep(5, 3, 3, "auto", H=2, ls=ls, **AFFINE)
+
+
+@pytest.mark.slow
+def test_geweke_tempered():
+    """TestGewekeTempered: the tempered model (noise sd sqrt(T), T = 2.5)
+    in every block, the affine moves' z-marginal with its T included."""
+    _run_geweke_sweep(6, 3, 3, "auto", temp=2.5, **AFFINE)
+
+
+@pytest.mark.slow
+def test_geweke_conjugate_masked():
+    """TestGewekeConjugate: the y-marginal cutpoint ESS at C = 3 with
+    missing cells, the affine moves on."""
+    _run_geweke_sweep(6, 3, 3, "ess", mask=_mask(42, 6, 3, keep=0.4), **AFFINE)
+
+
+@pytest.mark.slow
+def test_geweke_binary_collapsed():
+    """TestGewekeBinaryCollapsed: the exact collapsed cutpoint draw at
+    C = 2 with missing cells, the affine moves on."""
+    _run_geweke_sweep(6, 3, 2, "collapsed", mask=_mask(7, 6, 3), **AFFINE)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("C, f_method, seed, masked", [(2, "conjugate", 0, True),
+                                                       (3, "grid", 5, False)])
+def test_geweke_threshold_shift(C, f_method, seed, masked):
+    """TestGewekeThresholdShift: the (cutpoints, beta0) shift on the binary
+    conjugate path with missing cells and the ordinal grid path."""
+    _run_geweke_sweep(6, 3, C, "auto", seed=seed, mask=_mask(11, 6, 3) if masked else None,
+                      f_method=f_method, threshold_shift=True)
+
+
+@pytest.mark.slow
+def test_geweke_theta_ess():
+    """The reference code's ESS theta update, at the binary ESS oracle's
+    sizes and missing cells."""
+    _run_geweke_sweep(6, 3, 2, "ess", mask=_mask(11, 6, 3), theta_method="ess")
 
 
 @pytest.mark.slow
@@ -197,3 +244,14 @@ def test_successive_conditional_smoke_constant_irf(C, f_method):
     assert np.isfinite(t).all() and (np.diff(t, axis=-1) > 0).all()
     np.testing.assert_array_equal(t[:, 0], t[:, 1])
     assert np.std(t[:, 0, :, 0], axis=0).min() > 0
+
+
+def test_successive_conditional_smoke_affine_collapsed():
+    """200 sweeps of the chain with the affine moves and the collapsed
+    cutpoint draw (C = 2, missing cells): finite statistics and finite
+    cutpoints that move; theta moves collectively."""
+    sc, thr, _ = _chain(6, 3, 2, "collapsed", 200, mask=_mask(7, 6, 3), **AFFINE)
+    assert np.isfinite(sc).all()
+    t = thr[..., 1]
+    assert np.isfinite(t).all() and np.std(t, axis=0).min() > 0
+    assert np.std(sc[:, 0]) > 0

@@ -4,8 +4,9 @@ and one c a chain; whole sweeps on the card against the same sweeps on the
 CPU (binary, ordinal with the cutpoints by ESS and by Newton, over three
 sessions in the GP theta regime, with one temperature a chain, the
 two-stage sampler with f* by both methods, and the grid sampler with one
-IRF shared by the sessions and without); the kernel at the pooled
-constant_IRF layout; and gpirt_mcmc (tempered too),
+IRF shared by the sessions and without, the ESS theta update in the three
+regimes, the affine moves untempered and with one temperature a chain);
+the kernel at the pooled constant_IRF layout; and gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default.
 
@@ -350,3 +351,15 @@ def test_grid_sweep_on_card_matches_cpu(cuda_device, constant_IRF):
     shared by the sessions or one a session: theta equal, every field
     within 1e-3, one kernel launch; shared f* and cutpoints on the card."""
     chip_smoke.shared_irf_check(cuda_device, "grid", constant_IRF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["ESS theta, CST", "ESS theta, RDM", "ESS theta, GP",
+                                   "affine, T=1", "affine, per-chain T"])
+def test_option_sweep_on_card_matches_cpu(cuda_device, label):
+    """chip_smoke's phase 26 check of the ESS theta update and of the affine
+    moves (untempered and on a ladder): theta equal, or a float32 tie by
+    PERF.md's rule, every other field within 1e-3."""
+    (inputs, temp, it), = [(i, t, k) for name, i, t, k in chip_smoke.OPTION_CHECKS
+                           if name == label]
+    chip_smoke.option_check(cuda_device, label, inputs, temp, it)
