@@ -60,7 +60,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
      burn 30 and 150 draws, through run_chains; checked for one kernel
      launch per sweep, finite ll, cutpoints that moved; prints the sweep
      rate, theta ESS per second and the peak device memory, then phase 6 on
-     the inputs of its last sweep (the kernel's streaming variant);
+     the inputs of its last sweep, where the kernel takes its tile path
+     (n > 2048: a tile of items held in shared memory), with the path, the
+     tile and the share of the bound printed;
  17. per-chain c: phase 3 on its random lanes with each chain at its own
      temperature on a geometric ladder from 1 to 64, and the kernel timed
      there against the same lanes with one scalar c;
@@ -139,7 +141,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
      64 chains from spread inits, burn 100 and 500 draws (tune_bench ran
      burn 500 and 1000 draws): one kernel launch a sweep each; prints each
      run's sweep rate, theta ESS, ESS per second and the moves' accept
-     rates, and the ESS and wall ratios of on to off.
+     rates, and the ESS and wall ratios of on to off;
+ 30. past the tile capacity: the kernel at one respondent more than its
+     tile path holds (its streaming path), 64 chains x 418 items of random
+     lanes (10% missing, item 0 with no response), against its plain
+     version at T = 1 and 64, timed, with its bound.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -204,6 +210,9 @@ TS_BURN, TS_DRAWS = 100, 200  # the two-stage path on senate116
 # those were a 16 GB TPU's limit)
 F10K_N, F10K_M, F10K_GRID = 100, 50, 10001
 SYN_N, SYN_M, SYN_MISSING, SYN_K, SYN_BURN, SYN_DRAWS = 5000, 1000, 0.1, 64, 30, 150
+# phase 30's random lanes past the tile path's capacity: 64 chains, senate116's
+# unaligned width
+PAST_M = 418
 # the tempering path (gpirt_mcmc's n_temps), bench.py::bench_chains64 and
 # bench_campaigns8 on senate116
 PT_TEMPS, PT_MAX_TEMP, PT_BURN, PT_DRAWS = 4, 4.0, 100, 500
@@ -1104,13 +1113,60 @@ def synthetic_path(dev, smi):
     check(np.isfinite(thr[..., 1]).all(), "synthetic cutpoints not finite")
     check(np.mean(thr[:, -1, ..., 1] != 0.0) > 0.99, "synthetic cutpoints did not move")
     within, pooled = theta_ess(out["theta"][:, :, 0], dev)
+    rate = sweeps / wall
     log(f"synthetic path on {smi}: {SYN_N} x {SYN_M} binary ({SYN_MISSING:g} missing), "
         f"conjugate, {SYN_K} chains, {sweeps} sweeps in {wall:.3f} s ({sweeps / wall:.3f} "
         f"sweeps/s); {launches} kernel launches; peak device memory "
         f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); theta ESS median "
         f"within-chain (summed over {SYN_K} chains) {within:.1f}, pooled {pooled:.1f}; "
         f"ess/sec {within / wall:.3f} within, {pooled / wall:.3f} pooled (sampling wall)")
-    return launches, args
+    return launches, args, rate
+
+
+def plan_label(plan):
+    """One line of :func:`threshold_ess.launch_plan`'s answer."""
+    return (f"{plan['path']} path, {plan['threads_a_lane']} threads a lane, "
+            f"{plan['items_a_block']} items and {plan['threads_a_block']} threads a block, "
+            f"{plan['smem_bytes']} bytes of shared memory a block (tile capacity n = "
+            f"{plan['tile_capacity']})")
+
+
+def past_capacity_lanes(dev, n, K=K, m=PAST_M, missing=SYN_MISSING):
+    """Random lanes at n respondents (past the tile path's capacity on the
+    card): g 1.5 N(0, 1), y yes / no at even odds with ``missing`` of the
+    cells missing, item 0 with no response, cutpoints and uniforms from a
+    seed."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(*s):
+        return torch.rand(s, generator=gen, device=dev)
+
+    u = rand(1, n, m)
+    y = torch.where(u < missing, 0, torch.where(u < (1 + missing) / 2, 1, 2)).to(torch.int32)
+    y[:, :, 0] = 0
+    return (1.5 * torch.randn((K, 1, n, m), generator=gen, device=dev), y,
+            torch.randn((K, 1, m), generator=gen, device=dev),
+            torch.randn((K, 1, m), generator=gen, device=dev),
+            torch.log(rand(K, 1, m)), rand(K, 1, m) * _TWO_PI, rand(64, K, 1, m))
+
+
+def past_capacity(dev, smi):
+    """Phase 30: the kernel's streaming path, at one row past the tile
+    path's capacity, on random lanes against its plain version at T = 1 and
+    64, timed. Returns (largest error of the other lanes, lanes over 1e-5,
+    ms, plain ms, the bound's work, the plan)."""
+    n = threshold_ess.launch_plan(SYN_N)["tile_capacity"] + 1
+    plan = threshold_ess.launch_plan(n)
+    check(plan["path"] == "streaming", f"n = {n} takes the {plan['path']} path")
+    args = past_capacity_lanes(dev, n)
+    worst, flipped = kernel_check(args, f"past the tile capacity (n={n})")
+    ms, eager, plain = kernel_times(args, _C, plain_reps=3)
+    work = kernel_bound(args, _C, f"past the tile capacity (n={n})")
+    log(f"kernel time past the tile capacity on {smi}, {K} chains x {PAST_M} items x "
+        f"n={n}, T=1: {plan_label(plan)}; {ms:.5f} ms (graph), {eager:.5f} ms (eager), "
+        f"plain {plain:.4f} ms (3 calls); bound {work['bound_ms']:.5f} ms by "
+        f"{work['bound_by']}, {100 * work['bound_ms'] / ms:.2f}% of it")
+    return worst, flipped, ms, plain, work, plan
 
 
 def ladder(K, t_max=T_MAX, dev=None):
@@ -1863,14 +1919,16 @@ def main():
     timed("14 (recovery)", recovery_check, chain, rm, dev, smi)
     del chain
     f10k_launches = timed("15 (fstar10k)", fstar10k, dev, smi)
-    syn_launches, syn_args = timed("16 (synthetic path)", synthetic_path, dev, smi)
+    syn_launches, syn_args, syn_rate = timed("16 (synthetic path)", synthetic_path, dev, smi)
     t = time.perf_counter()
+    syn_plan = threshold_ess.launch_plan(syn_args[0].shape[2])
     syn_worst, syn_flipped = kernel_check(syn_args, "synthetic state")
     syn_ms, syn_eager, syn_plain = kernel_times(syn_args, _C, plain_reps=3)
-    log(f"kernel time, synthetic state (streaming variant, n={SYN_N}), T=1: "
-        f"{syn_ms:.5f} ms (graph), {syn_eager:.5f} ms (eager), plain {syn_plain:.4f} ms "
-        f"(3 calls)")
     syn_work = kernel_bound(syn_args, _C, "synthetic state")
+    log(f"kernel time, synthetic state (n={SYN_N}), T=1: {plan_label(syn_plan)}; "
+        f"{syn_ms:.5f} ms (graph), {syn_eager:.5f} ms (eager), plain {syn_plain:.4f} ms "
+        f"(3 calls); bound {syn_work['bound_ms']:.5f} ms by {syn_work['bound_by']}, "
+        f"{100 * syn_work['bound_ms'] / syn_ms:.2f}% of it")
     log(f"phase 16 (kernel at the synthetic state): {time.perf_counter() - t:.2f} s wall")
     worst, flipped = max(worst, syn_worst), flipped + syn_flipped
 
@@ -1928,6 +1986,9 @@ def main():
     il_launches, il_rate = timed("28 (interleave path)", interleave_path, rm, dev, smi)
     af_launches, af_ess_ratio, af_wall_ratio = timed("29 (affine path)", affine_path, rm,
                                                      dev, smi)
+    past_worst, past_flipped, past_ms, past_plain, past_work, past_plan = timed(
+        "30 (past the tile capacity)", past_capacity, dev, smi)
+    worst, flipped = max(worst, past_worst), flipped + past_flipped
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -1969,6 +2030,9 @@ def main():
         "bound_ms_synthetic_state": syn_work["bound_ms"],
         "bound_by_synthetic_state": syn_work["bound_by"],
         "rounds_mean_synthetic_state": syn_work["rounds_mean"],
+        "path_synthetic_state": plan_label(syn_plan),
+        "share_of_bound_synthetic_state": syn_work["bound_ms"] / syn_ms,
+        "synthetic_sweeps_per_s": syn_rate,
         "ms_random_per_chain_c": ms_pc,
         "ms_random_scalar_c": ms_scalar,
         "max_abs_err_random_per_chain_c": pc_worst,
@@ -2011,6 +2075,13 @@ def main():
         "launches_affine": af_launches,
         "affine_within_ess_ratio": af_ess_ratio,
         "affine_wall_ratio": af_wall_ratio,
+        "path_past_capacity": plan_label(past_plan),
+        "max_abs_err_past_capacity": past_worst,
+        "lanes_over_1e-5_past_capacity": past_flipped,
+        "ms_past_capacity": past_ms,
+        "plain_ms_past_capacity": past_plain,
+        "bound_ms_past_capacity": past_work["bound_ms"],
+        "bound_by_past_capacity": past_work["bound_by"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ elliptical-slice update of the binary interior cutpoint t_1 for every lane
 (chain x horizon x item), the bracket-shrink loop included, in one launch.
 It is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``gpirt_tpu_torch/_build/`` at first use and called through ``ctypes``.
-A group of threads shares each lane's site sum; the kernel chooses the
-group size from n at launch.
+A group of threads shares each lane's site sum; the kernel chooses its path
+from n at launch (:func:`launch_plan` reports it): the sites in registers
+up to n = 2048, a tile of items held in shared memory while one block's
+shared memory holds it, and a stream from device memory beyond.
 
 The uniforms (``logu``, ``eps0`` and the per-round table ``rs``) are inputs,
 so the kernel and :func:`binary_threshold_ess_reference` compute the same
@@ -34,6 +36,8 @@ __all__ = [
     "binary_threshold_ess",
     "binary_threshold_ess_reference",
     "build",
+    "launch_plan",
+    "library_path",
 ]
 
 _TWO_PI = 6.283185307179586
@@ -60,18 +64,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into ``_build/`` once per source content and
-    load it. Returns the compiler's report (register and spill counts with
-    ``verbose``), or "" when the library was already built."""
-    global _lib
-    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+def _sources() -> list:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    """Where :func:`build` puts this checkout's library: ``_build/``, keyed
+    by the content of ``csrc/*.cu``."""
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in _sources():
         with open(s, "rb") as fh:
             digest.update(fh.read())
-    path = os.path.join(_BUILD, f"libgpirt_kernels_{digest.hexdigest()[:16]}.so")
-    report = "" if os.path.exists(path) else compile_library(srcs, path, verbose)
+    return os.path.join(_BUILD, f"libgpirt_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/*.cu`` into :func:`library_path` once per source
+    content and load it. Returns the compiler's report (register and spill
+    counts with ``verbose``), or "" when the library was already built."""
+    global _lib
+    path = library_path()
+    report = "" if os.path.exists(path) else compile_library(_sources(), path, verbose)
     if _lib is None:
         _lib = load_library(path)
     return report
@@ -102,6 +115,29 @@ def load_library(path: str):
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.gpirt_binary_threshold_ess.restype = ctypes.c_int
     return lib
+
+
+_PATHS = ("registers", "tile", "streaming")
+
+
+def launch_plan(n: int) -> dict:
+    """The path this checkout's kernel takes at n respondents on the current
+    card: ``path`` ("registers" up to n = 2048, "tile" while one block's
+    shared memory holds the (n x items) slab, "streaming" beyond),
+    ``threads_a_lane``, ``items_a_block``, ``threads_a_block``,
+    ``smem_bytes`` (dynamic shared memory a block) and ``tile_capacity``
+    (the tile path's largest n)."""
+    if _lib is None:
+        build()
+    fn = _lib.gpirt_binary_threshold_ess_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 6)()
+    err = fn(int(n), ctypes.cast(info, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"binary_threshold_ess plan failed: cudaError {err}")
+    return {"path": _PATHS[info[0]], "threads_a_lane": info[1], "items_a_block": info[2],
+            "threads_a_block": info[5], "smem_bytes": info[3], "tile_capacity": info[4]}
 
 
 def _check(g, y, t1, nu, logu, eps0, rs, c):

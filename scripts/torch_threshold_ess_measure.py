@@ -2,12 +2,19 @@
 other builds of it, where its time goes, and a profile of senate116's
 sampling sweeps.
 
-    python3 scripts/torch_threshold_ess_measure.py [--other OTHER.cu ...]
+    python3 scripts/torch_threshold_ess_measure.py [--state main|synthetic]
+        [--other OTHER.cu ...] [--sass]
         [--end-to-end] [--anatomy] [--profile [--trace-dir DIR]]
 
-Runs senate116's main path through gpirt_mcmc (64 chains, 320 SMC steps
-from T = 64, then 40 sampling sweeps) and keeps the kernel's inputs of the
-last sweep. Prints the card's name and power limit first.
+With --state main (the default) runs senate116's main path through
+gpirt_mcmc (64 chains, 320 SMC steps from T = 64, then 40 sampling sweeps)
+and keeps the kernel's inputs of the last sweep. With --state synthetic
+runs chip_smoke.py's phase 16 configuration (simulate_2pl(0, 5000, 1000,
+missing=0.1), 64 chains, the conjugate sampler through run_chains) for 30
+burn and 10 sampling sweeps and keeps the kernel's inputs of the last
+sweep, where the kernel takes its tile path; there --other times its
+builds at that state (T = 1 and 64), and --anatomy splits the time there
+too. Prints the card's name and power limit first.
 
 --profile  times sampling sweeps 6-20 by the host clock (a synchronise at
            each end) and traces sweeps 21-30 with torch.profiler, started
@@ -22,7 +29,13 @@ last sweep. Prints the card's name and power limit first.
            other), each checked against the plain version first, at the
            main path's state (T = 1) and on random lanes (T = 1 and 64).
            Each time is 50 launches in one CUDA graph, by CUDA events.
-           May be given more than once.
+           May be given more than once. To time another design of the
+           kernel, give it an edited copy of csrc/threshold_ess.cu.
+--sass     disassembles this checkout's build (cuobjdump -sass) and, for
+           the tile path's kernel, counts the instructions of the loop that
+           evaluates the sites (the loop densest in MUFU.EX2, one a site in
+           erff) and prints them per site; with --trace-dir writes the
+           kernel's SASS there.
 --end-to-end  with --other: the main path itself (SMC, then 300 sampling
            sweeps) with each build in turn, eight runs of each in the order
            other, this, this, other, ...; prints the SMC and sampling
@@ -40,6 +53,8 @@ import argparse
 import hashlib
 import json
 import os
+import re
+import subprocess
 import sys
 import time
 
@@ -54,14 +69,18 @@ from chip_smoke import (  # noqa: E402
     K,
     SEED,
     SMC_STEPS,
+    SYN_BURN,
     T_MAX,
     card,
     check,
     graph_ms,
+    kernel_bound,
     lane_rounds,
     log,
     observe_kernel,
     random_lanes,
+    synthetic_inputs,
+    synthetic_run,
 )
 from gpirt_tpu_torch import gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
@@ -70,6 +89,7 @@ from gpirt_tpu_torch.utils.datasets import senate116_response_matrix  # noqa: E4
 from gpirt_tpu_torch.utils.response import encode_categories  # noqa: E402
 
 SAMPLING = 40
+SYN_STATE_DRAWS = 10  # sampling sweeps of --state synthetic after its burn
 E2E_SWEEPS = 300
 WALL_FROM, PROF_FROM, PROF_TO = 5, 20, 30  # sampling-sweep indices
 
@@ -83,6 +103,45 @@ def build_other(src):
     threshold_ess.compile_library([src], path)
     log(f"built {src} in {time.perf_counter() - t:.1f} s")
     return threshold_ess.load_library(path)
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def site_loop_sass(trace_dir=None, kernel="ess_tile_kernel"):
+    """The instructions of ``kernel``'s site loop in this checkout's build
+    (:func:`threshold_ess.library_path`): of the loops (a branch back to a
+    lower address), the one with the most MUFU.EX2 an instruction. Returns
+    (instructions, MUFU.EX2) of its body."""
+    lib = threshold_ess.library_path()
+    tool = os.path.join(os.path.dirname(threshold_ess._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    body = sass[sass.index("Function : ", sass.index(kernel) - 200):]
+    body = body[:body.find("Function : ", 20)] if "Function : " in body[20:] else body
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        with open(os.path.join(trace_dir, f"{kernel}.sass"), "w") as fh:
+            fh.write(body)
+    code = [(int(a, 16), op) for a, op in _SASS_LINE.findall(body)]
+    best = (0.0, 0, 0)
+    for addr, op in code:
+        hit = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+        if hit and int(hit.group(1), 16) < addr:
+            loop = [o for a, o in code if int(hit.group(1), 16) <= a <= addr]
+            mufu = sum("MUFU.EX2" in o for o in loop)
+            best = max(best, (mufu / len(loop), len(loop), mufu))
+    return best[1], best[2]
+
+
+def synthetic_state(dev):
+    """The kernel's inputs at the last sweep of a short run of chip_smoke's
+    phase 16 configuration."""
+    _, launches, wall, args = synthetic_run(dev, synthetic_inputs(dev), burn=SYN_BURN,
+                                            draws=SYN_STATE_DRAWS)
+    log(f"synthetic state: {launches} sweeps in {wall:.3f} s; the kernel's plan there "
+        f"{threshold_ess.launch_plan(args[0].shape[2])}")
+    return args
 
 
 def launcher(lib, args, c):
@@ -161,7 +220,7 @@ def ab(other, args, label, c):
     return times
 
 
-def anatomy(args, smi):
+def anatomy(args, smi, label="main path's state", first_n=(1, 25, 50)):
     """The kernel's time against the number of ll evaluations a lane."""
     g, y, t1, nu, logu, eps0, rs = args
 
@@ -174,12 +233,12 @@ def anatomy(args, smi):
     t_two = timed((g, y, t1, nu, torch.full_like(logu, -float("inf")), eps0, rs))
     t_empty = timed((g, torch.zeros_like(y), t1, nu, logu, eps0, rs))
     per_ll = (t_main - t_two) / (evals - 2)
-    log(f"anatomy on {smi}, main path's state, T=1: {t_main:.5f} ms at "
+    log(f"anatomy on {smi}, {label}, T=1: {t_main:.5f} ms at "
         f"{evals:.3f} ll a lane, {t_two:.5f} ms at 2, {t_empty:.5f} ms with no "
         f"observed site; so {per_ll:.5f} ms per ll of every lane and "
         f"{t_two - 2 * per_ll:.5f} ms per launch besides")
     by_n = {}
-    for n_sub in (1, 25, 50):
+    for n_sub in first_n:
         sub = (g[:, :, :n_sub].contiguous(), y[:, :n_sub].contiguous(), t1, nu,
                logu, eps0, rs)
         by_n[n_sub] = timed(sub)
@@ -201,9 +260,11 @@ def anatomy(args, smi):
 
 def end_to_end(name, other, rm, dev, smi):
     """The main path with the sweep's kernel from ``other`` and from this
-    checkout, in turns; sweeps/s of the SMC and sampling phases."""
+    checkout, in turns; sweeps/s of the SMC and sampling phases, and the
+    sha256 of each run's draws (theta and ll of every chain)."""
     smc_sweeps = WARM_STEPS + SMC_STEPS - 1
     rates = {"other": [], "this": []}
+    digests = {"other": set(), "this": set()}
 
     def other_kernel(*args):
         return threshold_ess._launch(*args, lib=other)
@@ -217,6 +278,11 @@ def end_to_end(name, other, rm, dev, smi):
         sec = out[0]["seconds"]
         rates[who].append({"smc": smc_sweeps / sec["smc"],
                            "sampling": E2E_SWEEPS / sec["sampling"]})
+        digest = hashlib.sha256()
+        for d in out:
+            for key in ("theta", "ll"):
+                digest.update(np.ascontiguousarray(d[key]).tobytes())
+        digests[who].add(digest.hexdigest())
     for phase in ("smc", "sampling"):
         runs = {w: [r[phase] for r in rates[w]] for w in rates}
         log(f"end to end on {smi}, {phase} sweeps/s: {name} "
@@ -224,13 +290,18 @@ def end_to_end(name, other, rm, dev, smi):
             f"{np.median(runs['other']):.1f}), this "
             f"{[round(v, 1) for v in runs['this']]} (median "
             f"{np.median(runs['this']):.1f})")
+    log(f"end to end, sha256 of the draws: {name} {sorted(digests['other'])}, this "
+        f"{sorted(digests['this'])}; "
+        f"{'the same' if digests['other'] == digests['this'] else 'they differ'}")
     return rates
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--state", choices=("main", "synthetic"), default="main")
     ap.add_argument("--other", action="append", default=[],
                     help="a kernel source to time against this one")
+    ap.add_argument("--sass", action="store_true")
     ap.add_argument("--end-to-end", action="store_true")
     ap.add_argument("--anatomy", action="store_true")
     ap.add_argument("--profile", action="store_true")
@@ -244,6 +315,27 @@ def main():
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     threshold_ess.build()
     others = {os.path.basename(src): build_other(src) for src in opt.other}
+    if opt.sass:
+        instructions, mufu = site_loop_sass(opt.trace_dir)
+        log(f"SASS of the tile path's site loop: {instructions} instructions, {mufu} "
+            f"MUFU.EX2 (one a site): {instructions / max(mufu, 1):.1f} instructions a site")
+
+    if opt.state == "synthetic":
+        if opt.profile or opt.end_to_end:
+            ap.error("--profile and --end-to-end run on --state main")
+        args = synthetic_state(dev)
+        work = kernel_bound(args, _C, "synthetic state")
+        if opt.anatomy:
+            log(json.dumps({"card": smi, "anatomy": anatomy(
+                args, smi, "synthetic state", first_n=(2049, 2500, 4000))}))
+        for name, other in others.items():
+            result = {"card": smi, "other": name, "bound_ms": work["bound_ms"]}
+            for t in (1.0, T_MAX):
+                result[f"synthetic_state_T{t:g}"] = ab(
+                    other, args, f"{name} vs this, synthetic state, T={t:g}", _C / np.sqrt(t))
+            log(json.dumps(result))
+        log(card())
+        return 0
 
     rm, _, _ = senate116_response_matrix()
     state_args, wall_ms, prof = run_main_path(rm, dev, opt.profile)

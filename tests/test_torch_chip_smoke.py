@@ -82,6 +82,37 @@ def test_synthetic_run_at_reduced_size():
     assert tuple(args[0].shape) == (2, 1, 300, 40) and torch.equal(args[1], y)
 
 
+def test_past_capacity_lanes_at_reduced_size():
+    """Phase 30's random lanes at n = 600, 40 items and 3 chains on the CPU:
+    shapes and types the kernel takes, 10% missing with yes and no at even
+    odds, item 0 without a response, the same lanes under the seed, and the
+    plain version moving the lanes."""
+    cpu = torch.device("cpu")
+    args = chip_smoke.past_capacity_lanes(cpu, 600, K=3, m=40)
+    g, y, t1, nu, logu, eps0, rs = args
+    assert tuple(g.shape) == (3, 1, 600, 40) and g.dtype == torch.float32
+    assert tuple(y.shape) == (1, 600, 40) and y.dtype == torch.int32
+    assert all(tuple(a.shape) == (3, 1, 40) for a in (t1, nu, logu, eps0))
+    assert tuple(rs.shape) == (64, 3, 1, 40)
+    assert bool((y[..., 0] == 0).all())
+    rest = y[..., 1:]
+    assert 0.08 < float((rest == 0).double().mean()) < 0.12
+    assert 0.45 < float((rest == 1).sum() / (rest > 0).sum()) < 0.55
+    assert bool((logu < 0).all()) and bool(((eps0 >= 0) & (eps0 < _TWO_PI)).all())
+    again = chip_smoke.past_capacity_lanes(cpu, 600, K=3, m=40)
+    assert all(torch.equal(a, b) for a, b in zip(args, again))
+    out = binary_threshold_ess_reference(*args, _C)
+    assert float((out != t1).double().mean()) > 0.8
+
+
+def test_plan_label_names_path_and_tile():
+    plan = {"path": "tile", "threads_a_lane": 256, "items_a_block": 8,
+            "threads_a_block": 1024, "smem_bytes": 202308, "tile_capacity": 5760}
+    assert chip_smoke.plan_label(plan) == (
+        "tile path, 256 threads a lane, 8 items and 1024 threads a block, 202308 bytes "
+        "of shared memory a block (tile capacity n = 5760)")
+
+
 @pytest.mark.parametrize("C, fstar_method", [(2, "matheron"), (2, "chol"),
                                              (5, "matheron"), (5, "chol")])
 def test_two_stage_sweep_check_inputs_are_finite(C, fstar_method):

@@ -1,12 +1,13 @@
 """Port tests that need the card: the CUDA kernel against its plain version,
-over shapes (every thread-group size the kernel chooses from n), edge cases
-and one c a chain; whole sweeps on the card against the same sweeps on the
+over shapes (every path and thread-group size the kernel chooses from n),
+edge cases and one c a chain; whole sweeps on the card against the same sweeps on the
 CPU (binary, ordinal with the cutpoints by ESS and by Newton, over three
 sessions in the GP theta regime, with one temperature a chain, the
 two-stage sampler with f* by both methods, and the grid sampler with one
 IRF shared by the sessions and without, the ESS theta update in the three
 regimes, the affine moves untempered and with one temperature a chain);
-the kernel at the pooled constant_IRF layout; and gpirt_mcmc (tempered too),
+the kernel at the pooled constant_IRF layout (on its register and tile
+paths) and the path it takes by n; and gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default.
 
@@ -29,6 +30,7 @@ from gpirt_tpu_torch.models.config import make_constants
 from gpirt_tpu_torch.ops.threshold_ess import (
     binary_threshold_ess,
     binary_threshold_ess_reference,
+    launch_plan,
 )
 
 _C = 0.7071067811865476
@@ -40,6 +42,20 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit (nvcc)")
     return torch.device("cuda")
+
+
+# n relative to the kernel's tile capacity (launch_plan), read on the card
+# inside a test: the largest n of the tile path, one more (the streaming
+# path), and twice it
+_PAST_CAP = {"capacity": 0, "capacity+1": 1, "2 x capacity": None}
+
+
+def _resolve_n(n):
+    """An n of a parametrisation: an int as it is, or a key of _PAST_CAP."""
+    if isinstance(n, int):
+        return n
+    cap = launch_plan(2049)["tile_capacity"]
+    return 2 * cap if _PAST_CAP[n] is None else cap + _PAST_CAP[n]
 
 
 def _lane_inputs(device, K=4, H=1, n=50, m=97, R=64, seed=0):
@@ -87,12 +103,15 @@ def _assert_matches_plain(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("temp", [1.0, 64.0])
 @pytest.mark.parametrize("H", [1, 3])
-@pytest.mark.parametrize("m", [97, 418])
-@pytest.mark.parametrize("n", [1, 31, 33, 100, 200, 257, 5000])
+@pytest.mark.parametrize("m", [97, 418, 1000])
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 200, 257, 2049, 4099, 5000, "capacity",
+                               "capacity+1", "2 x capacity"])
 def test_kernel_over_shapes(cuda_device, n, m, H, temp):
     """Every path the kernel chooses from n (8 threads a lane up to n = 32,
-    a warp up to 256, a block of registers up to 2048, streaming beyond),
-    unaligned m, several sessions, and items with no observed response."""
+    a warp up to 256, a block of registers up to 2048, the tile path up to
+    its capacity, streaming beyond), unaligned m, several sessions, and items
+    with no observed response."""
+    n = _resolve_n(n)
     args = _lane_inputs(cuda_device, K=16, H=H, n=n, m=m, seed=n + m + H)
     args[1][:, :, 0] = 0  # item 0: no response in any session
     args[1][0, :, 1] = 0  # item 1: none in session 0
@@ -112,10 +131,13 @@ def test_kernel_over_shapes(cuda_device, n, m, H, temp):
 @pytest.mark.gpu
 @pytest.mark.parametrize("temp", [1.0, 64.0])
 @pytest.mark.parametrize("R", [1, 2])
-def test_kernel_round_cap_keeps_t0(cuda_device, R, temp):
+@pytest.mark.parametrize("n", [100, 5000, "capacity+1"])
+def test_kernel_round_cap_keeps_t0(cuda_device, R, temp, n):
     """With a cap of R rounds, a lane not accepted by then keeps t0 bit for
-    bit, as in the plain version."""
-    args = _lane_inputs(cuda_device, K=16, n=100, m=418, R=R, seed=R)
+    bit, as in the plain version: on the register, tile and streaming
+    paths."""
+    n = _resolve_n(n)
+    args = _lane_inputs(cuda_device, K=16, n=n, m=418, R=R, seed=R)
     c = _C / np.sqrt(temp)
     got = binary_threshold_ess(*args, c)
     want = binary_threshold_ess_reference(*args, c)
@@ -257,13 +279,14 @@ def test_recover_fstar_runs_on_the_card_by_default(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [20, 100, 200, 1000, 2100])
+@pytest.mark.parametrize("n", [20, 100, 200, 1000, 2100, 5000, "capacity+1"])
 def test_kernel_one_c_a_chain(cuda_device, n):
     """Chip_smoke's phase 17 at small sizes, on every path the kernel
     chooses from n: each chain at its own temperature (a ladder from 1 to
     64) against the plain version; a vector of one value gives bit for bit
     what that float gives."""
     K = 16
+    n = _resolve_n(n)
     args = _lane_inputs(cuda_device, K=K, n=n, m=97, seed=n)
     c = chip_smoke.c_of(chip_smoke.ladder(K, dev=cuda_device))
     got = binary_threshold_ess(*args, c)
@@ -342,6 +365,50 @@ def test_kernel_pooled_layout(cuda_device):
     assert binary_threshold_ess.launches == before + 1
     _assert_matches_plain(got, binary_threshold_ess_reference(*args, _C))
     assert float((got != args[2]).float().mean()) > 0.8
+
+
+@pytest.mark.gpu
+def test_kernel_pooled_layout_tile_path(cuda_device):
+    """The pooled constant_IRF layout where its H n stacked sites take the
+    tile path: g (16, 10, 300, 60) viewed as (16, 1, 3000, 60), y as
+    (1, 3000, 60), items with no response in any session, against the plain
+    version on the same views."""
+    rng = np.random.default_rng(4)
+    K, H, n, m = 16, 10, 300, 60
+    g = torch.as_tensor(1.5 * rng.standard_normal((K, H, n, m)), dtype=torch.float32,
+                        device=cuda_device)
+    y = torch.as_tensor(rng.choice([0, 1, 2], size=(H, n, m), p=[0.1, 0.45, 0.45]),
+                        dtype=torch.int32, device=cuda_device)
+    y[:, :, 0] = 0
+    lanes = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+        rng.standard_normal((K, 1, m)), rng.standard_normal((K, 1, m)),
+        np.log(rng.random((K, 1, m))), rng.random((K, 1, m)) * _TWO_PI,
+        rng.random((64, K, 1, m)))]
+    args = (g.view(K, 1, H * n, m), y.view(1, H * n, m), *lanes)
+    assert launch_plan(H * n)["path"] == "tile"
+    before = binary_threshold_ess.launches
+    got = binary_threshold_ess(*args, _C)
+    torch.cuda.synchronize()
+    assert binary_threshold_ess.launches == before + 1
+    err = _assert_matches_plain(got, binary_threshold_ess_reference(*args, _C))
+    assert float(err[:, :, 0].max()) <= 1e-5
+    assert float((got != args[2]).float().mean()) > 0.8
+
+
+@pytest.mark.gpu
+def test_launch_plan_by_n(cuda_device):
+    """The path the kernel takes by n: registers up to 2048, the tile path up
+    to its capacity (its shared memory within a Hopper block's opt-in limit
+    of 232,448 bytes), the streaming path beyond."""
+    limit = 232448
+    cap = launch_plan(2049)["tile_capacity"]
+    assert cap >= 5000
+    for n in (1, 100, 2048):
+        assert launch_plan(n)["path"] == "registers"
+    for n in (2049, 5000, cap):
+        plan = launch_plan(n)
+        assert plan["path"] == "tile" and plan["smem_bytes"] <= limit
+    assert launch_plan(cap + 1)["path"] == "streaming"
 
 
 @pytest.mark.gpu

@@ -117,6 +117,23 @@ def test_round_cap_keeps_t0_against_pallas(rounds):
     assert np.sum(err > 1e-10) <= 2, np.sort(err)[-5:]
 
 
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+@pytest.mark.parametrize("n", [2049, 4099])
+def test_reference_equals_pallas_interpret_past_the_register_cap(n, temp):
+    """Where the card kernel takes its tile path (n > 2048): the plain
+    version against the Pallas kernel in interpret mode, fed the same
+    uniforms, with an item that has no response, at the tolerance of
+    test_reference_equals_pallas_interpret."""
+    K, H, m = 2, 1, 13
+    missing = (0,)
+    got, want, t1 = _pallas_and_plain(K, H, n, m, temp, seed=n, missing_items=missing)
+    err = np.abs(got - want)
+    assert np.sum(err > 1e-10) <= 2, np.sort(err)[-5:]
+    lanes = [k * m for k in range(K)]
+    np.testing.assert_allclose(got[lanes], want[lanes], rtol=0, atol=1e-10)
+    assert np.mean(got != t1) > 0.8
+
+
 def _replay_ess_draws(key, H, m):
     """nu, logu, eps0 and the 64-round shrink table exactly as
     draw_threshold -> ess_update consume them from ``key``; its first R rows
@@ -186,6 +203,33 @@ def test_round_cap_equals_xla_draw_threshold(rounds):
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
     kept = got == t1
     assert 0 < kept.sum() < kept.size
+
+
+@pytest.mark.parametrize("temp", [1.0, 4.0])
+@pytest.mark.parametrize("n", [2049, 4099])
+def test_reference_equals_xla_draw_threshold_past_the_register_cap(n, temp):
+    """draw_threshold's XLA path against the plain version fed the same
+    uniforms, lane for lane, to 1e-10, at the n where the card kernel takes
+    its tile path."""
+    K, H, m = 2, 1, 11
+    g, y, t1, _ = _lanes(n, K, H, n, m)
+    cfg = JConfig(n=n, m=m, C=2, grid_size=11, dtype="float64",
+                  f_method="conjugate", threshold_ess_twophase=False)
+    thr = np.stack([np.full((K, H, m), -np.inf), t1,
+                    np.full((K, H, m), np.inf)], axis=-1)
+    keys = [jax.random.key(300 + k) for k in range(K)]
+    want = np.stack([
+        np.asarray(jg.draw_threshold(keys[k], jnp.asarray(thr[k]),
+                                     jnp.asarray(g[k]), jnp.zeros_like(g[k]),
+                                     jnp.asarray(y), cfg, temp=temp))
+        for k in range(K)])[..., 1]
+    nu, logu, eps0, rs = (np.stack(a) for a in
+                          zip(*[_replay_ess_draws(key, H, m) for key in keys]))
+    got = binary_threshold_ess_reference(
+        _t(g), _t(y, torch.int32), _t(t1), _t(nu), _t(logu), _t(eps0),
+        _t(rs).transpose(0, 1).contiguous(), _C / np.sqrt(temp)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    assert np.mean(got != t1) > 0.8
 
 
 def _wrapper_args(dtype=torch.float64, device="cpu", K=2, H=1, n=7, m=5, R=8):
