@@ -145,7 +145,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
  30. past the tile capacity: the kernel at one respondent more than its
      tile path holds (its streaming path), 64 chains x 418 items of random
      lanes (10% missing, item 0 with no response), against its plain
-     version at T = 1 and 64, timed, with its bound.
+     version at T = 1 and 64, timed, with its bound;
+ 31. checkpointed main path: phase 5's call with a checkpoint every 100
+     sweeps in a temporary directory of this checkout, uninterrupted, and
+     interrupted (the same call at 200 draws) then resumed: both hash
+     (sha256 of theta, beta, threshold and ll) to phase 5's draws, one
+     kernel launch a sweep over the pair, the SMC initialization once;
+     prints the sampling sweeps/s against phase 5's, the seconds in the
+     saves and the size of the last checkpoint;
+ 32. checkpointed tempering: phase 19's call interrupted after the burn
+     and one chunk of 100 sweeps, then resumed: the cold draws and swap
+     rates hash to phase 19's, one kernel launch a sweep;
+ 33. synthetic checkpoint: phase 16's configuration after one sweep (f
+     1.28 GB, f* 256 MB), one CheckpointManager save and one load to the
+     card, each timed, the loaded state equal bit for bit;
+ 34. profile_sweep at the main path's last state (phase 31's checkpoint):
+     each block's time by CUDA events, positive, the blocks summing to
+     within a factor of 2 of the whole sweep;
+ 35. utilities: a short run of phase 5's data with f and f* stored,
+     posterior_irf of one chain (rows summing to 1) and
+     posterior_predictive of every chain's draws on the card (in range,
+     and its agreement with the observed votes).
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -155,17 +175,20 @@ nvidia-smi reports it, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
 
 from gpirt_tpu_torch import api, campaign_schedule, gpirt_campaigns, gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.api import (  # noqa: E402
@@ -177,7 +200,16 @@ from gpirt_tpu_torch.api import (  # noqa: E402
 )
 from gpirt_tpu_torch.models import affine, gibbs  # noqa: E402
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants  # noqa: E402
-from gpirt_tpu_torch.models.sampler import run_chains  # noqa: E402
+from gpirt_tpu_torch.models.generate import (  # noqa: E402
+    posterior_predictive,
+    response_draws,
+)
+from gpirt_tpu_torch.models.sampler import (  # noqa: E402
+    Carry,
+    advance_chains,
+    run_chains,
+    sample_schedule,
+)
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
 from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds  # noqa: E402
@@ -188,12 +220,15 @@ from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     simulate_2pl,
     simulate_dynamic,
 )
+from gpirt_tpu_torch.utils.checkpoint import CheckpointManager  # noqa: E402
 from gpirt_tpu_torch.utils.diagnostics import (  # noqa: E402
     align_theta_signs,
     effective_sample_size,
     effective_sample_size_device,
     split_rhat,
 )
+from gpirt_tpu_torch.utils.irf import posterior_irf  # noqa: E402
+from gpirt_tpu_torch.utils.profiling import profile_sweep  # noqa: E402
 from gpirt_tpu_torch.utils.response import (  # noqa: E402
     as_response_matrix,
     encode_categories,
@@ -218,8 +253,12 @@ PAST_M = 418
 PT_TEMPS, PT_MAX_TEMP, PT_BURN, PT_DRAWS = 4, 4.0, 100, 500
 C64_BURN, C64_DRAWS = 100, 300
 CAMPAIGNS, CAMPAIGN_WARM_SEED, CAMPAIGN_SEED = 8, 990001, 100000
-CAMPAIGN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                                "fixtures", "campaigns8_senate116_jax.npz")
+CAMPAIGN_FIXTURE = os.path.join(HERE, "tests", "fixtures", "campaigns8_senate116_jax.npz")
+# phases 31-32: a checkpoint every CK_EVERY sweeps, phase 5's call interrupted
+# by the same call at CK_CUT draws; phase 34's profile_sweep reps; phase 35's
+# short run with f and f* stored (4 draws of 64 chains: f* 428 MB on the host)
+CK_EVERY, CK_CUT, PROFILE_REPS = 100, 200, 10
+UT_BURN, UT_DRAWS, UT_THIN = 20, 8, 2
 # per-chain temperatures of the tempered sweep check's 3 chains
 SWEEP_TEMPS = (1.0, 4.0, 16.0)
 # The posterior Cholesky of f* in float32 needs a nugget above the rounding
@@ -655,13 +694,29 @@ def observe_kernel(run, before_call=None, kernel=None, scales=None):
     return out, seen["args"]
 
 
+def draws_sha256(out):
+    """sha256 of gpirt_mcmc's chain dicts' theta, beta, threshold and ll,
+    chain by chain, and of swap_rate where there is one."""
+    h = hashlib.sha256()
+    for d in out:
+        for k in ("theta", "beta", "threshold", "ll", "swap_rate"):
+            if k in d:
+                h.update(np.ascontiguousarray(d[k]).tobytes())
+    return h.hexdigest()
+
+
+def main_call(rm, dev, chains=K, burn=BURN, draws=DRAWS, smc_steps=SMC_STEPS, **extra):
+    """Phase 5's gpirt_mcmc call on ``rm``, ``draws`` its sample_iterations
+    and ``extra`` more of its arguments."""
+    return gpirt_mcmc(rm, draws, burn, CHAIN=chains, SEED=SEED, smc_steps=smc_steps,
+                      smc_max_temp=T_MAX, dtype="float32", device=dev, **extra)
+
+
 def main_path(rm, dev, smi):
-    """Returns the kernel's launches in the run and its inputs at the last
-    sweep."""
+    """Returns the kernel's launches in the run, its inputs at the last
+    sweep, the draws' sha256 and the sampling sweeps a second."""
     threshold_ess.binary_threshold_ess.launches = 0
-    out, state_args = observe_kernel(lambda: gpirt_mcmc(
-        rm, DRAWS, BURN, CHAIN=K, SEED=SEED, smc_steps=SMC_STEPS,
-        smc_max_temp=T_MAX, dtype="float32", device=dev))
+    out, state_args = observe_kernel(lambda: main_call(rm, dev))
     launches = threshold_ess.binary_threshold_ess.launches
     sweeps = WARM_STEPS + SMC_STEPS - 1 + BURN + DRAWS
     check(launches == sweeps, f"{launches} kernel launches for {sweeps} sweeps")
@@ -686,7 +741,9 @@ def main_path(rm, dev, smi):
     log(f"theta ESS on {smi}: median within-chain (summed over {K} chains) "
         f"{within_med:.1f}, pooled {pooled_med:.1f}; "
         f"ess/sec {within_med / (smc_s + samp_s):.2f} (smc + sampling wall)")
-    return launches, state_args
+    digest = draws_sha256(out)
+    log(f"main path draws sha256 {digest}")
+    return launches, state_args, digest, rate
 
 
 def sdo_path(dev, smi):
@@ -1198,16 +1255,23 @@ def cold_draws(out):
     return np.stack([d["theta"][:, :, 0] for d in out])
 
 
+def tempering_call(rm, dev, chains=K, burn=PT_BURN, draws=PT_DRAWS, **extra):
+    """Phase 19's gpirt_mcmc call on ``rm``, ``draws`` its sample_iterations
+    and ``extra`` more of its arguments."""
+    return gpirt_mcmc(rm, draws, burn, CHAIN=chains, SEED=SEED, n_temps=PT_TEMPS,
+                      max_temp=PT_MAX_TEMP, swap_every=1, dtype="float32", device=dev,
+                      verbose=False, **extra)
+
+
 def tempering_path(rm, dev, smi, chains=K, burn=PT_BURN, draws=PT_DRAWS):
     """Phase 19: gpirt_mcmc with n_temps on senate116, checked; prints its
     swap rates, cold theta ESS and sweep rate. Returns the kernel's
-    launches, the inputs of its last call and that call's per-chain c."""
+    launches, the inputs of its last call, that call's per-chain c and the
+    draws' sha256 (swap_rate included)."""
     scales = []
     threshold_ess.binary_threshold_ess.launches = 0
-    out, args = observe_kernel(lambda: gpirt_mcmc(
-        rm, draws, burn, CHAIN=chains, SEED=SEED, n_temps=PT_TEMPS,
-        max_temp=PT_MAX_TEMP, swap_every=1, dtype="float32", device=dev,
-        verbose=False), scales=scales)
+    out, args = observe_kernel(lambda: tempering_call(rm, dev, chains, burn, draws),
+                               scales=scales)
     launches = threshold_ess.binary_threshold_ess.launches
     sweeps = burn + draws
     check(len(scales) == sweeps and launches == (sweeps if dev.type == "cuda" else 0),
@@ -1233,7 +1297,7 @@ def tempering_path(rm, dev, smi, chains=K, burn=PT_BURN, draws=PT_DRAWS):
         + ", ".join(f"{r:.4f}" for r in rate)
         + f"; cold theta ESS median within-chain (summed over {chains} chains) {within:.1f}, "
         f"pooled {pooled:.1f}; ess/sec {within / samp_s:.2f} (sampling wall)")
-    return launches, args, scales[-1]
+    return launches, args, scales[-1], draws_sha256(out)
 
 
 def campaigns8(rm, dev, smi, **schedule):
@@ -1857,6 +1921,217 @@ def affine_path(rm, dev, smi, chains=K, burn=BURN, draws=DRAWS, shift_max=16, ro
     return res["on"]["launches"], ess_ratio, wall_ratio
 
 
+def _temporary_dir():
+    """A directory in this checkout for the checkpoints of phases 31-33,
+    deleted with its contents when the phase ends."""
+    return tempfile.TemporaryDirectory(prefix=".chip_smoke_ck_", dir=HERE)
+
+
+def checkpointed_main_path(rm, dev, smi, want, plain_rate, chains=K, burn=BURN,
+                           draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY):
+    """Phase 31: phase 5's call with a checkpoint every ``every`` sweeps,
+    uninterrupted, then interrupted (the call at ``cut`` draws) and resumed
+    (the full call): both hash (``draws_sha256``) to phase 5's ``want``,
+    each counts one kernel launch a sweep, and the SMC initialization runs
+    once in the interrupted pair. Prints the sweeps a second against
+    phase 5's ``plain_rate``, the seconds in the saves and the size of the
+    last checkpoint. Returns the launches of the pair, the last
+    checkpoint's state on ``dev`` and the measurements."""
+    call = dict(chains=chains, burn=burn, smc_steps=smc_steps, verbose=False,
+                checkpoint_every=every)
+    sweeps = WARM_STEPS + smc_steps - 1 + burn + draws
+    expect = sweeps if dev.type == "cuda" else 0
+    anneals = []
+    anneal = api.anneal_init
+
+    def counted(*args, **kwargs):
+        anneals.append(1)
+        return anneal(*args, **kwargs)
+
+    api.anneal_init = counted
+    try:
+        with _temporary_dir() as tmp:
+            threshold_ess.binary_threshold_ess.launches = 0
+            full = main_call(rm, dev, draws=draws,
+                             checkpoint_path=os.path.join(tmp, "full"), **call)
+            full_launches = threshold_ess.binary_threshold_ess.launches
+            full_bytes = os.path.getsize(os.path.join(tmp, "full.npz"))
+            path = os.path.join(tmp, "cut")
+            threshold_ess.binary_threshold_ess.launches = 0
+            anneals.clear()
+            main_call(rm, dev, draws=cut, checkpoint_path=path, **call)
+            cut_bytes = os.path.getsize(path + ".npz")
+            resumed = main_call(rm, dev, draws=draws, checkpoint_path=path, **call)
+            launches = threshold_ess.binary_threshold_ess.launches
+            state = CheckpointManager(path + ".npz").load(device=dev).state
+    finally:
+        api.anneal_init = anneal
+    for label, out in (("uninterrupted", full), ("interrupted and resumed", resumed)):
+        digest = draws_sha256(out)
+        check(digest == want, f"checkpointed main path, {label}: draws sha256 {digest}, "
+              f"phase 5's {want}")
+    check(full_launches == expect and launches == expect,
+          f"checkpointed main path: {full_launches} and {launches} kernel launches for "
+          f"{sweeps} sweeps")
+    check(len(anneals) == 1, f"the interrupted pair annealed {len(anneals)} times")
+    sec = full[0]["seconds"]
+    res = {"sweeps_per_s": (burn + draws) / sec["sampling"],
+           "plain_sweeps_per_s": plain_rate, "save_s": sec["checkpoint"],
+           "saves": -(-(burn + draws) // every), "bytes_last": full_bytes,
+           "resume_save_s": resumed[0]["seconds"]["checkpoint"]}
+    log(f"checkpointed main path on {smi}: every {every} sweeps, {res['saves']} saves; "
+        f"draws sha256 = phase 5's, uninterrupted and interrupted at {cut} draws "
+        f"({cut_bytes} bytes) then resumed; {launches} kernel launches = {sweeps} sweeps "
+        f"over the pair, SMC once; sampling {res['sweeps_per_s']:.2f} sweeps/s against "
+        f"{plain_rate:.2f} plain ({plain_rate / res['sweeps_per_s']:.3f}x the wall), "
+        f"{res['save_s']:.3f} s in the saves ({res['resume_save_s']:.3f} s in the "
+        f"resume's); last checkpoint {full_bytes} bytes")
+    return launches, state, res
+
+
+def checkpointed_tempering(rm, dev, smi, want, chains=K, burn=PT_BURN, draws=PT_DRAWS,
+                           every=CK_EVERY):
+    """Phase 32: phase 19's call with a checkpoint every ``every`` sweeps,
+    interrupted after the burn and one chunk and resumed: its cold draws
+    and swap rates hash to phase 19's ``want``, with one kernel launch a
+    sweep over the pair. Returns the launches."""
+    call = dict(checkpoint_every=every)
+    with _temporary_dir() as tmp:
+        path = os.path.join(tmp, "tempered")
+        threshold_ess.binary_threshold_ess.launches = 0
+        cut = tempering_call(rm, dev, chains, burn, every, checkpoint_path=path, **call)
+        out = tempering_call(rm, dev, chains, burn, draws, checkpoint_path=path, **call)
+        size = os.path.getsize(path + ".npz")
+    launches = threshold_ess.binary_threshold_ess.launches
+    sweeps = burn + draws
+    digest = draws_sha256(out)
+    check(digest == want, f"checkpointed tempering: sha256 {digest}, phase 19's {want}")
+    check(launches == (sweeps if dev.type == "cuda" else 0),
+          f"checkpointed tempering: {launches} kernel launches for {sweeps} sweeps")
+    log(f"checkpointed tempering on {smi}: {chains} x {PT_TEMPS} lanes, interrupted at "
+        f"{burn + every} sweeps and resumed; cold draws and swap rates sha256 = phase "
+        f"19's; {launches} kernel launches = {sweeps} sweeps; saves {cut[0]['seconds']['checkpoint']:.3f} s "
+        f"+ {out[0]['seconds']['checkpoint']:.3f} s, last checkpoint {size} bytes")
+    return launches
+
+
+def synthetic_checkpoint(dev, smi, inputs):
+    """Phase 33: one save and one load of the synthetic configuration's
+    state (:func:`synthetic_inputs`) after one sweep, each timed; the
+    loaded state and generator state equal bit for bit. Returns (save s,
+    load s, bytes)."""
+    y, ti, thr, consts, cfg = inputs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    carry = Carry(gibbs.init_state(ti, thr, consts, cfg,
+                                   gibbs.init_draws(gen, ti.shape[0], consts, cfg)))
+    advance_chains(gen, carry, y, consts, cfg, sample_schedule(1, 1, 1), 0, 1)
+    state, rng = carry.state, gen.get_state()
+    state_bytes = sum(a.numel() * a.element_size() for a in state)
+    with _temporary_dir() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "synthetic.npz"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save(state, {"iteration": 1}, {}, rng)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(mgr.path)
+        t = time.perf_counter()
+        ck = mgr.load(device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    check(all(torch.equal(a, b) for a, b in zip(ck.state, state)) and
+          torch.equal(torch.from_numpy(ck.rng_state), rng),
+          "synthetic checkpoint: the loaded state differs")
+    log(f"synthetic checkpoint on {smi}: state {state_bytes} bytes on the device "
+        f"({tuple(state.f.shape)} f, {tuple(state.fstar.shape)} f*), file {size} bytes; "
+        f"save {save_s:.3f} s ({size / save_s / 1e9:.3f} GB/s), load to the device "
+        f"{load_s:.3f} s ({size / load_s / 1e9:.3f} GB/s); equal bit for bit")
+    return save_s, load_s, size
+
+
+def main_config(rm, dev):
+    """(y on ``dev`` as int32, config, constants) of phase 5's call on
+    ``rm``, with gpirt_mcmc's default priors, as it builds them."""
+    y, C, _ = encode_categories(np.asarray(rm))
+    H, n, m = y.shape
+    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype="float32", jitter=1e-5)
+    consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
+                            np.zeros((2, n)), np.zeros((2, n)), device=dev)
+    y_dev = torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32, device=dev)
+    return y_dev, cfg, consts
+
+
+def main_state_profile(rm, dev, state, reps=PROFILE_REPS):
+    """profile_sweep at ``state``, a state of phase 5's configuration on
+    ``rm``, the draws from a seed."""
+    y_dev, cfg, consts = main_config(rm, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draws = gibbs.sweep_draws(gen, state.theta_idx.shape[0], consts, cfg)
+    return profile_sweep(state, draws, y_dev, consts, cfg, reps)
+
+
+def profile_phase(rm, dev, smi, state):
+    """Phase 34: profile_sweep at the main path's last state (phase 31's
+    checkpoint): every block's time positive, the blocks' sum within a
+    factor of 2 of the whole sweep. Returns the seconds by block."""
+    out = main_state_profile(rm, dev, state)
+    blocks = sum(v for k, v in out.items() if k != "full_sweep")
+    ratio = blocks / out["full_sweep"] if out["full_sweep"] > 0 else math.inf
+    check(all(v > 0 for v in out.values()), f"profile_sweep: a block not positive {out}")
+    check(0.5 <= ratio <= 2.0, f"profile_sweep: blocks sum to {ratio:.3f}x the sweep")
+    log(f"profile_sweep at the main path's state on {smi} (CUDA events, the slope "
+        f"between {PROFILE_REPS} and {5 * PROFILE_REPS} calls): "
+        + ", ".join(f"{k} {1e3 * v:.4f} ms" for k, v in out.items())
+        + f"; the blocks sum to {ratio:.3f}x the sweep")
+    return out
+
+
+def utilities_phase(rm, dev, smi, chains=K, burn=UT_BURN, draws=UT_DRAWS, thin=UT_THIN):
+    """Phase 35: a short run of phase 5's data with f and f* stored;
+    posterior_irf of chain 0 (finite, each row's probabilities summing to
+    1) and posterior_predictive of every chain's draws on the card
+    (replicates 0 exactly where a vote is missing, in 1..C elsewhere), with
+    the replicates' agreement with the observed votes. Returns that
+    agreement."""
+    out = gpirt_mcmc(rm, draws, burn, THIN=thin, CHAIN=chains, SEED=SEED, store_f=True,
+                     store_fstar=True, dtype="float32", device=dev, verbose=False)
+    t = time.perf_counter()
+    irf = posterior_irf(out[0])
+    irf_s = time.perf_counter() - t
+    S = out[0]["theta"].shape[0]
+    check(np.isfinite(irf).all() and irf.shape == (out[0]["fstar"].shape[1],) + irf.shape[1:],
+          "posterior_irf not finite")
+    check(np.allclose(irf.sum(axis=-1), 1.0, rtol=0, atol=1e-9),
+          "posterior_irf rows do not sum to 1")
+    y_dev, cfg, consts = main_config(rm, dev)
+    C = cfg.C
+
+    def lanes(k, axis):  # chain dicts' (S, ..., H) draws -> (chains S, H, ...)
+        a = np.stack([np.moveaxis(d[k], -1, axis) for d in out])
+        return torch.as_tensor(a.reshape((-1,) + a.shape[2:]), device=dev)
+
+    draws_int = {"theta": lanes("theta", 1), "f": lanes("f", 1), "beta": lanes("beta", 1),
+                 "threshold": lanes("threshold", 1)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = response_draws(gen, chains * S, consts, cfg)
+    t = time.perf_counter()
+    rep = posterior_predictive(draws_int, consts, cfg, u, y_dev > 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t
+    observed = (y_dev > 0).expand_as(rep)
+    check(bool((rep[~observed] == 0).all()) and
+          bool(((rep[observed] >= 1) & (rep[observed] <= C)).all()),
+          "posterior_predictive replicates out of range")
+    agree = float((rep == y_dev).double()[observed].mean())
+    check(agree > 0.6, f"posterior_predictive agrees with {agree:.3f} of the votes")
+    log(f"utilities on {smi}: posterior_irf {irf.shape} in {irf_s:.3f} s, rows sum to 1; "
+        f"posterior_predictive of {chains} x {S} draws {tuple(rep.shape)} in {pp_s:.4f} s, "
+        f"agreeing with {agree:.4f} of the observed votes")
+    return agree
+
+
 def timed(label, fn, *args):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
@@ -1890,7 +2165,8 @@ def main():
         log(f"kernel time, random lanes, T={t:g}: {ms:.5f} ms (graph), "
             f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
     timed("4 (sweep check)", sweep_check, dev)
-    launches, state_args = timed("5 (main path)", main_path, rm, dev, smi)
+    launches, state_args, main_sha, main_rate = timed("5 (main path)", main_path, rm, dev,
+                                                      smi)
 
     w, f = kernel_check(state_args, "main path's state")
     worst, flipped = max(worst, w), flipped + f
@@ -1939,7 +2215,8 @@ def main():
     for C in (2, 5):
         timed(f"18 (tempered sweep check, C={C})", sweep_check, dev, C, "auto",
               sweep_temps)
-    pt_launches, pt_args, pt_c = timed("19 (tempering path)", tempering_path, rm, dev, smi)
+    pt_launches, pt_args, pt_c, pt_sha = timed("19 (tempering path)", tempering_path, rm,
+                                               dev, smi)
     t = time.perf_counter()
     pt_worst, pt_flipped = kernel_check(pt_args, "tempering state", c=pt_c)
     pt_ms, pt_eager, pt_plain = kernel_times(pt_args, pt_c)
@@ -1989,6 +2266,17 @@ def main():
     past_worst, past_flipped, past_ms, past_plain, past_work, past_plan = timed(
         "30 (past the tile capacity)", past_capacity, dev, smi)
     worst, flipped = max(worst, past_worst), flipped + past_flipped
+
+    ck_launches, main_state, ck_res = timed("31 (checkpointed main path)",
+                                            checkpointed_main_path, rm, dev, smi, main_sha,
+                                            main_rate)
+    ckt_launches = timed("32 (checkpointed tempering)", checkpointed_tempering, rm, dev, smi,
+                         pt_sha)
+    syn_ck = timed("33 (synthetic checkpoint)", synthetic_checkpoint, dev, smi,
+                   synthetic_inputs(dev))
+    prof = timed("34 (profile_sweep)", profile_phase, rm, dev, smi, main_state)
+    del main_state
+    timed("35 (utilities)", utilities_phase, rm, dev, smi)
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -2082,6 +2370,15 @@ def main():
         "plain_ms_past_capacity": past_plain,
         "bound_ms_past_capacity": past_work["bound_ms"],
         "bound_by_past_capacity": past_work["bound_by"],
+        "launches_checkpointed": ck_launches,
+        "checkpointed_sweeps_per_s": ck_res["sweeps_per_s"],
+        "checkpoint_save_s": ck_res["save_s"],
+        "checkpoint_bytes": ck_res["bytes_last"],
+        "launches_checkpointed_tempering": ckt_launches,
+        "synthetic_checkpoint_save_s": syn_ck[0],
+        "synthetic_checkpoint_load_s": syn_ck[1],
+        "synthetic_checkpoint_bytes": syn_ck[2],
+        "profile_sweep_ms": {k: 1e3 * v for k, v in prof.items()},
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -6,8 +6,12 @@ sessions, through the conjugate sweep or the reference's two-stage
 pipeline (cutpoints by y-marginal ESS or Newton-proposal MH), SMC annealed
 initialization or parallel tempering, the lockstep K-chain sampling loop,
 R independent SMC campaigns and their campaign-replicated estimator
-(``gpirt_campaigns``), convergence diagnostics, and f* recovered from
-stored f draws (``recover_fstar``, ``recover_fstar_batch``); the binary
+(``gpirt_campaigns``), convergence diagnostics, checkpoints that resume a
+run bit for bit (``gpirt_mcmc(checkpoint_path=...)``,
+``utils/checkpoint.py``), prior and posterior-predictive simulation
+(``models/generate.py``), IRF curves (``posterior_irf``), block timing
+(``profile_sweep``), and f* recovered from stored f draws
+(``recover_fstar``, ``recover_fstar_batch``); the binary
 cutpoint ESS runs in a hand-written CUDA kernel (``csrc/threshold_ess.cu``)
 on the card and in its plain PyTorch version on the CPU.
 """
@@ -20,7 +24,16 @@ from gpirt_tpu_torch.api import (
 )
 from gpirt_tpu_torch.campaigns import campaign_schedule, gpirt_campaigns
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants, make_constants
+from gpirt_tpu_torch.models.generate import (
+    posterior_predictive,
+    sample_prior_state,
+    sample_responses,
+)
 from gpirt_tpu_torch.models.gibbs import GPIRTState
+from gpirt_tpu_torch.models.sampler import memory_estimate_mb, run_chain
+from gpirt_tpu_torch.utils.checkpoint import CheckpointManager
+from gpirt_tpu_torch.utils.irf import irf_probabilities, posterior_irf
+from gpirt_tpu_torch.utils.profiling import profile_sweep
 
 __all__ = [
     "gpirt_mcmc",
@@ -33,4 +46,13 @@ __all__ = [
     "GPIRTConstants",
     "GPIRTState",
     "make_constants",
+    "run_chain",
+    "memory_estimate_mb",
+    "CheckpointManager",
+    "sample_prior_state",
+    "sample_responses",
+    "posterior_predictive",
+    "irf_probabilities",
+    "posterior_irf",
+    "profile_sweep",
 ]

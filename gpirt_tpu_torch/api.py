@@ -8,10 +8,10 @@ response function a session or one shared by all (``constant_IRF``), the
 conjugate, grid or two-stage sampler, K chains in lockstep, an optional SMC annealed
 initialization or parallel tempering, optional f / f* storage, the
 reference output layout (``gpirt_tpu/api.py:606``), an end-of-run
-convergence summary, and f* recovered from stored f draws. The host
-constants are built once per configuration, priors and device. Arguments
-the port does not cover yet (checkpointing, a device mesh) raise
-``NotImplementedError``.
+convergence summary, checkpoints that resume a run bit for bit, and f*
+recovered from stored f draws. The host constants are built once per
+configuration, priors and device. Arguments the port does not cover yet
+(a device mesh) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,9 +40,13 @@ from gpirt_tpu_torch.models.gibbs import (
     snap_indices,
     stored_fstar,
 )
-from gpirt_tpu_torch.models.sampler import run_chains
+from gpirt_tpu_torch.models.sampler import memory_estimate_mb, sample_schedule
 from gpirt_tpu_torch.parallel.smc import anneal_init
-from gpirt_tpu_torch.parallel.tempering import run_tempered_chains
+from gpirt_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    run_chains_checkpointed,
+    run_tempered_chains_checkpointed,
+)
 from gpirt_tpu_torch.utils.diagnostics import align_theta_signs, basin_clusters, summarize
 from gpirt_tpu_torch.utils.response import (
     DEFAULT_VOTE_CODES,
@@ -193,6 +197,8 @@ def gpirt_mcmc(
     swap_every: int = 1,
     smc_steps: int = 0,
     smc_max_temp: float = 64.0,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 200,
     dtype: str = "float32",
     device="cuda",
     verbose: bool = True,
@@ -236,18 +242,26 @@ def gpirt_mcmc(
     parallel-tempering group of ``n_temps`` lanes on a geometric ladder up
     to ``max_temp``, with adjacent swaps every ``swap_every`` sweeps
     (conjugate only, not with ``smc_steps``); the draws are the cold lanes'.
-    ``verbose`` prints the recode's
-    messages, the SMC line and the end-of-run convergence summary (theta
-    ESS, R-hat, basins) to stderr. The run is on the CUDA card unless
-    ``device`` says otherwise; without a card it raises.
+    ``checkpoint_path`` saves the run to ``f"{checkpoint_path}.npz"`` every
+    ``checkpoint_every`` sweeps (``utils/checkpoint.py``) and resumes it
+    from there when the file exists: the SMC initialization then does not
+    run again, and the result is bit for bit the uninterrupted call's on
+    the same device type, card and torch build.
+    ``verbose`` prints the reference's memory table, the recode's
+    messages, the SMC line, the checkpointed run's progress and the
+    end-of-run convergence summary (theta ESS, R-hat, basins) to stderr.
+    The run is on the CUDA card unless ``device`` says otherwise; without a
+    card it raises.
 
     Each dict holds theta (S, n, H), beta (S, 3, m, H), threshold
     (S, m, C+1, H) and ll (S,); f (S, n, m, H) with ``store_f`` and fstar
     (S, N, m, H), f* plus its parametric mean (session 0's under
     ``constant_IRF``), with ``store_fstar``;
     "swap_rate" (n_temps - 1,) under tempering; "respondents" / "items"
-    when the data carried labels; and "seconds", the wall time of the SMC
-    and sampling phases (device work included).
+    when the data carried labels; and "seconds", this call's wall time of
+    the SMC and sampling phases (device work included), with the
+    checkpoints' saves ("checkpoint", part of "sampling") when
+    checkpointed.
     """
     if unsupported:
         raise NotImplementedError(
@@ -295,6 +309,10 @@ def gpirt_mcmc(
                          f_method=f_method, fstar_method=fstar_method)
     consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
                                theta_prior_means, theta_prior_sds)
+    if verbose:
+        _print_memory_estimate(n, m, H, C, sample_schedule(
+            sample_iterations, burn_iterations, THIN).n_samples, sample_iterations,
+            grid_size, store_f, store_fstar)
 
     # per-chain theta inits ~ N(prior mean, prior sd), copied across sessions
     inits = []
@@ -322,9 +340,10 @@ def gpirt_mcmc(
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
 
+    mgr = None if checkpoint_path is None else CheckpointManager(f"{checkpoint_path}.npz")
     t0 = time.perf_counter()
     states = None
-    if smc_steps > 0:
+    if smc_steps > 0 and (mgr is None or not mgr.exists()):  # a resume does not anneal
         states, info = anneal_init(gen, yt, th_inits, thr_init, consts, config,
                                    n_steps=smc_steps, max_temp=smc_max_temp)
         if verbose:
@@ -335,17 +354,21 @@ def gpirt_mcmc(
     t1 = time.perf_counter()
     run = dict(sample_iterations=sample_iterations, burn_iterations=burn_iterations,
                thin=THIN, store_f=store_f, store_fstar=store_fstar)
+    # without a manager the drivers run as run_chains / run_tempered_chains
+    run.update(manager=mgr, checkpoint_every=checkpoint_every,
+               on_progress=_print_progress if verbose else None)
     if n_temps > 1:
-        draws = run_tempered_chains(gen, yt, th_inits, thr_init, consts, config,
-                                    n_temps=n_temps, max_temp=max_temp,
-                                    swap_every=swap_every, **run)
+        host = run_tempered_chains_checkpointed(
+            gen, yt, th_inits, thr_init, consts, config, n_temps=n_temps,
+            max_temp=max_temp, swap_every=swap_every, **run)
     else:
-        draws = run_chains(gen, yt, th_inits, thr_init, consts, config,
-                           initial_states=states, **run)
-    _sync(device)
+        host = run_chains_checkpointed(gen, yt, th_inits, thr_init, consts, config,
+                                       initial_states=states, **run)
     t2 = time.perf_counter()
-    host = {k: v.cpu().numpy() for k, v in draws.items()}
     swap_rate = host.pop("swap_rate", None)
+    seconds = {"smc": t1 - t0, "sampling": t2 - t1}
+    if mgr is not None:
+        seconds["checkpoint"] = mgr.seconds
     out = []
     for c in range(CHAIN):
         d = _to_reference_layout({k: v[c] for k, v in host.items()})
@@ -355,11 +378,40 @@ def gpirt_mcmc(
             d["respondents"] = list(row_names)
         if col_names is not None:
             d["items"] = list(col_names)
-        d["seconds"] = {"smc": t1 - t0, "sampling": t2 - t1}
+        d["seconds"] = dict(seconds)
         out.append(d)
     if verbose and CHAIN > 1 and out[0]["theta"].shape[0] >= 8:
         _print_convergence_summary(out)
     return out
+
+
+def _print_progress(done: int, total: int) -> None:
+    print(f"[gpirt] {done}/{total} iterations ({100.0 * done / total:.0f}%)",
+          file=sys.stderr)
+
+
+def _print_memory_estimate(n, m, H, C, n_samples, sample_iterations, grid_size,
+                           store_f, store_fstar) -> None:
+    """The reference's memory table on stderr, in ``gpirt_tpu/api.py:626``'s
+    words (src/gpirtMCMC.cpp:60-82)."""
+    est = memory_estimate_mb(n, m, H, C, n_samples, grid_size, store_f, store_fstar)
+    e = sys.stderr
+    print("\n=== MEMORY ESTIMATE ===", file=e)
+    print(f"Samples to store: {n_samples} (thinned from {sample_iterations})", file=e)
+    print(f"Theta samples:     {est['theta']:.3f} MB", file=e)
+    print(f"Beta samples:      {est['beta']:.3f} MB", file=e)
+    print(f"F samples:         {est['f']:.3f} MB "
+          f"({'ENABLED' if store_f else 'DISABLED - will skip'})", file=e)
+    print(f"Fstar samples:     {est['fstar']:.3f} MB "
+          f"({'ENABLED' if store_fstar else 'DISABLED - will skip'})", file=e)
+    print(f"Threshold samples: {est['threshold']:.3f} MB", file=e)
+    print(f"TOTAL ESTIMATED:   {est['total']:.3f} MB ({est['total']/1024:.3f} GB)", file=e)
+    if est["total"] > 10000:
+        print("\nWARNING: Estimated memory usage exceeds 10 GB!", file=e)
+        print("Consider: (1) Increase THIN parameter, (2) Reduce sample_iterations",
+              file=e)
+        print("          (3) Set store_f=False, (4) Set store_fstar=False\n", file=e)
+    print("========================\n", file=e)
 
 
 def _print_convergence_summary(chains) -> None:

@@ -30,14 +30,26 @@ from gpirt_tpu_torch.models.gibbs import (
     gibbs_sweep,
     init_draws,
     init_state,
-    stored_fstar,
     sweep_draws,
-    theta_from_indices,
 )
-from gpirt_tpu_torch.models.sampler import sample_schedule
+from gpirt_tpu_torch.models.sampler import (
+    Carry,
+    SampleSchedule,
+    advance,
+    draw_record,
+    run_length,
+    sample_schedule,
+)
 from gpirt_tpu_torch.parallel.smc import _lane_ll, _take
 
-__all__ = ["temperature_ladder", "run_tempered_chains"]
+__all__ = [
+    "temperature_ladder",
+    "lane_temperatures",
+    "tempered_lanes",
+    "advance_tempered",
+    "swap_rate",
+    "run_tempered_chains",
+]
 
 
 def temperature_ladder(n_temps: int, max_temp: float) -> np.ndarray:
@@ -82,23 +94,69 @@ def _tempered_sweep(states: GPIRTState, draws, u, i: int, temps, swap_every: int
     return _swap(states, ll, temps, u, i // swap_every, L, y, consts)
 
 
-def _cold_record(states: GPIRTState, ll, L: int, consts: GPIRTConstants,
-                 config: GPIRTConfig, store_f: bool,
-                 store_fstar: bool) -> Dict[str, torch.Tensor]:
-    """The cold lanes' (l = 0) record of one draw: (G, ...) each; f* as
-    :func:`stored_fstar` stores it (``gpirt_tpu/parallel/tempering.py:193``)."""
-    cold = GPIRTState(*(a[::L] for a in states))
-    out = {
-        "theta": theta_from_indices(cold.theta_idx, consts),
-        "beta": cold.beta,
-        "threshold": cold.thresholds,
-        "ll": ll[::L],
-    }
-    if store_f:
-        out["f"] = cold.f
-    if store_fstar:
-        out["fstar"] = stored_fstar(cold.fstar, cold.beta, consts, config)
-    return out
+def lane_temperatures(G: int, n_temps: int, max_temp: float,
+                      consts: GPIRTConstants, config: GPIRTConfig) -> torch.Tensor:
+    """(G L,) temperatures, group-major: lane l of every group at the
+    ladder's temps[l]."""
+    return torch.as_tensor(np.tile(temperature_ladder(int(n_temps), max_temp), G),
+                           dtype=config.tdtype, device=consts.grid.device)
+
+
+def tempered_lanes(gen: torch.Generator, theta_init: torch.Tensor,
+                   thresholds_init: torch.Tensor, consts: GPIRTConstants,
+                   config: GPIRTConfig, n_temps: int) -> GPIRTState:
+    """The G L lanes' initial states, each group's L lanes from its init
+    (``theta_init`` (G, H, n)), their draws from ``gen``."""
+    if config.resolved_f_method != "conjugate":
+        raise NotImplementedError("parallel tempering needs f_method='conjugate'")
+    K = theta_init.shape[0] * int(n_temps)
+    return init_state(theta_init.repeat_interleave(int(n_temps), dim=0), thresholds_init,
+                      consts, config, init_draws(gen, K, consts, config))
+
+
+def advance_tempered(gen: torch.Generator, carry: Carry, accepted: torch.Tensor,
+                     y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
+                     temps: torch.Tensor, n_temps: int, swap_every: int,
+                     sched: SampleSchedule, start: int, stop: int, *,
+                     store_f: bool = False, store_fstar: bool = False):
+    """The tempered sweeps ``[start, stop)`` of the G L lanes in ``carry``
+    (:func:`~gpirt_tpu_torch.models.sampler.advance`): sweep ``it`` draws
+    its numbers, then its swap phase's (G L,) uniforms when ``it %
+    swap_every == 0``, from ``gen``. ``accepted`` (G L,) int64 tallies the
+    accepted swaps at each pair's lower lane. Returns (accepted, the cold
+    lanes' stored draws {name: (G, s, ...)})."""
+    K, L = accepted.shape[0], int(n_temps)
+    dt = config.tdtype
+
+    def sweep(states, it):
+        nonlocal accepted
+        draws = sweep_draws(gen, K, consts, config, it)
+        u = None
+        if L > 1 and swap_every > 0 and it % swap_every == 0:
+            u = torch.rand(K, generator=gen, device=accepted.device, dtype=dt)
+        states, ll, a = _tempered_sweep(states, draws, u, it, temps, swap_every, L, y,
+                                        consts, config)
+        accepted = accepted + a
+        return states, ll
+
+    def record(states, ll):
+        cold = GPIRTState(*(a[::L] for a in states))
+        return draw_record(cold, ll[::L], consts, config, store_f, store_fstar)
+
+    out = advance(sweep, record, carry, sched, start, stop)
+    return accepted, out
+
+
+def swap_rate(accepted, n_temps: int, sweeps: int, swap_every: int) -> np.ndarray:
+    """(L - 1,) mean acceptance of the adjacent swaps by rung from the
+    (G L,) tally after ``sweeps`` sweeps: rung l's pair is proposed on every
+    phase of parity l % 2, half the phases."""
+    L = int(n_temps)
+    acc = np.asarray(accepted, np.float64)
+    per_lane = acc.reshape(-1, L).mean(axis=0)
+    n_phases = max(sweeps // max(swap_every, 1), 1)
+    rung = per_lane[: max(L - 1, 1)] / max(n_phases / 2.0, 1.0)
+    return np.clip(rung, 0.0, 1.0)
 
 
 def run_tempered_chains(
@@ -130,49 +188,16 @@ def run_tempered_chains(
     ``run_chains`` draws. A draw is recorded as ``run_chains`` records it;
     after the last one no further sweep runs.
     """
-    if config.resolved_f_method != "conjugate":
-        raise NotImplementedError("parallel tempering needs f_method='conjugate'")
-    G, L = theta_init.shape[0], int(n_temps)
-    K = G * L
-    dt, dev = config.tdtype, consts.grid.device
-    temps = torch.as_tensor(np.tile(temperature_ladder(L, max_temp), G), dtype=dt,
-                            device=dev)
+    carry = Carry(tempered_lanes(gen, theta_init, thresholds_init, consts, config,
+                                 n_temps))
+    temps = lane_temperatures(theta_init.shape[0], n_temps, max_temp, consts, config)
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
-    states = init_state(theta_init.repeat_interleave(L, dim=0), thresholds_init,
-                        consts, config, init_draws(gen, K, consts, config))
-    accepted = torch.zeros(K, dtype=torch.int64, device=dev)
-    sweeps = 0
-
-    def sweep(states):
-        nonlocal accepted, sweeps
-        draws = sweep_draws(gen, K, consts, config, sweeps)
-        u = None
-        if L > 1 and swap_every > 0 and sweeps % swap_every == 0:
-            u = torch.rand(K, generator=gen, device=dev, dtype=dt)
-        states, ll, acc = _tempered_sweep(states, draws, u, sweeps, temps, swap_every,
-                                          L, y, consts, config)
-        accepted = accepted + acc
-        sweeps += 1
-        return states, ll
-
-    for _ in range(sched.pre_iterations):
-        states, _ = sweep(states)
-    S = sched.n_samples
-    records: Dict[str, torch.Tensor] = {}
-    for s in range(S):
-        states, ll = sweep(states)
-        for k, v in _cold_record(states, ll, L, consts, config, store_f,
-                                         store_fstar).items():
-            if k not in records:
-                records[k] = torch.empty((S,) + tuple(v.shape), dtype=v.dtype, device=dev)
-            records[k][s] = v
-        if s < S - 1:
-            for _ in range(thin - 1):
-                states, _ = sweep(states)
-    out = {k: v.transpose(0, 1) for k, v in records.items()}
-    # rung l's pair is proposed on every phase of parity l % 2: half the phases
-    per_lane = accepted.reshape(G, L).double().mean(dim=0).cpu().numpy()
-    n_phases = max(sweeps // max(swap_every, 1), 1)
-    rung = per_lane[: max(L - 1, 1)] / max(n_phases / 2.0, 1.0)
-    out["swap_rate"] = torch.as_tensor(np.clip(rung, 0.0, 1.0), device=dev)
+    sweeps = run_length(sched, trailing=False)
+    accepted = torch.zeros(temps.shape[0], dtype=torch.int64, device=temps.device)
+    accepted, out = advance_tempered(gen, carry, accepted, y, consts, config, temps,
+                                     n_temps, swap_every, sched, 0, sweeps,
+                                     store_f=store_f, store_fstar=store_fstar)
+    out["swap_rate"] = torch.as_tensor(
+        swap_rate(accepted.cpu().numpy(), n_temps, sweeps, swap_every),
+        device=temps.device)
     return out

@@ -1,0 +1,82 @@
+"""The main path (senate116 through gpirt_mcmc: 64 chains, float32, 320 SMC
+steps from T = 64, burn 100, 500 draws) with this checkout's
+gpirt_tpu_torch against another tree's, on one CUDA card, in turns.
+
+    python3 scripts/torch_main_path_ab.py --other DIR [--rounds 2]
+
+DIR is the root of another checkout (for example a parent commit unpacked
+with ``git archive`` into a gitignored directory). Each run is a process of
+its own that imports the package from one root only and builds its kernel
+there; the order is other, this, this, other, repeated ``--rounds`` times.
+Prints the card's name and power limit, each run's SMC and sampling
+sweeps a second and the sha256 of its draws (theta, beta, threshold, ll,
+chain by chain), then one JSON line: the medians, the spread of each
+side's sampling rate, and whether every run drew the same.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# One run, in a process whose sys.path starts at the root given as argv[1].
+RUN = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from gpirt_tpu_torch import gpirt_mcmc
+from gpirt_tpu_torch.parallel.smc import WARM_STEPS
+from gpirt_tpu_torch.utils.datasets import senate116_response_matrix
+
+rm, _, _ = senate116_response_matrix()
+out = gpirt_mcmc(rm, 500, 100, CHAIN=64, SEED=1, smc_steps=320, smc_max_temp=64.0,
+                 dtype="float32", device="cuda", verbose=False)
+h = hashlib.sha256()
+for d in out:
+    for k in ("theta", "beta", "threshold", "ll"):
+        h.update(np.ascontiguousarray(d[k]).tobytes())
+s = out[0]["seconds"]
+print(json.dumps({"sha256": h.hexdigest(), "smc_sweeps_per_s": (WARM_STEPS + 319) / s["smc"],
+                  "sampling_sweeps_per_s": 600 / s["sampling"]}))
+"""
+
+
+def run(root):
+    proc = subprocess.run([sys.executable, "-c", RUN, os.path.abspath(root)],
+                          capture_output=True, text=True, check=True, timeout=900)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=2)
+    opt = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    runs = {"other": [], "this": []}
+    for _ in range(opt.rounds):
+        for side in ("other", "this", "this", "other"):
+            r = run(opt.other if side == "other" else HERE)
+            runs[side].append(r)
+            print(f"{side}: sampling {r['sampling_sweeps_per_s']:.3f} sweeps/s, SMC "
+                  f"{r['smc_sweeps_per_s']:.3f} sweeps/s, sha256 {r['sha256']}", flush=True)
+    summary = {"card": smi}
+    for side, rs in runs.items():
+        rates = [r["sampling_sweeps_per_s"] for r in rs]
+        summary[side] = {"sampling_median": statistics.median(rates),
+                         "sampling_min": min(rates), "sampling_max": max(rates),
+                         "smc_median": statistics.median(r["smc_sweeps_per_s"] for r in rs)}
+    summary["same_draws"] = len({r["sha256"] for rs in runs.values() for r in rs}) == 1
+    print(json.dumps(summary))
+    return 0 if summary["same_draws"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,11 @@
 """What chip_smoke.py computes without a card: the round count that its
 kernel bound rests on, its refusal to run without CUDA, and the inputs and
 setup of its sweep checks (the shared-IRF ones too) and of the synthetic
-path at a reduced size."""
+path, and the checkpoint, profiling and utility phases, at a reduced
+size."""
+
+import glob
+import os
 
 import numpy as np
 import pytest
@@ -212,8 +216,8 @@ def test_tempering_path_at_reduced_size(capsys):
     """Phase 19 on the CPU with 2 groups of 4 temperatures: one call of the
     kernel's wrapper a sweep, each with 4 distinct c values, swap rates by
     rung; the plain version runs, so no launch is counted."""
-    launches, args, c = chip_smoke.tempering_path(_small_votes(), torch.device("cpu"),
-                                                  "cpu", chains=2, burn=2, draws=8)
+    launches, args, c, _ = chip_smoke.tempering_path(_small_votes(), torch.device("cpu"),
+                                                     "cpu", chains=2, burn=2, draws=8)
     assert launches == 0
     assert c.shape == (8,) and torch.unique(c).numel() == 4
     assert tuple(args[0].shape) == (8, 1, 20, 8)
@@ -328,3 +332,57 @@ def test_new_paths_at_reduced_size(capsys):
     assert launches == 0 and ess_ratio > 0 and wall_ratio > 0
     text = capsys.readouterr().out
     assert "theta ESS rounds" in text and "orbit accept rate" in text
+
+
+def test_checkpointed_main_path_and_profile_at_reduced_size(capsys):
+    """Phases 31 and 34 on the CPU at 2 chains, SMC 3 steps, burn 2 and 6
+    draws, a checkpoint every 2 sweeps, interrupted at 2 draws: both
+    checkpointed calls hash to the plain call's draws (a wrong hash fails
+    the phase), and profile_sweep at the last checkpoint's state returns
+    every block's time; the plain version runs, so no launch is counted."""
+    rm, cpu = _small_votes(), torch.device("cpu")
+    small = dict(chains=2, burn=2, draws=6, smc_steps=3)
+    want = chip_smoke.draws_sha256(chip_smoke.main_call(rm, cpu, verbose=False, **small))
+    launches, state, res = chip_smoke.checkpointed_main_path(rm, cpu, "cpu", want, 1.0,
+                                                             cut=2, every=2, **small)
+    assert launches == 0 and res["saves"] == 4 and res["bytes_last"] > 0
+    assert res["save_s"] > 0 and tuple(state.f.shape) == (2, 1, 20, 8)
+    assert "SMC once" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="sha256"):
+        chip_smoke.checkpointed_main_path(rm, cpu, "cpu", "0" * 64, 1.0, cut=2, every=2,
+                                          **small)
+    out = chip_smoke.main_state_profile(rm, cpu, state, reps=2)
+    assert list(out) == ["full_sweep", "draw_f", "draw_fstar", "draw_theta", "draw_beta",
+                         "draw_threshold"]
+    assert all(v > 0 for v in out.values())
+
+
+def test_checkpointed_tempering_at_reduced_size(capsys):
+    """Phase 32 on the CPU: 2 groups of 4 temperatures interrupted after the
+    burn and one chunk, resumed, hash to phase 19's draws and swap rates."""
+    rm, cpu = _small_votes(), torch.device("cpu")
+    small = dict(chains=2, burn=2, draws=6)
+    *_, want = chip_smoke.tempering_path(rm, cpu, "cpu", **small)
+    assert chip_smoke.checkpointed_tempering(rm, cpu, "cpu", want, every=2, **small) == 0
+    assert "sha256 = phase 19's" in capsys.readouterr().out
+
+
+def test_synthetic_checkpoint_at_reduced_size(capsys):
+    """Phase 33 at n = 300, m = 40 and 2 chains: one save and one load,
+    equal bit for bit, and no file left behind."""
+    cpu = torch.device("cpu")
+    inputs = chip_smoke.synthetic_inputs(cpu, n=300, m=40, K=2)
+    save_s, load_s, size = chip_smoke.synthetic_checkpoint(cpu, "cpu", inputs)
+    assert save_s > 0 and load_s > 0
+    assert size > 4 * (2 * 300 * 40 + 2 * 1001 * 40)  # f and f* in float32
+    assert glob.glob(os.path.join(chip_smoke.HERE, ".chip_smoke_ck_*")) == []
+    assert "equal bit for bit" in capsys.readouterr().out
+
+
+def test_utilities_phase_at_reduced_size(capsys):
+    """Phase 35 at 2 chains: posterior_irf rows sum to 1, the posterior
+    predictive's replicates are in range and agree with most votes."""
+    agree = chip_smoke.utilities_phase(_small_votes(), torch.device("cpu"), "cpu",
+                                       chains=2, burn=30, draws=4, thin=2)
+    assert 0.6 < agree <= 1.0
+    assert "posterior_predictive of 2 x 2 draws" in capsys.readouterr().out

@@ -7,9 +7,11 @@ two-stage sampler with f* by both methods, and the grid sampler with one
 IRF shared by the sessions and without, the ESS theta update in the three
 regimes, the affine moves untempered and with one temperature a chain);
 the kernel at the pooled constant_IRF layout (on its register and tile
-paths) and the path it takes by n; and gpirt_mcmc (tempered too),
+paths) and the path it takes by n; gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
-default.
+default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
+(SMC-initialised and tempered), and refused on the CPU; and profile_sweep
+timing with CUDA events.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -430,3 +432,63 @@ def test_option_sweep_on_card_matches_cpu(cuda_device, label):
     (inputs, temp, it), = [(i, t, k) for name, i, t, k in chip_smoke.OPTION_CHECKS
                            if name == label]
     chip_smoke.option_check(cuda_device, label, inputs, temp, it)
+
+
+def _votes(seed=3, n=20, m=12):
+    rng = np.random.default_rng(seed)
+    p = 1 / (1 + np.exp(-np.outer(np.linspace(-2, 2, n), rng.standard_normal(m) * 2)))
+    return np.where(rng.random((n, m)) < p, 1.0, 6.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [dict(smc_steps=4, smc_max_temp=8.0),
+                                     dict(n_temps=3, max_temp=4.0)])
+def test_gpirt_mcmc_resumes_bitwise_on_the_card(cuda_device, tmp_path, variant):
+    """An interrupted and resumed checkpointed call on the card returns the
+    plain call's chain dicts bit for bit, one kernel launch a sweep over
+    the pair; the checkpoint does not resume on the CPU (the generator's
+    state belongs to its device type)."""
+    votes = _votes()
+    kw = dict(CHAIN=4, SEED=3, verbose=False, **variant)
+    want = gpirt_mcmc(votes, 6, 4, **kw)
+    ck = dict(kw, checkpoint_path=str(tmp_path / "run"), checkpoint_every=3)
+    before = binary_threshold_ess.launches
+    gpirt_mcmc(votes, 2, 4, **ck)
+    got = gpirt_mcmc(votes, 6, 4, **ck)
+    if "n_temps" in variant:  # the SMC steps launch the kernel too
+        assert binary_threshold_ess.launches - before == 10
+    for d_got, d_want in zip(got, want):
+        for k in d_want:
+            if k != "seconds":
+                np.testing.assert_array_equal(d_got[k], d_want[k], err_msg=k)
+    with pytest.raises(ValueError, match="rng_device: checkpoint='cuda' vs requested='cpu'"):
+        gpirt_mcmc(votes, 6, 4, **dict(ck, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_profile_sweep_times_with_cuda_events(cuda_device, monkeypatch):
+    from gpirt_tpu_torch.models.config import GPIRTConfig
+    from gpirt_tpu_torch.utils.profiling import profile_sweep
+
+    made = []
+    event = torch.cuda.Event
+
+    def counted(*args, **kwargs):
+        made.append(1)
+        return event(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    y = torch.as_tensor(np.where(_votes() == 1.0, 2, 1).astype(np.int32)[None],
+                        device=cuda_device)
+    cfg = GPIRTConfig(n=20, m=12, dtype="float32", jitter=1e-5)
+    consts = make_constants(cfg, np.zeros((3, 12)), np.full((3, 12), 3.0),
+                            np.zeros((2, 20)), np.zeros((2, 20)), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ti = torch.zeros((4, 1, 20), device=cuda_device)
+    thr = torch.as_tensor(np.tile([-np.inf, 0.0, np.inf], (1, 12, 1)), dtype=torch.float32,
+                          device=cuda_device)
+    state = gibbs.init_state(ti, thr, consts, cfg, gibbs.init_draws(gen, 4, consts, cfg))
+    out = profile_sweep(state, gibbs.sweep_draws(gen, 4, consts, cfg), y, consts, cfg,
+                        reps=3)
+    assert len(out) == 6 and all(np.isfinite(v) and v > 0 for v in out.values()), out
+    assert len(made) == 6 * 2 * 2 * 2  # six blocks, two counts, two runs, two events
