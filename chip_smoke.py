@@ -165,7 +165,22 @@ Phases, each of which stops the run with a non-zero exit on failure:
  35. utilities: a short run of phase 5's data with f and f* stored,
      posterior_irf of one chain (rows summing to 1) and
      posterior_predictive of every chain's draws on the card (in range,
-     and its agreement with the observed votes).
+     and its agreement with the observed votes);
+ 36. walkthrough: examples/torch_senate116_walkthrough.py's main() at its
+     defaults (senate116, 4 chains, burn 500, 2000 draws, SEED 1119), one
+     kernel launch a sweep (2500), then phase 6 at its last sweep's state
+     (1,672 lanes) and its sign-aligned theta_hat against the JAX run's of
+     the same call (tests/fixtures/examples_jax.npz, from
+     scripts/jax_examples_fixture.py): |r| >= 0.95; prints JAX's own r
+     between two seeds, the ESS and R-hat beside JAX's, the wall and the
+     sweeps/s;
+ 37. SDO example: examples/torch_sdo_ordinal.py's main() at its defaults
+     (1500 x 16, C = 5, one chain, burn 300, 1000 draws, f* stored): no
+     kernel launch, finite output, every item's cutpoints increasing and
+     moved off qnorm(i/5); its one chain's basin depends on the seed (in
+     JAX too), so its theta means are held at |r| >= 0.95 against the JAX
+     run, of 16 seeds, in the same basin; prints item 1's cutpoints and IRF
+     values beside that run's.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -176,6 +191,7 @@ nvidia-smi reports it, and {"ok": true, "device": {...}}.
 
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -259,6 +275,12 @@ CAMPAIGN_FIXTURE = os.path.join(HERE, "tests", "fixtures", "campaigns8_senate116
 # short run with f and f* stored (4 draws of 64 chains: f* 428 MB on the host)
 CK_EVERY, CK_CUT, PROFILE_REPS = 100, 200, 10
 UT_BURN, UT_DRAWS, UT_THIN = 20, 8, 2
+# phases 36-37: the port's examples at their defaults (the walkthrough's
+# burn + draws sweeps at 4 chains; the SDO example one chain), held to
+# |r| >= EXAMPLE_MIN_R (scripts/cross_parity.py's bar) against a JAX run of
+# the same calls (scripts/jax_examples_fixture.py)
+WALK_SWEEPS, SDO_EX_SWEEPS, EXAMPLE_MIN_R = 500 + 2000, 300 + 1000, 0.95
+EXAMPLES_FIXTURE = os.path.join(HERE, "tests", "fixtures", "examples_jax.npz")
 # per-chain temperatures of the tempered sweep check's 3 chains
 SWEEP_TEMPS = (1.0, 4.0, 16.0)
 # The posterior Cholesky of f* in float32 needs a nugget above the rounding
@@ -2132,6 +2154,132 @@ def utilities_phase(rm, dev, smi, chains=K, burn=UT_BURN, draws=UT_DRAWS, thin=U
     return agree
 
 
+def load_example(name):
+    """The module ``examples/<name>.py`` of this checkout."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def signed_r(a, ref):
+    """Pearson r of posterior means ``a`` with ``ref`` after aligning a's
+    sign to ref's (the reflection theta -> -theta)."""
+    aligned = align_theta_signs(np.asarray(a)[None], reference=ref)[0]
+    return float(np.corrcoef(aligned, ref)[0, 1])
+
+
+def example_r(port, jax_ref, label, min_r=EXAMPLE_MIN_R):
+    """:func:`signed_r` of the port's posterior means ``port`` with the JAX
+    run's ``jax_ref``; fails below ``min_r``."""
+    r = signed_r(port, jax_ref)
+    check(np.isfinite(r) and r >= min_r,
+          f"{label}: posterior means correlate with JAX's at r = {r:.5f} < {min_r}")
+    return r
+
+
+def walkthrough_phase(dev, smi, argv=(), sweeps=WALK_SWEEPS):
+    """Phase 36: examples/torch_senate116_walkthrough.py's main() with
+    ``argv`` (its defaults when empty) on ``dev``, one kernel launch a sweep
+    on the card. Returns its result, the launches and the kernel's inputs
+    at the last sweep."""
+    walk = load_example("torch_senate116_walkthrough")
+    threshold_ess.binary_threshold_ess.launches = 0
+    out, args = observe_kernel(lambda: walk.main([*argv, "--device", dev.type]))
+    launches = threshold_ess.binary_threshold_ess.launches
+    check(launches == (sweeps if dev.type == "cuda" else 0),
+          f"walkthrough: {launches} kernel launches for {sweeps} sweeps")
+    K, n = out["chain_means"].shape
+    check(out["theta_hat"].shape == (n,) and np.isfinite(out["theta_hat"]).all(),
+          "walkthrough theta_hat not finite")
+    check(np.isfinite(out["ess_within"]) and out["ess_within"] > 0,
+          "walkthrough theta ESS not positive")
+    log(f"walkthrough on {smi}: {K} chains x {n} senators, {sweeps} sweeps in "
+        f"{out['seconds']:.3f} s ({sweeps / out['seconds']:.2f} sweeps/s, the whole "
+        f"gpirt_mcmc call); {launches} kernel launches")
+    return out, launches, args
+
+
+def walkthrough_agreement(out, fixture=EXAMPLES_FIXTURE):
+    """Phase 36's gate: the walkthrough's sign-aligned theta_hat against the
+    JAX run's (same call, same seed) at |r| >= EXAMPLE_MIN_R; prints JAX's
+    own r between two seeds, each chain's r, and the ESS and R-hat beside
+    JAX's. Returns r."""
+    with np.load(fixture) as f:
+        jx = {k: f[k] for k in f.files}
+    check(np.array_equal(out["senators"], jx["walk_senators"]), "walkthrough senators")
+    chain_r = [signed_r(c, jx["walk_theta_hat"]) for c in out["chain_means"]]
+    log(f"walkthrough against JAX (SEED {int(jx['walk_seed'])}): each chain's r "
+        f"{', '.join(f'{r:.5f}' for r in chain_r)}; JAX's own r between SEED "
+        f"{int(jx['walk_seed'])} and {int(jx['other_seed'])} {float(jx['walk_r_seeds']):.5f}; "
+        f"ESS pooled {out['ess_pooled']:.1f} (JAX {float(jx['walk_ess_pooled']):.1f}), "
+        f"within-chain {out['ess_within']:.1f} (JAX {float(jx['walk_ess_within']):.1f}); "
+        f"R-hat max {out['rhat_max']:.3f} (JAX {float(jx['walk_rhat_max']):.3f}); JAX's "
+        f"call {float(jx['walk_seconds']):.1f} s on the CPU")
+    r = example_r(out["theta_hat"], jx["walk_theta_hat"], "walkthrough")
+    log(f"walkthrough theta_hat against JAX's: r {r:.5f} (gate {EXAMPLE_MIN_R})")
+    return r
+
+
+def sdo_example_phase(dev, smi, argv=(), sweeps=SDO_EX_SWEEPS):
+    """Phase 37: examples/torch_sdo_ordinal.py's main() with ``argv`` (its
+    defaults when empty) on ``dev``: no kernel launch (C = 5), and the
+    examples' healthy output: finite ll, cutpoints, IRF values
+    and theta means, every item's cutpoints increasing and moved off their
+    qnorm(i/C) initial values. Returns its result."""
+    sdo = load_example("torch_sdo_ordinal")
+    threshold_ess.binary_threshold_ess.launches = 0
+    out = sdo.main([*argv, "--device", dev.type])
+    launches = threshold_ess.binary_threshold_ess.launches
+    check(launches == 0, f"SDO example: {launches} binary kernel launches")
+    cut = out["cutpoints"]
+    m, C = cut.shape[0], cut.shape[1] + 1
+    for k in ("cutpoints", "irf", "theta_mean", "ll"):
+        check(bool(np.isfinite(out[k]).all()), f"SDO example {k} not finite")
+    check(bool((np.diff(cut, axis=-1) > 0).all()), "SDO example cutpoints not increasing")
+    qn = default_thresholds(C, m, 1)[0, :, 1:C]
+    check(np.mean(cut != qn) > 0.99, "SDO example cutpoints did not move off qnorm(i/C)")
+    log(f"SDO example on {smi}: {out['theta_mean'].size} x {m}, C={C}, one chain, "
+        f"{sweeps} sweeps in {out['seconds']:.3f} s ({sweeps / out['seconds']:.2f} "
+        f"sweeps/s, the whole gpirt_mcmc call, f* stored); binary kernel launches 0")
+    return out
+
+
+def sdo_example_agreement(out, fixture=EXAMPLES_FIXTURE):
+    """Phase 37's gate. The SDO example's one chain settles in a basin that
+    depends on its seed, in the JAX package too (the fixture's runs at R
+    seeds), so its theta means are held to |r| >= EXAMPLE_MIN_R against the
+    JAX run in the same basin, the one they correlate with best; prints how
+    many of JAX's runs share that basin, JAX's SEED 1 r with its second
+    seed, and item 1's cutpoints and IRF values and the mean ll beside that
+    run's. Returns r."""
+    with np.load(fixture) as f:
+        jx = {k: f[k] for k in f.files}
+    means = jx["sdo_theta_means"]
+    rs = [signed_r(out["theta_mean"], ref) for ref in means]
+    j = int(np.argmax(rs))
+    basin = sum(signed_r(ref, means[j]) >= EXAMPLE_MIN_R for ref in means)
+
+    def fmt(a):
+        return np.array2string(np.asarray(a), precision=3, suppress_small=True)
+
+    log(f"SDO example against JAX's {len(means)} runs (SEEDs "
+        f"{', '.join(str(int(s)) for s in jx['sdo_seeds'])}): r "
+        f"{', '.join(f'{r:.5f}' for r in rs)}; the best, SEED {int(jx['sdo_seeds'][j])}, "
+        f"shares its basin with {basin} of JAX's {len(means)} runs; JAX's own r between "
+        f"SEED {int(jx['sdo_seed'])} and {int(jx['other_seed'])} "
+        f"{float(jx['sdo_r_seeds']):.5f}; item 1's cutpoints {fmt(out['cutpoints'][0])} "
+        f"(JAX {fmt(jx['sdo_cutpoints'][j])}); IRF at theta = -2, 0, +2 {fmt(out['irf'])} "
+        f"(JAX {fmt(jx['sdo_irf'][j])}); mean ll {float(np.mean(out['ll'])):.1f} (JAX "
+        f"{float(jx['sdo_ll_mean'][j]):.1f}); JAX's call {float(jx['sdo_seconds']):.1f} s "
+        f"on the CPU")
+    r = example_r(out["theta_mean"], means[j], "SDO example")
+    log(f"SDO example theta means against JAX's in the same basin: r {r:.5f} "
+        f"(gate {EXAMPLE_MIN_R})")
+    return r
+
+
 def timed(label, fn, *args):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
@@ -2278,6 +2426,21 @@ def main():
     del main_state
     timed("35 (utilities)", utilities_phase, rm, dev, smi)
 
+    walk, walk_launches, walk_args = timed("36 (walkthrough example)", walkthrough_phase,
+                                           dev, smi)
+    t = time.perf_counter()
+    walk_worst, walk_flipped = kernel_check(walk_args, "walkthrough state")
+    walk_ms, walk_eager, walk_plain = kernel_times(walk_args, _C)
+    walk_work = kernel_bound(walk_args, _C, "walkthrough state")
+    walk_plan = plan_label(threshold_ess.launch_plan(walk_args[0].shape[2]))
+    log(f"kernel time, walkthrough state ({walk_args[2].numel()} lanes of "
+        f"{walk_args[0].shape[2]} sites), T=1: {walk_plan}; {walk_ms:.5f} ms (graph), {walk_eager:.5f} ms (eager), plain {walk_plain:.4f} ms")
+    walk_r = walkthrough_agreement(walk)
+    log(f"phase 36 (kernel check and agreement): {time.perf_counter() - t:.2f} s wall")
+    worst, flipped = max(worst, walk_worst), flipped + walk_flipped
+    sdo_ex = timed("37 (SDO example)", sdo_example_phase, dev, smi)
+    sdo_r = timed("37 (SDO agreement)", sdo_example_agreement, sdo_ex)
+
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
         "route": "cuda",
@@ -2379,6 +2542,19 @@ def main():
         "synthetic_checkpoint_load_s": syn_ck[1],
         "synthetic_checkpoint_bytes": syn_ck[2],
         "profile_sweep_ms": {k: 1e3 * v for k, v in prof.items()},
+        "launches_walkthrough": walk_launches,
+        "max_abs_err_walkthrough": walk_worst,
+        "lanes_over_1e-5_walkthrough": walk_flipped,
+        "ms_walkthrough_state": walk_ms,
+        "ms_eager_walkthrough_state": walk_eager,
+        "plain_ms_walkthrough_state": walk_plain,
+        "bound_ms_walkthrough_state": walk_work["bound_ms"],
+        "bound_by_walkthrough_state": walk_work["bound_by"],
+        "path_walkthrough_state": walk_plan,
+        "walkthrough_sweeps_per_s": WALK_SWEEPS / walk["seconds"],
+        "walkthrough_r": walk_r,
+        "sdo_example_sweeps_per_s": SDO_EX_SWEEPS / sdo_ex["seconds"],
+        "sdo_r": sdo_r,
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

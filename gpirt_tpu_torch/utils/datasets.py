@@ -1,10 +1,17 @@
-"""Bundled datasets: senate116 roll calls and the SDO survey (the ``.npz``
-archives under ``data/``).
+"""Bundled datasets: senate116 roll calls and the SDO ordinal survey.
 
-Counterpart of ``gpirt_tpu/utils/datasets.py`` for the port's paths: only
-the vendored ``.npz`` branches of :func:`load_senate116` and
-:func:`load_sdo`, the vignette spread into a response matrix, and the two
-simulators, :func:`simulate_2pl` and :func:`simulate_dynamic`.
+Counterpart of ``gpirt_tpu/utils/datasets.py``, with its search order:
+the vendored ``.npz`` archives under ``data/`` first, then an ``.rda``
+file read by the port's pure-Python RData reader (``utils/rdata.py``),
+then, for senate116, the two Voteview CSVs (``S116_votes.csv``,
+``S116_rollcalls.csv``) rebuilt as data-raw/senate116.R does. Besides
+``data/``, the ``.rda`` files and CSVs are looked for in a checkout of the
+reference R package at ``reference/`` in this repository (its ``data/``
+and ``data-raw/``). Also the vignette spread into a response matrix, and
+the two simulators, :func:`simulate_2pl` and :func:`simulate_dynamic`.
+
+As in the JAX package, an existing ``data/senate116.npz`` or
+``data/SDO.npz`` is read before an ``.rda`` path given as ``path``.
 
 senate116 cast codes (R/senate116.R:10-12): 1 = Yea, 6 = Nay, 7 = Present,
 9 = abstention.
@@ -12,11 +19,13 @@ senate116 cast codes (R/senate116.R:10-12): 1 = Yea, 6 = Nay, 7 = Present,
 
 from __future__ import annotations
 
+import csv
 import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from gpirt_tpu_torch.utils.rdata import R_NA_INT, load_rda
 from gpirt_tpu_torch.utils.response import (
     DEFAULT_VOTE_CODES,
     ResponseMatrix,
@@ -31,39 +40,111 @@ __all__ = [
     "simulate_dynamic",
 ]
 
-_LOCAL_DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data")
+_ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
+_LOCAL_DATA = os.path.join(_ROOT, "data")
+_REFERENCE_DATA = os.path.join(_ROOT, "reference", "data")
+_REFERENCE_RAW = os.path.join(_ROOT, "reference", "data-raw")
+
+
+def _find(*candidates) -> Optional[str]:
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    return None
 
 
 def load_senate116(path: Optional[str] = None) -> Dict[str, np.ndarray]:
     """The tidy 42,800-row Senate 116 session-1 roll-call frame.
 
     Columns: rollnumber, icpsr, cast_code. ``path`` names an ``.npz``
-    archive; the default is the one bundled under ``data/``.
+    archive or an ``.rda`` file holding the ``senate116`` data.frame; without
+    one (or when ``data/senate116.npz`` exists) the bundled archive is read.
+    The CSV rebuild keeps session-1 roll calls only, as data-raw/senate116.R.
     """
-    npz = path or os.path.join(_LOCAL_DATA, "senate116.npz")
-    if not npz.endswith(".npz"):
-        raise NotImplementedError(
-            f"only .npz archives are read by the port (got {npz!r})")
-    with np.load(npz) as z:
-        return {
-            "rollnumber": z["rollnumber"].astype(np.int64),
-            "icpsr": z["icpsr"].astype(np.int64),
-            "cast_code": z["cast_code"].astype(np.int64),
-        }
+    npz = _find(
+        path if path and path.endswith(".npz") else None,
+        os.path.join(_LOCAL_DATA, "senate116.npz"),
+    )
+    if npz:
+        with np.load(npz) as z:
+            return {
+                "rollnumber": z["rollnumber"].astype(np.int64),
+                "icpsr": z["icpsr"].astype(np.int64),
+                "cast_code": z["cast_code"].astype(np.int64),
+            }
+
+    rda = _find(
+        path if path and path.endswith(".rda") else None,
+        os.path.join(_LOCAL_DATA, "senate116.rda"),
+        os.path.join(_REFERENCE_DATA, "senate116.rda"),
+    )
+    if rda:
+        df = load_rda(rda)["senate116"].to_python()
+        return {k: np.asarray(df[k]).astype(np.int64)
+                for k in ("rollnumber", "icpsr", "cast_code")}
+
+    votes_csv = _find(
+        os.path.join(_LOCAL_DATA, "S116_votes.csv"),
+        os.path.join(_REFERENCE_RAW, "S116_votes.csv"),
+    )
+    rolls_csv = _find(
+        os.path.join(_LOCAL_DATA, "S116_rollcalls.csv"),
+        os.path.join(_REFERENCE_RAW, "S116_rollcalls.csv"),
+    )
+    if not (votes_csv and rolls_csv):
+        raise FileNotFoundError("senate116 data not found (.rda or raw CSVs)")
+
+    session1 = set()
+    with open(rolls_csv, newline="") as fh:
+        for row in csv.DictReader(fh):
+            if row["session"] == "1":
+                session1.add(int(row["rollnumber"]))
+    roll, icpsr, cast = [], [], []
+    with open(votes_csv, newline="") as fh:
+        for row in csv.DictReader(fh):
+            rn = int(row["rollnumber"])
+            if rn in session1:
+                roll.append(rn)
+                icpsr.append(int(row["icpsr"]))
+                cast.append(int(row["cast_code"]))
+    return {
+        "rollnumber": np.asarray(roll, np.int64),
+        "icpsr": np.asarray(icpsr, np.int64),
+        "cast_code": np.asarray(cast, np.int64),
+    }
 
 
 def load_sdo(path: Optional[str] = None, with_names: bool = False):
     """The SDO ordinal survey: (1500, 16) float with codes 1..5, NaN
     missing; with ``with_names`` also the list of item (column) names.
     ``path`` names an ``.npz`` archive with "responses" and "item_names"
-    arrays; the default is the one bundled under ``data/``."""
-    npz = path or os.path.join(_LOCAL_DATA, "SDO.npz")
-    if not npz.endswith(".npz"):
-        raise NotImplementedError(
-            f"only .npz archives are read by the port (got {npz!r})")
-    with np.load(npz) as z:
-        mat = z["responses"].astype(np.float64)
-        names = [str(s) for s in z["item_names"]]
+    arrays, or an ``.rda`` file holding the ``SDO`` data.frame (R's
+    ``NA_integer_`` read as NaN); without one (or when ``data/SDO.npz``
+    exists) the bundled archive is read."""
+    npz = _find(
+        path if path and path.endswith(".npz") else None,
+        os.path.join(_LOCAL_DATA, "SDO.npz"),
+    )
+    if npz:
+        with np.load(npz) as z:
+            mat = z["responses"].astype(np.float64)
+            names = [str(s) for s in z["item_names"]]
+        return (mat, names) if with_names else mat
+
+    rda = _find(
+        path,
+        os.path.join(_LOCAL_DATA, "SDO.rda"),
+        os.path.join(_REFERENCE_DATA, "SDO.rda"),
+    )
+    if not rda:
+        raise FileNotFoundError("SDO data not found (data/SDO.npz or SDO.rda)")
+    df = load_rda(rda)["SDO"].to_python()
+    cols, names = [], []
+    for name, v in df.items():
+        arr = np.asarray(v, dtype=np.float64)
+        cols.append(np.where(arr == float(R_NA_INT), np.nan, arr))
+        names.append(str(name))
+    mat = np.column_stack(cols)
     return (mat, names) if with_names else mat
 
 

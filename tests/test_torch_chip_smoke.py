@@ -1,11 +1,12 @@
 """What chip_smoke.py computes without a card: the round count that its
 kernel bound rests on, its refusal to run without CUDA, and the inputs and
 setup of its sweep checks (the shared-IRF ones too) and of the synthetic
-path, and the checkpoint, profiling and utility phases, at a reduced
-size."""
+path, and the checkpoint, profiling, utility and example phases, at a
+reduced size, with the examples' agreement rule."""
 
 import glob
 import os
+import re
 
 import numpy as np
 import pytest
@@ -386,3 +387,62 @@ def test_utilities_phase_at_reduced_size(capsys):
                                        chains=2, burn=30, draws=4, thin=2)
     assert 0.6 < agree <= 1.0
     assert "posterior_predictive of 2 x 2 draws" in capsys.readouterr().out
+
+
+def test_example_phases_at_reduced_size(capsys):
+    """Phases 36 and 37 on the CPU at a tiny size: the walkthrough's main()
+    through observe_kernel, its kernel inputs at the last sweep at the
+    walkthrough's lane layout (2 chains x 418 items of 100 sites), and the
+    SDO example's healthy-output checks; the plain version runs, so no
+    launch is counted."""
+    cpu = torch.device("cpu")
+    tiny = ["--iters", "4", "--burn", "1"]
+    out, launches, args = chip_smoke.walkthrough_phase(cpu, "cpu", tiny + ["--chains", "2"],
+                                                       sweeps=5)
+    assert launches == 0 and out["chain_means"].shape == (2, 100)
+    assert tuple(args[0].shape) == (2, 1, 100, 418) and tuple(args[2].shape) == (2, 1, 418)
+    sdo = chip_smoke.sdo_example_phase(cpu, "cpu", tiny + ["--rows", "60"], sweeps=5)
+    assert sdo["cutpoints"].shape == (16, 4)
+    text = capsys.readouterr().out
+    assert "walkthrough on cpu: 2 chains x 100 senators, 5 sweeps" in text
+    assert "SDO example on cpu: 60 x 16, C=5, one chain, 5 sweeps" in text
+
+
+def _example_fixture(path, rng):
+    theta = np.linspace(-2, 2, 100) + 0.1 * rng.standard_normal(100)
+    basins = rng.standard_normal((2, 60))
+    sdo_means = basins[[0, 1, 1]] + 0.05 * rng.standard_normal((3, 60))
+    np.savez(path, walk_theta_hat=theta, walk_senators=np.arange(100),
+             walk_ess_pooled=3.0, walk_ess_within=8.0, walk_rhat_max=3.0,
+             walk_r_seeds=0.99, walk_seconds=1.0, walk_seed=1119,
+             sdo_seeds=np.array([1, 2119, 2120]), sdo_theta_means=sdo_means,
+             sdo_cutpoints=np.zeros((3, 4)), sdo_irf=np.zeros((3, 3)),
+             sdo_ll_mean=np.array([-10.0, -12.0, -12.5]), sdo_r_seeds=0.2,
+             sdo_seconds=1.0, sdo_seed=1, other_seed=2119)
+    return theta, basins
+
+
+def test_example_agreement_rule(tmp_path, capsys):
+    """Phases 36 and 37's gates: reflected posterior means near JAX's pass
+    (the sign alignment undoes the reflection), shuffled ones fail; the SDO
+    example is held to JAX's run in its own basin."""
+    rng = np.random.default_rng(0)
+    path = tmp_path / "examples.npz"
+    theta, basins = _example_fixture(path, rng)
+    near = -(theta + 0.05 * rng.standard_normal(100))
+    walk = {"theta_hat": near, "senators": np.arange(100),
+            "chain_means": np.stack([near, theta]), "ess_pooled": 4.0, "ess_within": 9.0,
+            "rhat_max": 2.0}
+    assert chip_smoke.walkthrough_agreement(walk, path) > 0.99
+    sdo = {"theta_mean": -basins[1] + 0.1 * rng.standard_normal(60),
+           "cutpoints": np.zeros((16, 4)), "irf": np.zeros(3), "ll": np.full(4, -12.0)}
+    assert chip_smoke.sdo_example_agreement(sdo, path) > 0.95
+    text = capsys.readouterr().out
+    assert "JAX's own r between SEED 1119 and 2119 0.99000" in text
+    assert re.search(r"the best, SEED 21(19|20), shares its basin with 2 of JAX's 3 runs",
+                     text)
+    with pytest.raises(RuntimeError, match="walkthrough: posterior means correlate"):
+        chip_smoke.walkthrough_agreement(dict(walk, theta_hat=rng.permutation(theta)), path)
+    with pytest.raises(RuntimeError, match="SDO example: posterior means correlate"):
+        chip_smoke.sdo_example_agreement(dict(sdo, theta_mean=rng.permutation(basins[1])),
+                                         path)

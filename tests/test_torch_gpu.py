@@ -10,8 +10,8 @@ the kernel at the pooled constant_IRF layout (on its register and tile
 paths) and the path it takes by n; gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
-(SMC-initialised and tempered), and refused on the CPU; and profile_sweep
-timing with CUDA events.
+(SMC-initialised and tempered), and refused on the CPU; profile_sweep
+timing with CUDA events; and the walkthrough example on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -492,3 +492,14 @@ def test_profile_sweep_times_with_cuda_events(cuda_device, monkeypatch):
                         reps=3)
     assert len(out) == 6 and all(np.isfinite(v) and v > 0 for v in out.values()), out
     assert len(made) == 6 * 2 * 2 * 2  # six blocks, two counts, two runs, two events
+
+
+@pytest.mark.gpu
+def test_walkthrough_example_on_the_card(cuda_device):
+    """examples/torch_senate116_walkthrough.py's main() on the card at a
+    small size: one kernel launch a sweep, finite posterior means."""
+    walk = chip_smoke.load_example("torch_senate116_walkthrough")
+    before = binary_threshold_ess.launches
+    out = walk.main(["--iters", "30", "--burn", "10", "--chains", "2"])
+    assert binary_threshold_ess.launches == before + 40
+    assert out["chain_means"].shape == (2, 100) and np.isfinite(out["theta_hat"]).all()
