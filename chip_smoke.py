@@ -180,7 +180,39 @@ Phases, each of which stops the run with a non-zero exit on failure:
      moved off qnorm(i/5); its one chain's basin depends on the seed (in
      JAX too), so its theta means are held at |r| >= 0.95 against the JAX
      run, of 16 seeds, in the same basin; prints item 1's cutpoints and IRF
-     values beside that run's.
+     values beside that run's;
+ 38. sharded sweep check: one sweep of the main path's last state (phase
+     31's checkpoint) with the items over 2 ranks that share the card
+     through Gloo (parallel/distributed.launch), fed the unsharded sweep's
+     draws cut to their items, against the unsharded sweep on the card:
+     theta the same on both ranks and equal to the unsharded sweep's, or
+     its difference a float32 tie by PERF.md section 2's rule, every other
+     field within 1e-3; each rank's kernel against its plain version on its
+     13,376 lanes;
+ 39. item-sharded main path: phase 5's call with mesh=make_item_mesh(2),
+     item_axis="items", on 2 ranks of the card: one kernel launch a sweep
+     on each rank at 64 x 209 lanes, finite, theta bit for bit the same on
+     both ranks, its sign-aligned posterior theta means at r >= 0.999 with
+     phase 5's; prints the backend, the sweeps a second, the theta table's
+     all_reduce bytes and its ms a sweep, timed inside the run (CUDA
+     events on the sweep's stream), each rank's peak memory, and the
+     kernel at rank 0's state against its plain version, timed, with its
+     bound;
+ 40. the 2 x 2 chains x items mesh: phase 39's checks on 4 ranks, 32 x 209
+     lanes, its burn and draws cut to 50 and 250;
+ 41. chain mesh: one sweep of a 32-chain block of the main path's last
+     state against the 64-chain sweep (bit for bit, or held as phase 38),
+     phase 5's call on a 2-rank chain mesh checkpointed every 100 sweeps and
+     cut at 200 draws, its draws' sha256 beside phase 5's first 200 draws',
+     then resumed with no mesh beside phase 5's; bit for bit both hash to
+     phase 5's, and where the card's batched products round differently at
+     32 chains, that is printed and both are held to phase 5's posterior
+     theta means at r >= 0.999; prints what the replicated generator costs
+     a sweep at the main path and the synthetic configuration.
+Phases 38, 39 and 41 run in one world of 2 ranks (a rank's start costs
+seconds on the card's machine), phase 40 in one of 4; the ranks start by
+the spawn method, each phase must end within 400 seconds, and a rank that
+fails ends the run.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -202,6 +234,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -215,7 +248,11 @@ from gpirt_tpu_torch.api import (  # noqa: E402
     recover_fstar_batch,
 )
 from gpirt_tpu_torch.models import affine, gibbs  # noqa: E402
-from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants  # noqa: E402
+from gpirt_tpu_torch.models.config import (  # noqa: E402
+    GPIRTConfig,
+    GPIRTConstants,
+    make_constants,
+)
 from gpirt_tpu_torch.models.generate import (  # noqa: E402
     posterior_predictive,
     response_draws,
@@ -229,7 +266,22 @@ from gpirt_tpu_torch.models.sampler import (  # noqa: E402
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
 from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds  # noqa: E402
-from gpirt_tpu_torch.parallel.smc import WARM_STEPS  # noqa: E402
+from gpirt_tpu_torch.parallel.chains import (  # noqa: E402
+    lane_state_block,
+    make_chain_mesh,
+    shards_of,
+)
+from gpirt_tpu_torch.parallel.distributed import (  # noqa: E402
+    backend_for,
+    launch,
+    rank_device,
+)
+from gpirt_tpu_torch.parallel.items import (  # noqa: E402
+    draws_item_block,
+    item_inputs,
+    make_item_mesh,
+)
+from gpirt_tpu_torch.parallel.smc import WARM_STEPS, lane_block  # noqa: E402
 from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     load_sdo,
     senate116_response_matrix,
@@ -716,6 +768,13 @@ def observe_kernel(run, before_call=None, kernel=None, scales=None):
     return out, seen["args"]
 
 
+def theta_means(out):
+    """gpirt_mcmc's sign-aligned posterior theta means (session 0): each
+    chain's mean aligned to chain 0's, then pooled."""
+    means = np.stack([d["theta"][:, :, 0].mean(axis=0) for d in out])
+    return align_theta_signs(means, reference=means[0]).mean(axis=0)
+
+
 def draws_sha256(out):
     """sha256 of gpirt_mcmc's chain dicts' theta, beta, threshold and ll,
     chain by chain, and of swap_rate where there is one."""
@@ -764,8 +823,10 @@ def main_path(rm, dev, smi):
         f"{within_med:.1f}, pooled {pooled_med:.1f}; "
         f"ess/sec {within_med / (smc_s + samp_s):.2f} (smc + sampling wall)")
     digest = draws_sha256(out)
-    log(f"main path draws sha256 {digest}")
-    return launches, state_args, digest, rate
+    cut = draws_sha256([{k: d[k][:CK_CUT] for k in ("theta", "beta", "threshold", "ll")}
+                        for d in out])
+    log(f"main path draws sha256 {digest} (its first {CK_CUT} draws' {cut})")
+    return launches, state_args, digest, rate, theta_means(out), cut
 
 
 def sdo_path(dev, smi):
@@ -2072,14 +2133,15 @@ def synthetic_checkpoint(dev, smi, inputs):
     return save_s, load_s, size
 
 
-def main_config(rm, dev):
+def main_config(rm, dev, build=True):
     """(y on ``dev`` as int32, config, constants) of phase 5's call on
-    ``rm``, with gpirt_mcmc's default priors, as it builds them."""
+    ``rm``, with gpirt_mcmc's default priors, as it builds them (None
+    without ``build``)."""
     y, C, _ = encode_categories(np.asarray(rm))
     H, n, m = y.shape
     cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype="float32", jitter=1e-5)
     consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
-                            np.zeros((2, n)), np.zeros((2, n)), device=dev)
+                            np.zeros((2, n)), np.zeros((2, n)), device=dev) if build else None
     y_dev = torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32, device=dev)
     return y_dev, cfg, consts
 
@@ -2279,6 +2341,501 @@ def sdo_example_agreement(out, fixture=EXAMPLES_FIXTURE):
         f"(gate {EXAMPLE_MIN_R})")
     return r
 
+# Phases 38-41: the multi-device path on the one card, its ranks sharing it
+# through Gloo (parallel/distributed.py): the items over 2 ranks (38-39), a
+# 2 x 2 chains x items mesh on 4 ranks (40), the chains over 2 (41). Each
+# world of ranks must end within RANK_TIMEOUT seconds; a run's sign-aligned
+# posterior theta means are held to phase 5's at r >= MESH_MIN_R; the theta
+# table's all_reduce is timed inside the run (TimedAllReduce).
+ITEM_SHARDS, RANK_TIMEOUT, MESH_MIN_R = 2, 400, 0.999
+# phase 40's burn and draws, cut from phase 5's to fit phases 38-41 in 150 s
+MESH_BURN, MESH_DRAWS = 50, 250
+
+
+def _rank_device(device):
+    """A rank of phases 38-41: its device (distributed.rank_device), TF32
+    off, and on a card the kernel phase 2 built, loaded."""
+    dev = rank_device(device)
+    full_fp32_matmuls()
+    if dev.type == "cuda":
+        threshold_ess.build()
+    return dev
+
+
+def _barrier():
+    """The ranks meet (an all_reduce of a CPU scalar)."""
+    dist.all_reduce(torch.zeros(1))
+
+
+class TimedAllReduce:
+    """``torch.distributed`` as the sweep sees it (``gibbs.dist``), its
+    theta table's ``all_reduce`` (the 4-D one) timed where the run makes
+    it: on a card by CUDA events on the current stream, which span the
+    host copies and the reduce through Gloo as the sweep's stream waits
+    for them; on the CPU by the host's clock."""
+
+    def __init__(self, dev):
+        self.dev, self.spans, self.bytes = dev, [], 0
+
+    def __getattr__(self, name):
+        return getattr(dist, name)
+
+    def all_reduce(self, t, *args, **kwargs):
+        if t.ndim != 4:
+            return dist.all_reduce(t, *args, **kwargs)
+        self.bytes = t.numel() * t.element_size()
+        if self.dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = dist.all_reduce(t, *args, **kwargs)
+            end.record()
+            self.spans.append((start, end))
+            return out
+        t0 = time.perf_counter()
+        out = dist.all_reduce(t, *args, **kwargs)
+        self.spans.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def total_ms(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+            return sum(a.elapsed_time(b) for a, b in self.spans)
+        return sum(self.spans)
+
+
+def _peak_gib(dev):
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def rank_stamps(started, ranks):
+    """Where a world's wall went, from each rank's time.time() stamps (at
+    its function's entry, after its run, at its return) and the launch's
+    start: the ranks' start, their runs, what followed, and the exit."""
+    st = np.array([r["stamps"] for r in ranks]) - started
+    parts = [f"ranks in their function after {st[:, 0].min():.1f}-{st[:, 0].max():.1f} s"]
+    if st.shape[1] == 3:
+        parts.append(f"the run {np.max(st[:, 1] - st[:, 0]):.1f} s, then "
+                     f"{np.max(st[:, 2] - st[:, 1]):.1f} s")
+    parts.append(f"all returned at {st[:, -1].max():.1f} s, back in the parent after "
+                 f"{time.time() - started:.1f} s")
+    return ", ".join(parts)
+
+
+def _theta_sha(out):
+    return hashlib.sha256(np.ascontiguousarray(
+        np.stack([d["theta"] for d in out])).tobytes()).hexdigest()
+
+
+def _perturbed_thetas(state, draws, y, consts, cfg, reps=4):
+    """theta of the sweep from ``state`` with its inputs moved by one float32
+    rounding, ``reps`` times (PERF.md section 2's tie rule), on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+
+    def ulp(a):
+        return a * (1.0 + 1.2e-7 * torch.randn(a.shape, generator=gen, dtype=a.dtype)
+                    ).to(a.device)
+
+    out = []
+    for _ in range(reps):
+        c = dataclasses.replace(consts, U_se=ulp(consts.U_se), Psi_grid=ulp(consts.Psi_grid))
+        st = state._replace(fstar=ulp(state.fstar), beta=ulp(state.beta))
+        out.append((gibbs.gibbs_sweep(st, draws, y, c, cfg)[0].theta_idx.cpu(), None))
+    return out
+
+
+def sweep_agreement(label, got, want, state, draws, y, consts, cfg):
+    """A sweep ``got`` against the unsharded sweep ``want`` on the card from
+    the same state and draws: theta equal or its difference a float32 tie
+    (:func:`tie_rule`, the perturbed runs on the card, the float64 run on
+    the CPU), every other field of the other chains within 1e-3. Returns
+    (bit for bit, the largest differences)."""
+    cpu = torch.device("cpu")
+    want = gibbs.GPIRTState(*(a.cpu() for a in want))
+    got = gibbs.GPIRTState(*(a.cpu() for a in got))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def run64():
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        c64 = make_constants(cfg64, np.zeros((3, cfg.m)), np.full((3, cfg.m), 3.0),
+                             np.zeros((2, cfg.n)), np.zeros((2, cfg.n)), device=cpu)
+        st = gibbs.GPIRTState(*(a.cpu().double() if a.is_floating_point() else a.cpu()
+                                for a in state))
+        return gibbs.gibbs_sweep(st, draws.to(cpu).to(torch.float64), y.cpu(), c64,
+                                 cfg64)[0], None
+
+    differ = (got.theta_idx != want.theta_idx).flatten(1).any(dim=1)
+    keep = ~differ
+    if bool(differ.any()):
+        keep = tie_rule(label, cfg, got, want, None, run64,
+                        _perturbed_thetas(state, draws, y, consts, cfg))
+    check(bool(keep.any()), f"no chain left to compare ({label})")
+    errs = {k: max_diff(getattr(got, k)[keep], getattr(want, k)[keep])[0]
+            for k in ("f", "beta", "thresholds", "fstar")}
+    for k, v in errs.items():
+        check(v < 1e-3, f"{label}: {k} differs by {v:.3g}")
+    errs["chains_theta_equal"] = int(keep.sum())
+    return same, errs
+
+
+def sharded_sweep_rank(device, rm, state_path, out_dir, shards=ITEM_SHARDS):
+    """Phase 38 on one rank: one sweep of the main path's state on this
+    rank's item block, with the parent's constants (both in
+    ``state_path``), fed the unsharded sweep's draws cut to it
+    (parallel.items.draws_item_block), its result saved in ``out_dir``; on
+    a card the kernel against its plain version on this rank's lanes."""
+    entered = time.time()
+    dev = _rank_device(device)
+    y, cfg, _ = main_config(rm, dev, build=False)
+    saved = torch.load(state_path, map_location=dev)
+    state = gibbs.GPIRTState(*saved["state"])
+    consts = GPIRTConstants(**saved["consts"])
+    draws = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
+                              state.theta_idx.shape[0], consts, cfg)
+    sh = shards_of(make_item_mesh(shards, device=dev.type), "items")
+    y_b, _, cb, cl = item_inputs(y, state.thresholds[0], consts, cfg, sh)
+    (got, ll), args = observe_kernel(lambda: gibbs.gibbs_sweep(
+        lane_state_block(state, sh, "items"), draws_item_block(draws, sh.items(cfg.m)),
+        y_b, cb, cl, None, 0, sh.item_group))
+    torch.save([a.cpu() for a in got] + [ll.cpu()],
+               os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    worst, flipped = 0.0, 0
+    if dev.type == "cuda":
+        worst, flipped = kernel_check(args, f"item shard {sh.item_rank}'s lanes")
+    return {"lanes": args[2].numel(), "worst": worst, "flipped": flipped,
+            "stamps": (entered, time.time())}
+
+
+def sharded_sweep_inputs(rm, dev, state, tmp):
+    """Phase 38's parent side before its ranks: the unsharded sweep of
+    ``state`` on ``dev`` from the seeded draws, and the state and
+    constants saved for the ranks. Returns (state file, what the check
+    needs)."""
+    y, cfg, consts = main_config(rm, dev)
+    draws = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
+                              state.theta_idx.shape[0], consts, cfg)
+    want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg)
+    path = os.path.join(tmp, "state.pt")
+    torch.save({"state": [a.cpu() for a in state],
+                "consts": {k: None if v is None else v.cpu()
+                           for k, v in vars(consts).items()}}, path)
+    return path, (want, want_ll, state, draws, y, consts, cfg)
+
+
+def sharded_sweep_check(smi, ranks, tmp, inputs, shards=ITEM_SHARDS):
+    """Phase 38: one item-sharded sweep on ``shards`` ranks of the card
+    (``ranks``' results, their blocks in ``tmp``) against the unsharded
+    sweep on the card, from the main path's last state (phase 31's
+    checkpoint) and the same draws (the shards' cut to their items):
+    :func:`sweep_agreement`, theta the same on every shard, and each
+    rank's kernel against its plain version on its lanes. Returns the
+    kernel's largest error and lanes over 1e-5."""
+    want, want_ll, state, draws, y, consts, cfg = inputs
+    blocks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(shards)]
+    check(all(torch.equal(b[0], blocks[0][0]) for b in blocks),
+          "sharded sweep: theta differs between the item shards")
+    cat = [torch.cat([b[i] for b in blocks], dim=d) for i, d in ((1, -1), (2, -1),
+                                                                 (3, -2), (4, -1))]
+    got = gibbs.GPIRTState(blocks[0][0], *cat)
+    same, errs = sweep_agreement(f"{shards} item shards against the unsharded sweep", got,
+                                 want, state, draws, y, consts, cfg)
+    ll_rel = float(((blocks[0][5] - want_ll.cpu()).abs() / want_ll.cpu().abs()).max())
+    worst = max(r["worst"] for r in ranks)
+    flipped = sum(r["flipped"] for r in ranks)
+    log(f"sharded sweep check on {smi} ({shards} ranks sharing the card over Gloo, the "
+        f"main path's state, {cfg.m // shards} items a rank): bit for bit {same}; theta "
+        f"equal in {errs['chains_theta_equal']} of {got.theta_idx.shape[0]} chains; max abs "
+        "diff " + ", ".join(f"{k} {errs[k]:.3g}" for k in ("f", "beta", "thresholds", "fstar"))
+        + f"; ll relative {ll_rel:.3g}; the kernel on each rank's "
+        f"{ranks[0]['lanes']} lanes: {flipped} over 1e-5, the rest within {worst:.3g}")
+    return worst, flipped
+
+
+def item_mesh_rank(device, rm, n_item, n_chain, burn, draws, smc_steps, chains=K):
+    """Phases 39-40 on one rank: phase 5's call on a (n_chain x n_item)
+    chains x items mesh, its kernel launches counted from 0 before the
+    call; on a card the kernel against its plain version at this rank's
+    last state (rank 0 times it and gives its bound while the others wait),
+    and the theta table's all_reduce over the item group timed in the
+    run (:class:`TimedAllReduce`)."""
+    entered = time.time()
+    dev = _rank_device(device)
+    rank = dist.get_rank()
+    mesh = make_item_mesh(n_item, n_chain, device=dev.type)
+    sh = shards_of(mesh, "items")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    threshold_ess.binary_threshold_ess.launches = 0
+    collectives = TimedAllReduce(dev)
+    gibbs.dist = collectives
+    try:
+        out, args = observe_kernel(lambda: main_call(rm, dev, chains, burn, draws,
+                                                     smc_steps, mesh=mesh, item_axis="items"))
+    finally:
+        gibbs.dist = dist
+    ran = time.time()
+    res = {"rank": rank, "place": (sh.chain_rank, sh.item_rank),
+           "launches": threshold_ess.binary_threshold_ess.launches,
+           "lanes": args[2].numel(), "theta_sha": _theta_sha(out), "means": theta_means(out),
+           "seconds": out[0]["seconds"], "peak_gib": _peak_gib(dev),
+           "finite": bool(all(np.isfinite(d["ll"]).all() for d in out))}
+    if dev.type == "cuda":
+        res["worst"], res["flipped"] = kernel_check(args, f"rank {rank}'s state")
+        _barrier()
+        if rank == 0:
+            res["ms"], res["ms_eager"], res["plain_ms"] = kernel_times(args, _C)
+            res["work"] = kernel_bound(args, _C, "rank 0's state")
+        _barrier()
+    res["allreduce_total_ms"] = collectives.total_ms()
+    res["allreduce_calls"] = len(collectives.spans)
+    res["allreduce_bytes"] = collectives.bytes
+    res["stamps"] = (entered, ran, time.time())
+    return res
+
+
+def item_mesh_report(rm, dev, smi, want_means, ranks, n_item, n_chain, burn, draws,
+                     smc_steps, label, chains=K):
+    """Phases 39 (2 item shards) and 40 (a 2 x 2 chains x items mesh):
+    phase 5's call, gpirt_mcmc(mesh=make_item_mesh(n_item, n_chain),
+    item_axis="items"), on n_item n_chain ranks of the card (``ranks``'
+    results): one kernel launch a sweep on every rank at its K / n_chain x
+    m / n_item lanes, finite, theta bit for bit the same on every rank,
+    and its posterior theta means at r >= MESH_MIN_R with phase 5's.
+    Prints the backend, the sweeps a second, the table's all_reduce bytes
+    and ms a sweep, each rank's peak memory, and the kernel at rank 0's
+    state with its bound. Returns the numbers for the kernels line."""
+    world = n_item * n_chain
+    sweeps = WARM_STEPS + smc_steps - 1 + burn + draws
+    m = np.asarray(rm).shape[1]
+    lanes = (chains // n_chain) * (m // n_item)
+    for r in ranks:
+        check(r["launches"] == (sweeps if dev.type == "cuda" else 0),
+              f"phase {label}, rank {r['rank']}: {r['launches']} kernel launches for "
+              f"{sweeps} sweeps")
+        check(r["lanes"] == lanes, f"phase {label}, rank {r['rank']}: {r['lanes']} lanes, "
+              f"{lanes} expected")
+        check(r["finite"], f"phase {label}, rank {r['rank']}: ll not finite")
+        check(r["theta_sha"] == ranks[0]["theta_sha"],
+              f"phase {label}: theta differs between ranks 0 and {r['rank']}")
+    r_means = signed_r(ranks[0]["means"], want_means)
+    check(np.isfinite(r_means) and r_means >= MESH_MIN_R,
+          f"phase {label}: posterior theta means at r {r_means:.5f} with phase 5's")
+    sec = ranks[0]["seconds"]
+    rate = (burn + draws) / sec["sampling"]
+    sweep_ms = 1e3 / rate
+    ar = ranks[0]["allreduce_total_ms"] / sweeps  # in the run, its SMC sweeps too
+    backend = backend_for(dev.type, world, torch.cuda.device_count() if dev.type == "cuda"
+                          else 0)
+    res = {"launches": [r["launches"] for r in ranks], "lanes": lanes, "sweeps_per_s": rate,
+           "smc_s": sec["smc"], "sampling_s": sec["sampling"], "allreduce_ms": ar,
+           "allreduce_bytes": ranks[0]["allreduce_bytes"], "allreduce_share": ar / sweep_ms,
+           "allreduce_calls": ranks[0]["allreduce_calls"],
+           "peak_gib": [r["peak_gib"] for r in ranks], "r_phase5": r_means,
+           "backend": backend}
+    if dev.type == "cuda":
+        r0 = ranks[0]
+        res.update(worst=max(r["worst"] for r in ranks),
+                   flipped=sum(r["flipped"] for r in ranks), ms=r0["ms"],
+                   ms_eager=r0["ms_eager"], plain_ms=r0["plain_ms"],
+                   bound_ms=r0["work"]["bound_ms"], bound_by=r0["work"]["bound_by"])
+    log(f"phase {label} on {smi}: {n_chain} x {n_item} chains x items mesh, {world} ranks "
+        f"on {'the card' if dev.type == 'cuda' else 'the CPU'}, backend {backend}; "
+        f"burn {burn}, {draws} draws; {ranks[0]['launches']} kernel launches = {sweeps} "
+        f"sweeps on every rank, {lanes} lanes a launch; theta the same on every rank; "
+        f"posterior theta means r {r_means:.5f} with phase 5's; smc {sec['smc']:.3f} s, "
+        f"sampling {sec['sampling']:.3f} s ({rate:.2f} sweeps/s, {sweep_ms:.3f} ms a "
+        f"sweep); the table's all_reduce {res['allreduce_bytes']} bytes, "
+        f"{res['allreduce_calls']} calls in the run, {ar:.3f} ms a sweep timed in the run "
+        f"({100 * res['allreduce_share']:.1f}% of a sampling sweep; Gloo through the host, ranks "
+        "sharing one card: not a multi-GPU number); peak memory by rank "
+        + ", ".join(f"{g:.3f}" for g in res["peak_gib"]) + " GiB")
+    if dev.type == "cuda":
+        log(f"kernel at rank 0's state ({lanes} lanes): {res['ms']:.5f} ms (graph), "
+            f"{res['ms_eager']:.5f} ms (eager), plain {res['plain_ms']:.4f} ms; bound "
+            f"{res['bound_ms']:.5f} ms by {res['bound_by']}, "
+            f"{100 * res['bound_ms'] / res['ms']:.2f}% of it; {res['flipped']} lanes over "
+            f"1e-5 on all ranks")
+    return res
+
+
+def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAWS,
+             smc_steps=SMC_STEPS):
+    """Phase 40: :func:`item_mesh_report` of phase 5's call on a 2 x 2
+    chains x items mesh of 4 ranks, at ``burn`` and ``draws``."""
+    started = time.time()
+    ranks = launch(item_mesh_rank, 4, (dev.type, rm, 2, 2, burn, draws, smc_steps, chains),
+                   device=dev.type, timeout=RANK_TIMEOUT)
+    res = item_mesh_report(rm, dev, smi, want_means, ranks, 2, 2, burn, draws, smc_steps,
+                           "40", chains)
+    log(f"phase 40 on {smi}: " + rank_stamps(started, ranks))
+    return res
+
+
+def draws_cost(dev, consts, cfg, chains=K, reps=5):
+    """(numbers, ms) of one sweep's draws for ``chains`` chains at ``cfg``'s
+    widths on ``dev``: what every rank of a chain mesh generates a sweep to
+    keep its block of them (CUDA events over ``reps`` calls on a card)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sizes = []
+    gibbs._map_draws(lambda a: sizes.append(a.numel()) or a,
+                     gibbs.sweep_draws(gen, chains, consts, cfg))
+    return sum(sizes), loop_ms(lambda: gibbs.sweep_draws(gen, chains, consts, cfg), reps, 1)
+
+
+def chain_mesh_rank(device, rm, chains, burn, cut, smc_steps, path, every):
+    """Phase 41 on one rank: phase 5's call at ``cut`` draws on a chain
+    mesh over the world, checkpointed every ``every`` sweeps to ``path``,
+    its launches counted from 0."""
+    entered = time.time()
+    dev = _rank_device(device)
+    mesh = make_chain_mesh(device=dev.type)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    threshold_ess.binary_threshold_ess.launches = 0
+    out = main_call(rm, dev, chains, burn, cut, smc_steps, mesh=mesh, checkpoint_path=path,
+                    checkpoint_every=every, verbose=False)
+    return {"sha": draws_sha256(out), "means": theta_means(out),
+            "launches": threshold_ess.binary_threshold_ess.launches,
+            "seconds": out[0]["seconds"], "peak_gib": _peak_gib(dev),
+            "stamps": (entered, time.time())}
+
+
+def chain_mesh_check(rm, dev, smi, want, want_cut, want_means, state, ranks, path,
+                     world=2, chains=K, burn=BURN, draws=DRAWS, smc_steps=SMC_STEPS,
+                     cut=CK_CUT, every=CK_EVERY):
+    """Phase 41: one sweep of a chain block of the main path's last state
+    against the whole's (:func:`sweep_agreement`; bit for bit or not,
+    printed); phase 5's call on a ``world``-rank chain mesh (``ranks``'
+    results), cut at ``cut`` draws and checkpointed there, its sha256
+    beside phase 5's first ``cut`` draws' (``want_cut``), then resumed
+    with no mesh to phase 5's length, beside phase 5's (``want``). Bit for
+    bit, both hash to phase 5's; where the card's batched products round
+    differently at K / world chains, that is printed and both are held to
+    phase 5's posterior theta means at r >= MESH_MIN_R. One kernel launch
+    a sweep on every rank and in the resume. Prints the replicated
+    generator's cost a sweep. Returns the numbers for the kernels line."""
+    y, cfg, consts = main_config(rm, dev)
+    Kst = state.theta_idx.shape[0]
+    draws_all = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED), Kst,
+                                  consts, cfg)
+    whole, _ = gibbs.gibbs_sweep(state, draws_all, y, consts, cfg)
+    own = slice(0, Kst // world)
+    block, _ = gibbs.gibbs_sweep(gibbs.GPIRTState(*(a[own] for a in state)),
+                                 lane_block(draws_all, own), y, consts, cfg)
+    block_same, block_errs = sweep_agreement(
+        f"a block of {Kst // world} chains against the sweep of {Kst}", block,
+        gibbs.GPIRTState(*(a[own] for a in whole)),
+        gibbs.GPIRTState(*(a[own] for a in state)), lane_block(draws_all, own), y, consts,
+        cfg)
+    threshold_ess.binary_threshold_ess.launches = 0
+    t = time.perf_counter()
+    resumed = main_call(rm, dev, chains, burn, draws, smc_steps, checkpoint_path=path,
+                        checkpoint_every=every, verbose=False)
+    resume_s = time.perf_counter() - t
+    res_launches = threshold_ess.binary_threshold_ess.launches
+    on_card = dev.type == "cuda"
+    cut_sweeps = WARM_STEPS + smc_steps - 1 + burn + cut
+    for i, r in enumerate(ranks):
+        check(r["sha"] == ranks[0]["sha"], f"chain mesh: ranks 0 and {i} return other draws")
+        check(r["launches"] == (cut_sweeps if on_card else 0),
+              f"chain mesh, rank {i}: {r['launches']} launches for {cut_sweeps} sweeps")
+    check(res_launches == (draws - cut if on_card else 0),
+          f"chain mesh resume: {res_launches} launches for {draws - cut} sweeps")
+    mesh_sha, res_sha = ranks[0]["sha"], draws_sha256(resumed)
+    bitwise = mesh_sha == want_cut
+    r_mesh = signed_r(ranks[0]["means"], want_means)
+    r_res = signed_r(theta_means(resumed), want_means)
+    if bitwise:
+        check(res_sha == want, f"chain mesh: the resumed run's sha256 {res_sha}, "
+              f"phase 5's {want}")
+    else:
+        for lab, r in (("the chain mesh's", r_mesh), ("the resumed run's", r_res)):
+            check(r >= MESH_MIN_R, f"chain mesh: {lab} posterior theta means at r {r:.5f}")
+    costs = {}
+    if on_card:  # the replicated generator's work a sweep, on every rank
+        costs = {"main": draws_cost(dev, consts, cfg, chains),
+                 "synthetic": draws_cost(dev, consts,
+                                         dataclasses.replace(cfg, n=SYN_N, m=SYN_M), chains)}
+        log(f"phase 41 on {smi}: one sweep's numbers for all {chains} chains, as every "
+            "rank of a chain mesh draws them: "
+            + "; ".join(f"{k} {v[0]:,} numbers in {v[1]:.4f} ms" for k, v in costs.items()))
+    sec = ranks[0]["seconds"]
+    rate = (burn + cut) / sec["sampling"]
+    log(f"phase 41 on {smi}: a {Kst // world}-chain block's sweep against the "
+        f"{Kst}-chain sweep: bit for bit {block_same}, theta equal in "
+        f"{block_errs['chains_theta_equal']} of {Kst // world} chains, max abs diff "
+        + ", ".join(f"{k} {block_errs[k]:.3g}" for k in ("f", "beta", "thresholds", "fstar")))
+    log(f"phase 41 on {smi}: chain mesh of {world} ranks, {chains // world} chains each, "
+        f"checkpointed every {every} sweeps and cut at {cut} draws: draws sha256 {mesh_sha} "
+        f"({'=' if bitwise else 'differs from'} phase 5's first {cut} draws' {want_cut}); "
+        f"resumed with no mesh: sha256 {res_sha} ({'=' if res_sha == want else 'differs from'} "
+        f"phase 5's {want}); posterior theta means r {r_mesh:.5f} (mesh), {r_res:.5f} "
+        f"(resumed) with phase 5's; launches {ranks[0]['launches']} = {cut_sweeps} sweeps a "
+        f"rank, {res_launches} in the resume ({resume_s:.1f} s); sampling {rate:.2f} "
+        "sweeps/s on the mesh; peak memory by rank "
+        + ", ".join(f"{r['peak_gib']:.3f}" for r in ranks) + " GiB")
+    return {"launches": [r["launches"] for r in ranks], "bitwise": bitwise,
+            "block_bitwise": block_same, "sweeps_per_s": rate,
+            "draws_numbers": {k: v[0] for k, v in costs.items()},
+            "draws_ms": {k: v[1] for k, v in costs.items()}}
+
+
+def two_rank_world(device, rm, state_path, out_dir, ck_path, chains, burn, draws,
+                   smc_steps, cut, every, stage_done):
+    """Phases 38, 39 and 41 on one rank of one world of 2 ranks (a rank's
+    start costs seconds on the card's machine), each a stage of its own
+    timeout."""
+    out = {38: sharded_sweep_rank(device, rm, state_path, out_dir)}
+    stage_done()
+    out[39] = item_mesh_rank(device, rm, ITEM_SHARDS, 1, burn, draws, smc_steps, chains)
+    stage_done()
+    out[41] = chain_mesh_rank(device, rm, chains, burn, cut, smc_steps, ck_path, every)
+    return out
+
+
+def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, burn=BURN,
+                    draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY):
+    """Phases 38, 39 and 41 in one world of 2 ranks sharing the card, each
+    a stage with its own timeout (RANK_TIMEOUT), then each checked here.
+    Returns phase 38's (worst, flipped), 39's and 41's numbers."""
+    with _temporary_dir() as tmp:
+        path, inputs = sharded_sweep_inputs(rm, dev, state, tmp)
+        ck_path = os.path.join(tmp, "cut")
+        started = time.time()
+        ranks = launch(two_rank_world, ITEM_SHARDS,
+                       (dev.type, rm, path, tmp, ck_path, chains, burn, draws, smc_steps,
+                        cut, every), device=dev.type, stages=(RANK_TIMEOUT,) * 3)
+        st = np.array([[r[38]["stamps"][0], r[38]["stamps"][1], r[39]["stamps"][2],
+                        r[41]["stamps"][1]] for r in ranks]) - started
+        log(f"phases 38, 39, 41 in one world of {ITEM_SHARDS} ranks on {smi}: ranks in "
+            f"their function after {st[:, 0].max():.1f} s; phase 38's stage ended at "
+            f"{st[:, 1].max():.1f} s, 39's at {st[:, 2].max():.1f} s, 41's at "
+            f"{st[:, 3].max():.1f} s; back in the parent after {time.time() - started:.1f} s")
+        t = time.perf_counter()
+        sh = sharded_sweep_check(smi, [r[38] for r in ranks], tmp, inputs)
+        log(f"phase 38 (its check here): {time.perf_counter() - t:.2f} s wall")
+        it2 = item_mesh_report(rm, dev, smi, want_means, [r[39] for r in ranks],
+                               ITEM_SHARDS, 1, burn, draws, smc_steps, "39", chains)
+        t = time.perf_counter()
+        cm = chain_mesh_check(rm, dev, smi, want, want_cut, want_means, state,
+                              [r[41] for r in ranks], ck_path, ITEM_SHARDS, chains, burn,
+                              draws, smc_steps, cut, every)
+        log(f"phase 41 (its checks and the resume here): {time.perf_counter() - t:.2f} s "
+            "wall")
+    return sh, it2, cm
+
+
+def mesh_keys(tag, res):
+    """Phase 39's or 40's numbers (:func:`item_mesh_report`) as keys of the
+    kernels line."""
+    out = {f"launches_{tag}": res["launches"], f"lanes_{tag}": res["lanes"],
+           f"max_abs_err_{tag}": res["worst"], f"lanes_over_1e-5_{tag}": res["flipped"]}
+    out.update({f"{k}_{tag}_state": res[k]
+                for k in ("ms", "ms_eager", "plain_ms", "bound_ms", "bound_by")})
+    out.update({f"{tag}_{k}": res[k] for k in (
+        "sweeps_per_s", "smc_s", "sampling_s", "allreduce_ms", "allreduce_bytes",
+        "allreduce_calls", "allreduce_share", "peak_gib", "r_phase5", "backend")})
+    return out
+
 
 def timed(label, fn, *args):
     """fn(*args), its wall time printed under ``label``."""
@@ -2313,8 +2870,8 @@ def main():
         log(f"kernel time, random lanes, T={t:g}: {ms:.5f} ms (graph), "
             f"{eager:.5f} ms (eager), plain {plain:.4f} ms")
     timed("4 (sweep check)", sweep_check, dev)
-    launches, state_args, main_sha, main_rate = timed("5 (main path)", main_path, rm, dev,
-                                                      smi)
+    launches, state_args, main_sha, main_rate, main_means, main_cut_sha = timed(
+        "5 (main path)", main_path, rm, dev, smi)
 
     w, f = kernel_check(state_args, "main path's state")
     worst, flipped = max(worst, w), flipped + f
@@ -2423,7 +2980,6 @@ def main():
     syn_ck = timed("33 (synthetic checkpoint)", synthetic_checkpoint, dev, smi,
                    synthetic_inputs(dev))
     prof = timed("34 (profile_sweep)", profile_phase, rm, dev, smi, main_state)
-    del main_state
     timed("35 (utilities)", utilities_phase, rm, dev, smi)
 
     walk, walk_launches, walk_args = timed("36 (walkthrough example)", walkthrough_phase,
@@ -2440,6 +2996,14 @@ def main():
     worst, flipped = max(worst, walk_worst), flipped + walk_flipped
     sdo_ex = timed("37 (SDO example)", sdo_example_phase, dev, smi)
     sdo_r = timed("37 (SDO agreement)", sdo_example_agreement, sdo_ex)
+
+    (sh_worst, sh_flipped), it2, cm = timed(
+        "38, 39 and 41 (one world of 2 ranks)", two_rank_phases, rm, dev, smi, main_state,
+        main_sha, main_cut_sha, main_means)
+    del main_state
+    mesh22 = timed("40 (2 x 2 chains x items mesh)", mesh_2x2, rm, dev, smi, main_means)
+    worst = max(worst, sh_worst, it2["worst"], mesh22["worst"])
+    flipped += sh_flipped + it2["flipped"] + mesh22["flipped"]
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -2555,6 +3119,16 @@ def main():
         "walkthrough_r": walk_r,
         "sdo_example_sweeps_per_s": SDO_EX_SWEEPS / sdo_ex["seconds"],
         "sdo_r": sdo_r,
+        "max_abs_err_sharded_sweep_check": sh_worst,
+        "lanes_over_1e-5_sharded_sweep_check": sh_flipped,
+        **mesh_keys("items2", it2),
+        **mesh_keys("mesh2x2", mesh22),
+        "launches_chain_mesh": cm["launches"],
+        "chain_mesh_draws_equal_phase5": cm["bitwise"],
+        "chain_block_sweep_bitwise": cm["block_bitwise"],
+        "chain_mesh_sweeps_per_s": cm["sweeps_per_s"],
+        "replicated_draws_numbers": cm["draws_numbers"],
+        "replicated_draws_ms": cm["draws_ms"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

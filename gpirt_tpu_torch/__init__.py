@@ -11,7 +11,9 @@ run bit for bit (``gpirt_mcmc(checkpoint_path=...)``,
 ``utils/checkpoint.py``), prior and posterior-predictive simulation
 (``models/generate.py``), IRF curves (``posterior_irf``), block timing
 (``profile_sweep``), and f* recovered from stored f draws
-(``recover_fstar``, ``recover_fstar_batch``); the binary
+(``recover_fstar``, ``recover_fstar_batch``), with the chains and the items
+spread over the ranks of a ``torch.distributed`` ``DeviceMesh``
+(``gpirt_mcmc(mesh=..., item_axis=...)``, ``parallel/``); the binary
 cutpoint ESS runs in a hand-written CUDA kernel (``csrc/threshold_ess.cu``)
 on the card and in its plain PyTorch version on the CPU.
 """

@@ -9,9 +9,11 @@ conjugate, grid or two-stage sampler, K chains in lockstep, an optional SMC anne
 initialization or parallel tempering, optional f / f* storage, the
 reference output layout (``gpirt_tpu/api.py:606``), an end-of-run
 convergence summary, checkpoints that resume a run bit for bit, and f*
-recovered from stored f draws. The host constants are built once per
-configuration, priors and device. Arguments the port does not cover yet
-(a device mesh) raise ``NotImplementedError``.
+recovered from stored f draws, on one device or with the chains and the
+items spread over the ranks of a ``torch.distributed`` ``DeviceMesh``.
+The host constants are built once per configuration, priors and device.
+Arguments the port does not cover yet (a respondent axis) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from gpirt_tpu_torch.models.config import (
     THETA_HI,
@@ -41,6 +45,9 @@ from gpirt_tpu_torch.models.gibbs import (
     stored_fstar,
 )
 from gpirt_tpu_torch.models.sampler import memory_estimate_mb, sample_schedule
+from gpirt_tpu_torch.parallel.chains import shards_of
+from gpirt_tpu_torch.parallel.distributed import broadcast_constants
+from gpirt_tpu_torch.parallel.items import check_item_config, item_generator
 from gpirt_tpu_torch.parallel.smc import anneal_init
 from gpirt_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -192,6 +199,8 @@ def gpirt_mcmc(
     fstar_method: str = "matheron",
     grid_size: int = 1001,
     jitter: Optional[float] = None,
+    mesh: Optional[DeviceMesh] = None,
+    item_axis: Optional[str] = None,
     n_temps: int = 1,
     max_temp: float = 4.0,
     swap_every: int = 1,
@@ -247,11 +256,20 @@ def gpirt_mcmc(
     from there when the file exists: the SMC initialization then does not
     run again, and the result is bit for bit the uninterrupted call's on
     the same device type, card and torch build.
+    ``mesh``, a ``torch.distributed`` ``DeviceMesh`` (every rank calls
+    ``gpirt_mcmc`` with the same arguments), spreads the chains over its
+    "chains" axis; ``item_axis`` names a mesh axis that also shards the
+    items (``parallel/items.py``; conjugate sampler, theta on the grid,
+    m divisible by its size), e.g. ``make_item_mesh(2)``. On a chain mesh
+    the draws are the unsharded run's chain for chain; under an item axis
+    the item-local draws come from each shard's own stream. Every rank
+    returns the same chain dicts, and prints only on rank 0. Tempering
+    (``n_temps``) and a respondent axis do not run on a mesh yet.
     ``verbose`` prints the reference's memory table, the recode's
     messages, the SMC line, the checkpointed run's progress and the
     end-of-run convergence summary (theta ESS, R-hat, basins) to stderr.
-    The run is on the CUDA card unless ``device`` says otherwise; without a
-    card it raises.
+    The run is on the CUDA card unless ``device`` says otherwise (on a
+    mesh, the rank's card); without a card it raises.
 
     Each dict holds theta (S, n, H), beta (S, 3, m, H), threshold
     (S, m, C+1, H) and ll (S,); f (S, n, m, H) with ``store_f`` and fstar
@@ -271,8 +289,20 @@ def gpirt_mcmc(
         raise ValueError(
             "smc_steps and n_temps > 1 are mutually exclusive (SMC annealing "
             "and fixed-ladder tempering are alternative basin strategies)")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    axes = () if mesh is None else (mesh.mesh_dim_names or ())
+    if item_axis is not None and item_axis not in axes:
+        raise ValueError(f"item_axis={item_axis!r} needs a mesh with that axis name "
+                         "(e.g. parallel.items.make_item_mesh)")
+    if mesh is not None and n_temps > 1:
+        raise NotImplementedError("mesh with n_temps > 1: tempering over a mesh is not "
+                                  "ported to gpirt_tpu_torch yet")
     device = _device(device, "gpirt_mcmc")
     full_fp32_matmuls()
+    shards = shards_of(mesh, item_axis)
+    verbose = verbose and (mesh is None or dist.get_rank() == 0)
 
     if vote_codes is not None:
         data = _strip_h(data)
@@ -307,8 +337,14 @@ def gpirt_mcmc(
                          threshold_mh_tries=threshold_mh_tries,
                          theta_method=theta_method, mix_subsweeps=mix_subsweeps,
                          f_method=f_method, fstar_method=fstar_method)
-    consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
-                               theta_prior_means, theta_prior_sds)
+    check_item_config(config, shards)
+    shards.items(m), shards.chains(CHAIN)  # each must divide over its shards
+    if mesh is None or dist.get_rank() == 0:
+        consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
+                                   theta_prior_means, theta_prior_sds)
+    if mesh is not None:  # built once, the same bits on every rank
+        consts = broadcast_constants(consts if dist.get_rank() == 0 else None, device,
+                                     config.tdtype)
     if verbose:
         _print_memory_estimate(n, m, H, C, sample_schedule(
             sample_iterations, burn_iterations, THIN).n_samples, sample_iterations,
@@ -339,13 +375,17 @@ def gpirt_mcmc(
                                              m, C, H))
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
+    # an item shard's own stream for its item-local numbers (parallel/items.py)
+    item_gen = (item_generator(SEED, shards.item_rank, device) if shards.n_item > 1
+                else None)
+    sharding = dict(mesh=mesh, item_axis=item_axis, item_gen=item_gen)
 
     mgr = None if checkpoint_path is None else CheckpointManager(f"{checkpoint_path}.npz")
     t0 = time.perf_counter()
     states = None
     if smc_steps > 0 and (mgr is None or not mgr.exists()):  # a resume does not anneal
         states, info = anneal_init(gen, yt, th_inits, thr_init, consts, config,
-                                   n_steps=smc_steps, max_temp=smc_max_temp)
+                                   n_steps=smc_steps, max_temp=smc_max_temp, **sharding)
         if verbose:
             print(f"[gpirt] SMC init: {smc_steps} steps from T={smc_max_temp}, "
                   f"{info['n_resamples']} resamples, final weight-ESS "
@@ -363,7 +403,7 @@ def gpirt_mcmc(
             max_temp=max_temp, swap_every=swap_every, **run)
     else:
         host = run_chains_checkpointed(gen, yt, th_inits, thr_init, consts, config,
-                                       initial_states=states, **run)
+                                       initial_states=states, **run, **sharding)
     t2 = time.perf_counter()
     swap_rate = host.pop("swap_rate", None)
     seconds = {"smc": t1 - t0, "sampling": t2 - t1}

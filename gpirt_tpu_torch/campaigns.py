@@ -107,6 +107,7 @@ def gpirt_campaigns(
     store_draws: bool = True,
     verbose: bool = True,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, Any]:
     """Posterior estimation by R = ``n_campaigns`` independent SMC campaigns.
 
@@ -117,7 +118,8 @@ def gpirt_campaigns(
     permutations of linspace(-2, 2, n), drawn with numpy seeded SEED. Data
     handling is ``gpirt_mcmc``'s (vote-code recoding, priors, qnorm
     cutpoints). The run is on the CUDA card unless ``device`` says
-    otherwise; without a card it raises.
+    otherwise; without a card it raises. A campaign ``mesh``
+    (``gpirt_tpu/campaigns.py:126-129``) is not ported yet and raises.
 
     Returns a dict:
       theta_mean (n, H) the sign-aligned grand posterior mean;
@@ -134,6 +136,9 @@ def gpirt_campaigns(
         threshold (R, K, S, m, C+1, H), beta (R, K, S, 3, m, H);
       respondents / items, the labels when the data carried them.
     """
+    if mesh is not None:
+        raise NotImplementedError("gpirt_campaigns over a mesh (mesh) is not ported to "
+                                  "gpirt_tpu_torch yet")
     device = _device(device, "gpirt_campaigns")
     full_fp32_matmuls()
     if vote_codes is ...:

@@ -1,8 +1,9 @@
 """The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path, the
 grid-native ESS on f* and the reference's two-stage pipeline.
 
-Counterpart of ``gpirt_tpu/models/gibbs.py`` without its sharded forms.
-Chains are a written-out leading K axis. Every block is a pure function of
+Counterpart of ``gpirt_tpu/models/gibbs.py`` with its item-sharded form
+and without the respondent-sharded one. Chains are a written-out leading
+K axis. Every block is a pure function of
 the state and of its random draws, passed in as tensors; :func:`sweep_draws`
 makes one sweep's draws from a ``torch.Generator`` and :func:`gibbs_sweep`
 applies the blocks of ``config.resolved_f_method``.
@@ -57,6 +58,14 @@ that draws them (f, f*, the cutpoints) runs as the H = 1 block on one
 session of H n stacked sites, the reference's stacked (n H) GP
 (src/draw-f.cpp:84-138, src/draw-fstar.cpp:58-125,
 src/draw_threshold.cpp:181-204), and its draws have a session axis of 1.
+
+Under an item axis (``parallel/items.py``) a rank holds an item block of
+y, the state and the per-item draws, and ``item_group`` is the process
+group of the item shards of its chains: the conjugate sweep's blocks run on
+the block as they are, and the theta table and the ll trace are summed
+over the group by ``all_reduce``, their only collectives
+(``gpirt_tpu/models/gibbs.py:1627``, ``:2747-2748``). Without it, the code
+path is the unsharded one.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from gpirt_tpu_torch.models.config import (
     GPIRTConfig,
@@ -559,13 +569,22 @@ def _affine_draws(rand, randn, K: int, config: GPIRTConfig) -> Optional[AffineDr
 
 
 def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
-                config: GPIRTConfig,
-                iteration: int = 0) -> Union[SweepDraws, GridDraws, TwoStageDraws]:
+                config: GPIRTConfig, iteration: int = 0,
+                item_gen: Optional[torch.Generator] = None,
+                ) -> Union[SweepDraws, GridDraws, TwoStageDraws]:
     """One sweep's draws for ``config.resolved_f_method``: the latent
     passes' first, pass by pass, then the rest. ``iteration`` is the sweep's
     index, which picks the cutpoint update under "interleave". A field the
-    config does not ask for is not drawn."""
-    rand, randn = _samplers(gen, consts, config)
+    config does not ask for is not drawn.
+
+    ``item_gen``, an item shard's generator (``parallel/items.py``), draws
+    every item-local field, at the shard's width ``config.m``, and ``gen``
+    theta's numbers alone, the same on every shard (JAX's rule,
+    ``gpirt_tpu/models/gibbs.py:2645-2655``); without it ``gen`` draws
+    everything, in the same order."""
+    igen = gen if item_gen is None else item_gen
+    rand, randn = _samplers(igen, consts, config)
+    theta_rand, theta_randn = _samplers(gen, consts, config)
     H, n, m, N = config.horizon, config.n, config.m, config.grid_size
     Hi, R, S = _irf_sessions(config), config.ess_max_rounds, config.mix_subsweeps
     method = config.resolved_f_method
@@ -584,17 +603,19 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
         return BetaDraws(z=randn(K, H, m, 3), ess=_ess_loop_draws(rand, (K, H, m), R))
 
     if method == "two_stage":
-        f = f_draws(gen, K, consts, config)
-        latent = passes(lambda: dict(fstar=fstar_draws(gen, K, consts, config),
-                                     u_theta=_theta_draws(rand, randn, K, config)))
+        f = f_draws(igen, K, consts, config)
+        latent = passes(lambda: dict(fstar=fstar_draws(igen, K, consts, config),
+                                     u_theta=_theta_draws(theta_rand, theta_randn, K,
+                                                          config)))
         return TwoStageDraws(f=f, **latent, beta=beta(), **tail())
     if method == "grid":
-        latent = passes(lambda: dict(fstar=fstar_draws(gen, K, consts, config),
+        latent = passes(lambda: dict(fstar=fstar_draws(igen, K, consts, config),
                                      ess=_ess_loop_draws(rand, (K, Hi, m), R),
-                                     u_theta=_theta_draws(rand, randn, K, config)))
+                                     u_theta=_theta_draws(theta_rand, theta_randn, K,
+                                                          config)))
         return GridDraws(**latent, beta=beta(), **tail())
     latent = passes(lambda: dict(
-        u_theta=_theta_draws(rand, randn, K, config),
+        u_theta=_theta_draws(theta_rand, theta_randn, K, config),
         u_z=rand(K, H, n, m),
         z_q=randn(K, Hi, consts.U_se.shape[1], m),
         z_p=randn(K, Hi, 3, m),
@@ -684,18 +705,23 @@ def _category_logprobs(g, thresholds, C: int, inv_s=None) -> torch.Tensor:
     return torch.log(p + 1e-6)
 
 
-def _theta_ll_table(fstar, mu_star, y, thresholds, C: int, inv_s=None):
+def _theta_ll_table(fstar, mu_star, y, thresholds, C: int, inv_s=None, item_group=None):
     """Per-respondent log-likelihood at every grid point: (K, H, N, n).
 
     logprobs (K, H, N, m, C) contracted over (item, category) with the
     one-hot of y — one (N, m C) x (m C, n) product per chain; missing
-    responses have an all-zero one-hot row.
+    responses have an all-zero one-hot row. Under ``item_group`` the
+    product covers this shard's items and an ``all_reduce`` sums the
+    shards' tables (``gpirt_tpu/models/gibbs.py:1627``).
     """
     gstar = fstar + mu_star  # (K, H, N, m)
     logp = _category_logprobs(gstar, thresholds.unsqueeze(-3), C, inv_s)
     K, H, N, m, _ = logp.shape
     onehot = _onehot(y, C, gstar.dtype)  # (H, n, m, C)
-    return logp.reshape(K, H, N, m * C) @ onehot.reshape(H, -1, m * C).mT
+    table = logp.reshape(K, H, N, m * C) @ onehot.reshape(H, -1, m * C).mT
+    if item_group is not None:
+        dist.all_reduce(table, group=item_group)
+    return table
 
 
 def _gumbel_argmax(u: torch.Tensor, logits: torch.Tensor, dim: int) -> torch.Tensor:
@@ -705,7 +731,8 @@ def _gumbel_argmax(u: torch.Tensor, logits: torch.Tensor, dim: int) -> torch.Ten
 
 
 def _draw_theta_grid(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
-                     config: GPIRTConfig, u_theta, temp=None) -> torch.Tensor:
+                     config: GPIRTConfig, u_theta, temp=None,
+                     item_group=None) -> torch.Tensor:
     """Exact grid draw of theta in the configured regime
     (``gpirt_tpu/models/gibbs.py:1681``): the ll table plus a Gaussian log
     prior on the grid, one Gumbel-max per draw.
@@ -715,11 +742,12 @@ def _draw_theta_grid(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
     respondent); u_theta (K, H, n, N). GP: a sequential Gibbs pass over the
     sessions, session h's prior the time GP's conditional given the other
     sessions, those before h already redrawn; u_theta (K, H, n, N).
+    ``item_group``: the table summed over the item shards.
     """
     K, H, n = state.theta_idx.shape
     _, inv_s = _temp_scales(temp)
     table = _theta_ll_table(state.fstar, mu_star, y, state.thresholds,
-                            config.C, inv_s)  # (K, H, N, n)
+                            config.C, inv_s, item_group)  # (K, H, N, n)
     grid = consts.grid
     regime = config.theta_regime
     if regime != "GP":
@@ -751,12 +779,18 @@ def _table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def draw_theta(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
-               config: GPIRTConfig, u_theta, temp=None) -> torch.Tensor:
+               config: GPIRTConfig, u_theta, temp=None, item_group=None) -> torch.Tensor:
     """theta_idx (K, H, n) by ``config.theta_method``
     (``gpirt_tpu/models/gibbs.py:1644``): the exact grid draw, or the
-    reference code's ESS and snap, which has no tempered form."""
+    reference code's ESS and snap, which has no tempered form. Under
+    ``item_group`` (items sharded) the grid draw reads the summed table;
+    the ESS is not ported there."""
     if config.theta_method == "grid":
-        return _draw_theta_grid(state, mu_star, y, consts, config, u_theta, temp)
+        return _draw_theta_grid(state, mu_star, y, consts, config, u_theta, temp,
+                                item_group)
+    if item_group is not None:
+        raise NotImplementedError(
+            "theta_method='ess' under an item axis is not ported to gpirt_tpu_torch yet")
     if temp is not None:
         raise NotImplementedError("tempering needs theta_method='grid'")
     return _draw_theta_ess(state, mu_star, y, consts, config, u_theta)
@@ -1108,8 +1142,11 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     if C == 2:
         c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
         t1 = thresholds[..., 1].contiguous()
-        t_new = binary_threshold_ess(g.contiguous(), y, t1, nu.reshape(t1.shape),
-                                     logu, eps0, rs, c)
+        # a rank's block of the draws is a view (parallel/chains.py); the
+        # kernel reads its inputs through raw pointers
+        t_new = binary_threshold_ess(g.contiguous(), y, t1,
+                                     nu.reshape(t1.shape).contiguous(), logu.contiguous(),
+                                     eps0.contiguous(), rs.contiguous(), c)
         return delta_to_threshold(t_new.unsqueeze(-1))
     onehot = _onehot(y, C, g.dtype)  # (H, n, m, C)
 
@@ -1340,8 +1377,8 @@ def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None):
 
 def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageDraws],
                 y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
-                temp: Optional[float] = None,
-                iteration: int = 0) -> Tuple[GPIRTState, torch.Tensor]:
+                temp: Optional[float] = None, iteration: int = 0,
+                item_group=None) -> Tuple[GPIRTState, torch.Tensor]:
     """One Gibbs sweep of K chains by ``config.resolved_f_method`` (block
     orders in the module docstring). Returns (state, ll (K,)).
 
@@ -1351,9 +1388,17 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     ``jax.vmap(gibbs_sweep)`` over the temperatures). The returned ll is
     each chain's own tempered log-likelihood. ``iteration``, the sweep's
     index (a host int), picks the cutpoint update under "interleave" and
-    must be the one ``draws`` were made for.
+    must be the one ``draws`` were made for. ``item_group`` is the process
+    group of an item-sharded sweep (``parallel/items.py``): state, y, the
+    constants and the draws are then this rank's item block, and the theta
+    table and the ll are summed over the group; conjugate only, without the
+    affine moves.
     """
     method = config.resolved_f_method
+    if item_group is not None and (method != "conjugate" or config.affine):
+        raise NotImplementedError(
+            "item-sharded sweeps need f_method='conjugate' without the affine moves "
+            f"(got {method!r}, affine {config.affine})")
     if method != "conjugate":
         if temp is not None:
             raise NotImplementedError(
@@ -1363,7 +1408,8 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     _, inv_s = _temp_scales(temp)
     mu_star = compute_mu_star(consts, state.beta)
     for d in _passes(draws, config.mix_subsweeps):
-        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta, temp)
+        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta, temp,
+                               item_group)
         state = state._replace(theta_idx=theta_idx, f=_rows(state.fstar, theta_idx))
         theta = theta_from_indices(theta_idx, consts)
         mu = compute_mu(theta, state.beta)
@@ -1391,6 +1437,8 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
                        thresholds=thresholds, fstar=fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds,
                           _per_chain(inv_s, 4)).sum(dim=(-3, -2, -1))
+    if item_group is not None:
+        dist.all_reduce(ll, group=item_group)
     return state, ll
 
 

@@ -1,8 +1,12 @@
 """The MCMC loop: burn-in, thinning and storage for K chains in lockstep.
 
 Counterpart of ``gpirt_tpu/models/sampler.py::run_chain`` and
-``gpirt_tpu/parallel/chains.py::run_chains`` on one device: the chain axis
-is the sweep's batch axis and a Python loop takes the place of ``lax.scan``.
+``gpirt_tpu/parallel/chains.py::run_chains``: the chain axis is the sweep's
+batch axis and a Python loop takes the place of ``lax.scan``. Over a
+``DeviceMesh`` (``parallel/chains.py``) each rank runs its block of the
+chains, and of the items under an item axis (``parallel/items.py``); the
+replicated generator draws the numbers of all chains and the rank keeps
+its block's, so a chain's draws do not depend on the chain layout.
 A draw is recorded at absolute iteration ``iter`` iff ``iter >= burn`` and
 ``iter % THIN == 0`` (src/gpirtMCMC.cpp:334).
 
@@ -31,6 +35,9 @@ from gpirt_tpu_torch.models.gibbs import (
     sweep_draws,
     theta_from_indices,
 )
+from gpirt_tpu_torch.parallel.chains import check_replicated, gather_draws, shards_of
+from gpirt_tpu_torch.parallel.items import item_generator, item_inputs
+from gpirt_tpu_torch.parallel.smc import lane_block
 
 __all__ = [
     "Carry",
@@ -38,6 +45,7 @@ __all__ = [
     "run_chain",
     "advance",
     "advance_chains",
+    "chain_start",
     "draw_record",
     "run_length",
     "sample_schedule",
@@ -160,19 +168,66 @@ def advance(sweep: Callable[[object, int], Tuple[object, torch.Tensor]],
 def advance_chains(gen: torch.Generator, carry: Carry, y: torch.Tensor,
                    consts: GPIRTConstants, config: GPIRTConfig, sched: SampleSchedule,
                    start: int, stop: int, *, store_f: bool = False,
-                   store_fstar: bool = False) -> Dict[str, torch.Tensor]:
+                   store_fstar: bool = False, shards=None,
+                   item_gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """:func:`advance` with ``gibbs_sweep``: sweep ``it`` draws its numbers
-    from ``gen`` and passes ``it`` as its iteration."""
+    from ``gen`` and passes ``it`` as its iteration.
+
+    ``shards`` (``parallel.chains.Shards``, :func:`chain_start`'s) places
+    this rank on a mesh: ``carry`` then holds its block of the chains and
+    items, y, ``consts`` and ``config`` are its item block's, the numbers
+    of all chains are drawn (item-local ones from ``item_gen``) and its
+    chains' kept. At the end theta is checked alike on every item shard
+    (the canary of ``gpirt_tpu/models/gibbs.py:873-883``) and the stored
+    draws come back whole, the same on every rank."""
     K = carry.state.theta_idx.shape[0]
+    group = None if shards is None else shards.item_group
+    if shards is not None:
+        K *= shards.n_chain
+        own = shards.chains(K)
 
     def sweep(state, it):
-        return gibbs_sweep(state, sweep_draws(gen, K, consts, config, it), y, consts,
-                           config, None, it)
+        draws = sweep_draws(gen, K, consts, config, it, item_gen)
+        if shards is not None:
+            draws = lane_block(draws, own, config.mix_subsweeps)
+        return gibbs_sweep(state, draws, y, consts, config, None, it, group)
 
     def record(state, ll):
         return draw_record(state, ll, consts, config, store_f, store_fstar)
 
-    return advance(sweep, record, carry, sched, start, stop)
+    out = advance(sweep, record, carry, sched, start, stop)
+    if shards is None:
+        return out
+    check_replicated(carry.state.theta_idx, shards, "theta")
+    return gather_draws(out, shards)
+
+
+def chain_start(gen: torch.Generator, theta_init: torch.Tensor, thresholds_init,
+                y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig, mesh=None,
+                item_axis: Optional[str] = None,
+                item_gen: Optional[torch.Generator] = None):
+    """(shards, item generator, y, constants and config, and a ``fresh()``
+    that makes the prior init) of this rank: without a ``mesh`` no shards
+    and the inputs as they are; on one its place, its item block's inputs
+    and its block of the prior init, whose numbers are drawn for all
+    chains, item-local as the sweeps' are (``item_gen``, by default the
+    item shard's ``item_generator`` of ``gen``'s seed)."""
+    K = theta_init.shape[0]
+    if mesh is None:
+        return None, item_gen, y, consts, config, lambda: init_state(
+            theta_init, thresholds_init, consts, config, init_draws(gen, K, consts, config))
+    shards = shards_of(mesh, item_axis)
+    if shards.n_item > 1 and item_gen is None:
+        item_gen = item_generator(gen.initial_seed(), shards.item_rank, gen.device)
+    own = shards.chains(K)
+    y_l, thr_l, consts_l, config_l = item_inputs(y, thresholds_init, consts, config, shards)
+
+    def fresh():
+        draws = init_draws(gen if item_gen is None else item_gen, K, consts_l, config_l)
+        return init_state(theta_init[own], thr_l, consts_l, config_l,
+                          lane_block(draws, own))
+
+    return shards, item_gen, y_l, consts_l, config_l, fresh
 
 
 def run_chains(
@@ -189,12 +244,23 @@ def run_chains(
     initial_states: Optional[GPIRTState] = None,
     store_f: bool = False,
     store_fstar: bool = False,
+    mesh=None,
+    item_axis: Optional[str] = None,
+    item_gen: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run K chains; returns draws with a leading chain axis, on the device.
 
     ``theta_init`` is (K, H, n) and fixes K; ``initial_states`` (e.g. an
     SMC-annealed ensemble) skips the prior init. All randomness comes from
     ``gen``.
+
+    With a ``mesh`` (a ``DeviceMesh``; every rank calls this with the whole
+    inputs) the chains shard over its "chains" axis and, with
+    ``item_axis``, the items over that axis (``parallel/items.py``; their
+    item-local numbers from ``item_gen``, :func:`chain_start`);
+    ``initial_states`` is then this rank's block. The draws come back
+    whole on every rank; without an item axis they are the unsharded
+    run's, chain for chain.
 
     Returns "theta" (K, S, H, n), "beta" (K, S, H, 3, m),
     "threshold" (K, S, H, m, C+1) and "ll" (K, S); with ``store_f`` also
@@ -203,18 +269,19 @@ def run_chains(
     session 0's mu* under constant_IRF, :func:`stored_fstar`).
     """
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
-    K = theta_init.shape[0]
-    if initial_states is None:
-        carry = Carry(init_state(theta_init, thresholds_init, consts, config,
-                                 init_draws(gen, K, consts, config)))
-    else:
-        carry = Carry(initial_states)
+    shards, item_gen, y, consts, config, fresh = chain_start(
+        gen, theta_init, thresholds_init, y, consts, config, mesh, item_axis, item_gen)
+    carry = Carry(fresh() if initial_states is None else initial_states)
     out = advance_chains(gen, carry, y, consts, config, sched, 0, run_length(sched),
-                         store_f=store_f, store_fstar=store_fstar)
+                         store_f=store_f, store_fstar=store_fstar, shards=shards,
+                         item_gen=item_gen)
     if sched.n_samples == 0:  # the layout of an empty run
-        rec = draw_record(carry.state, carry.state.beta.new_zeros(K), consts, config,
+        beta = carry.state.beta
+        rec = draw_record(carry.state, beta.new_zeros(beta.shape[0]), consts, config,
                           store_f, store_fstar)
-        out = {k: v.new_empty((K, 0) + tuple(v.shape[1:])) for k, v in rec.items()}
+        out = {k: v.new_empty((v.shape[0], 0) + tuple(v.shape[1:])) for k, v in rec.items()}
+        if shards is not None:
+            out = gather_draws(out, shards)
     return out
 
 

@@ -1,1 +1,2 @@
-"""SMC annealed initialization."""
+"""SMC annealed initialization, parallel tempering, and chains and items
+over a torch.distributed DeviceMesh."""

@@ -1,8 +1,9 @@
-"""SMC annealed initialization on one device, for one campaign of K chains
-or a batch of B independent campaigns.
+"""SMC annealed initialization for one campaign of K chains, on one device
+or over a mesh of chains and items, or for a batch of B independent
+campaigns on one device.
 
 Counterpart of ``gpirt_tpu/parallel/smc.py::anneal_init`` and
-``anneal_init_batched`` without a mesh: each K-chain ensemble starts hot
+``anneal_init_batched``: each K-chain ensemble starts hot
 (observation noise sd sqrt(T_max)), runs a warm prologue of tempered
 sweeps at T_max, then anneals down a geometric ladder to T = 1. Each step
 reweights the lanes by the tempered-likelihood ratio, resamples
@@ -16,15 +17,25 @@ and each campaign's resample decision is taken on the device, so a step
 never waits for the host. Campaign b draws every number from its own
 generator, in the order a solo run draws them, so it equals a solo
 ``anneal_init`` fed the same draws.
+
+On a mesh (``gpirt_tpu/parallel/smc.py:65-290``) each rank mutates its
+block of the lanes (its chains, its items); the reweight's per-lane ll is
+summed over the item shards, the log-weights are gathered over the chain
+shards, so that every rank computes the same weights, ESS and source
+lanes from the replicated generator's uniform, and a resample gathers the
+lane states over the chain shards (the per-item leaves stay sharded) and
+keeps this rank's lanes. Mutation draws follow ``parallel/items.py``'s
+rule.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
@@ -37,8 +48,11 @@ from gpirt_tpu_torch.models.gibbs import (
     theta_from_indices,
 )
 from gpirt_tpu_torch.ops.likelihood import ordinal_ll_terms
+from gpirt_tpu_torch.parallel.chains import Shards, gather_chains, shards_of
+from gpirt_tpu_torch.parallel.items import item_generator, item_inputs
 
-__all__ = ["anneal_init", "anneal_init_batched", "annealing_schedule", "WARM_STEPS"]
+__all__ = ["anneal_init", "anneal_init_batched", "annealing_schedule", "lane_block",
+           "WARM_STEPS"]
 
 WARM_STEPS = 8
 
@@ -51,8 +65,8 @@ def annealing_schedule(n_steps: int, max_temp: float) -> np.ndarray:
 
 
 def _lane_ll(states: GPIRTState, t, y, consts: GPIRTConstants):
-    """Each lane's tempered log-likelihood: (K,). ``t`` is one temperature
-    for every lane, or a (K,) tensor of one a lane."""
+    """Each lane's tempered log-likelihood over its items: (K,). ``t`` is
+    one temperature for every lane, or a (K,) tensor of one a lane."""
     theta = theta_from_indices(states.theta_idx, consts)
     g = states.f + compute_mu(theta, states.beta)
     if torch.is_tensor(t):
@@ -74,12 +88,49 @@ def _take(states: GPIRTState, idx: torch.Tensor) -> GPIRTState:
     return GPIRTState(*(a[idx] for a in states))
 
 
+def _resample(states: GPIRTState, src: torch.Tensor, shards: Shards,
+              lanes: slice) -> GPIRTState:
+    """The lanes ``lanes`` of the resampled ensemble, lane j a copy of
+    source lane src[j] (src over all lanes). Over a chain mesh the distinct
+    source lanes are gathered over the chain shards first, each from the
+    rank that holds it (one all_reduce of a zero-filled buffer a field; a
+    resample at a collapsed weight ESS has few distinct sources)."""
+    if shards.chain_group is None:
+        return _take(states, src[lanes])
+    sources, where = torch.unique(src, return_inverse=True)
+    mine = shards.chains(src.numel())
+    held = (sources >= mine.start) & (sources < mine.stop)
+    out = []
+    for a in states:
+        buf = a.new_zeros((sources.numel(),) + tuple(a.shape[1:]))
+        buf[held] = a[sources[held] - mine.start]
+        dist.all_reduce(buf, group=shards.chain_group)
+        out.append(buf[where[lanes]])
+    return GPIRTState(*out)
+
+
 def _lane_axis(draws, field: str, passes: int = 1) -> int:
     """The axes before the lanes in a field of a draws tuple: a round or try
     axis (its ``_ROUND_FIELDS``), after the pass axis of a latent pass's
     field (its ``_PASS_FIELDS``) when there are several passes."""
     return (int(passes > 1 and field in getattr(draws, "_PASS_FIELDS", ()))
             + int(field in getattr(draws, "_ROUND_FIELDS", ())))
+
+
+def lane_block(draws, lanes: slice, passes: int = 1, lead: int = 0):
+    """A draws tuple cut to the lanes ``lanes`` along each field's lane
+    axis; ``passes`` and ``lead`` as in :func:`_cat_lanes`. A rank on a
+    chain mesh keeps its chains' block of numbers drawn for all."""
+    out = []
+    for name, f in zip(draws._fields, draws):
+        axis = lead + _lane_axis(draws, name, passes)
+        if f is None:
+            out.append(None)
+        elif isinstance(f, tuple):
+            out.append(lane_block(f, lanes, passes, axis))
+        else:
+            out.append(f.narrow(axis, lanes.start, lanes.stop - lanes.start))
+    return type(draws)(*out)
 
 
 def _cat_lanes(per_campaign, passes: int = 1, lead: int = 0):
@@ -127,6 +178,8 @@ def anneal_init_batched(
     max_temp: float = 64.0,
     sweeps_per_step: int = 1,
     ess_threshold: float = 0.5,
+    shards: Optional[Shards] = None,
+    item_gen: Optional[torch.Generator] = None,
 ):
     """Anneal B independent K-chain campaigns from T = max_temp to T = 1 as
     the B K lanes of one sweep. Returns (states, info).
@@ -137,16 +190,30 @@ def anneal_init_batched(
     leading (B, K); ``info`` holds the weight-ESS trace of the annealing
     steps (B, n_steps - 1), the resample counts (B,) (the final resample
     included) and the final weight ESS (B,), as numpy.
+
+    ``shards`` (one campaign only) is this rank's place on a mesh
+    (:func:`anneal_init`): ``states`` then holds this rank's block of the
+    lanes, and ``item_gen`` is the item shard's generator.
     """
     if config.resolved_f_method != "conjugate":
         raise NotImplementedError("anneal_init needs f_method='conjugate'")
     B, K = len(gens), theta_init.shape[0]
+    shards = Shards() if shards is None else shards
+    if B > 1 and shards != Shards():
+        raise NotImplementedError("campaigns over a mesh (mesh) are not ported to "
+                                  "gpirt_tpu_torch yet")
     dt, dev = config.tdtype, consts.grid.device
+    # this rank's lanes, items, and their responses, constants and config
+    own = shards.chains(K) if B == 1 else slice(0, B * K)
+    y, thresholds_init, consts, config = item_inputs(y, thresholds_init, consts, config,
+                                                     shards)
     # the ladder in the working precision, as the JAX package holds it
     temps = [float(t) for t in
              torch.as_tensor(annealing_schedule(n_steps, max_temp), dtype=dt)]
-    states = init_state(theta_init.repeat(B, 1, 1), thresholds_init, consts, config,
-                        _cat_lanes([init_draws(g, K, consts, config) for g in gens]))
+    init = _cat_lanes([init_draws(g if item_gen is None else item_gen, K, consts, config)
+                       for g in gens])
+    states = init_state(theta_init.repeat(B, 1, 1)[own], thresholds_init, consts, config,
+                        lane_block(init, own))
     lanes = torch.arange(B * K, device=dev).reshape(B, K)
     logw = torch.zeros(B, K, dtype=dt, device=dev)
     # the JAX package's step ids, each step's sweeps' iteration: the warm
@@ -156,27 +223,35 @@ def anneal_init_batched(
     ess_trace, resampled = [], []
     for i, (t_prev, t_new) in zip(ids, steps):
         if t_new != t_prev:  # the warm prologue's ratio is exactly 0
-            logw = logw + (_lane_ll(states, t_new, y, consts)
-                           - _lane_ll(states, t_prev, y, consts)).reshape(B, K)
+            ll = torch.stack([_lane_ll(states, t_new, y, consts),
+                              _lane_ll(states, t_prev, y, consts)])
+            if shards.item_group is not None:
+                dist.all_reduce(ll, group=shards.item_group)
+            logw = logw + gather_chains(ll[0] - ll[1], shards).reshape(B, K)
         _, ess_w, src = _weights(logw, gens, K, dev, dt)
         do = ess_w < ess_threshold * K  # (B,), decided on the device
-        states = _take(states, torch.where(do.unsqueeze(-1), src, lanes).reshape(-1))
+        sel = torch.where(do.unsqueeze(-1), src, lanes).reshape(-1)
+        # on one device no step waits for the host; over chain shards every
+        # rank reads the same decision and gathers only to resample
+        if shards.chain_group is None or bool(do.any()):
+            states = _resample(states, sel, shards, own)
         logw = torch.where(do.unsqueeze(-1), torch.zeros_like(logw), logw)
         ess_trace.append(ess_w)
         resampled.append(do)
         for _ in range(sweeps_per_step):
-            draws = _cat_lanes([sweep_draws(g, K, consts, config, i) for g in gens],
-                               config.mix_subsweeps)
-            states, _ = gibbs_sweep(states, draws, y, consts, config, t_new, i)
+            draws = _cat_lanes([sweep_draws(g, K, consts, config, i, item_gen)
+                                for g in gens], config.mix_subsweeps)
+            states, _ = gibbs_sweep(states, lane_block(draws, own, config.mix_subsweeps),
+                                    y, consts, config, t_new, i, shards.item_group)
     w, _, src = _weights(logw, gens, K, dev, dt)
-    states = _take(states, src.reshape(-1))
+    states = _resample(states, src.reshape(-1), shards, own)
     w_final = w.cpu().double().numpy()
     info = {
         "weight_ess": torch.stack(ess_trace)[WARM_STEPS:].T.cpu().double().numpy(),
         "n_resamples": torch.stack(resampled)[WARM_STEPS:].sum(0).cpu().numpy() + 1,
         "final_weight_ess": 1.0 / np.sum(w_final * w_final, axis=-1),
     }
-    return GPIRTState(*(a.reshape((B, K) + a.shape[1:]) for a in states)), info
+    return GPIRTState(*(a.reshape((B, -1) + a.shape[1:]) for a in states)), info
 
 
 def anneal_init(
@@ -191,6 +266,9 @@ def anneal_init(
     max_temp: float = 64.0,
     sweeps_per_step: int = 1,
     ess_threshold: float = 0.5,
+    mesh=None,
+    item_axis: Optional[str] = None,
+    item_gen: Optional[torch.Generator] = None,
 ):
     """Anneal K chains from T = max_temp to T = 1. Returns (states, info).
 
@@ -199,11 +277,21 @@ def anneal_init(
     draws from ``gen``: one campaign of :func:`anneal_init_batched`.
     ``info`` holds the annealing steps' weight-ESS trace, the resample
     count (the final resample included) and the final weight ESS.
+
+    With a ``mesh`` (every rank calls it with the whole inputs) the chains
+    shard over its "chains" axis and, with ``item_axis``, the items over
+    that axis, whose item-local numbers come from ``item_gen`` (by default
+    ``parallel.items.item_generator`` of ``gen``'s seed); ``states`` is
+    then this rank's block (``parallel.chains.lane_state_block``) and
+    ``info`` the same on every rank.
     """
+    shards = shards_of(mesh, item_axis)
+    if shards.n_item > 1 and item_gen is None:
+        item_gen = item_generator(gen.initial_seed(), shards.item_rank, gen.device)
     states, info = anneal_init_batched(
         [gen], y, theta_init, thresholds_init, consts, config, n_steps=n_steps,
         max_temp=max_temp, sweeps_per_step=sweeps_per_step,
-        ess_threshold=ess_threshold)
+        ess_threshold=ess_threshold, shards=shards, item_gen=item_gen)
     return GPIRTState(*(a[0] for a in states)), {
         "weight_ess": info["weight_ess"][0],
         "n_resamples": int(info["n_resamples"][0]),

@@ -30,6 +30,15 @@ here refuse to resume from it. Module-level tallies of diagnostics (such
 as ``models.affine.counts`` or ``ops.ess.ess_update``'s counters) are not
 chain state and are not saved.
 
+On a mesh (``run_chains_checkpointed(mesh=..., item_axis=...)``) the file
+holds the whole run, as one process would: every rank gathers the lane
+states and the draws, rank 0 writes the file, and the ranks meet after
+it. Under an item axis it also holds each item shard's generator state
+(``item_rng_state``, one row a shard) and meta ``item_shards``. A run
+resumes on any chain layout, or on none, bit for bit; a resume onto
+another count of item shards raises ``NotImplementedError`` (the item
+shards' streams would change; JAX lets its draws change there).
+
 Not carried over from the JAX module: ``aligned_records_chunk`` and
 ``ChunkedPrograms``, which shared one compiled XLA program between chunks
 (eager PyTorch has nothing to compile); ``run_chains_chunked`` and
@@ -50,14 +59,22 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
-from gpirt_tpu_torch.models.gibbs import GPIRTState, init_draws, init_state
+from gpirt_tpu_torch.models.gibbs import GPIRTState
 from gpirt_tpu_torch.models.sampler import (
     Carry,
     advance_chains,
+    chain_start,
     run_length,
     sample_schedule,
+)
+from gpirt_tpu_torch.parallel.chains import (
+    Shards,
+    assemble_lane_state,
+    gather_items,
+    lane_state_block,
 )
 from gpirt_tpu_torch.parallel.tempering import (
     advance_tempered,
@@ -132,6 +149,7 @@ class Checkpoint(NamedTuple):
     meta: dict
     draws: Dict[str, np.ndarray]
     rng_state: Optional[np.ndarray]  # uint8; None in a JAX package's file
+    item_rng_state: Optional[np.ndarray] = None  # (shards, bytes) uint8 under an item axis
 
 
 class CheckpointManager:
@@ -147,7 +165,8 @@ class CheckpointManager:
         return os.path.exists(self.path)
 
     def save(self, state: GPIRTState, meta: dict, draws: Dict[str, np.ndarray],
-             rng_state: Optional[torch.Tensor] = None) -> None:
+             rng_state: Optional[torch.Tensor] = None,
+             item_rng_state: Optional[torch.Tensor] = None) -> None:
         """Write the file through a temporary one in its directory and
         ``os.replace``: a failed write leaves the previous checkpoint."""
         t = time.perf_counter()
@@ -158,6 +177,8 @@ class CheckpointManager:
             payload[f"draws_{k}"] = np.asarray(v)
         if rng_state is not None:
             payload["rng_state"] = rng_state.cpu().numpy().astype(np.uint8)
+        if item_rng_state is not None:
+            payload["item_rng_state"] = item_rng_state.cpu().numpy().astype(np.uint8)
         payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
         d = os.path.dirname(os.path.abspath(self.path)) or "."
         os.makedirs(d, exist_ok=True)
@@ -200,7 +221,8 @@ class CheckpointManager:
                 k[len("draws_"):]: z[k] for k in z.files if k.startswith("draws_")
             }
             rng_state = z["rng_state"] if "rng_state" in z.files else None
-        return Checkpoint(state, meta, draws, rng_state)
+            item_rng = z["item_rng_state"] if "item_rng_state" in z.files else None
+        return Checkpoint(state, meta, draws, rng_state, item_rng)
 
 
 def _device_name(device: torch.device) -> str:
@@ -217,12 +239,15 @@ def _run_spec(gen: torch.Generator, n_chains: int, thin: int, burn_iterations: i
 
 
 def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generator,
-           config: GPIRTConfig, fresh):
+           config: GPIRTConfig, fresh, shards: Optional[Shards] = None,
+           item_gen: Optional[torch.Generator] = None):
     """(the state to advance in a :class:`Carry`, the sweeps run, the draws
     so far, the meta): the manager's checkpoint, checked against ``spec``,
     with ``gen`` set to its generator state and the state's shared fields
     made the views the sweep makes (f* under constant_IRF); without one,
-    or without a manager, ``fresh()``'s state at sweep 0."""
+    or without a manager, ``fresh()``'s state at sweep 0. On a mesh
+    (``shards``) the state is this rank's block, and ``item_gen`` takes its
+    item shard's saved state."""
     ck = None if manager is None else manager.load(device=gen.device)
     if ck is None:
         return Carry(fresh()), 0, {}, {}
@@ -232,6 +257,13 @@ def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generato
             "was not written by gpirt_tpu_torch (the JAX package writes none), "
             "and the port cannot continue its random stream. Delete it to start "
             "fresh.")
+    n_item = 1 if shards is None else shards.n_item
+    if int(ck.meta.get("item_shards", 1)) != n_item:
+        raise NotImplementedError(
+            f"item_axis: checkpoint {manager.path} was written over "
+            f"{ck.meta.get('item_shards', 1)} item shard(s) and would resume over "
+            f"{n_item}; a resume across item-shard counts is not ported to "
+            "gpirt_tpu_torch yet (each shard's random stream would change)")
     _check_run_spec(ck.meta, spec, manager.path)
     here = (_device_name(gen.device), torch.__version__)
     there = (ck.meta.get("device_name"), ck.meta.get("torch_version"))
@@ -241,23 +273,47 @@ def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generato
               "the draws are valid, but not bitwise those of the uninterrupted "
               "run", file=sys.stderr)
     gen.set_state(torch.from_numpy(np.ascontiguousarray(ck.rng_state, np.uint8)))
+    if item_gen is not None:
+        item_gen.set_state(torch.from_numpy(
+            np.ascontiguousarray(ck.item_rng_state[shards.item_rank], np.uint8)))
     state = ck.state
+    if shards is not None:
+        state = lane_state_block(state, shards)
     if config.constant_IRF:  # one f* a chain, an expand view over the sessions
         fs = state.fstar[:, :1].contiguous()
         state = state._replace(fstar=fs.expand(state.fstar.shape))
     return Carry(state), int(ck.meta["iteration"]), dict(ck.draws), ck.meta
 
 
+def _save(manager: CheckpointManager, carry: Carry, meta: dict, draws, gen,
+          shards: Optional[Shards], item_gen: Optional[torch.Generator]) -> None:
+    """Save the run; on a mesh every rank gathers the lane states and the
+    item shards' generator states, rank 0 writes, and the ranks meet
+    after the write."""
+    if shards is None:
+        manager.save(carry.state, meta, draws, gen.get_state())
+        return
+    state = assemble_lane_state(carry.state, shards)
+    item_rng = None
+    if item_gen is not None:
+        item_rng = gather_items(item_gen.get_state().to(torch.int64)[None], shards, 0)
+        meta = dict(meta, item_shards=shards.n_item)
+    if dist.get_rank() == 0:
+        manager.save(state, meta, draws, gen.get_state(), item_rng)
+    dist.all_reduce(torch.zeros(1))  # the ranks meet once the file is written
+
+
 def _drive(manager: Optional[CheckpointManager], gen: torch.Generator, spec: dict,
            carry: Carry, done: int, end: int, draws: Dict[str, np.ndarray], sched,
            total: int, sample_iterations: int, checkpoint_every: int, on_progress, step,
-           extra=lambda done: {}):
+           extra=lambda done: {}, shards: Optional[Shards] = None,
+           item_gen: Optional[torch.Generator] = None):
     """Advance ``carry`` from absolute sweep ``done`` to ``end`` in chunks
     of ``checkpoint_every`` sweeps: ``step(start, stop)`` returns the
     chunk's stored draws on the device, which go to host numpy and join
     ``draws``; after each chunk the state is saved with ``extra(done)``'s
-    meta. Without a manager the range is one chunk and nothing is saved.
-    Returns (done, draws)."""
+    meta (:func:`_save`; on a mesh, ``shards``). Without a manager the
+    range is one chunk and nothing is saved. Returns (done, draws)."""
     if manager is None:
         checkpoint_every = max(end - done, 1)
     elif checkpoint_every < 1:
@@ -275,7 +331,7 @@ def _drive(manager: Optional[CheckpointManager], gen: torch.Generator, spec: dic
                     recs_done=next(iter(draws.values())).shape[1] if draws else 0,
                     sample_iterations=sample_iterations, total=total, iteration=done,
                     device_name=_device_name(gen.device), torch_version=torch.__version__)
-        manager.save(carry.state, meta, draws, gen.get_state())
+        _save(manager, carry, meta, draws, gen, shards, item_gen)
         if on_progress is not None:
             on_progress(min(done, total), total)
     return done, draws
@@ -298,6 +354,9 @@ def run_chains_checkpointed(
     checkpoint_every: int = 200,
     on_progress=None,
     initial_states: Optional[GPIRTState] = None,
+    mesh=None,
+    item_axis: Optional[str] = None,
+    item_gen: Optional[torch.Generator] = None,
 ) -> Dict[str, np.ndarray]:
     """:func:`~gpirt_tpu_torch.models.sampler.run_chains`, resumable: the K
     chains advance ``checkpoint_every`` sweeps at a time, and the state,
@@ -310,28 +369,33 @@ def run_chains_checkpointed(
     manager it runs the whole range at once and saves nothing.
     ``on_progress(done, total)`` is called after each save.
 
+    On a ``mesh`` (every rank calls this with the whole inputs) the run is
+    ``run_chains(mesh=..., item_axis=...)``'s, ``initial_states`` this
+    rank's block, and every rank returns the whole draws; the file holds
+    the whole run (module docstring).
+
     Returns host numpy draws with a leading chain axis, ``run_chains``'s
     names and layouts.
     """
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
-    K = theta_init.shape[0]
-    spec = _run_spec(gen, K, thin, burn_iterations, store_f, store_fstar, config)
+    spec = _run_spec(gen, theta_init.shape[0], thin, burn_iterations, store_f, store_fstar,
+                     config)
+    shards, item_gen, y, consts, config, start_state = chain_start(
+        gen, theta_init, thresholds_init, y, consts, config, mesh, item_axis, item_gen)
 
     def fresh():
-        if initial_states is not None:
-            return initial_states
-        return init_state(theta_init, thresholds_init, consts, config,
-                          init_draws(gen, K, consts, config))
+        return start_state() if initial_states is None else initial_states
 
-    carry, done, draws, _ = _start(manager, spec, gen, config, fresh)
+    carry, done, draws, _ = _start(manager, spec, gen, config, fresh, shards, item_gen)
 
     def step(start, stop):
         return advance_chains(gen, carry, y, consts, config, sched, start, stop,
-                              store_f=store_f, store_fstar=store_fstar)
+                              store_f=store_f, store_fstar=store_fstar, shards=shards,
+                              item_gen=item_gen)
 
     _, draws = _drive(manager, gen, spec, carry, done, run_length(sched), draws, sched,
                       sample_iterations + burn_iterations, sample_iterations,
-                      checkpoint_every, on_progress, step)
+                      checkpoint_every, on_progress, step, shards=shards, item_gen=item_gen)
     return {k: v[:, :sched.n_samples] for k, v in draws.items()}
 
 

@@ -1,0 +1,317 @@
+"""What the ranks of the port's multi-process tests run
+(``test_torch_items.py``, ``test_torch_distributed.py``), in a module that
+imports no JAX, as ``_multihost_worker.py`` is for the JAX package: a
+spawned rank imports the module that holds its function, and the test files
+import JAX. Inputs and outputs cross as ``.npz`` files in the test's
+directory; each rank writes ``<world>_rank<r>.npz``.
+
+Sizes: n 12 respondents, m 8 items, K 4 chains, a 61-point grid, float64.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from gpirt_tpu_torch import gpirt_campaigns, gpirt_mcmc
+from gpirt_tpu_torch.api import default_thresholds
+from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy
+from gpirt_tpu_torch.models import gibbs as tg
+from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants, make_constants
+from gpirt_tpu_torch.models.sampler import run_chains
+from gpirt_tpu_torch.parallel.chains import (
+    assemble_lane_state,
+    lane_state_block,
+    make_chain_mesh,
+    shards_of,
+)
+from gpirt_tpu_torch.parallel.distributed import (
+    _local_shard_bounds,
+    global_chain_mesh,
+    pooled_ess_multihost,
+    run_chains_multihost,
+)
+from gpirt_tpu_torch.parallel.items import (
+    consts_item_block,
+    draws_item_block,
+    make_item_mesh,
+    run_chains_itemsharded,
+)
+from gpirt_tpu_torch.parallel.smc import lane_block
+
+n, m, K, N = 12, 8, 4, 61
+F64 = torch.float64
+# sweep cases: (C, H, theta_ls); CST at H = 1, GP at H = 3
+SWEEP_CASES = {"C2": (2, 1, 10.0), "C5": (5, 1, 10.0), "gp_H3": (2, 3, 2.0)}
+# draw_theta cases: (item shards, the sweep case whose data it reads)
+THETA_CASES = {"items2": (2, "C2"), "items4": (4, "C2"), "gp_items2": (2, "gp_H3")}
+SWEEPS = 3
+LATENT = ("u_theta", "u_z", "z_q", "z_p", "z_n", "eps_f", "zeta")
+CUT = ("nu", "logu", "eps0", "rs")
+# the refusals the items world checks: (case, exception it must raise)
+REFUSALS = {"uneven_m": "ValueError", "chains_indivisible": "ValueError",
+            "non_conjugate": "NotImplementedError", "theta_ess": "NotImplementedError",
+            "affine": "NotImplementedError", "n_temps": "NotImplementedError",
+            "respondent_axis": "NotImplementedError", "campaign_mesh": "NotImplementedError",
+            "resume_other_item_count": "NotImplementedError",
+            "resume_without_mesh": "NotImplementedError",
+            "item_axis_not_named": "ValueError"}
+RUN = dict(sample_iterations=6, burn_iterations=2)
+
+
+def port_config(case: str) -> GPIRTConfig:
+    C, H, ls = SWEEP_CASES[case]
+    return GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N, dtype="float64",
+                       theta_ls=ls)
+
+
+def votes(seed=0, n=n, m=m) -> np.ndarray:
+    """(n, m) binary responses coded 1, 2 from a 2PL model, a few missing."""
+    rng = np.random.default_rng(seed)
+    theta = np.linspace(-1.5, 1.5, n)
+    p = 1 / (1 + np.exp(-np.outer(theta, rng.standard_normal(m) * 1.5)))
+    y = np.where(rng.random((n, m)) < p, 2.0, 1.0)
+    y[rng.random((n, m)) < 0.1] = np.nan
+    return y
+
+
+def chain_setup(K=K):
+    """A small binary problem for run_chains: y, theta_init (K, 1, n),
+    thresholds, constants and config."""
+    y = votes()
+    yt = torch.as_tensor(np.nan_to_num(y, nan=0.0)[None].astype(np.int32))
+    cfg = GPIRTConfig(n=n, m=m, horizon=1, C=2, grid_size=N, dtype="float64")
+    consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
+                            np.full((2, n), 0.5), device="cpu")
+    ti = torch.as_tensor(np.random.default_rng(1).uniform(-1, 1, (K, 1, n)))
+    return yt, ti, torch.as_tensor(default_thresholds(2, m, 1)), consts, cfg
+
+
+def _consts(z) -> GPIRTConstants:
+    return constants_from_numpy(
+        {f.name: z[f"c_{f.name}"] if f"c_{f.name}" in z.files else None
+         for f in dataclasses.fields(GPIRTConstants)}, device="cpu", dtype=F64)
+
+
+def _state(z, prefix="s_"):
+    return state_from_numpy({f: z[prefix + f] for f in tg.GPIRTState._fields},
+                            device="cpu", dtype=F64)
+
+
+def _block_inputs(z, case, shards):
+    """This rank's block of a case's state, y, constants and config."""
+    cfg = port_config(case)
+    items = shards.items(m)
+    consts = _consts(z)
+    state = lane_state_block(_state(z), shards)
+    y = torch.as_tensor(z["y"])[..., items].contiguous()
+    return (state, y, consts_item_block(consts, items),
+            dataclasses.replace(cfg, m=items.stop - items.start), consts, cfg)
+
+
+def _theta_case(tmp, case, mesh, out):
+    S, data = THETA_CASES[case]
+    z = np.load(os.path.join(tmp, f"sweep_{data}.npz"))
+    sh = shards_of(mesh, "items")
+    state, y, cb, cl, _, _ = _block_inputs(z, data, sh)
+    u = torch.as_tensor(z["theta_u"])[sh.chains(K)]
+    mu_star = tg.compute_mu_star(cb, state.beta)
+    out[f"theta_{case}"] = tg.draw_theta(state, mu_star, y, cb, cl, u, None,
+                                         sh.item_group).numpy()
+
+
+def _sweep_case(tmp, case, mesh, out):
+    """Three item-sharded sweeps fed JAX's per-shard draws."""
+    z = np.load(os.path.join(tmp, f"sweep_{case}.npz"))
+    sh = shards_of(mesh, "items")
+    state, y, cb, cl, _, _ = _block_inputs(z, case, sh)
+    for it in range(SWEEPS):
+        d = {k: torch.as_tensor(z[f"it{it}_shard{sh.item_rank}_{k}"]) for k in LATENT + CUT}
+        draws = tg.SweepDraws(*(d[k] for k in LATENT), tg.ESSDraws(*(d[k] for k in CUT)))
+        state, ll = tg.gibbs_sweep(state, lane_block(draws, sh.chains(K)), y, cb, cl,
+                                   None, it, sh.item_group)
+        for f in tg.GPIRTState._fields:
+            out[f"{case}_it{it}_{f}"] = getattr(state, f).numpy()
+        out[f"{case}_it{it}_ll"] = ll.numpy()
+
+
+def _self_case(tmp, case, mesh, out):
+    """One item-sharded sweep against the port's own unsharded sweep from
+    the same state and the same full draws, cut to the block."""
+    z = np.load(os.path.join(tmp, f"sweep_{case}.npz"))
+    sh = shards_of(mesh, "items")
+    state, y, cb, cl, consts, cfg = _block_inputs(z, case, sh)
+    gen = torch.Generator().manual_seed(5)
+    full = tg.sweep_draws(gen, K, consts, cfg)
+    ref, ref_ll = tg.gibbs_sweep(_state(z), full, torch.as_tensor(z["y"]), consts, cfg)
+    ref = lane_state_block(ref, sh)
+    block = draws_item_block(lane_block(full, sh.chains(K)), sh.items(m))
+    got, ll = tg.gibbs_sweep(state, block, y, cb, cl, None, 0, sh.item_group)
+    for f in tg.GPIRTState._fields:
+        out[f"self_{case}_{f}"] = getattr(got, f).numpy()
+        out[f"selfref_{case}_{f}"] = getattr(ref, f).numpy()
+    out[f"self_{case}_ll"] = ll.numpy()
+    out[f"selfref_{case}_ll"] = ref_ll[sh.chains(K)].numpy()
+
+
+def _mcmc(mesh, data=None, **kw):
+    data = votes() if data is None else data
+    args = dict(CHAIN=K, vote_codes=None, dtype="float64", device="cpu", verbose=False,
+                grid_size=N, mesh=mesh, item_axis="items", **RUN)
+    args.update(kw)
+    return gpirt_mcmc(data, args.pop("sample_iterations"), args.pop("burn_iterations"),
+                      **args)
+
+
+def _chains_out(res, prefix, out):
+    for k in ("theta", "beta", "threshold", "ll"):
+        out[f"{prefix}_{k}"] = np.stack([d[k] for d in res])
+
+
+def _refusal(fn):
+    try:
+        fn()
+    except Exception as exc:  # the test names the type each case must raise
+        return f"{type(exc).__name__}: {exc}"
+    return "no error"
+
+
+def items_world(tmp):
+    """The items world (4 ranks): draw_theta on a 2 x 2 and a 1 x 4 mesh,
+    three sweeps of each case against JAX's and one against the port's
+    own unsharded sweep, gpirt_mcmc with SMC on the 2 x 2 mesh, a
+    checkpointed run interrupted and resumed there, and the refusals."""
+    rank = dist.get_rank()
+    mesh22 = make_item_mesh(2, 2, device="cpu")
+    mesh14 = make_item_mesh(4, 1, device="cpu")
+    out = {"names": np.array(mesh22.mesh_dim_names), "shape22": np.array(mesh22.shape)}
+    for mesh, tag in ((mesh22, "22"), (mesh14, "14")):
+        sh = shards_of(mesh, "items")
+        out[f"place{tag}"] = np.array([sh.chain_rank, sh.item_rank])
+    for case, (S, _) in THETA_CASES.items():
+        _theta_case(tmp, case, mesh22 if S == 2 else mesh14, out)
+    for case in SWEEP_CASES:
+        _sweep_case(tmp, case, mesh22, out)
+        _self_case(tmp, case, mesh22, out)
+    _chains_out(_mcmc(mesh22, smc_steps=6, smc_max_temp=8.0), "mcmc", out)
+
+    ck = os.path.join(tmp, "items_ck")
+    ck_kw = dict(checkpoint_every=3, checkpoint_path=ck)
+    _chains_out(_mcmc(mesh22, checkpoint_path=os.path.join(tmp, "items_full"),
+                      checkpoint_every=3), "ck_full", out)
+    _mcmc(mesh22, sample_iterations=2, **ck_kw)
+    _chains_out(_mcmc(mesh22, **ck_kw), "ck_resumed", out)
+
+    yt, ti, thr, consts, cfg = chain_setup()
+    cut_path = os.path.join(tmp, "items_cut")
+    refusals = {
+        "uneven_m": lambda: _mcmc(mesh14, data=votes(n=n, m=6)),
+        "chains_indivisible": lambda: _mcmc(mesh22, CHAIN=3),
+        "non_conjugate": lambda: _mcmc(mesh22, f_method="two_stage"),
+        "theta_ess": lambda: _mcmc(mesh22, theta_method="ess"),
+        "affine": lambda: run_chains_itemsharded(
+            torch.Generator().manual_seed(0), yt, ti, thr, consts,
+            dataclasses.replace(cfg, affine_rounds=1), mesh=mesh22, **RUN),
+        "n_temps": lambda: _mcmc(mesh22, item_axis=None, n_temps=2),
+        "respondent_axis": lambda: _mcmc(mesh22, respondent_axis="respondents"),
+        "campaign_mesh": lambda: gpirt_campaigns(votes(), 2, vote_codes=None,
+                                                 device="cpu", mesh=mesh22),
+        "resume_other_item_count": lambda: (
+            _mcmc(mesh22, sample_iterations=2, checkpoint_path=cut_path),
+            _mcmc(mesh14, checkpoint_path=cut_path)),
+        "resume_without_mesh": lambda: _mcmc(None, item_axis=None,
+                                             checkpoint_path=cut_path),
+        "item_axis_not_named": lambda: _mcmc(mesh22, item_axis=None),
+    }
+    for name, fn in refusals.items():
+        out[f"refusal_{name}"] = np.array(_refusal(fn))
+    np.savez(os.path.join(tmp, f"items_rank{rank}.npz"), **out)
+    return rank
+
+
+def chains_world(tmp):
+    """The chains world (2 ranks): run_chains, gpirt_mcmc with SMC, and
+    run_chains_multihost on a chain mesh, the pooled ESS of the ranks'
+    blocks, a state's blocks reassembled, and checkpoints across meshes
+    (interrupted here and resumed by the test without a mesh, and the
+    test's unsharded interrupted run resumed here)."""
+    rank = dist.get_rank()
+    mesh = make_chain_mesh(device="cpu")
+    out = {"names": np.array(mesh.mesh_dim_names), "world": np.array(dist.get_world_size()),
+           "global_names": np.array(global_chain_mesh(device="cpu").mesh_dim_names),
+           "bounds": np.array(_local_shard_bounds(mesh, K))}
+    yt, ti, thr, consts, cfg = chain_setup()
+    gen = torch.Generator().manual_seed(3)
+    rc = run_chains(gen, yt, ti, thr, consts, cfg, mesh=mesh, **RUN)
+    for k, v in rc.items():
+        out[f"rc_{k}"] = v.numpy()
+    _chains_out(_mcmc(mesh, item_axis=None, smc_steps=6, smc_max_temp=8.0), "mcmc", out)
+    mh = run_chains_multihost(5, K, yt, ti[0], thr, consts, cfg, mesh=mesh, **RUN)
+    out["multihost_theta"] = mh["theta"].numpy()
+    draws = torch.as_tensor(np.random.default_rng(2).standard_normal((K, 40, 5)))
+    out["pooled_ess"] = pooled_ess_multihost(draws[shards_of(mesh).chains(K)], mesh).numpy()
+    state = tg.init_state(ti, thr, consts, cfg, tg.init_draws(gen, K, consts, cfg))
+    back = assemble_lane_state(lane_state_block(state, mesh), mesh)
+    out["roundtrip"] = np.array(all(torch.equal(a, b) for a, b in zip(state, back)))
+    ck = dict(checkpoint_every=3, smc_steps=6, smc_max_temp=8.0, item_axis=None)
+    _mcmc(mesh, sample_iterations=2, checkpoint_path=os.path.join(tmp, "mesh_cut"), **ck)
+    _chains_out(_mcmc(mesh, checkpoint_path=os.path.join(tmp, "plain_cut"), **ck),
+                "resumed_on_mesh", out)
+    np.savez(os.path.join(tmp, f"chains_rank{rank}.npz"), **out)
+    return rank
+
+
+def fail_on_rank_one():
+    """A rank that raises: the launcher must raise in the parent."""
+    if dist.get_rank() == 1:
+        raise ValueError("rank one fails on purpose")
+    dist.all_reduce(torch.zeros(1))
+    return dist.get_rank()
+
+
+def sleep_past_the_timeout(seconds):
+    import time
+
+    time.sleep(seconds)
+    return dist.get_rank()
+
+
+def card_config() -> GPIRTConfig:
+    """The card test's sharded sweep: 4 chains, 12 x 8, float32."""
+    return GPIRTConfig(n=n, m=m, horizon=1, C=2, grid_size=N, dtype="float32", jitter=1e-5)
+
+
+def card_sharded_sweep(path, out_dir, seed=3):
+    """One sweep on this rank's item block of the card, from the state and
+    constants in ``path`` and the unsharded sweep's draws (seeded ``seed``
+    on the card) cut to the block; the result saved in ``out_dir``."""
+    from gpirt_tpu_torch.api import full_fp32_matmuls
+    from gpirt_tpu_torch.models.config import GPIRTConstants as Consts
+
+    full_fp32_matmuls()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(path, map_location=dev)
+    state, consts = tg.GPIRTState(*saved["state"]), Consts(**saved["consts"])
+    cfg, y = card_config(), saved["y"]
+    draws = tg.sweep_draws(torch.Generator(device=dev).manual_seed(seed), K, consts, cfg)
+    sh = shards_of(make_item_mesh(2, device="cuda"), "items")
+    items = sh.items(m)
+    got, ll = tg.gibbs_sweep(lane_state_block(state, sh, "items"),
+                             draws_item_block(draws, items), y[..., items].contiguous(),
+                             consts_item_block(consts, items),
+                             dataclasses.replace(cfg, m=items.stop - items.start), None, 0,
+                             sh.item_group)
+    torch.save([a.cpu() for a in got] + [ll.cpu()],
+               os.path.join(out_dir, f"card_rank{dist.get_rank()}.pt"))
+    return dist.get_rank()
+
+
+def sleep_in_stage(seconds, stage_done):
+    """Two stages: the first ends at once, the second sleeps ``seconds``."""
+    import time
+
+    stage_done()
+    time.sleep(seconds)
+    return dist.get_rank()

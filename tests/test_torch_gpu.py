@@ -11,7 +11,9 @@ paths) and the path it takes by n; gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
 (SMC-initialised and tempered), and refused on the CPU; profile_sweep
-timing with CUDA events; and the walkthrough example on the card.
+timing with CUDA events; the walkthrough example on the card; and one
+sweep with the items over 2 ranks sharing the card against the unsharded
+sweep.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -503,3 +505,42 @@ def test_walkthrough_example_on_the_card(cuda_device):
     out = walk.main(["--iters", "30", "--burn", "10", "--chains", "2"])
     assert binary_threshold_ess.launches == before + 40
     assert out["chain_means"].shape == (2, 100) and np.isfinite(out["theta_hat"]).all()
+
+
+@pytest.mark.gpu
+def test_item_sharded_sweep_on_card_matches_unsharded(cuda_device, tmp_path):
+    """One sweep with the items over 2 ranks that share the card (Gloo,
+    parallel/distributed.launch) against the unsharded sweep on the card,
+    from the same state, constants and draws (the shards' cut to their
+    items): theta equal, every other field within 1e-3, theta the same on
+    both ranks."""
+    import _torch_dist_worker as w
+    from gpirt_tpu_torch.parallel.distributed import launch
+
+    cfg = w.card_config()
+    consts = make_constants(cfg, np.zeros((3, w.m)), np.full((3, w.m), 3.0),
+                            np.zeros((2, w.n)), np.zeros((2, w.n)), device=cuda_device)
+    y = torch.as_tensor(np.nan_to_num(w.votes(), nan=0.0)[None].astype(np.int32),
+                        device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = gibbs.init_state(torch.linspace(-1, 1, w.n, device=cuda_device).expand(w.K, 1, w.n),
+                             torch.as_tensor(chip_smoke.default_thresholds(2, w.m, 1),
+                                             device=cuda_device),
+                             consts, cfg, gibbs.init_draws(gen, w.K, consts, cfg))
+    draws = gibbs.sweep_draws(torch.Generator(device=cuda_device).manual_seed(3), w.K,
+                              consts, cfg)
+    want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg)
+    path = str(tmp_path / "inputs.pt")
+    torch.save({"state": [a.cpu() for a in state], "y": y.cpu(),
+                "consts": {k: None if v is None else v.cpu() for k, v in vars(consts).items()}},
+               path)
+    assert launch(w.card_sharded_sweep, 2, (path, str(tmp_path)), device="cuda",
+                  timeout=300) == [0, 1]
+    blocks = [torch.load(tmp_path / f"card_rank{r}.pt") for r in range(2)]
+    assert torch.equal(blocks[0][0], blocks[1][0])
+    torch.testing.assert_close(blocks[0][0], want.theta_idx.cpu(), rtol=0, atol=0)
+    for i, (name, dim) in enumerate((("f", -1), ("beta", -1), ("thresholds", -2),
+                                     ("fstar", -1)), start=1):
+        got = torch.cat([b[i] for b in blocks], dim=dim)
+        torch.testing.assert_close(got, getattr(want, name).cpu(), rtol=0, atol=1e-3)
+    torch.testing.assert_close(blocks[0][5], want_ll.cpu(), rtol=1e-5, atol=0)
