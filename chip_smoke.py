@@ -208,11 +208,44 @@ Phases, each of which stops the run with a non-zero exit on failure:
      phase 5's, and where the card's batched products round differently at
      32 chains, that is printed and both are held to phase 5's posterior
      theta means at r >= 0.999; prints what the replicated generator costs
-     a sweep at the main path and the synthetic configuration.
-Phases 38, 39 and 41 run in one world of 2 ranks (a rank's start costs
-seconds on the card's machine), phase 40 in one of 4; the ranks start by
-the spawn method, each phase must end within 400 seconds, and a rank that
-fails ends the run.
+     a sweep at the main path and the synthetic configuration;
+ 42. respondent-sharded sweep check: phase 38's sweep with the respondents
+     over 2 ranks (parallel/respondents.py), fed the unsharded sweep's draws
+     cut to their respondents, against the unsharded sweep on the card:
+     beta, the cutpoints and f* bit for bit the same on both ranks (the
+     replication canary), theta equal or a float32 tie, every other field
+     within 1e-3; then the same with the affine moves on (phase 29's W =
+     16, 2 rounds), the low-rank z-marginal and orbit against the dense
+     forms; no kernel launch (under a respondent axis the cutpoint ESS runs
+     its plain round loop, each round's lane totals all-reduced, as JAX
+     leaves its kernel there);
+ 43. respondent-sharded main path: phase 5's call with
+     mesh=make_respondent_mesh(2), respondent_axis="respondents" (64 chains
+     x 50 respondents a rank): finite, no kernel launch, theta, beta and the
+     cutpoints the same on both ranks; its sign-aligned posterior theta
+     means' r with phase 5's printed. senate116's 64-chain SMC ensemble
+     settles in one of several basins by its random stream (unsharded at
+     SEED 2 and 4 it lands at r 0.18 and 0.17 with SEED 1's, PERF.md §6),
+     and a respondent shard's streams are its own, so the posterior gate of
+     phases 39-40, r >= 0.999 with phase 5's means, is held by the sharded
+     sampler continued from phase 5's last state (phase 31's checkpoint) for
+     CONT_DRAWS (100) draws, beside the unsharded continuation's r; prints the
+     sweeps a second beside phases 5 and 39, the cutpoint ESS rounds an
+     update, each all_reduce site's calls, bytes and ms a sweep (CUDA events
+     on the sweep's stream, in the run) and each rank's peak memory;
+ 44. respondent-sharded synthetic: phase 16's run (5000 x 1000, 64 chains,
+     burn 30, 150 draws) on 2 respondent shards: finite, no kernel launch,
+     the same draws on both ranks, its posterior theta means at r >= 0.99
+     with phase 16's (two short runs' means, not the truth); prints each
+     rank's peak device memory beside phase 16's, the sweeps a second
+     beside phase 16's and the all_reduce sites;
+ 45. the 2 x 2 items x respondents mesh: phase 43's checks on 4 ranks, the
+     theta table's all_reduce over the item group and the sufficient
+     statistics' over the respondent group, at phase 40's burn and draws.
+Phases 38, 39, 41 and 42-44 run as the stages of one world of 2 ranks (a
+rank's start costs seconds on the card's machine), phases 40 and 45 in one
+of 4; the ranks start by the spawn method, each phase must end within 400
+seconds, and a rank that fails ends the run.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
@@ -273,6 +306,7 @@ from gpirt_tpu_torch.parallel.chains import (  # noqa: E402
 )
 from gpirt_tpu_torch.parallel.distributed import (  # noqa: E402
     backend_for,
+    broadcast_constants,
     launch,
     rank_device,
 )
@@ -280,6 +314,11 @@ from gpirt_tpu_torch.parallel.items import (  # noqa: E402
     draws_item_block,
     item_inputs,
     make_item_mesh,
+)
+from gpirt_tpu_torch.parallel.respondents import (  # noqa: E402
+    draws_respondent_block,
+    make_respondent_mesh,
+    shard_inputs,
 )
 from gpirt_tpu_torch.parallel.smc import WARM_STEPS, lane_block  # noqa: E402
 from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
@@ -1204,15 +1243,15 @@ def fstar10k(dev, smi):
     return launches
 
 
-def synthetic_inputs(dev, n=SYN_N, m=SYN_M, K=SYN_K):
+def synthetic_inputs(dev, n=SYN_N, m=SYN_M, K=SYN_K, build=True):
     """bench.py::bench_synthetic's data, configuration and inits on ``dev``:
-    (y (1, n, m) int32, theta inits (K, 1, n), cutpoints (1, m, 3), constants,
-    config)."""
+    (y (1, n, m) int32, theta inits (K, 1, n), cutpoints (1, m, 3), constants
+    (None without ``build``), config)."""
     _, raw = simulate_2pl(0, n=n, m=m, missing=SYN_MISSING)
     y, C, _ = encode_categories(raw)
     cfg = GPIRTConfig(n=n, m=m, horizon=1, C=C, dtype="float32")
     consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
-                            np.zeros((2, n)), np.zeros((2, n)), device=dev)
+                            np.zeros((2, n)), np.zeros((2, n)), device=dev) if build else None
     rng = np.random.default_rng(0)
     ti = np.stack([rng.permutation(np.linspace(-3, 3, n))[None] for _ in range(K)])
 
@@ -1239,10 +1278,19 @@ def synthetic_run(dev, inputs, burn=SYN_BURN, draws=SYN_DRAWS):
     return out, threshold_ess.binary_threshold_ess.launches, wall, args
 
 
+def run_means(theta):
+    """run_chains' sign-aligned posterior theta means of session 0 from its
+    theta draws (K, S, H, n): each chain's mean aligned to chain 0's, then
+    pooled."""
+    means = theta[:, :, 0].mean(dim=1).cpu().double().numpy()
+    return align_theta_signs(means, reference=means[0]).mean(axis=0)
+
+
 def synthetic_path(dev, smi):
     """The synthetic configuration at full size, checked; prints its rates,
-    theta ESS and peak memory. Returns the kernel's launches and its inputs
-    at the last sweep."""
+    theta ESS and peak memory. Returns the kernel's launches, its inputs at
+    the last sweep, and the sweep rate, the peak device memory (GiB) and the
+    sign-aligned posterior theta means."""
     torch.cuda.reset_peak_memory_stats()
     out, launches, wall, args = synthetic_run(dev, synthetic_inputs(dev))
     peak = torch.cuda.max_memory_allocated()
@@ -1260,7 +1308,8 @@ def synthetic_path(dev, smi):
         f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); theta ESS median "
         f"within-chain (summed over {SYN_K} chains) {within:.1f}, pooled {pooled:.1f}; "
         f"ess/sec {within / wall:.3f} within, {pooled / wall:.3f} pooled (sampling wall)")
-    return launches, args, rate
+    return launches, args, {"sweeps_per_s": rate, "peak_gib": peak / 2**30,
+                            "means": run_means(out["theta"])}
 
 
 def plan_label(plan):
@@ -1791,15 +1840,18 @@ def snap_margin(theta, cfg):
     return (v - torch.floor(v) - 0.5).abs()
 
 
-def tie_rule(label, cfg, s_gpu, s_cpu, snap_cpu, run64, perturbed):
+def tie_rule(label, cfg, s_gpu, s_cpu, snap_cpu, run64, perturbed, float64_decides=False):
     """PERF.md section 2's rule for a theta decision that differs between
     the card and the CPU: the chains whose theta differs are found, the
     float64 run's snap margin of the differing sites is printed (under the
     ESS theta update), and a chain is let through only when the CPU's own
     float32 run, its inputs moved by one rounding (``perturbed``, a list of
     (theta_idx, snap argument)), moves that decision: its theta changes, or
-    the snapped value moves by more than the margin. Returns the chains
-    whose other fields are compared."""
+    the snapped value moves by more than the margin. With
+    ``float64_decides`` (two float32 forms of one computation, the card's
+    the one under test) a chain is also let through when the float64 run
+    draws the card's theta: the other form erred. Returns the chains whose
+    other fields are compared."""
     differ = (s_gpu.theta_idx.cpu() != s_cpu.theta_idx).flatten(1).any(dim=1)
     if not bool(differ.any()):
         return torch.ones_like(differ)
@@ -1820,7 +1872,8 @@ def tie_rule(label, cfg, s_gpu, s_cpu, snap_cpu, run64, perturbed):
                      f"runs move the snapped value by up to {move:.3g} steps")
             flipped = flipped or move > float(margin.min())
         log(line)
-        check(flipped, f"theta differs beyond a float32 tie ({label}, chain {k})")
+        exact = float64_decides and torch.equal(s64.theta_idx[k], s_gpu.theta_idx[k].cpu())
+        check(flipped or exact, f"theta differs beyond a float32 tie ({label}, chain {k})")
     return ~differ
 
 
@@ -2350,6 +2403,28 @@ def sdo_example_agreement(out, fixture=EXAMPLES_FIXTURE):
 ITEM_SHARDS, RANK_TIMEOUT, MESH_MIN_R = 2, 400, 0.999
 # phase 40's burn and draws, cut from phase 5's to fit phases 38-41 in 150 s
 MESH_BURN, MESH_DRAWS = 50, 250
+# Phases 42-45: respondent sharding (parallel/respondents.py) over
+# RESP_SHARDS ranks: phase 42's affine sweep at phase 29's W and rounds;
+# phase 44's synthetic run (phase 16's size) held to phase 16's sign-aligned
+# posterior theta means at r >= SYN_MIN_R (two short runs of 5,000
+# respondents: one run's means against another's, not against the truth).
+RESP_SHARDS, AFFINE_W, AFFINE_ROUNDS, SYN_MIN_R = 2, 16, 2, 0.99
+# phases 43 and 45's samplers continued from phase 5's last state: their
+# posterior gate (a 100-draw run; r 0.99998 at 500 and 200 draws, sharded
+# and not, NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
+CONT_DRAWS = 100
+SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=SYN_BURN, draws=SYN_DRAWS)
+
+# the function of the sweep (or the SMC reweight) that asks for each
+# all_reduce, and the name a respondent phase prints it under
+ALLREDUCE_SITES = {"_theta_ll_table": "theta table", "_pathwise_fstar": "f* U^T r, U^T U",
+                   "_binary_ess_over_respondents": "cutpoint ESS round",
+                   "draw_threshold": "cutpoint ESS round",
+                   "draw_threshold_collapsed": "collapsed z box",
+                   "_draw_threshold_binary_newton": "Newton sums",
+                   "_draw_threshold_newton_ordinal": "Newton sums",
+                   "draw_beta_conjugate": "beta", "gibbs_sweep": "ll",
+                   "anneal_init_batched": "SMC reweight ll"}
 
 
 def _rank_device(device):
@@ -2384,41 +2459,72 @@ class TimedAllReduce:
         if t.ndim != 4:
             return dist.all_reduce(t, *args, **kwargs)
         self.bytes = t.numel() * t.element_size()
+        return self._timed(self.spans, t, args, kwargs)
+
+    def _timed(self, spans, t, args, kwargs):
         if self.dev.type == "cuda":
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             out = dist.all_reduce(t, *args, **kwargs)
             end.record()
-            self.spans.append((start, end))
+            spans.append((start, end))
             return out
         t0 = time.perf_counter()
         out = dist.all_reduce(t, *args, **kwargs)
-        self.spans.append(1e3 * (time.perf_counter() - t0))
+        spans.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    def total_ms(self):
+    def _ms(self, spans):
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
-            return sum(a.elapsed_time(b) for a, b in self.spans)
-        return sum(self.spans)
+            return sum(a.elapsed_time(b) for a, b in spans)
+        return sum(spans)
+
+    def total_ms(self):
+        return self._ms(self.spans)
+
+
+class SiteAllReduce(TimedAllReduce):
+    """:class:`TimedAllReduce` of every all_reduce the sweep (and the SMC
+    reweight) makes, each timed the same way under its site
+    (:data:`ALLREDUCE_SITES`, the first function up the stack that it
+    names; beta's two all_reduces apart)."""
+
+    def __init__(self, dev):
+        super().__init__(dev)
+        self.sites = {}
+
+    def all_reduce(self, t, *args, **kwargs):
+        site = "other"
+        frame = sys._getframe(1)
+        helper = frame.f_code.co_name
+        while frame is not None:
+            name = frame.f_code.co_name
+            if name in ALLREDUCE_SITES:
+                site = ALLREDUCE_SITES[name]
+                if name == "draw_beta_conjugate":
+                    site += " moments" if helper == "_all_sum" else " X^T X, X^T z"
+                break
+            frame = frame.f_back
+        rec = self.sites.setdefault(site, {"calls": 0, "bytes": 0, "spans": []})
+        rec["calls"] += 1
+        rec["bytes"] += t.numel() * t.element_size()
+        return self._timed(rec["spans"], t, args, kwargs)
+
+    def summary(self, sweeps):
+        """{site: (calls, bytes a call, ms)} a sweep over ``sweeps`` sweeps."""
+        return {k: (v["calls"] / sweeps, v["bytes"] / max(v["calls"], 1),
+                    self._ms(v["spans"]) / sweeps) for k, v in self.sites.items()}
+
+
+def sites_line(sites):
+    """One printed line of :meth:`SiteAllReduce.summary`'s sites."""
+    return "; ".join(f"{k}: {c:.2f} calls of {b:,.0f} bytes, {ms:.3f} ms"
+                     for k, (c, b, ms) in sorted(sites.items(), key=lambda kv: -kv[1][2]))
 
 
 def _peak_gib(dev):
     return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
-
-
-def rank_stamps(started, ranks):
-    """Where a world's wall went, from each rank's time.time() stamps (at
-    its function's entry, after its run, at its return) and the launch's
-    start: the ranks' start, their runs, what followed, and the exit."""
-    st = np.array([r["stamps"] for r in ranks]) - started
-    parts = [f"ranks in their function after {st[:, 0].min():.1f}-{st[:, 0].max():.1f} s"]
-    if st.shape[1] == 3:
-        parts.append(f"the run {np.max(st[:, 1] - st[:, 0]):.1f} s, then "
-                     f"{np.max(st[:, 2] - st[:, 1]):.1f} s")
-    parts.append(f"all returned at {st[:, -1].max():.1f} s, back in the parent after "
-                 f"{time.time() - started:.1f} s")
-    return ", ".join(parts)
 
 
 def _theta_sha(out):
@@ -2426,9 +2532,10 @@ def _theta_sha(out):
         np.stack([d["theta"] for d in out])).tobytes()).hexdigest()
 
 
-def _perturbed_thetas(state, draws, y, consts, cfg, reps=4):
-    """theta of the sweep from ``state`` with its inputs moved by one float32
-    rounding, ``reps`` times (PERF.md section 2's tie rule), on the CPU."""
+def _perturbed_sweeps(state, draws, y, consts, cfg, reps=4):
+    """The sweep from ``state`` with its inputs moved by one float32
+    rounding (relative N(0, 1.2e-7) noise on U_se, Psi, f* and beta),
+    ``reps`` times, on ``state``'s device (PERF.md section 2's tie rule)."""
     gen = torch.Generator().manual_seed(0)
 
     def ulp(a):
@@ -2439,16 +2546,34 @@ def _perturbed_thetas(state, draws, y, consts, cfg, reps=4):
     for _ in range(reps):
         c = dataclasses.replace(consts, U_se=ulp(consts.U_se), Psi_grid=ulp(consts.Psi_grid))
         st = state._replace(fstar=ulp(state.fstar), beta=ulp(state.beta))
-        out.append((gibbs.gibbs_sweep(st, draws, y, c, cfg)[0].theta_idx.cpu(), None))
+        out.append(gibbs.GPIRTState(*(a.cpu() for a in gibbs.gibbs_sweep(st, draws, y, c,
+                                                                          cfg)[0])))
     return out
 
 
-def sweep_agreement(label, got, want, state, draws, y, consts, cfg):
+def _own_spread(want, perturbed, k):
+    """The unsharded sweep's own float32 spread of field ``k``: its largest
+    change over the perturbed runs whose chain drew the same theta."""
+    spread = torch.zeros_like(want[k], dtype=torch.float64)
+    for p in perturbed:
+        alike = (p.theta_idx == want["theta_idx"]).flatten(1).all(dim=1)
+        diff = (getattr(p, k).double() - want[k].double()).abs()
+        spread = torch.maximum(spread, torch.where(
+            alike.reshape((-1,) + (1,) * (diff.ndim - 1)), diff, 0.0))
+    return spread
+
+
+def sweep_agreement(label, got, want, state, draws, y, consts, cfg, relative=(),
+                    float64_decides=False):
     """A sweep ``got`` against the unsharded sweep ``want`` on the card from
     the same state and draws: theta equal or its difference a float32 tie
     (:func:`tie_rule`, the perturbed runs on the card, the float64 run on
-    the CPU), every other field of the other chains within 1e-3. Returns
-    (bit for bit, the largest differences)."""
+    the CPU), every other field of the other chains within 1e-3, those
+    named in ``relative`` within 1e-3 + 1e-3 |want| plus four times the
+    unsharded sweep's own float32 spread of the lane (its largest over the
+    lane's sites or grid points; :func:`held_to_spread`, as the two-stage
+    checks hold f*). ``float64_decides`` passes to :func:`tie_rule`.
+    Returns (bit for bit, the largest differences)."""
     cpu = torch.device("cpu")
     want = gibbs.GPIRTState(*(a.cpu() for a in want))
     got = gibbs.GPIRTState(*(a.cpu() for a in got))
@@ -2465,14 +2590,25 @@ def sweep_agreement(label, got, want, state, draws, y, consts, cfg):
 
     differ = (got.theta_idx != want.theta_idx).flatten(1).any(dim=1)
     keep = ~differ
+    perturbed = (_perturbed_sweeps(state, draws, y, consts, cfg)
+                 if relative or bool(differ.any()) else [])
     if bool(differ.any()):
         keep = tie_rule(label, cfg, got, want, None, run64,
-                        _perturbed_thetas(state, draws, y, consts, cfg))
+                        [(p.theta_idx, None) for p in perturbed], float64_decides)
     check(bool(keep.any()), f"no chain left to compare ({label})")
     errs = {k: max_diff(getattr(got, k)[keep], getattr(want, k)[keep])[0]
             for k in ("f", "beta", "thresholds", "fstar")}
     for k, v in errs.items():
-        check(v < 1e-3, f"{label}: {k} differs by {v:.3g}")
+        if k not in relative:
+            check(v < 1e-3, f"{label}: {k} differs by {v:.3g}")
+            continue
+        spread = _own_spread(want._asdict(), perturbed, k)[keep]
+        share, widening = held_to_spread(getattr(got, k)[keep].double(),
+                                         getattr(want, k)[keep].double(), spread)
+        log(f"{label}: {k} differs most by {v:.3g}, {share:.3g} of 1e-3 + 1e-3 |x| plus "
+            f"four times the unsharded sweep's own float32 spread (the 1e-3 rule widened up "
+            f"to {widening:.3g} times)")
+        check(share <= 1.0, f"{label}: {k} differs beyond 1e-3 + 1e-3 |x| + 4 x its spread")
     errs["chains_theta_equal"] = int(keep.sum())
     return same, errs
 
@@ -2514,11 +2650,21 @@ def sharded_sweep_inputs(rm, dev, state, tmp):
     draws = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
                               state.theta_idx.shape[0], consts, cfg)
     want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg)
+    return state_file(rm, dev, state, tmp, consts), (want, want_ll, state, draws, y, consts,
+                                                     cfg)
+
+
+def state_file(rm, dev, state, tmp, consts=None):
+    """``state``, a state of phase 5's configuration on ``rm``, and that
+    configuration's constants (built here unless given) saved for the
+    ranks in ``tmp``; returns the file's path."""
+    if consts is None:
+        consts = main_config(rm, dev)[2]
     path = os.path.join(tmp, "state.pt")
     torch.save({"state": [a.cpu() for a in state],
                 "consts": {k: None if v is None else v.cpu()
                            for k, v in vars(consts).items()}}, path)
-    return path, (want, want_ll, state, draws, y, consts, cfg)
+    return path
 
 
 def sharded_sweep_check(smi, ranks, tmp, inputs, shards=ITEM_SHARDS):
@@ -2658,16 +2804,33 @@ def item_mesh_report(rm, dev, smi, want_means, ranks, n_item, n_chain, burn, dra
 
 
 def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAWS,
-             smc_steps=SMC_STEPS):
-    """Phase 40: :func:`item_mesh_report` of phase 5's call on a 2 x 2
-    chains x items mesh of 4 ranks, at ``burn`` and ``draws``."""
-    started = time.time()
-    ranks = launch(item_mesh_rank, 4, (dev.type, rm, 2, 2, burn, draws, smc_steps, chains),
-                   device=dev.type, timeout=RANK_TIMEOUT)
-    res = item_mesh_report(rm, dev, smi, want_means, ranks, 2, 2, burn, draws, smc_steps,
-                           "40", chains)
-    log(f"phase 40 on {smi}: " + rank_stamps(started, ranks))
-    return res
+             smc_steps=SMC_STEPS, phases=(40,), rates=None, state=None):
+    """Phases 40 and 45 as the stages of one world of 4 ranks (``phases``,
+    each checked here): phase 40, :func:`item_mesh_report` of phase 5's call
+    on a 2 x 2 chains x items mesh, and phase 45, :func:`resp_mesh_report`
+    of it on a 2 x 2 items x respondents mesh, both at ``burn`` and
+    ``draws``; ``rates`` the sweep rates phase 45 prints beside its own,
+    ``state`` the main path's last state its continuation starts from.
+    Returns {phase: its numbers}."""
+    with _temporary_dir() as tmp:
+        path = state_file(rm, dev, state, tmp) if 45 in phases else None
+        specs = {40: (item_mesh_rank, (rm, 2, 2, burn, draws, smc_steps, chains)),
+                 45: (resp_mesh_rank, (rm, 2, burn, draws, smc_steps, chains, path,
+                                       CONT_DRAWS))}
+        started = time.time()
+        ranks = launch(rank_world, 4, (dev.type, [(p,) + specs[p] for p in phases]),
+                       device=dev.type, stages=(RANK_TIMEOUT,) * len(phases))
+        log(f"phases {', '.join(map(str, phases))} in one world of 4 ranks on {smi}: "
+            + stage_ends(started, ranks, phases))
+        out = {}
+        if 40 in phases:
+            out[40] = item_mesh_report(rm, dev, smi, want_means, [r[40] for r in ranks], 2, 2,
+                                       burn, draws, smc_steps, "40", chains)
+        if 45 in phases:
+            out[45] = resp_mesh_report(rm, dev, smi, want_means, [r[45] for r in ranks], 2,
+                                       burn, draws, smc_steps, "45", rates or {}, chains,
+                                       path)
+    return out
 
 
 def draws_cost(dev, consts, cfg, chains=K, reps=5):
@@ -2779,49 +2942,394 @@ def chain_mesh_check(rm, dev, smi, want, want_cut, want_means, state, ranks, pat
             "draws_ms": {k: v[1] for k, v in costs.items()}}
 
 
-def two_rank_world(device, rm, state_path, out_dir, ck_path, chains, burn, draws,
-                   smc_steps, cut, every, stage_done):
-    """Phases 38, 39 and 41 on one rank of one world of 2 ranks (a rank's
-    start costs seconds on the card's machine), each a stage of its own
-    timeout."""
-    out = {38: sharded_sweep_rank(device, rm, state_path, out_dir)}
-    stage_done()
-    out[39] = item_mesh_rank(device, rm, ITEM_SHARDS, 1, burn, draws, smc_steps, chains)
-    stage_done()
-    out[41] = chain_mesh_rank(device, rm, chains, burn, cut, smc_steps, ck_path, every)
+def resp_sweep_configs(cfg, shift_max):
+    """Phase 42's two sweeps: the main path's configuration, and with the
+    affine moves on at W = ``shift_max`` and AFFINE_ROUNDS rounds."""
+    return {"plain": cfg, "affine": dataclasses.replace(
+        cfg, affine_shift_max=shift_max, affine_rounds=AFFINE_ROUNDS)}
+
+
+def resp_sweep_rank(device, rm, state_path, out_dir, shift_max, shards=RESP_SHARDS):
+    """Phase 42 on one rank: one sweep of the main path's state on this
+    rank's respondent block, with the parent's constants (both in
+    ``state_path``), fed the unsharded sweep's draws cut to it
+    (parallel.respondents.draws_respondent_block), with the affine moves off
+    and on, the results saved in ``out_dir``; the kernel's launches and the
+    cutpoint ESS rounds counted."""
+    entered = time.time()
+    dev = _rank_device(device)
+    y, cfg, _ = main_config(rm, dev, build=False)
+    saved = torch.load(state_path, map_location=dev)
+    state = gibbs.GPIRTState(*saved["state"])
+    consts = GPIRTConstants(**saved["consts"])
+    sh = shards_of(make_respondent_mesh(shards, device=dev.type), None, "respondents")
+    block = lane_state_block(state, sh, None, "respondents")
+    threshold_ess.binary_threshold_ess.launches = 0
+    ess_update.calls = ess_update.rounds = 0
+    for label, c in resp_sweep_configs(cfg, shift_max).items():
+        draws = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
+                                  state.theta_idx.shape[0], consts, c)
+        y_b, _, cb, cl = shard_inputs(y, state.thresholds[0], consts, c, sh)
+        got, ll = gibbs.gibbs_sweep(block, draws_respondent_block(draws, sh.respondents(c.n), c),
+                                    y_b, cb, cl, None, 0, None, sh.resp_group)
+        torch.save([a.cpu() for a in got] + [ll.cpu()],
+                   os.path.join(out_dir, f"resp_{label}_rank{dist.get_rank()}.pt"))
+    return {"launches": threshold_ess.binary_threshold_ess.launches,
+            "ess_rounds": ess_update.rounds, "ess_calls": ess_update.calls,
+            "stamps": (entered, time.time())}
+
+
+def resp_sweep_inputs(rm, dev, state):
+    """Phase 42's parent side before its ranks: the unsharded sweeps of
+    ``state`` on ``dev`` from the seeded draws, with the affine moves off
+    and on. Returns {label: what the check needs}."""
+    y, cfg, consts = main_config(rm, dev)
+    out = {}
+    for label, c in resp_sweep_configs(cfg, AFFINE_W).items():
+        draws = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
+                                  state.theta_idx.shape[0], consts, c)
+        want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, c)
+        out[label] = (want, want_ll, state, draws, y, consts, c)
     return out
 
 
+def resp_sweep_check(smi, ranks, tmp, inputs, shards=RESP_SHARDS):
+    """Phase 42: each respondent-sharded sweep on ``shards`` ranks of the
+    card (``ranks``' results, their blocks in ``tmp``) against the unsharded
+    sweep on the card from the main path's last state (phase 31's
+    checkpoint) and the same draws (the shards' cut to their respondents):
+    beta, the cutpoints and f* bit for bit the same on every shard (the
+    replication canary), :func:`sweep_agreement`, and no kernel launch
+    (the cutpoint ESS runs its plain round loop, its lane totals
+    all-reduced). The affine sweep holds the low-rank z-marginal and orbit
+    against the dense forms. Returns {label: the largest differences}."""
+    out = {}
+    for label, (want, want_ll, state, draws, y, consts, cfg) in inputs.items():
+        blocks = [torch.load(os.path.join(tmp, f"resp_{label}_rank{r}.pt"))
+                  for r in range(shards)]
+        for i, name in ((2, "beta"), (3, "thresholds"), (4, "fstar"), (5, "ll")):
+            check(all(torch.equal(b[i], blocks[0][i]) for b in blocks),
+                  f"respondent-sharded sweep ({label}): {name} differs between the shards")
+        got = gibbs.GPIRTState(torch.cat([b[0] for b in blocks], dim=-1),
+                               torch.cat([b[1] for b in blocks], dim=-2), *blocks[0][2:5])
+        # f* is drawn from sums over the respondents, which each shard count
+        # adds in another order, and float32 moves f* by its own rounding
+        # spread (up to ~1e-2 near the grid's edges): f* and the f read from it
+        # are held to 1e-3 + 1e-3 |x| + 4 x that spread. The affine moves' two
+        # forms (low-rank here, dense unsharded) decide in float32 apart
+        # where the dense one errs: the float64 run decides.
+        same, errs = sweep_agreement(f"{shards} respondent shards against the unsharded "
+                                     f"sweep, {label}", got, want, state, draws, y, consts, cfg,
+                                     relative=("f", "fstar"), float64_decides=True)
+        ll_rel = float(((blocks[0][5] - want_ll.cpu()).abs() / want_ll.cpu().abs()).max())
+        log(f"respondent-sharded sweep check ({label}) on {smi} ({shards} ranks sharing the "
+            f"card over Gloo, the main path's state, {cfg.n // shards} respondents a rank): "
+            f"beta, cutpoints and f* bit for bit the same on every shard; bit for bit the "
+            f"unsharded sweep {same}; theta equal in {errs['chains_theta_equal']} of "
+            f"{got.theta_idx.shape[0]} chains; max abs diff "
+            + ", ".join(f"{k} {errs[k]:.3g}" for k in ("f", "beta", "thresholds", "fstar"))
+            + f"; ll relative {ll_rel:.3g}")
+        out[label] = errs
+    r0 = ranks[0]
+    for r in ranks:
+        check(r["launches"] == 0, f"respondent-sharded sweep: {r['launches']} kernel launches")
+    log(f"phase 42 on {smi}: 0 kernel launches on every rank; the cutpoint ESS "
+        f"{r0['ess_rounds'] / max(r0['ess_calls'], 1):.1f} rounds an update (each ending in "
+        "an all_reduce of its lane totals)")
+    return out
+
+
+def resp_mesh_rank(device, rm, n_item, burn, draws, smc_steps, chains, state_path,
+                   cont_draws):
+    """Phases 43 and 45 on one rank: phase 5's call on a respondent mesh of
+    RESP_SHARDS (with ``n_item`` item shards beside it,
+    make_respondent_mesh(RESP_SHARDS, n_item_shards=n_item)), its kernel
+    launches and cutpoint ESS rounds counted from 0 before the call, and
+    every all_reduce of the run timed under its site (:class:`SiteAllReduce`);
+    then the same mesh's sampler continued from the main path's last state
+    (in ``state_path``, with its constants) for ``cont_draws`` draws, its
+    posterior theta means."""
+    entered = time.time()
+    dev = _rank_device(device)
+    mesh = make_respondent_mesh(RESP_SHARDS, n_item_shards=n_item, device=dev.type)
+    item_axis = "items" if n_item > 1 else None
+    sh = shards_of(mesh, item_axis, "respondents")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    threshold_ess.binary_threshold_ess.launches = 0
+    ess_update.calls = ess_update.rounds = 0
+    sites = SiteAllReduce(dev)
+    gibbs.dist = sites
+    try:
+        out = main_call(rm, dev, chains, burn, draws, smc_steps, mesh=mesh,
+                        item_axis=item_axis, respondent_axis="respondents")
+    finally:
+        gibbs.dist = dist
+    ran = time.time()
+    sweeps = WARM_STEPS + smc_steps - 1 + burn + draws
+    cont = continuation(dev, rm, state_path, cont_draws, mesh, item_axis)
+    return {"rank": dist.get_rank(), "place": (sh.item_rank, sh.resp_rank),
+            "continued_means": cont,
+            "launches": threshold_ess.binary_threshold_ess.launches,
+            "ess_rounds": ess_update.rounds, "ess_calls": ess_update.calls,
+            "theta_sha": _theta_sha(out), "replicated_sha": _fields_sha(out),
+            "means": theta_means(out), "seconds": out[0]["seconds"],
+            "peak_gib": _peak_gib(dev), "sites": sites.summary(sweeps),
+            "finite": bool(all(np.isfinite(d["ll"]).all() and np.isfinite(d["theta"]).all()
+                               for d in out)),
+            "stamps": (entered, ran, time.time())}
+
+
+def continuation(dev, rm, state_path, draws, mesh=None, item_axis=None):
+    """The sign-aligned posterior theta means of ``draws`` sweeps of phase
+    5's configuration continued from the state in ``state_path`` (with its
+    constants), on ``mesh`` with the respondents (and ``item_axis``)
+    sharded, or unsharded without one."""
+    y, cfg, _ = main_config(rm, dev, build=False)
+    saved = torch.load(state_path, map_location=dev)
+    state = gibbs.GPIRTState(*saved["state"])
+    consts = GPIRTConstants(**saved["consts"])
+    K = state.theta_idx.shape[0]
+    sharding = {}
+    if mesh is not None:
+        sharding = dict(mesh=mesh, item_axis=item_axis, respondent_axis="respondents")
+        state = lane_state_block(state, mesh, item_axis, "respondents")
+    thr = torch.as_tensor(default_thresholds(cfg.C, cfg.m, cfg.horizon), dtype=cfg.tdtype,
+                          device=dev)  # unread: the run starts from ``state``
+    out = run_chains(torch.Generator(device=dev).manual_seed(SEED + 1), y,
+                     torch.zeros(K, cfg.horizon, cfg.n, device=dev), thr, consts, cfg,
+                     sample_iterations=draws, burn_iterations=0, initial_states=state,
+                     **sharding)
+    return run_means(out["theta"])
+
+
+def _fields_sha(out, fields=("beta", "threshold")):
+    return hashlib.sha256(b"".join(np.ascontiguousarray(np.stack([d[k] for d in out]))
+                                   .tobytes() for k in fields)).hexdigest()
+
+
+def resp_mesh_report(rm, dev, smi, want_means, ranks, n_item, burn, draws, smc_steps,
+                     label, rates, chains=K, state_path=None):
+    """Phases 43 (2 respondent shards) and 45 (2 x 2 items x respondents):
+    phase 5's call, gpirt_mcmc(mesh=make_respondent_mesh(2, n_item_shards=
+    n_item), respondent_axis="respondents"), on its ranks of the card
+    (``ranks``' results): no kernel launch (the cutpoint ESS's rounds end in
+    an all_reduce), finite, theta and (bit for bit) beta and the cutpoints
+    the same on every rank, its sign-aligned posterior theta means' r with
+    phase 5's printed; the sharded sampler continued from the main path's
+    last state (``state_path``) at r >= MESH_MIN_R with phase 5's means,
+    the unsharded continuation's r beside (module docstring, phase 43).
+    Prints the sweeps a second beside ``rates``, the cutpoint ESS rounds an
+    update, each all_reduce site's calls, bytes and ms a sweep, timed in
+    the run, and each rank's peak memory. Returns the numbers for the
+    kernels line."""
+    world = RESP_SHARDS * n_item
+    for r in ranks:
+        check(r["launches"] == 0, f"phase {label}, rank {r['rank']}: {r['launches']} kernel "
+              "launches under a respondent axis")
+        check(r["finite"], f"phase {label}, rank {r['rank']}: draws not finite")
+        check(r["theta_sha"] == ranks[0]["theta_sha"],
+              f"phase {label}: theta differs between ranks 0 and {r['rank']}")
+        check(r["replicated_sha"] == ranks[0]["replicated_sha"],
+              f"phase {label}: beta or the cutpoints differ between ranks 0 and {r['rank']}")
+    r_means = signed_r(ranks[0]["means"], want_means)
+    r_cont = signed_r(ranks[0]["continued_means"], want_means)
+    r_plain = signed_r(continuation(dev, rm, state_path, CONT_DRAWS), want_means)
+    check(np.isfinite(r_cont) and r_cont >= MESH_MIN_R,
+          f"phase {label}: the sharded sampler continued from phase 5's last state, "
+          f"posterior theta means at r {r_cont:.5f} with phase 5's")
+    sec = ranks[0]["seconds"]
+    rate = (burn + draws) / sec["sampling"]
+    rounds = ranks[0]["ess_rounds"] / max(ranks[0]["ess_calls"], 1)
+    sites = ranks[0]["sites"]
+    ar_ms = sum(v[2] for v in sites.values())
+    backend = backend_for(dev.type, world, torch.cuda.device_count() if dev.type == "cuda"
+                          else 0)
+    mesh = (f"{RESP_SHARDS} respondent shards" if n_item == 1
+            else f"{n_item} x {RESP_SHARDS} items x respondents mesh")
+    log(f"phase {label} on {smi}: {mesh}, {world} ranks on "
+        f"{'the card' if dev.type == 'cuda' else 'the CPU'}, backend {backend}; burn {burn}, "
+        f"{draws} draws; 0 kernel launches on every rank; theta, beta and the cutpoints the "
+        f"same on every rank; posterior theta means r {r_means:.5f} with phase 5's (SMC's "
+        f"basin is the random stream's); continued from phase 5's last state for {CONT_DRAWS} "
+        f"draws, r {r_cont:.5f} (unsharded continuation {r_plain:.5f}); smc "
+        f"{sec['smc']:.3f} s, sampling {sec['sampling']:.3f} s ({rate:.2f} sweeps/s; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+        + f"); the cutpoint ESS {rounds:.2f} rounds an update; all_reduce a sweep (rank 0, "
+        f"timed in the run, SMC sweeps included) {ar_ms:.3f} ms: " + sites_line(sites)
+        + "; peak memory by rank " + ", ".join(f"{r['peak_gib']:.3f}" for r in ranks)
+        + " GiB (Gloo through the host, ranks sharing one card: not a multi-GPU number)")
+    return {"launches": [r["launches"] for r in ranks], "sweeps_per_s": rate,
+            "means": ranks[0]["means"],
+            "smc_s": sec["smc"], "sampling_s": sec["sampling"], "ess_rounds": rounds,
+            "allreduce_ms": ar_ms, "allreduce_sites": sites,
+            "peak_gib": [r["peak_gib"] for r in ranks], "r_phase5": r_means,
+            "r_continued": r_cont, "r_continued_unsharded": r_plain, "backend": backend}
+
+
+def resp_synthetic_rank(device, size):
+    """Phase 44 on one rank: phase 16's run (run_chains of the synthetic
+    configuration at ``size``) with its respondents over RESP_SHARDS ranks,
+    the constants built on rank 0 and broadcast (the host's eigensolver
+    gives other bits at another thread count, and every shard must draw
+    the same f*), its kernel launches and cutpoint ESS rounds counted, its
+    all_reduces timed by site and the rank's peak memory read."""
+    entered = time.time()
+    dev = _rank_device(device)
+    rank = dist.get_rank()
+    y, ti, thr, consts, cfg = synthetic_inputs(dev, size["n"], size["m"], size["K"],
+                                               build=rank == 0)
+    consts = broadcast_constants(consts, dev, cfg.tdtype)
+    mesh = make_respondent_mesh(RESP_SHARDS, device=dev.type)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    threshold_ess.binary_threshold_ess.launches = 0
+    ess_update.calls = ess_update.rounds = 0
+    sites = SiteAllReduce(dev)
+    gibbs.dist = sites
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = time.perf_counter()
+    try:
+        out = run_chains(gen, y, ti, thr, consts, cfg, sample_iterations=size["draws"],
+                         burn_iterations=size["burn"], mesh=mesh,
+                         respondent_axis="respondents")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        gibbs.dist = dist
+    wall = time.perf_counter() - t
+    sweeps = size["burn"] + size["draws"]
+    return {"rank": rank, "launches": threshold_ess.binary_threshold_ess.launches,
+            "ess_rounds": ess_update.rounds, "ess_calls": ess_update.calls, "wall": wall,
+            "peak_gib": _peak_gib(dev), "means": run_means(out["theta"]),
+            "theta_sha": hashlib.sha256(out["theta"].cpu().numpy().tobytes()).hexdigest(),
+            "replicated_sha": hashlib.sha256(
+                torch.cat([out["beta"].flatten(), out["threshold"].flatten()]).cpu().numpy()
+                .tobytes()).hexdigest(),
+            "finite": bool(torch.isfinite(out["ll"]).all() and torch.isfinite(out["theta"]).all()),
+            "sites": sites.summary(sweeps), "stamps": (entered, time.time())}
+
+
+def resp_synthetic_report(dev, smi, ranks, syn16, size):
+    """Phase 44: phase 16's synthetic run on RESP_SHARDS respondent shards
+    of the card (``ranks``' results): no kernel launch, finite, theta,
+    beta and the cutpoints the same on every rank, and its sign-aligned
+    posterior theta means at r >= SYN_MIN_R with phase 16's (``syn16``).
+    Prints each rank's peak device memory beside phase 16's, the sweeps a
+    second beside phase 16's, the cutpoint ESS rounds an update and the
+    all_reduce sites. Returns the numbers for the kernels line."""
+    for r in ranks:
+        check(r["launches"] == 0, f"phase 44, rank {r['rank']}: {r['launches']} kernel "
+              "launches under a respondent axis")
+        check(r["finite"], f"phase 44, rank {r['rank']}: draws not finite")
+        for k in ("theta_sha", "replicated_sha"):
+            check(r[k] == ranks[0][k], f"phase 44: ranks 0 and {r['rank']} return other draws")
+    r_means = signed_r(ranks[0]["means"], syn16["means"])
+    check(np.isfinite(r_means) and r_means >= SYN_MIN_R,
+          f"phase 44: posterior theta means at r {r_means:.5f} with phase 16's")
+    sweeps = size["burn"] + size["draws"]
+    rate = sweeps / max(r["wall"] for r in ranks)
+    rounds = ranks[0]["ess_rounds"] / max(ranks[0]["ess_calls"], 1)
+    sites = ranks[0]["sites"]
+    log(f"phase 44 on {smi}: the synthetic configuration ({size['n']} x {size['m']}, "
+        f"{size['K']} chains, burn {size['burn']}, {size['draws']} draws) on {RESP_SHARDS} "
+        f"respondent shards of the card, {size['n'] // RESP_SHARDS} respondents a rank: 0 "
+        f"kernel launches; theta, beta and the cutpoints the same on every rank; posterior "
+        f"theta means r {r_means:.5f} with phase 16's (gate {SYN_MIN_R}); {rate:.3f} sweeps/s "
+        f"(phase 16 {syn16['sweeps_per_s']:.3f}); peak device memory by rank "
+        + ", ".join(f"{r['peak_gib']:.3f}" for r in ranks)
+        + f" GiB (phase 16, one process: {syn16['peak_gib']:.3f} GiB); the cutpoint ESS "
+        f"{rounds:.2f} rounds an update; all_reduce a sweep (rank 0, timed in the run) "
+        f"{sum(v[2] for v in sites.values()):.3f} ms: " + sites_line(sites))
+    return {"launches": [r["launches"] for r in ranks], "sweeps_per_s": rate,
+            "peak_gib": [r["peak_gib"] for r in ranks], "r_phase16": r_means,
+            "ess_rounds": rounds, "allreduce_sites": sites}
+
+
+def rank_world(device, stages, stage_done):
+    """One rank of one world running ``stages``, (phase, rank function,
+    arguments after the device) each, in turn, each a stage of its own
+    timeout (a rank's start costs seconds on the card's machine). Returns
+    {phase: the rank function's result}."""
+    out = {}
+    for i, (phase, fn, args) in enumerate(stages):
+        if i:
+            stage_done()
+        out[phase] = fn(device, *args)
+    return out
+
+
+def stage_ends(started, ranks, phases):
+    """When the ranks reached their functions and when each stage ended,
+    from the ranks' stamps, after the launch at ``started``."""
+    first = max(r[phases[0]]["stamps"][0] for r in ranks) - started
+    ends = [max(r[p]["stamps"][-1] for r in ranks) - started for p in phases]
+    walls = np.diff([first] + ends)
+    return (f"ranks in their function after {first:.1f} s; "
+            + "; ".join(f"phase {p}'s stage ended at {e:.1f} s ({w:.1f} s)"
+                        for p, e, w in zip(phases, ends, walls))
+            + f"; back in the parent after {time.time() - started:.1f} s")
+
+
 def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, burn=BURN,
-                    draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY):
-    """Phases 38, 39 and 41 in one world of 2 ranks sharing the card, each
-    a stage with its own timeout (RANK_TIMEOUT), then each checked here.
-    Returns phase 38's (worst, flipped), 39's and 41's numbers."""
+                    draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY,
+                    phases=(38, 39, 41), resp=None):
+    """Phases 38, 39, 41 and 42-44 (``phases``) as the stages of one world
+    of 2 ranks sharing the card, each with its own timeout (RANK_TIMEOUT),
+    then each checked here. ``resp`` gives the respondent phases what they
+    are held to and print beside their own: "rates" (sweeps a second by
+    label), "syn16" (phase 16's numbers) and "syn_size" (phase 44's run).
+    Returns {phase: its numbers}: 38's (worst, flipped), 39's, 41's, 42's
+    differences, 43's and 44's."""
+    resp = resp or {}
     with _temporary_dir() as tmp:
-        path, inputs = sharded_sweep_inputs(rm, dev, state, tmp)
+        # phases 38, 42 and 43 read the state and constants from one file
+        path, inputs = (sharded_sweep_inputs(rm, dev, state, tmp)
+                        if {38, 42, 43} & set(phases) else (None, None))
+        resp_inputs = resp_sweep_inputs(rm, dev, state) if 42 in phases else None
         ck_path = os.path.join(tmp, "cut")
+        specs = {38: (sharded_sweep_rank, (rm, path, tmp)),
+                 39: (item_mesh_rank, (rm, ITEM_SHARDS, 1, burn, draws, smc_steps, chains)),
+                 41: (chain_mesh_rank, (rm, chains, burn, cut, smc_steps, ck_path, every)),
+                 42: (resp_sweep_rank, (rm, path, tmp, AFFINE_W)),
+                 43: (resp_mesh_rank, (rm, 1, burn, draws, smc_steps, chains, path,
+                                       CONT_DRAWS)),
+                 44: (resp_synthetic_rank, (resp.get("syn_size", SYN_SIZE),))}
         started = time.time()
-        ranks = launch(two_rank_world, ITEM_SHARDS,
-                       (dev.type, rm, path, tmp, ck_path, chains, burn, draws, smc_steps,
-                        cut, every), device=dev.type, stages=(RANK_TIMEOUT,) * 3)
-        st = np.array([[r[38]["stamps"][0], r[38]["stamps"][1], r[39]["stamps"][2],
-                        r[41]["stamps"][1]] for r in ranks]) - started
-        log(f"phases 38, 39, 41 in one world of {ITEM_SHARDS} ranks on {smi}: ranks in "
-            f"their function after {st[:, 0].max():.1f} s; phase 38's stage ended at "
-            f"{st[:, 1].max():.1f} s, 39's at {st[:, 2].max():.1f} s, 41's at "
-            f"{st[:, 3].max():.1f} s; back in the parent after {time.time() - started:.1f} s")
-        t = time.perf_counter()
-        sh = sharded_sweep_check(smi, [r[38] for r in ranks], tmp, inputs)
-        log(f"phase 38 (its check here): {time.perf_counter() - t:.2f} s wall")
-        it2 = item_mesh_report(rm, dev, smi, want_means, [r[39] for r in ranks],
-                               ITEM_SHARDS, 1, burn, draws, smc_steps, "39", chains)
-        t = time.perf_counter()
-        cm = chain_mesh_check(rm, dev, smi, want, want_cut, want_means, state,
-                              [r[41] for r in ranks], ck_path, ITEM_SHARDS, chains, burn,
-                              draws, smc_steps, cut, every)
-        log(f"phase 41 (its checks and the resume here): {time.perf_counter() - t:.2f} s "
-            "wall")
-    return sh, it2, cm
+        ranks = launch(rank_world, ITEM_SHARDS,
+                       (dev.type, [(p,) + specs[p] for p in phases]), device=dev.type,
+                       stages=(RANK_TIMEOUT,) * len(phases))
+        log(f"phases {', '.join(map(str, phases))} in one world of {ITEM_SHARDS} ranks on "
+            f"{smi}: " + stage_ends(started, ranks, phases))
+        out = {}
+        if 38 in phases:
+            t = time.perf_counter()
+            out[38] = sharded_sweep_check(smi, [r[38] for r in ranks], tmp, inputs)
+            log(f"phase 38 (its check here): {time.perf_counter() - t:.2f} s wall")
+        if 39 in phases:
+            out[39] = item_mesh_report(rm, dev, smi, want_means, [r[39] for r in ranks],
+                                       ITEM_SHARDS, 1, burn, draws, smc_steps, "39", chains)
+        if 41 in phases:
+            t = time.perf_counter()
+            out[41] = chain_mesh_check(rm, dev, smi, want, want_cut, want_means, state,
+                                       [r[41] for r in ranks], ck_path, ITEM_SHARDS, chains,
+                                       burn, draws, smc_steps, cut, every)
+            log(f"phase 41 (its checks and the resume here): {time.perf_counter() - t:.2f} s "
+                "wall")
+        if 42 in phases:
+            t = time.perf_counter()
+            out[42] = resp_sweep_check(smi, [r[42] for r in ranks], tmp, resp_inputs)
+            log(f"phase 42 (its checks here): {time.perf_counter() - t:.2f} s wall")
+        rates = dict(resp.get("rates", {}))
+        if 39 in out:
+            rates["phase 39"] = out[39]["sweeps_per_s"]
+        if 43 in phases:
+            out[43] = resp_mesh_report(rm, dev, smi, want_means, [r[43] for r in ranks], 1,
+                                       burn, draws, smc_steps, "43", rates, chains, path)
+        if 44 in phases:
+            out[44] = resp_synthetic_report(dev, smi, [r[44] for r in ranks], resp["syn16"],
+                                            resp.get("syn_size", SYN_SIZE))
+    return out
 
 
 def mesh_keys(tag, res):
@@ -2837,10 +3345,26 @@ def mesh_keys(tag, res):
     return out
 
 
-def timed(label, fn, *args):
+def resp_keys(tag, res):
+    """A respondent phase's numbers (:func:`resp_mesh_report`,
+    :func:`resp_synthetic_report`) as keys of the kernels line: the
+    kernel's launches there (0: the plain round loop runs under a
+    respondent axis) and the run's rates, rounds, all_reduce sites (calls,
+    bytes a call, ms, each a sweep) and peak memory by rank."""
+    out = {f"launches_{tag}": res["launches"], f"{tag}_sweeps_per_s": res["sweeps_per_s"],
+           f"{tag}_ess_rounds_per_update": res["ess_rounds"],
+           f"{tag}_allreduce_sites": res["allreduce_sites"], f"{tag}_peak_gib": res["peak_gib"]}
+    if "r_phase5" in res:
+        out.update({f"{tag}_r_phase5": res["r_phase5"],
+                    f"{tag}_r_continued": res["r_continued"],
+                    f"{tag}_r_continued_unsharded": res["r_continued_unsharded"]})
+    return out
+
+
+def timed(label, fn, *args, **kwargs):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     log(f"phase {label}: {time.perf_counter() - t:.2f} s wall")
     return out
 
@@ -2900,7 +3424,7 @@ def main():
     timed("14 (recovery)", recovery_check, chain, rm, dev, smi)
     del chain
     f10k_launches = timed("15 (fstar10k)", fstar10k, dev, smi)
-    syn_launches, syn_args, syn_rate = timed("16 (synthetic path)", synthetic_path, dev, smi)
+    syn_launches, syn_args, syn16 = timed("16 (synthetic path)", synthetic_path, dev, smi)
     t = time.perf_counter()
     syn_plan = threshold_ess.launch_plan(syn_args[0].shape[2])
     syn_worst, syn_flipped = kernel_check(syn_args, "synthetic state")
@@ -2997,11 +3521,19 @@ def main():
     sdo_ex = timed("37 (SDO example)", sdo_example_phase, dev, smi)
     sdo_r = timed("37 (SDO agreement)", sdo_example_agreement, sdo_ex)
 
-    (sh_worst, sh_flipped), it2, cm = timed(
-        "38, 39 and 41 (one world of 2 ranks)", two_rank_phases, rm, dev, smi, main_state,
-        main_sha, main_cut_sha, main_means)
+    torch.cuda.empty_cache()  # the ranks share the card: the parent's cache held back
+    two = timed("38, 39, 41-44 (one world of 2 ranks)", two_rank_phases, rm, dev, smi,
+                main_state, main_sha, main_cut_sha, main_means,
+                phases=(38, 39, 41, 42, 43, 44),
+                resp={"rates": {"phase 5": main_rate}, "syn16": syn16})
+    (sh_worst, sh_flipped), it2, cm = two[38], two[39], two[41]
+    four = timed("40 and 45 (one world of 4 ranks)", mesh_2x2, rm, dev, smi, main_means,
+                 phases=(40, 45), rates={"phase 5": main_rate,
+                                         "phase 39": it2["sweeps_per_s"],
+                                         "phase 43": two[43]["sweeps_per_s"]},
+                 state=main_state)
     del main_state
-    mesh22 = timed("40 (2 x 2 chains x items mesh)", mesh_2x2, rm, dev, smi, main_means)
+    mesh22 = four[40]
     worst = max(worst, sh_worst, it2["worst"], mesh22["worst"])
     flipped += sh_flipped + it2["flipped"] + mesh22["flipped"]
 
@@ -3047,7 +3579,8 @@ def main():
         "rounds_mean_synthetic_state": syn_work["rounds_mean"],
         "path_synthetic_state": plan_label(syn_plan),
         "share_of_bound_synthetic_state": syn_work["bound_ms"] / syn_ms,
-        "synthetic_sweeps_per_s": syn_rate,
+        "synthetic_sweeps_per_s": syn16["sweeps_per_s"],
+        "synthetic_peak_gib": syn16["peak_gib"],
         "ms_random_per_chain_c": ms_pc,
         "ms_random_scalar_c": ms_scalar,
         "max_abs_err_random_per_chain_c": pc_worst,
@@ -3129,6 +3662,13 @@ def main():
         "chain_mesh_sweeps_per_s": cm["sweeps_per_s"],
         "replicated_draws_numbers": cm["draws_numbers"],
         "replicated_draws_ms": cm["draws_ms"],
+        "resp_sweep_check_max_abs_diff": {
+            k: max(v[f] for f in ("f", "beta", "thresholds", "fstar"))
+            for k, v in two[42].items()},
+        **resp_keys("resp2", two[43]),
+        **resp_keys("resp_synthetic", two[44]),
+        "resp_synthetic_r_phase16": two[44]["r_phase16"],
+        **resp_keys("items2_resp2", four[45]),
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

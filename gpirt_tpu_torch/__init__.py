@@ -11,11 +11,13 @@ run bit for bit (``gpirt_mcmc(checkpoint_path=...)``,
 ``utils/checkpoint.py``), prior and posterior-predictive simulation
 (``models/generate.py``), IRF curves (``posterior_irf``), block timing
 (``profile_sweep``), and f* recovered from stored f draws
-(``recover_fstar``, ``recover_fstar_batch``), with the chains and the items
-spread over the ranks of a ``torch.distributed`` ``DeviceMesh``
-(``gpirt_mcmc(mesh=..., item_axis=...)``, ``parallel/``); the binary
-cutpoint ESS runs in a hand-written CUDA kernel (``csrc/threshold_ess.cu``)
-on the card and in its plain PyTorch version on the CPU.
+(``recover_fstar``, ``recover_fstar_batch``), with the chains, the items
+and the respondents spread over the ranks of a ``torch.distributed``
+``DeviceMesh`` (``gpirt_mcmc(mesh=..., item_axis=..., respondent_axis=...)``,
+``parallel/``); the binary cutpoint ESS runs in a hand-written CUDA kernel
+(``csrc/threshold_ess.cu``) on the card, in its plain PyTorch version on
+the CPU, and as a plain round loop whose lane totals are summed over the
+ranks under a respondent axis.
 """
 
 from gpirt_tpu_torch.api import (

@@ -1,8 +1,8 @@
 """The GP-IRT Gibbs sweep on a batch of K chains: the conjugate path, the
 grid-native ESS on f* and the reference's two-stage pipeline.
 
-Counterpart of ``gpirt_tpu/models/gibbs.py`` with its item-sharded form
-and without the respondent-sharded one. Chains are a written-out leading
+Counterpart of ``gpirt_tpu/models/gibbs.py`` with its item- and
+respondent-sharded forms. Chains are a written-out leading
 K axis. Every block is a pure function of
 the state and of its random draws, passed in as tensors; :func:`sweep_draws`
 makes one sweep's draws from a ``torch.Generator`` and :func:`gibbs_sweep`
@@ -64,8 +64,19 @@ y, the state and the per-item draws, and ``item_group`` is the process
 group of the item shards of its chains: the conjugate sweep's blocks run on
 the block as they are, and the theta table and the ll trace are summed
 over the group by ``all_reduce``, their only collectives
-(``gpirt_tpu/models/gibbs.py:1627``, ``:2747-2748``). Without it, the code
-path is the unsharded one.
+(``gpirt_tpu/models/gibbs.py:1627``, ``:2747-2748``).
+
+Under a respondent axis (``parallel/respondents.py``) a rank holds a
+respondent block of y, theta, f, z and the per-respondent draws, and
+``respondent_group`` is the process group of the respondent shards of its
+chains (and items). theta and z are drawn locally; beta, the cutpoints and
+f* are replicated, each drawn from statistics that one ``all_reduce`` over
+the group completes, at the sites where JAX psums: f*'s U^T projection and
+capacitance, beta's standardisation moments and 3 x 3 regression, each
+cutpoint ESS round's lane totals (or Newton's data sums, or the collapsed
+draw's z box by MAX), the affine moves' low-rank z-marginal
+(``models/affine.py``) and the ll. Without either group, the code path is
+the unsharded one.
 """
 
 from __future__ import annotations
@@ -112,6 +123,7 @@ __all__ = [
     "TwoStageInitDraws",
     "TwoStageDraws",
     "GridDraws",
+    "ShardGenerators",
     "snap_indices",
     "theta_from_indices",
     "compute_mu",
@@ -359,6 +371,20 @@ class GridDraws(NamedTuple):
         return draws_to(self, device)
 
 
+class ShardGenerators(NamedTuple):
+    """A rank's shard-local generators on a mesh
+    (``parallel.respondents.shard_generators``), None where its axis is
+    absent. ``item`` draws the item-local numbers, alike on the respondent
+    shards of an item block; ``resp`` the respondent-local ones (theta's),
+    alike on the item shards of a respondent block; ``cell`` those local on
+    both axes (z's uniforms, f*'s observation noise): its own generator
+    when both axes are sharded, else the one axis's."""
+
+    item: Optional[torch.Generator] = None
+    resp: Optional[torch.Generator] = None
+    cell: Optional[torch.Generator] = None
+
+
 # ---------------------------------------------------------------------------
 # small helpers
 # ---------------------------------------------------------------------------
@@ -448,6 +474,25 @@ def _irf_sessions(config: GPIRTConfig) -> int:
     """The session axis of what belongs to the IRF (f*, f's ESS lanes, the
     cutpoints) and of its draws: 1 under constant_IRF, else H."""
     return 1 if config.constant_IRF else config.horizon
+
+
+def _all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` in place (one
+    ``all_reduce``), or as it is without a group."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def _all_sum_parts(parts, group):
+    """Tensors of one leading shape (..., k_i), each summed over the ranks
+    of ``group`` by one ``all_reduce`` of them joined on the last axis; as
+    they are without a group."""
+    if group is None:
+        return list(parts)
+    joint = torch.cat(parts, dim=-1)
+    dist.all_reduce(joint, group=group)
+    return list(joint.split([p.shape[-1] for p in parts], dim=-1))
 
 
 def _onehot(y, C: int, dtype) -> torch.Tensor:
@@ -570,21 +615,27 @@ def _affine_draws(rand, randn, K: int, config: GPIRTConfig) -> Optional[AffineDr
 
 def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
                 config: GPIRTConfig, iteration: int = 0,
-                item_gen: Optional[torch.Generator] = None,
+                shard_gens: Optional[ShardGenerators] = None,
                 ) -> Union[SweepDraws, GridDraws, TwoStageDraws]:
     """One sweep's draws for ``config.resolved_f_method``: the latent
     passes' first, pass by pass, then the rest. ``iteration`` is the sweep's
     index, which picks the cutpoint update under "interleave". A field the
     config does not ask for is not drawn.
 
-    ``item_gen``, an item shard's generator (``parallel/items.py``), draws
-    every item-local field, at the shard's width ``config.m``, and ``gen``
-    theta's numbers alone, the same on every shard (JAX's rule,
-    ``gpirt_tpu/models/gibbs.py:2645-2655``); without it ``gen`` draws
+    ``shard_gens``, a rank's :class:`ShardGenerators` on a mesh, draws the
+    shard-local fields at the block's widths ``config.n`` and ``config.m``
+    (JAX's rules, ``gpirt_tpu/models/gibbs.py:2645-2661``): an item shard's
+    every item-local field (theta's numbers stay the replicated ``gen``'s,
+    the same on every item shard); a respondent shard's theta numbers, z's
+    uniforms and f*'s noise (f*'s grid draws, beta's, the cutpoints' and
+    the affine moves' stay replicated). Without it ``gen`` draws
     everything, in the same order."""
-    igen = gen if item_gen is None else item_gen
+    sg = ShardGenerators() if shard_gens is None else shard_gens
+    igen = gen if sg.item is None else sg.item
+    cgen = gen if sg.cell is None else sg.cell
     rand, randn = _samplers(igen, consts, config)
-    theta_rand, theta_randn = _samplers(gen, consts, config)
+    cell_rand, cell_randn = _samplers(cgen, consts, config)
+    theta_rand, theta_randn = _samplers(gen if sg.resp is None else sg.resp, consts, config)
     H, n, m, N = config.horizon, config.n, config.m, config.grid_size
     Hi, R, S = _irf_sessions(config), config.ess_max_rounds, config.mix_subsweeps
     method = config.resolved_f_method
@@ -616,11 +667,11 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
         return GridDraws(**latent, beta=beta(), **tail())
     latent = passes(lambda: dict(
         u_theta=_theta_draws(theta_rand, theta_randn, K, config),
-        u_z=rand(K, H, n, m),
+        u_z=cell_rand(K, H, n, m),
         z_q=randn(K, Hi, consts.U_se.shape[1], m),
         z_p=randn(K, Hi, 3, m),
         z_n=randn(K, Hi, N, m),
-        eps_f=randn(K, H, n, m),
+        eps_f=cell_randn(K, H, n, m),
         affine=_affine_draws(rand, randn, K, config),
     ))
     return SweepDraws(**latent, zeta=randn(K, H, m, 3), **tail())
@@ -872,18 +923,22 @@ def draw_z_truncnorm(g, y, thresholds, u, temp=None) -> torch.Tensor:
 
 
 def _pathwise_fstar(U_theta, resid, diag: float, zc, z_n, consts: GPIRTConstants,
-                    config: GPIRTConfig) -> torch.Tensor:
+                    config: GPIRTConfig, respondent_group=None) -> torch.Tensor:
     """f* = u* + K_{*theta} (K_theta + diag I)^{-1} resid on the grid, where
     resid is the target at the sites minus the prior draw u* there, and u*
     = U_grid zc + sqrt(jitter) z_n is factored through the grid basis
     U_grid = [U_se, Psi] (U_theta its rows at the sites, (..., n, q+3)).
     The smoother runs in that rank-(q+3) basis: U^T (U U^T + diag I)^{-1} =
     (U^T U + diag I)^{-1} U^T, one equilibrated (q+3)-square Cholesky with
-    one refinement step. Returns f* (..., N, m)."""
-    g_k = U_theta.mT @ resid  # (..., k, m)
+    one refinement step. Under ``respondent_group`` the sites are this
+    rank's respondents, and one ``all_reduce`` completes U^T resid and
+    U^T U over the group (``gpirt_tpu/models/gibbs.py:618-622``,
+    ``:760-764``). Returns f* (..., N, m)."""
+    g_k, gram = _all_sum_parts([U_theta.mT @ resid, U_theta.mT @ U_theta],
+                               respondent_group)  # (..., k, m), (..., k, k)
     k_dim = U_theta.shape[-1]
     eye = torch.eye(k_dim, dtype=resid.dtype, device=resid.device)
-    C = diag * eye + U_theta.mT @ U_theta  # (..., k, k)
+    C = diag * eye + gram  # (..., k, k)
     inv_sc = 1.0 / torch.sqrt(torch.diagonal(C, dim1=-2, dim2=-1))
     Lc = torch.linalg.cholesky(C * (inv_sc.unsqueeze(-1) * inv_sc.unsqueeze(-2)))
 
@@ -899,7 +954,8 @@ def _pathwise_fstar(U_theta, resid, diag: float, zc, z_n, consts: GPIRTConstants
 
 def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
                          consts: GPIRTConstants, z_q, z_p, z_n, eps,
-                         temp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         temp=None, respondent_group=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact Gaussian draw of f* | z (pathwise, push-through form):
     f* = u* + K_{*theta} (K_theta + T I)^{-1} (z - mu - u - eps'), with the
     prior draw u* = U_grid z_c + sqrt(jitter) z_n (:func:`_pathwise_fstar`).
@@ -911,7 +967,10 @@ def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
     the basis Gram over the sessions, C = T I + sum_h U_h^T U_h.
 
     z_resid, eps: (K, H, n, m), z_resid = z - mu. ``temp`` is None, a float,
-    or a (K,) tensor. Returns (fstar (K, H, N, m), f (K, H, n, m)).
+    or a (K,) tensor. Under ``respondent_group`` n is this rank's block and
+    the regression's sums run over the group (:func:`_pathwise_fstar`); z_q,
+    z_p and z_n are then the replicated draws, alike on every rank. Returns
+    (fstar (K, H, N, m), f (K, H, n, m)).
     """
     idx = state.theta_idx
     if config.constant_IRF:
@@ -923,7 +982,8 @@ def draw_fstar_conjugate(state: GPIRTState, z_resid, config: GPIRTConfig,
     if sqrt_t is not None:
         eps = eps * _per_chain(sqrt_t, eps.ndim)  # tempered observation noise sd sqrt(T)
     t = 1.0 if temp is None else _per_chain(temp, 4) if torch.is_tensor(temp) else float(temp)
-    fstar = _pathwise_fstar(U_theta, z_resid - u_theta - eps, t, zc, z_n, consts, config)
+    fstar = _pathwise_fstar(U_theta, z_resid - u_theta - eps, t, zc, z_n, consts, config,
+                            respondent_group)
     fstar = _share(fstar, config.horizon)
     return fstar, _rows(fstar, state.theta_idx)
 
@@ -1078,16 +1138,28 @@ def draw_beta(beta, theta, f, thresholds, y, consts: GPIRTConstants,
 
 
 def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
-                        config: GPIRTConfig, zeta, temp=None) -> torch.Tensor:
+                        config: GPIRTConfig, zeta, temp=None,
+                        respondent_group=None) -> torch.Tensor:
     """Exact Gaussian draw of beta | z, f per (chain, horizon, item).
 
     The regression runs in the standardized basis [1, u, u^2], u = (theta -
     c)/s, so the 3x3 Gram is O(n)-conditioned at any location and scale;
     the draw maps back through the analytic inverse of the change of basis.
     theta (K, H, n), z_minus_f (K, H, n, m), zeta (K, H, m, 3) -> (K, H, 3, m).
+    Under ``respondent_group`` n is this rank's block: c and s are the
+    moments of all the group's respondents, and X^T X and X^T z are summed
+    over the group (``gpirt_tpu/models/gibbs.py:809-821``, ``:836-841``),
+    so every rank draws the same beta from the replicated zeta.
     """
-    c = theta.mean(dim=-1)
-    s = theta.std(dim=-1, correction=0) + 1e-3  # population sd, as jnp.std
+    if respondent_group is None:
+        c = theta.mean(dim=-1)
+        s = theta.std(dim=-1, correction=0) + 1e-3  # population sd, as jnp.std
+    else:
+        n_glob = theta.shape[-1] * dist.get_world_size(respondent_group)
+        c = _all_sum(theta.sum(dim=-1), respondent_group) / n_glob
+        var = _all_sum(torch.square(theta - c.unsqueeze(-1)).sum(dim=-1),
+                       respondent_group) / n_glob
+        s = torch.sqrt(var) + 1e-3
     u = (theta - c.unsqueeze(-1)) / s.unsqueeze(-1)
     Xt = build_X(u)  # (K, H, n, 3)
     zero = torch.zeros_like(c)
@@ -1097,8 +1169,8 @@ def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
         torch.stack([zero, 1.0 / s, -2 * c / (s * s)], -1),
         torch.stack([zero, zero, 1.0 / (s * s)], -1),
     ], -2)  # (K, H, 3, 3)
-    XtX = Xt.mT @ Xt  # (K, H, 3, 3)
-    Xtz = Xt.mT @ z_minus_f  # (K, H, 3, m)
+    XtX, Xtz = _all_sum_parts([Xt.mT @ Xt, Xt.mT @ z_minus_f],
+                              respondent_group)  # (K, H, 3, 3), (K, H, 3, m)
     if temp is not None:  # noise variance T
         inv_t = 1.0 / (_per_chain(temp, XtX.ndim) if torch.is_tensor(temp) else float(temp))
         XtX = XtX * inv_t
@@ -1116,8 +1188,53 @@ def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
     return beta.mT
 
 
+def _binary_ess_over_respondents(g, y, t1, nu, logu, eps0, rs, c, group) -> torch.Tensor:
+    """The binary cutpoint ESS of :func:`binary_threshold_ess`, for a rank
+    holding a respondent block of g and y: :func:`ess_update` on t_1 with
+    the kernel's site term, log(Phi(sgn (t - g) c 2^(1/2)) + 1e-6) over the
+    observed cells, each lane's total summed over ``group`` by one
+    ``all_reduce`` of the (K, H, m) totals a round
+    (``gpirt_tpu/models/gibbs.py:2280-2286``). The lane totals are the
+    group's and the round draws replicated, so every rank accepts alike
+    and leaves the loop after the same round.
+
+    The lockstep loop runs until the slowest lane accepts (~60 rounds at
+    the synthetic configuration's 64,000 lanes on an NVIDIA H100, where
+    the mean lane takes 7), so once fewer than half the lanes are active a
+    round sums only
+    theirs, from a lane-major copy of g made once (``active_only``); the
+    others' totals are 0 and unread. g (K, H, n, m); y (H, n, m); t1, nu,
+    logu, eps0 (K, H, m); rs (R, K, H, m); c a float or (K,)."""
+    K, H, n, m = g.shape
+    obs = (y > 0).to(g.dtype)
+    sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
+    c4 = _per_chain(c, g.ndim)
+    rows = {}
+
+    def site_term(x):
+        return torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6)
+
+    def loglik(t, active):  # (K, H, m, 1) -> (K, H, m)
+        lane = None if active is None else torch.nonzero(active.flatten()).squeeze(-1)
+        if lane is None or 2 * lane.numel() > active.numel():
+            total = (site_term(sgn * (t[..., 0].unsqueeze(-2) - g) * c4) * obs).sum(dim=-2)
+            return _all_sum(total, group)
+        if not rows:  # lanes (k, h, j) in (K, H, m) order, their n sites a row
+            rows["g"] = g.movedim(-2, -1).reshape(K * H * m, n)
+            rows["sgn"], rows["obs"] = (a.movedim(-2, -1).reshape(H * m, n) for a in (sgn, obs))
+        site = lane % (H * m)
+        cc = c[lane // (H * m)].unsqueeze(-1) if torch.is_tensor(c) else c
+        x = rows["sgn"][site] * (t.flatten()[lane].unsqueeze(-1) - rows["g"][lane]) * cc
+        total = torch.zeros(K * H * m, dtype=g.dtype, device=g.device)
+        total[lane] = (site_term(x) * rows["obs"][site]).sum(dim=-1)
+        return _all_sum(total.view(K, H, m), group)
+
+    return ess_update(t1.unsqueeze(-1), nu.unsqueeze(-1), loglik, logu, eps0, rs,
+                      active_only=True)[..., 0]
+
+
 def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
-                   rs, temp=None) -> torch.Tensor:
+                   rs, temp=None, respondent_group=None) -> torch.Tensor:
     """y-marginal ESS redraw of the cutpoints in the delta parametrization,
     identity prior (src/draw_threshold.cpp), one lane per (chain, horizon,
     item).
@@ -1134,7 +1251,10 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
 
     thresholds (K, H, m, C+1); nu (K, H, m, C-1), or (K, H, m) when
     binary; logu, eps0 (K, H, m); rs (R, K, H, m). ``temp`` is None, a
-    float, or a (K,) tensor of one temperature a chain.
+    float, or a (K,) tensor of one temperature a chain. Under
+    ``respondent_group`` (a respondent block of f, mu and y) each round's
+    lane totals are summed over the group (``gpirt_tpu/models/gibbs.py:2280-2286``,
+    ``:2357-2386``).
     """
     C = thresholds.shape[-1] - 1
     _, inv_s = _temp_scales(temp)
@@ -1142,6 +1262,14 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     if C == 2:
         c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
         t1 = thresholds[..., 1].contiguous()
+        if respondent_group is not None:
+            # JAX's rule (gpirt_tpu/models/gibbs.py:2299-2301): the kernel runs
+            # the whole round loop in one launch, and every round's likelihood
+            # needs an all_reduce over the respondent shards, which one launch
+            # cannot wait on; so a respondent axis takes the plain round loop
+            t_new = _binary_ess_over_respondents(g, y, t1, nu.reshape(t1.shape), logu,
+                                                 eps0, rs, c, respondent_group)
+            return delta_to_threshold(t_new.unsqueeze(-1))
         # a rank's block of the draws is a view (parallel/chains.py); the
         # kernel reads its inputs through raw pointers
         t_new = binary_threshold_ess(g.contiguous(), y, t1,
@@ -1153,14 +1281,15 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     def loglik(d):  # (K, H, m, C-1) -> (K, H, m)
         thr = delta_to_threshold(d)
         logp = _category_logprobs(g, thr.unsqueeze(-3), C, inv_s)  # (K, H, n, m, C)
-        return (logp * onehot).sum(dim=(-3, -1))
+        return _all_sum((logp * onehot).sum(dim=(-3, -1)), respondent_group)
 
     d_new = ess_update(threshold_to_delta(thresholds), nu, loglik, logu, eps0, rs)
     return delta_to_threshold(d_new)
 
 
 def draw_threshold_collapsed(thresholds, z, y, config: GPIRTConfig,
-                             cut: Union[CollapsedDraws, ESSDraws]) -> torch.Tensor:
+                             cut: Union[CollapsedDraws, ESSDraws],
+                             respondent_group=None) -> torch.Tensor:
     """The cutpoints given the Albert-Chib latents z
     (``gpirt_tpu/models/gibbs.py:2389``): given z the ordinal likelihood is
     the box lo_c = max{z : y = c} <= t_c < hi_c = min{z : y = c + 1}, so the
@@ -1171,7 +1300,9 @@ def draw_threshold_collapsed(thresholds, z, y, config: GPIRTConfig,
     the temperature. Under constant_IRF one box pools every session.
 
     thresholds (K, H, m, C+1); z (K, H, n, m); ``cut`` has H = 1 under
-    constant_IRF.
+    constant_IRF. Under ``respondent_group`` the box's extremes are taken
+    over the group by one ``all_reduce`` (MAX of lo and of -hi,
+    ``gpirt_tpu/models/gibbs.py:2438-2443``).
     """
     H, C = thresholds.shape[1], config.C
     big = 1e30
@@ -1179,6 +1310,10 @@ def draw_threshold_collapsed(thresholds, z, y, config: GPIRTConfig,
     yb, zb = y.unsqueeze(-1), z.unsqueeze(-1)
     lo = torch.where(yb == cats, zb, -big).amax(dim=-3)  # (K, H, m, C-1)
     hi = torch.where(yb == cats + 1, zb, big).amin(dim=-3)
+    if respondent_group is not None:
+        box = torch.cat([lo, -hi], dim=-1)
+        dist.all_reduce(box, op=dist.ReduceOp.MAX, group=respondent_group)
+        lo, hi = box[..., :C - 1], -box[..., C - 1:]
     if config.constant_IRF:
         lo, hi = lo.amax(dim=1, keepdim=True), hi.amin(dim=1, keepdim=True)
         thresholds = thresholds[:, :1]
@@ -1218,7 +1353,7 @@ def draw_threshold_shift(thresholds, beta, consts: GPIRTConstants, z):
     return thr, beta, delta
 
 
-def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
+def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None, group=None):
     """Newton-proposal independence MH on the binary cutpoint t_1, the
     conditional of the binary ESS (prior N(0, 1), likelihood the sum of
     log(Phi(s (t_1 - g)) + 1e-6) over observed cells).
@@ -1229,7 +1364,9 @@ def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
     ratio (``gpirt_tpu/models/gibbs.py:1842``).
 
     thresholds (K, H, m, 3); g (K, H, n, m); z (tries, K, H, m, 1) normal;
-    logu (tries, K, H, m).
+    logu (tries, K, H, m). Under ``group`` (a respondent block of g and y)
+    the three data sums of a pass are summed over it by one ``all_reduce``
+    (``gpirt_tpu/models/gibbs.py:1886-1889``).
     """
     obs = y > 0
     sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs  # (H, n, m)
@@ -1240,9 +1377,13 @@ def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
         u = sgn * (t1.unsqueeze(-2) - g) * cs_site  # (K, H, n, m)
         phi_cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2)) + 1e-6
         r = _INV_SQRT2PI * torch.exp(-0.5 * u * u) / phi_cdf
-        psi = -0.5 * t1 * t1 + (torch.log(phi_cdf) * obs).sum(dim=-2)
-        dpsi = -t1 + cs_lane * (sgn * r).sum(dim=-2)
-        d2psi = -1.0 + cs_lane * cs_lane * ((r * (-u - r)) * obs).sum(dim=-2)
+        ll, grad, hess = _all_sum_parts(
+            [(torch.log(phi_cdf) * obs).sum(dim=-2).unsqueeze(-1),
+             (sgn * r).sum(dim=-2).unsqueeze(-1),
+             ((r * (-u - r)) * obs).sum(dim=-2).unsqueeze(-1)], group)
+        psi = -0.5 * t1 * t1 + ll[..., 0]
+        dpsi = -t1 + cs_lane * grad[..., 0]
+        d2psi = -1.0 + cs_lane * cs_lane * hess[..., 0]
         d2psi = torch.clamp(d2psi, max=-1.0)  # concave up to the 1e-6 floors
         return psi, t1 + torch.clamp(-dpsi / d2psi, -3.0, 3.0), -1.21 / d2psi
 
@@ -1263,7 +1404,7 @@ def _draw_threshold_binary_newton(thresholds, g, y, z, logu, inv_s=None):
     return delta_to_threshold(t1.unsqueeze(-1))
 
 
-def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
+def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None, group=None):
     """Newton-proposal independence MH on each lane's ordinal cutpoint
     vector, in delta space, with the conditional of the ordinal ESS (prior
     N(0, I) on delta, likelihood the sum of log(P(y | t) + 1e-6)).
@@ -1278,7 +1419,9 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
     (``gpirt_tpu/models/gibbs.py:1927``).
 
     thresholds (K, H, m, C+1); g (K, H, n, m); z (tries, K, H, m, C-1)
-    normal; logu (tries, K, H, m).
+    normal; logu (tries, K, H, m). Under ``group`` (a respondent block of g
+    and y) a pass's data sums are summed over it by one ``all_reduce``
+    (``gpirt_tpu/models/gibbs.py:2015-2016``).
     """
     C = thresholds.shape[-1] - 1
     q = C - 1
@@ -1304,15 +1447,19 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
         cdf_full = torch.cat([zero, cdf, zero + 1.0], dim=-1)
         p_cell = ((cdf_full[..., 1:] - cdf_full[..., :-1]) * onehot).sum(-1) + 1e-6
         pc = p_cell.unsqueeze(-1)
-        ll_sum = (torch.log(p_cell) * obs).sum(dim=-2)  # (K, H, m)
-        grad_t = (sgn_b * pdf / pc).sum(dim=-3) * cs_lane  # (K, H, m, q)
         # pdf'(u) = -u pdf; (up - lo)^2 = up + lo, the two being disjoint
         diag_c = (-u * pdf * sgn_b - pdf * pdf * (up + lo) / pc) / pc
-        Ht = torch.diag_embed(diag_c.sum(dim=-3) * cs_lane * cs_lane)
+        sums = [(torch.log(p_cell) * obs).sum(dim=-2).unsqueeze(-1),
+                (sgn_b * pdf / pc).sum(dim=-3), diag_c.sum(dim=-3)]
         if q > 1:
             # cells with y = c+1 have lower bound c and upper bound c+1
-            off_c = pdf[..., :-1] * pdf[..., 1:] * lo[..., :-1] / (pc ** 2)
-            off_t = off_c.sum(dim=-3) * cs_lane * cs_lane
+            sums.append((pdf[..., :-1] * pdf[..., 1:] * lo[..., :-1] / (pc ** 2)).sum(dim=-3))
+        sums = _all_sum_parts(sums, group)
+        ll_sum = sums[0][..., 0]  # (K, H, m)
+        grad_t = sums[1] * cs_lane  # (K, H, m, q)
+        Ht = torch.diag_embed(sums[2] * cs_lane * cs_lane)
+        if q > 1:
+            off_t = sums[3] * cs_lane * cs_lane
             Ht = Ht + torch.diag_embed(off_t, 1) + torch.diag_embed(off_t, -1)
         # t_c = d_1 + sum_{2<=j<=c} exp(d_j): J[c, j] = 1 (j = 1), exp(d_j)
         # (2 <= j <= c), 0 (j > c)
@@ -1354,7 +1501,8 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None):
     return delta_to_threshold(d_cur)
 
 
-def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None):
+def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None,
+                    respondent_group=None):
     """The configured cutpoint update: Newton-proposal MH, or the y-marginal
     ESS of :func:`draw_threshold`. Under constant_IRF one cutpoint vector a
     chain, its likelihood summed over every session's sites
@@ -1369,16 +1517,18 @@ def _draw_cutpoints(thresholds, f, mu, y, config: GPIRTConfig, cut, temp=None):
     if config.resolved_threshold_method == "newton":
         newton = (_draw_threshold_binary_newton if config.C == 2
                   else _draw_threshold_newton_ordinal)
-        thresholds = newton(thresholds, f + mu, y, *cut, _temp_scales(temp)[1])
+        thresholds = newton(thresholds, f + mu, y, *cut, _temp_scales(temp)[1],
+                            respondent_group)
     else:
-        thresholds = draw_threshold(thresholds, f, mu, y, config, *cut, temp)
+        thresholds = draw_threshold(thresholds, f, mu, y, config, *cut, temp,
+                                    respondent_group)
     return _share(thresholds, H).contiguous()
 
 
 def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageDraws],
                 y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
                 temp: Optional[float] = None, iteration: int = 0,
-                item_group=None) -> Tuple[GPIRTState, torch.Tensor]:
+                item_group=None, respondent_group=None) -> Tuple[GPIRTState, torch.Tensor]:
     """One Gibbs sweep of K chains by ``config.resolved_f_method`` (block
     orders in the module docstring). Returns (state, ll (K,)).
 
@@ -1392,13 +1542,21 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     group of an item-sharded sweep (``parallel/items.py``): state, y, the
     constants and the draws are then this rank's item block, and the theta
     table and the ll are summed over the group; conjugate only, without the
-    affine moves.
+    affine moves. ``respondent_group`` is the process group of a
+    respondent-sharded sweep (``parallel/respondents.py``): state, y, the
+    theta priors and the per-respondent draws are then this rank's
+    respondent block, and the replicated blocks' statistics and the ll are
+    summed over the group (module docstring); conjugate only. Both groups
+    together are a 3-D mesh's.
     """
     method = config.resolved_f_method
     if item_group is not None and (method != "conjugate" or config.affine):
         raise NotImplementedError(
             "item-sharded sweeps need f_method='conjugate' without the affine moves "
             f"(got {method!r}, affine {config.affine})")
+    if respondent_group is not None and method != "conjugate":
+        raise NotImplementedError(
+            f"respondent-sharded sweeps need f_method='conjugate' (got {method!r})")
     if method != "conjugate":
         if temp is not None:
             raise NotImplementedError(
@@ -1419,26 +1577,29 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
             from gpirt_tpu_torch.models.affine import affine_theta_moves
 
             theta_idx, beta = affine_theta_moves(theta_idx, z, state.beta, consts, config,
-                                                 d.affine, temp)
+                                                 d.affine, temp, respondent_group)
             state = state._replace(theta_idx=theta_idx, beta=beta)
             theta = theta_from_indices(theta_idx, consts)
             mu = compute_mu(theta, beta)
         fstar, f = draw_fstar_conjugate(state, z - mu, config, consts, d.z_q, d.z_p,
-                                        d.z_n, d.eps_f, temp)
+                                        d.z_n, d.eps_f, temp, respondent_group)
         state = state._replace(fstar=fstar, f=f)
-    beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp)
+    beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp,
+                               respondent_group)
     mu = compute_mu(theta, beta)
     if _cut_method(config, iteration) == "collapsed":
-        thresholds = draw_threshold_collapsed(state.thresholds, z, y, config, draws.cut)
+        thresholds = draw_threshold_collapsed(state.thresholds, z, y, config, draws.cut,
+                                              respondent_group)
     else:
-        thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp)
+        thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp,
+                                     respondent_group)
     thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
     state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
                        thresholds=thresholds, fstar=fstar)
     ll = ordinal_ll_terms(f + mu, y, thresholds,
                           _per_chain(inv_s, 4)).sum(dim=(-3, -2, -1))
-    if item_group is not None:
-        dist.all_reduce(ll, group=item_group)
+    for group in (item_group, respondent_group):
+        _all_sum(ll, group)
     return state, ll
 
 

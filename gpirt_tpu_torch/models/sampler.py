@@ -4,7 +4,8 @@ Counterpart of ``gpirt_tpu/models/sampler.py::run_chain`` and
 ``gpirt_tpu/parallel/chains.py::run_chains``: the chain axis is the sweep's
 batch axis and a Python loop takes the place of ``lax.scan``. Over a
 ``DeviceMesh`` (``parallel/chains.py``) each rank runs its block of the
-chains, and of the items under an item axis (``parallel/items.py``); the
+chains, of the items under an item axis (``parallel/items.py``) and of the
+respondents under a respondent axis (``parallel/respondents.py``); the
 replicated generator draws the numbers of all chains and the rank keeps
 its block's, so a chain's draws do not depend on the chain layout.
 A draw is recorded at absolute iteration ``iter`` iff ``iter >= burn`` and
@@ -28,6 +29,7 @@ import torch
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
+    ShardGenerators,
     gibbs_sweep,
     init_draws,
     init_state,
@@ -36,7 +38,7 @@ from gpirt_tpu_torch.models.gibbs import (
     theta_from_indices,
 )
 from gpirt_tpu_torch.parallel.chains import check_replicated, gather_draws, shards_of
-from gpirt_tpu_torch.parallel.items import item_generator, item_inputs
+from gpirt_tpu_torch.parallel.respondents import shard_generators, shard_inputs
 from gpirt_tpu_torch.parallel.smc import lane_block
 
 __all__ = [
@@ -169,28 +171,30 @@ def advance_chains(gen: torch.Generator, carry: Carry, y: torch.Tensor,
                    consts: GPIRTConstants, config: GPIRTConfig, sched: SampleSchedule,
                    start: int, stop: int, *, store_f: bool = False,
                    store_fstar: bool = False, shards=None,
-                   item_gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                   shard_gens: Optional[ShardGenerators] = None) -> Dict[str, torch.Tensor]:
     """:func:`advance` with ``gibbs_sweep``: sweep ``it`` draws its numbers
     from ``gen`` and passes ``it`` as its iteration.
 
     ``shards`` (``parallel.chains.Shards``, :func:`chain_start`'s) places
-    this rank on a mesh: ``carry`` then holds its block of the chains and
-    items, y, ``consts`` and ``config`` are its item block's, the numbers
-    of all chains are drawn (item-local ones from ``item_gen``) and its
-    chains' kept. At the end theta is checked alike on every item shard
-    (the canary of ``gpirt_tpu/models/gibbs.py:873-883``) and the stored
-    draws come back whole, the same on every rank."""
+    this rank on a mesh: ``carry`` then holds its block of the chains,
+    items and respondents, y, ``consts`` and ``config`` are its block's,
+    the numbers of all chains are drawn (the shard-local ones from
+    ``shard_gens``) and its chains' kept. At the end the replicated fields
+    are checked alike over the model axes (theta over the item shards;
+    beta, the cutpoints and f* over the respondent shards: the canary of
+    ``gpirt_tpu/models/gibbs.py:873-883``) and the stored draws come back
+    whole, the same on every rank."""
     K = carry.state.theta_idx.shape[0]
-    group = None if shards is None else shards.item_group
+    groups = (None, None) if shards is None else (shards.item_group, shards.resp_group)
     if shards is not None:
         K *= shards.n_chain
         own = shards.chains(K)
 
     def sweep(state, it):
-        draws = sweep_draws(gen, K, consts, config, it, item_gen)
+        draws = sweep_draws(gen, K, consts, config, it, shard_gens)
         if shards is not None:
             draws = lane_block(draws, own, config.mix_subsweeps)
-        return gibbs_sweep(state, draws, y, consts, config, None, it, group)
+        return gibbs_sweep(state, draws, y, consts, config, None, it, *groups)
 
     def record(state, ll):
         return draw_record(state, ll, consts, config, store_f, store_fstar)
@@ -198,36 +202,38 @@ def advance_chains(gen: torch.Generator, carry: Carry, y: torch.Tensor,
     out = advance(sweep, record, carry, sched, start, stop)
     if shards is None:
         return out
-    check_replicated(carry.state.theta_idx, shards, "theta")
+    check_replicated(carry.state, shards)
     return gather_draws(out, shards)
 
 
 def chain_start(gen: torch.Generator, theta_init: torch.Tensor, thresholds_init,
                 y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig, mesh=None,
-                item_axis: Optional[str] = None,
-                item_gen: Optional[torch.Generator] = None):
-    """(shards, item generator, y, constants and config, and a ``fresh()``
-    that makes the prior init) of this rank: without a ``mesh`` no shards
-    and the inputs as they are; on one its place, its item block's inputs
-    and its block of the prior init, whose numbers are drawn for all
-    chains, item-local as the sweeps' are (``item_gen``, by default the
-    item shard's ``item_generator`` of ``gen``'s seed)."""
+                item_axis: Optional[str] = None, respondent_axis: Optional[str] = None,
+                shard_gens: Optional[ShardGenerators] = None):
+    """(shards, shard generators, y, constants and config, and a
+    ``fresh()`` that makes the prior init) of this rank: without a ``mesh``
+    no shards and the inputs as they are; on one its place, its block's
+    inputs and its block of the prior init, whose numbers are drawn for all
+    chains, item-local as the sweeps' are (``shard_gens``, by default
+    ``parallel.respondents.shard_generators`` of ``gen``'s seed)."""
     K = theta_init.shape[0]
     if mesh is None:
-        return None, item_gen, y, consts, config, lambda: init_state(
+        return None, shard_gens, y, consts, config, lambda: init_state(
             theta_init, thresholds_init, consts, config, init_draws(gen, K, consts, config))
-    shards = shards_of(mesh, item_axis)
-    if shards.n_item > 1 and item_gen is None:
-        item_gen = item_generator(gen.initial_seed(), shards.item_rank, gen.device)
+    shards = shards_of(mesh, item_axis, respondent_axis)
+    if shard_gens is None:
+        shard_gens = shard_generators(gen.initial_seed(), shards, gen.device)
     own = shards.chains(K)
-    y_l, thr_l, consts_l, config_l = item_inputs(y, thresholds_init, consts, config, shards)
+    resp = shards.respondents(config.n)
+    y_l, thr_l, consts_l, config_l = shard_inputs(y, thresholds_init, consts, config, shards)
+    init_gen = gen if shard_gens is None or shard_gens.item is None else shard_gens.item
 
     def fresh():
-        draws = init_draws(gen if item_gen is None else item_gen, K, consts_l, config_l)
-        return init_state(theta_init[own], thr_l, consts_l, config_l,
+        draws = init_draws(init_gen, K, consts_l, config_l)
+        return init_state(theta_init[own][..., resp], thr_l, consts_l, config_l,
                           lane_block(draws, own))
 
-    return shards, item_gen, y_l, consts_l, config_l, fresh
+    return shards, shard_gens, y_l, consts_l, config_l, fresh
 
 
 def run_chains(
@@ -246,7 +252,8 @@ def run_chains(
     store_fstar: bool = False,
     mesh=None,
     item_axis: Optional[str] = None,
-    item_gen: Optional[torch.Generator] = None,
+    respondent_axis: Optional[str] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run K chains; returns draws with a leading chain axis, on the device.
 
@@ -255,11 +262,12 @@ def run_chains(
     ``gen``.
 
     With a ``mesh`` (a ``DeviceMesh``; every rank calls this with the whole
-    inputs) the chains shard over its "chains" axis and, with
-    ``item_axis``, the items over that axis (``parallel/items.py``; their
-    item-local numbers from ``item_gen``, :func:`chain_start`);
+    inputs) the chains shard over its "chains" axis, with ``item_axis`` the
+    items over that axis (``parallel/items.py``) and with
+    ``respondent_axis`` the respondents (``parallel/respondents.py``), their
+    shard-local numbers from ``shard_gens`` (:func:`chain_start`);
     ``initial_states`` is then this rank's block. The draws come back
-    whole on every rank; without an item axis they are the unsharded
+    whole on every rank; without a model axis they are the unsharded
     run's, chain for chain.
 
     Returns "theta" (K, S, H, n), "beta" (K, S, H, 3, m),
@@ -269,12 +277,13 @@ def run_chains(
     session 0's mu* under constant_IRF, :func:`stored_fstar`).
     """
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
-    shards, item_gen, y, consts, config, fresh = chain_start(
-        gen, theta_init, thresholds_init, y, consts, config, mesh, item_axis, item_gen)
+    shards, shard_gens, y, consts, config, fresh = chain_start(
+        gen, theta_init, thresholds_init, y, consts, config, mesh, item_axis, respondent_axis,
+        shard_gens)
     carry = Carry(fresh() if initial_states is None else initial_states)
     out = advance_chains(gen, carry, y, consts, config, sched, 0, run_length(sched),
                          store_f=store_f, store_fstar=store_fstar, shards=shards,
-                         item_gen=item_gen)
+                         shard_gens=shard_gens)
     if sched.n_samples == 0:  # the layout of an empty run
         beta = carry.state.beta
         rec = draw_record(carry.state, beta.new_zeros(beta.shape[0]), consts, config,

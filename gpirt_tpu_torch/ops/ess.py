@@ -32,6 +32,7 @@ def ess_update(
     eps0: torch.Tensor,
     rs: torch.Tensor,
     transform: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    active_only: bool = False,
 ) -> torch.Tensor:
     """One ESS update of a batch of lanes.
 
@@ -45,6 +46,10 @@ def ess_update(
       transform: a map applied to every proposal before its likelihood and
         before it is kept (the theta update's clamp to [-5, 5],
         src/draw-theta.cpp:61); the current state is taken as it is.
+      active_only: ``loglik_fn`` takes a second argument, the ``(*B,)`` mask
+        of the lanes still active in the round (None for the slice level's
+        call, every lane), and may leave the other lanes' values unset: the
+        update reads them nowhere.
 
     Returns:
       ``(*B, d)`` new state.
@@ -53,7 +58,7 @@ def ess_update(
         raise ValueError(f"rs must be (R, *B) = (R, {tuple(x.shape[:-1])}), "
                          f"got {tuple(rs.shape)}")
     ess_update.calls += 1
-    log_y = loglik_fn(x) + logu
+    log_y = (loglik_fn(x, None) if active_only else loglik_fn(x)) + logu
     eps = eps0
     eps_min = eps - _TWO_PI
     eps_max = torch.full_like(eps, _TWO_PI)
@@ -66,7 +71,7 @@ def ess_update(
         prop = x * torch.cos(eps).unsqueeze(-1) + nu * torch.sin(eps).unsqueeze(-1)
         if transform is not None:
             prop = transform(prop)
-        accept = loglik_fn(prop) > log_y
+        accept = (loglik_fn(prop, active) if active_only else loglik_fn(prop)) > log_y
         x_out = torch.where((active & accept).unsqueeze(-1), prop, x_out)
         still = active & ~accept
         eps_min = torch.where(still & (eps < 0), eps, eps_min)

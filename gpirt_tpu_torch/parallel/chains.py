@@ -1,14 +1,15 @@
-"""Chains and items over a ``torch.distributed`` ``DeviceMesh``: where a
-rank sits on the mesh, its block of a lane-stacked state, and the
-collectives that reassemble blocks.
+"""Chains, items and respondents over a ``torch.distributed``
+``DeviceMesh``: where a rank sits on the mesh, its block of a lane-stacked
+state, and the collectives that reassemble blocks.
 
 Counterpart of the mesh parts of ``gpirt_tpu/parallel/chains.py``
 (``make_chain_mesh``, ``lane_state_specs``). Every rank runs the same
 program on its block: the chains of its place on the ``"chains"`` axis
 (:data:`CHAIN_AXIS`, the one name of the chain axis), and, when items are
-sharded (``parallel/items.py``), the items of its place on the item
-axis. JAX's ``shard_map`` specs become explicit
-blocks (:func:`lane_state_block`) and their reassembly
+sharded (``parallel/items.py``), the items of its place on the item axis,
+and when respondents are (``parallel/respondents.py``), the respondents of
+its place on the respondent axis. JAX's ``shard_map`` specs become
+explicit blocks (:func:`lane_state_block`) and their reassembly
 (:func:`assemble_lane_state`).
 
 Collectives are ``all_reduce`` alone, so that one code path serves Gloo
@@ -40,6 +41,7 @@ __all__ = [
     "assemble_lane_state",
     "gather_chains",
     "gather_items",
+    "gather_respondents",
     "gather_draws",
     "check_replicated",
 ]
@@ -50,13 +52,17 @@ CHAIN_AXIS = "chains"  # the mesh axis the chains shard over
 # axis is the first); theta and ll hold no item axis
 _STATE_ITEM_DIM = {"f": -1, "beta": -1, "thresholds": -2, "fstar": -1}
 _DRAW_ITEM_DIM = {"f": -1, "beta": -1, "threshold": -2, "fstar": -1}
+# the respondent axis of each per-respondent state field and stored draw;
+# beta, the cutpoints, f* and ll hold none (replicated over the respondents)
+_STATE_RESP_DIM = {"theta_idx": -1, "f": -2}
+_DRAW_RESP_DIM = {"theta": -1, "f": -2}
 
 
 class Shards(NamedTuple):
-    """A rank's place on a (chains, items) mesh: the count of shards on
-    each axis, this rank's index and the axis's process group (None where
-    the axis is absent or of size 1). The default is one rank holding
-    everything."""
+    """A rank's place on a (chains, items, respondents) mesh: the count of
+    shards on each axis, this rank's index and the axis's process group
+    (None where the axis is absent or of size 1). The default is one rank
+    holding everything."""
 
     n_chain: int = 1
     chain_rank: int = 0
@@ -64,6 +70,9 @@ class Shards(NamedTuple):
     n_item: int = 1
     item_rank: int = 0
     item_group: Optional[object] = None
+    n_resp: int = 1
+    resp_rank: int = 0
+    resp_group: Optional[object] = None
 
     @staticmethod
     def _block(total: int, n: int, rank: int, what: str) -> slice:
@@ -80,26 +89,34 @@ class Shards(NamedTuple):
         """This rank's items of m."""
         return self._block(m, self.n_item, self.item_rank, "items")
 
+    def respondents(self, n: int) -> slice:
+        """This rank's respondents of n."""
+        return self._block(n, self.n_resp, self.resp_rank, "respondents")
 
-def shards_of(mesh, item_axis: Optional[str] = None) -> Shards:
+
+def shards_of(mesh, item_axis: Optional[str] = None,
+              respondent_axis: Optional[str] = None) -> Shards:
     """This rank's :class:`Shards` on ``mesh`` (a ``DeviceMesh``, or Shards
     as they are, or None: one rank). The chains shard over
     :data:`CHAIN_AXIS` when the mesh has it; the items over ``item_axis``
-    when given, which the mesh must have. Any other axis of more than one
-    rank raises rather than run the same work on each of its ranks."""
+    and the respondents over ``respondent_axis`` when given, which the mesh
+    must have. Any other axis of more than one rank raises rather than run
+    the same work on each of its ranks."""
     if mesh is None:
         return Shards()
     if isinstance(mesh, Shards):
         return mesh
     names = tuple(mesh.mesh_dim_names or ())
-    if item_axis is not None and item_axis not in names:
-        raise ValueError(f"mesh has no axis named {item_axis!r} (its axes: {names})")
+    for given in (item_axis, respondent_axis):
+        if given is not None and given not in names:
+            raise ValueError(f"mesh has no axis named {given!r} (its axes: {names})")
     other = [a for a, size in zip(names, mesh.shape)
-             if a not in (CHAIN_AXIS, item_axis) and size > 1]
+             if a not in (CHAIN_AXIS, item_axis, respondent_axis) and size > 1]
     if other:
         raise ValueError(f"mesh axis {other[0]!r} is neither the chain axis "
-                         f"{CHAIN_AXIS!r} nor the item axis ({item_axis!r}): it would "
-                         "run the same chains on each of its ranks")
+                         f"{CHAIN_AXIS!r} nor the item axis ({item_axis!r}) nor the "
+                         f"respondent axis ({respondent_axis!r}): it would run the same "
+                         "chains on each of its ranks")
 
     def axis(name):
         if name is None or name not in names or mesh.shape[names.index(name)] == 1:
@@ -107,7 +124,7 @@ def shards_of(mesh, item_axis: Optional[str] = None) -> Shards:
         size = mesh.shape[names.index(name)]
         return size, mesh.get_local_rank(name), mesh.get_group(name)
 
-    return Shards(*axis(CHAIN_AXIS), *axis(item_axis))
+    return Shards(*axis(CHAIN_AXIS), *axis(item_axis), *axis(respondent_axis))
 
 
 def make_chain_mesh(n_devices: Optional[int] = None, device="cuda"):
@@ -148,62 +165,86 @@ def gather_items(t: torch.Tensor, shards: Shards, dim: int = -1) -> torch.Tensor
     return _gather(t, shards.n_item, shards.item_rank, shards.item_group, dim)
 
 
+def gather_respondents(t: torch.Tensor, shards: Shards, dim: int = -1) -> torch.Tensor:
+    """All respondents of the respondent group from each rank's block along
+    ``dim``."""
+    return _gather(t, shards.n_resp, shards.resp_rank, shards.resp_group, dim)
+
+
 def gather_draws(draws: Dict[str, torch.Tensor], shards: Shards) -> Dict[str, torch.Tensor]:
     """Stored draws {name: (K_loc, S, ...)} of every rank as the global
     draws, the same on every rank: per-item fields gathered over the item
-    group, then everything over the chain group."""
+    group, per-respondent ones over the respondent group, then everything
+    over the chain group."""
     out = {}
     for k in sorted(draws):
         v = draws[k]
         if k in _DRAW_ITEM_DIM:
             v = gather_items(v, shards, _DRAW_ITEM_DIM[k])
+        if k in _DRAW_RESP_DIM:
+            v = gather_respondents(v, shards, _DRAW_RESP_DIM[k])
         out[k] = gather_chains(v, shards)
     return out
 
 
-def lane_state_block(states: GPIRTState, mesh,
-                     item_axis: Optional[str] = None) -> GPIRTState:
+def lane_state_block(states: GPIRTState, mesh, item_axis: Optional[str] = None,
+                     respondent_axis: Optional[str] = None) -> GPIRTState:
     """This rank's block of a lane-stacked (K, ...) state, the counterpart
-    of ``lane_state_specs``: its chains, and of the per-item fields (f,
-    beta, thresholds, f*) its items when ``item_axis`` is given."""
-    shards = shards_of(mesh, item_axis)
+    of ``lane_state_specs``: its chains, of the per-item fields (f, beta,
+    thresholds, f*) its items when ``item_axis`` is given, and of the
+    per-respondent ones (theta, f) its respondents when ``respondent_axis``
+    is."""
+    shards = shards_of(mesh, item_axis, respondent_axis)
     c = shards.chains(states.theta_idx.shape[0])
     i = shards.items(states.beta.shape[-1])
+    r = shards.respondents(states.theta_idx.shape[-1])
     out = {}
     for name, a in states._asdict().items():
         a = a[c]
-        if name in _STATE_ITEM_DIM:
-            d = _STATE_ITEM_DIM[name] % a.ndim
-            a = a.narrow(d, i.start, i.stop - i.start)
+        for dims, cut in ((_STATE_ITEM_DIM, i), (_STATE_RESP_DIM, r)):
+            if name in dims:
+                a = a.narrow(dims[name] % a.ndim, cut.start, cut.stop - cut.start)
         out[name] = a.contiguous()
     return GPIRTState(**out)
 
 
-def assemble_lane_state(block: GPIRTState, mesh,
-                        item_axis: Optional[str] = None) -> GPIRTState:
+def assemble_lane_state(block: GPIRTState, mesh, item_axis: Optional[str] = None,
+                        respondent_axis: Optional[str] = None) -> GPIRTState:
     """The lane-stacked state from every rank's :func:`lane_state_block`,
     on every rank."""
-    shards = shards_of(mesh, item_axis)
+    shards = shards_of(mesh, item_axis, respondent_axis)
     out = {}
     for name, a in block._asdict().items():
         a = a.contiguous()
         if name in _STATE_ITEM_DIM:
             a = gather_items(a, shards, _STATE_ITEM_DIM[name])
+        if name in _STATE_RESP_DIM:
+            a = gather_respondents(a, shards, _STATE_RESP_DIM[name])
         out[name] = gather_chains(a, shards)
     return GPIRTState(**out)
 
 
-def check_replicated(t: torch.Tensor, shards: Shards, what: str) -> None:
-    """The replication canary of ``gpirt_tpu/models/gibbs.py:873-883``: the
-    item shards of a chain group hold ``t`` bit for bit alike (their theta
-    is drawn from the one summed table with the replicated generator's
-    numbers), or this raises."""
-    if shards.item_group is None:
+def _check_alike(t: torch.Tensor, group, what: str, where: str) -> None:
+    if group is None:
         return
     t = t.detach().cpu()
     hi, lo = t.clone(), t.clone()
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=shards.item_group)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=shards.item_group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
     if not (torch.equal(hi, t) and torch.equal(lo, t)):
-        raise RuntimeError(f"{what} differs between the item shards of chain shard "
-                           f"{shards.chain_rank}: the replicated state forked")
+        raise RuntimeError(f"{what} differs between the {where}: the replicated state "
+                           "forked")
+
+
+def check_replicated(state: GPIRTState, shards: Shards) -> None:
+    """The replication canary of ``gpirt_tpu/models/gibbs.py:873-883``, or
+    this raises: the item shards of a chain and respondent block hold theta
+    bit for bit alike (drawn from the one summed table with the same
+    numbers), and the respondent shards of a chain and item block hold
+    beta, the cutpoints and f* alike (drawn from the same all-reduced
+    statistics with the replicated numbers)."""
+    _check_alike(state.theta_idx, shards.item_group, "theta",
+                 f"item shards of chain shard {shards.chain_rank}")
+    for name in ("beta", "thresholds", "fstar"):
+        _check_alike(getattr(state, name), shards.resp_group, name,
+                     f"respondent shards of chain shard {shards.chain_rank}")

@@ -23,9 +23,10 @@ not bitwise the unsharded run, as in JAX; any assignment of streams is a
 valid sampler.
 
 Only the conjugate sweep with theta drawn on the grid shards its items
-here; the affine moves, ESS theta (each round a global all-reduce and a
-global exit test), respondent sharding, and tempering's and the
-campaigns' meshes are refused by name.
+here; under an item axis the affine moves and ESS theta (each round a
+global all-reduce and a global exit test) are refused by name, and so are
+tempering's and the campaigns' meshes. A respondent axis beside the item
+axis is ``parallel/respondents.py``'s.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
-from gpirt_tpu_torch.models.gibbs import SweepDraws
+from gpirt_tpu_torch.models.gibbs import ShardGenerators, SweepDraws
 from gpirt_tpu_torch.parallel.chains import CHAIN_AXIS, Shards, shards_of
 
 __all__ = [
@@ -155,14 +156,15 @@ def run_chains_itemsharded(
     mesh,
     item_axis: str = "items",
     initial_states=None,
-    item_gen: Optional[torch.Generator] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ) -> Dict[str, torch.Tensor]:
     """``len(theta_init)`` chains with the items sharded over
     ``mesh[item_axis]`` (and the chains over ``mesh["chains"]`` when the
     mesh has it), called on every rank with the whole inputs.
 
-    ``gen`` is the replicated generator (theta's numbers); ``item_gen``,
-    this shard's, defaults to :func:`item_generator` of ``gen``'s seed.
+    ``gen`` is the replicated generator (theta's numbers); ``shard_gens``,
+    this shard's, defaults to ``parallel.respondents.shard_generators`` of
+    ``gen``'s seed (its item shard's :func:`item_generator`).
     ``initial_states`` (e.g. ``anneal_init(mesh=..., item_axis=...)``'s) is
     this rank's block. Returns ``run_chains``' draws, the per-item ones
     reassembled from the shards and theta and ll once, the same on every
@@ -177,4 +179,4 @@ def run_chains_itemsharded(
                       sample_iterations=sample_iterations, burn_iterations=burn_iterations,
                       thin=thin, initial_states=initial_states, store_f=store_f,
                       store_fstar=store_fstar, mesh=mesh, item_axis=item_axis,
-                      item_gen=item_gen)
+                      shard_gens=shard_gens)

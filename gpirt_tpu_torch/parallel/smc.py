@@ -1,6 +1,6 @@
 """SMC annealed initialization for one campaign of K chains, on one device
-or over a mesh of chains and items, or for a batch of B independent
-campaigns on one device.
+or over a mesh of chains, items and respondents, or for a batch of B
+independent campaigns on one device.
 
 Counterpart of ``gpirt_tpu/parallel/smc.py::anneal_init`` and
 ``anneal_init_batched``: each K-chain ensemble starts hot
@@ -18,14 +18,16 @@ never waits for the host. Campaign b draws every number from its own
 generator, in the order a solo run draws them, so it equals a solo
 ``anneal_init`` fed the same draws.
 
-On a mesh (``gpirt_tpu/parallel/smc.py:65-290``) each rank mutates its
-block of the lanes (its chains, its items); the reweight's per-lane ll is
-summed over the item shards, the log-weights are gathered over the chain
-shards, so that every rank computes the same weights, ESS and source
-lanes from the replicated generator's uniform, and a resample gathers the
-lane states over the chain shards (the per-item leaves stay sharded) and
-keeps this rank's lanes. Mutation draws follow ``parallel/items.py``'s
-rule.
+On a mesh (``gpirt_tpu/parallel/smc.py:65-349``) each rank mutates its
+block of the lanes (its chains, its items, its respondents); the
+reweight's per-lane ll is summed over the item shards and the respondent
+shards, the log-weights are gathered over the chain shards, so that every
+rank computes the same weights, ESS and source lanes from the replicated
+generator's uniform, and a resample gathers the lane states over the chain
+shards (the per-item and per-respondent leaves stay sharded: a resample
+moves whole chains, and every rank keeps its block of each) and keeps this
+rank's lanes. Mutation draws follow ``parallel/items.py``'s and
+``parallel/respondents.py``'s rules.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import torch.distributed as dist
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
+    ShardGenerators,
+    _all_sum,
     compute_mu,
     gibbs_sweep,
     init_draws,
@@ -49,7 +53,7 @@ from gpirt_tpu_torch.models.gibbs import (
 )
 from gpirt_tpu_torch.ops.likelihood import ordinal_ll_terms
 from gpirt_tpu_torch.parallel.chains import Shards, gather_chains, shards_of
-from gpirt_tpu_torch.parallel.items import item_generator, item_inputs
+from gpirt_tpu_torch.parallel.respondents import shard_generators, shard_inputs
 
 __all__ = ["anneal_init", "anneal_init_batched", "annealing_schedule", "lane_block",
            "WARM_STEPS"]
@@ -179,7 +183,7 @@ def anneal_init_batched(
     sweeps_per_step: int = 1,
     ess_threshold: float = 0.5,
     shards: Optional[Shards] = None,
-    item_gen: Optional[torch.Generator] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ):
     """Anneal B independent K-chain campaigns from T = max_temp to T = 1 as
     the B K lanes of one sweep. Returns (states, info).
@@ -193,8 +197,9 @@ def anneal_init_batched(
 
     ``shards`` (one campaign only) is this rank's place on a mesh
     (:func:`anneal_init`): ``states`` then holds this rank's block of the
-    lanes, and ``item_gen`` is the item shard's generator.
+    lanes, and ``shard_gens`` are its shard-local generators.
     """
+
     if config.resolved_f_method != "conjugate":
         raise NotImplementedError("anneal_init needs f_method='conjugate'")
     B, K = len(gens), theta_init.shape[0]
@@ -203,17 +208,20 @@ def anneal_init_batched(
         raise NotImplementedError("campaigns over a mesh (mesh) are not ported to "
                                   "gpirt_tpu_torch yet")
     dt, dev = config.tdtype, consts.grid.device
-    # this rank's lanes, items, and their responses, constants and config
+    # this rank's lanes, items, respondents, and their responses, constants
+    # and config
     own = shards.chains(K) if B == 1 else slice(0, B * K)
-    y, thresholds_init, consts, config = item_inputs(y, thresholds_init, consts, config,
-                                                     shards)
+    resp = shards.respondents(config.n)
+    y, thresholds_init, consts, config = shard_inputs(y, thresholds_init, consts, config,
+                                                      shards)
     # the ladder in the working precision, as the JAX package holds it
     temps = [float(t) for t in
              torch.as_tensor(annealing_schedule(n_steps, max_temp), dtype=dt)]
+    item_gen = None if shard_gens is None else shard_gens.item
     init = _cat_lanes([init_draws(g if item_gen is None else item_gen, K, consts, config)
                        for g in gens])
-    states = init_state(theta_init.repeat(B, 1, 1)[own], thresholds_init, consts, config,
-                        lane_block(init, own))
+    states = init_state(theta_init.repeat(B, 1, 1)[own][..., resp], thresholds_init, consts,
+                        config, lane_block(init, own))
     lanes = torch.arange(B * K, device=dev).reshape(B, K)
     logw = torch.zeros(B, K, dtype=dt, device=dev)
     # the JAX package's step ids, each step's sweeps' iteration: the warm
@@ -225,8 +233,8 @@ def anneal_init_batched(
         if t_new != t_prev:  # the warm prologue's ratio is exactly 0
             ll = torch.stack([_lane_ll(states, t_new, y, consts),
                               _lane_ll(states, t_prev, y, consts)])
-            if shards.item_group is not None:
-                dist.all_reduce(ll, group=shards.item_group)
+            for group in (shards.item_group, shards.resp_group):
+                _all_sum(ll, group)
             logw = logw + gather_chains(ll[0] - ll[1], shards).reshape(B, K)
         _, ess_w, src = _weights(logw, gens, K, dev, dt)
         do = ess_w < ess_threshold * K  # (B,), decided on the device
@@ -239,10 +247,11 @@ def anneal_init_batched(
         ess_trace.append(ess_w)
         resampled.append(do)
         for _ in range(sweeps_per_step):
-            draws = _cat_lanes([sweep_draws(g, K, consts, config, i, item_gen)
+            draws = _cat_lanes([sweep_draws(g, K, consts, config, i, shard_gens)
                                 for g in gens], config.mix_subsweeps)
             states, _ = gibbs_sweep(states, lane_block(draws, own, config.mix_subsweeps),
-                                    y, consts, config, t_new, i, shards.item_group)
+                                    y, consts, config, t_new, i, shards.item_group,
+                                    shards.resp_group)
     w, _, src = _weights(logw, gens, K, dev, dt)
     states = _resample(states, src.reshape(-1), shards, own)
     w_final = w.cpu().double().numpy()
@@ -268,7 +277,8 @@ def anneal_init(
     ess_threshold: float = 0.5,
     mesh=None,
     item_axis: Optional[str] = None,
-    item_gen: Optional[torch.Generator] = None,
+    respondent_axis: Optional[str] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ):
     """Anneal K chains from T = max_temp to T = 1. Returns (states, info).
 
@@ -279,19 +289,20 @@ def anneal_init(
     count (the final resample included) and the final weight ESS.
 
     With a ``mesh`` (every rank calls it with the whole inputs) the chains
-    shard over its "chains" axis and, with ``item_axis``, the items over
-    that axis, whose item-local numbers come from ``item_gen`` (by default
-    ``parallel.items.item_generator`` of ``gen``'s seed); ``states`` is
-    then this rank's block (``parallel.chains.lane_state_block``) and
+    shard over its "chains" axis, with ``item_axis`` the items and with
+    ``respondent_axis`` the respondents over those axes, whose shard-local
+    numbers come from ``shard_gens`` (by default
+    ``parallel.respondents.shard_generators`` of ``gen``'s seed); ``states``
+    is then this rank's block (``parallel.chains.lane_state_block``) and
     ``info`` the same on every rank.
     """
-    shards = shards_of(mesh, item_axis)
-    if shards.n_item > 1 and item_gen is None:
-        item_gen = item_generator(gen.initial_seed(), shards.item_rank, gen.device)
+    shards = shards_of(mesh, item_axis, respondent_axis)
+    if shard_gens is None:
+        shard_gens = shard_generators(gen.initial_seed(), shards, gen.device)
     states, info = anneal_init_batched(
         [gen], y, theta_init, thresholds_init, consts, config, n_steps=n_steps,
         max_temp=max_temp, sweeps_per_step=sweeps_per_step,
-        ess_threshold=ess_threshold, shards=shards, item_gen=item_gen)
+        ess_threshold=ess_threshold, shards=shards, shard_gens=shard_gens)
     return GPIRTState(*(a[0] for a in states)), {
         "weight_ess": info["weight_ess"][0],
         "n_resamples": int(info["n_resamples"][0]),

@@ -30,14 +30,18 @@ here refuse to resume from it. Module-level tallies of diagnostics (such
 as ``models.affine.counts`` or ``ops.ess.ess_update``'s counters) are not
 chain state and are not saved.
 
-On a mesh (``run_chains_checkpointed(mesh=..., item_axis=...)``) the file
-holds the whole run, as one process would: every rank gathers the lane
-states and the draws, rank 0 writes the file, and the ranks meet after
-it. Under an item axis it also holds each item shard's generator state
-(``item_rng_state``, one row a shard) and meta ``item_shards``. A run
-resumes on any chain layout, or on none, bit for bit; a resume onto
-another count of item shards raises ``NotImplementedError`` (the item
-shards' streams would change; JAX lets its draws change there).
+On a mesh (``run_chains_checkpointed(mesh=..., item_axis=...,
+respondent_axis=...)``) the file holds the whole run, as one process
+would: every rank gathers the lane states and the draws, rank 0 writes the
+file, and the ranks meet after it. Under an item axis it also holds each
+item shard's generator state (``item_rng_state``, one row a shard) and
+meta ``item_shards``; under a respondent axis each respondent shard's
+(``resp_rng_state``) and meta ``resp_shards``, and under both each
+(item, respondent) cell's (``cell_rng_state``, items by respondents). A
+run resumes on any chain layout, or on none, bit for bit; a resume onto
+another count of item or respondent shards raises ``NotImplementedError``
+naming ``item_axis`` or ``respondent_axis`` (the shards' streams would
+change; JAX lets its draws change there).
 
 Not carried over from the JAX module: ``aligned_records_chunk`` and
 ``ChunkedPrograms``, which shared one compiled XLA program between chunks
@@ -62,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
-from gpirt_tpu_torch.models.gibbs import GPIRTState
+from gpirt_tpu_torch.models.gibbs import GPIRTState, ShardGenerators
 from gpirt_tpu_torch.models.sampler import (
     Carry,
     advance_chains,
@@ -74,6 +78,7 @@ from gpirt_tpu_torch.parallel.chains import (
     Shards,
     assemble_lane_state,
     gather_items,
+    gather_respondents,
     lane_state_block,
 )
 from gpirt_tpu_torch.parallel.tempering import (
@@ -150,6 +155,8 @@ class Checkpoint(NamedTuple):
     draws: Dict[str, np.ndarray]
     rng_state: Optional[np.ndarray]  # uint8; None in a JAX package's file
     item_rng_state: Optional[np.ndarray] = None  # (shards, bytes) uint8 under an item axis
+    resp_rng_state: Optional[np.ndarray] = None  # (shards, bytes) under a respondent axis
+    cell_rng_state: Optional[np.ndarray] = None  # (item, resp shards, bytes) under both
 
 
 class CheckpointManager:
@@ -166,9 +173,11 @@ class CheckpointManager:
 
     def save(self, state: GPIRTState, meta: dict, draws: Dict[str, np.ndarray],
              rng_state: Optional[torch.Tensor] = None,
-             item_rng_state: Optional[torch.Tensor] = None) -> None:
+             shard_rng_states: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Write the file through a temporary one in its directory and
-        ``os.replace``: a failed write leaves the previous checkpoint."""
+        ``os.replace``: a failed write leaves the previous checkpoint.
+        ``shard_rng_states`` maps "item", "resp" and "cell" to the shards'
+        generator states (:class:`Checkpoint`'s fields)."""
         t = time.perf_counter()
         meta = dict(meta, format_version=CHECKPOINT_FORMAT_VERSION)
         payload = {f"state_{k}": v.detach().cpu().numpy()
@@ -177,8 +186,8 @@ class CheckpointManager:
             payload[f"draws_{k}"] = np.asarray(v)
         if rng_state is not None:
             payload["rng_state"] = rng_state.cpu().numpy().astype(np.uint8)
-        if item_rng_state is not None:
-            payload["item_rng_state"] = item_rng_state.cpu().numpy().astype(np.uint8)
+        for k, v in (shard_rng_states or {}).items():
+            payload[f"{k}_rng_state"] = v.cpu().numpy().astype(np.uint8)
         payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
         d = os.path.dirname(os.path.abspath(self.path)) or "."
         os.makedirs(d, exist_ok=True)
@@ -220,9 +229,10 @@ class CheckpointManager:
             draws = {
                 k[len("draws_"):]: z[k] for k in z.files if k.startswith("draws_")
             }
-            rng_state = z["rng_state"] if "rng_state" in z.files else None
-            item_rng = z["item_rng_state"] if "item_rng_state" in z.files else None
-        return Checkpoint(state, meta, draws, rng_state, item_rng)
+            rngs = [z[k] if k in z.files else None
+                    for k in ("rng_state", "item_rng_state", "resp_rng_state",
+                              "cell_rng_state")]
+        return Checkpoint(state, meta, draws, *rngs)
 
 
 def _device_name(device: torch.device) -> str:
@@ -240,14 +250,14 @@ def _run_spec(gen: torch.Generator, n_chains: int, thin: int, burn_iterations: i
 
 def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generator,
            config: GPIRTConfig, fresh, shards: Optional[Shards] = None,
-           item_gen: Optional[torch.Generator] = None):
+           shard_gens: Optional[ShardGenerators] = None):
     """(the state to advance in a :class:`Carry`, the sweeps run, the draws
     so far, the meta): the manager's checkpoint, checked against ``spec``,
     with ``gen`` set to its generator state and the state's shared fields
     made the views the sweep makes (f* under constant_IRF); without one,
     or without a manager, ``fresh()``'s state at sweep 0. On a mesh
-    (``shards``) the state is this rank's block, and ``item_gen`` takes its
-    item shard's saved state."""
+    (``shards``) the state is this rank's block, and ``shard_gens`` take
+    their shards' saved states."""
     ck = None if manager is None else manager.load(device=gen.device)
     if ck is None:
         return Carry(fresh()), 0, {}, {}
@@ -257,13 +267,16 @@ def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generato
             "was not written by gpirt_tpu_torch (the JAX package writes none), "
             "and the port cannot continue its random stream. Delete it to start "
             "fresh.")
-    n_item = 1 if shards is None else shards.n_item
-    if int(ck.meta.get("item_shards", 1)) != n_item:
-        raise NotImplementedError(
-            f"item_axis: checkpoint {manager.path} was written over "
-            f"{ck.meta.get('item_shards', 1)} item shard(s) and would resume over "
-            f"{n_item}; a resume across item-shard counts is not ported to "
-            "gpirt_tpu_torch yet (each shard's random stream would change)")
+    shards = Shards() if shards is None else shards
+    for key, axis, what, count in (("item_shards", "item_axis", "item", shards.n_item),
+                                   ("resp_shards", "respondent_axis", "respondent",
+                                    shards.n_resp)):
+        if int(ck.meta.get(key, 1)) != count:
+            raise NotImplementedError(
+                f"{axis}: checkpoint {manager.path} was written over "
+                f"{ck.meta.get(key, 1)} {what} shard(s) and would resume over {count}; a "
+                f"resume across {what}-shard counts is not ported to gpirt_tpu_torch yet "
+                "(each shard's random stream would change)")
     _check_run_spec(ck.meta, spec, manager.path)
     here = (_device_name(gen.device), torch.__version__)
     there = (ck.meta.get("device_name"), ck.meta.get("torch_version"))
@@ -273,11 +286,10 @@ def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generato
               "the draws are valid, but not bitwise those of the uninterrupted "
               "run", file=sys.stderr)
     gen.set_state(torch.from_numpy(np.ascontiguousarray(ck.rng_state, np.uint8)))
-    if item_gen is not None:
-        item_gen.set_state(torch.from_numpy(
-            np.ascontiguousarray(ck.item_rng_state[shards.item_rank], np.uint8)))
+    for g, saved in _shard_streams(shards, shard_gens, ck):
+        g.set_state(torch.from_numpy(np.ascontiguousarray(saved, np.uint8)))
     state = ck.state
-    if shards is not None:
+    if shards != Shards():
         state = lane_state_block(state, shards)
     if config.constant_IRF:  # one f* a chain, an expand view over the sessions
         fs = state.fstar[:, :1].contiguous()
@@ -285,21 +297,52 @@ def _start(manager: Optional[CheckpointManager], spec: dict, gen: torch.Generato
     return Carry(state), int(ck.meta["iteration"]), dict(ck.draws), ck.meta
 
 
+def _shard_streams(shards: Shards, shard_gens: Optional[ShardGenerators], ck: Checkpoint):
+    """(this rank's shard generator, its row of the checkpoint's saved
+    states) for each distinct generator of ``shard_gens``."""
+    if shard_gens is None:
+        return []
+    out = []
+    if shard_gens.item is not None:
+        out.append((shard_gens.item, ck.item_rng_state[shards.item_rank]))
+    if shard_gens.resp is not None:
+        out.append((shard_gens.resp, ck.resp_rng_state[shards.resp_rank]))
+    if _own_cell(shard_gens):
+        out.append((shard_gens.cell, ck.cell_rng_state[shards.item_rank, shards.resp_rank]))
+    return out
+
+
+def _own_cell(shard_gens: ShardGenerators) -> bool:
+    """Whether the cell's generator is its own (both axes sharded)."""
+    return shard_gens.cell is not None and all(
+        shard_gens.cell is not g for g in (shard_gens.item, shard_gens.resp))
+
+
 def _save(manager: CheckpointManager, carry: Carry, meta: dict, draws, gen,
-          shards: Optional[Shards], item_gen: Optional[torch.Generator]) -> None:
+          shards: Optional[Shards], shard_gens: Optional[ShardGenerators]) -> None:
     """Save the run; on a mesh every rank gathers the lane states and the
-    item shards' generator states, rank 0 writes, and the ranks meet
-    after the write."""
+    shards' generator states, rank 0 writes, and the ranks meet after the
+    write."""
     if shards is None:
         manager.save(carry.state, meta, draws, gen.get_state())
         return
     state = assemble_lane_state(carry.state, shards)
-    item_rng = None
-    if item_gen is not None:
-        item_rng = gather_items(item_gen.get_state().to(torch.int64)[None], shards, 0)
-        meta = dict(meta, item_shards=shards.n_item)
+    rngs = {}
+
+    def row(g):
+        return g.get_state().to(torch.int64)[None]
+
+    if shard_gens is not None:
+        if shard_gens.item is not None:
+            rngs["item"] = gather_items(row(shard_gens.item), shards, 0)
+        if shard_gens.resp is not None:
+            rngs["resp"] = gather_respondents(row(shard_gens.resp), shards, 0)
+        if _own_cell(shard_gens):
+            rngs["cell"] = gather_respondents(gather_items(row(shard_gens.cell)[None], shards,
+                                                           0), shards, 1)
+    meta = dict(meta, item_shards=shards.n_item, resp_shards=shards.n_resp)
     if dist.get_rank() == 0:
-        manager.save(state, meta, draws, gen.get_state(), item_rng)
+        manager.save(state, meta, draws, gen.get_state(), rngs)
     dist.all_reduce(torch.zeros(1))  # the ranks meet once the file is written
 
 
@@ -307,7 +350,7 @@ def _drive(manager: Optional[CheckpointManager], gen: torch.Generator, spec: dic
            carry: Carry, done: int, end: int, draws: Dict[str, np.ndarray], sched,
            total: int, sample_iterations: int, checkpoint_every: int, on_progress, step,
            extra=lambda done: {}, shards: Optional[Shards] = None,
-           item_gen: Optional[torch.Generator] = None):
+           shard_gens: Optional[ShardGenerators] = None):
     """Advance ``carry`` from absolute sweep ``done`` to ``end`` in chunks
     of ``checkpoint_every`` sweeps: ``step(start, stop)`` returns the
     chunk's stored draws on the device, which go to host numpy and join
@@ -331,7 +374,7 @@ def _drive(manager: Optional[CheckpointManager], gen: torch.Generator, spec: dic
                     recs_done=next(iter(draws.values())).shape[1] if draws else 0,
                     sample_iterations=sample_iterations, total=total, iteration=done,
                     device_name=_device_name(gen.device), torch_version=torch.__version__)
-        _save(manager, carry, meta, draws, gen, shards, item_gen)
+        _save(manager, carry, meta, draws, gen, shards, shard_gens)
         if on_progress is not None:
             on_progress(min(done, total), total)
     return done, draws
@@ -356,7 +399,8 @@ def run_chains_checkpointed(
     initial_states: Optional[GPIRTState] = None,
     mesh=None,
     item_axis: Optional[str] = None,
-    item_gen: Optional[torch.Generator] = None,
+    respondent_axis: Optional[str] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ) -> Dict[str, np.ndarray]:
     """:func:`~gpirt_tpu_torch.models.sampler.run_chains`, resumable: the K
     chains advance ``checkpoint_every`` sweeps at a time, and the state,
@@ -370,9 +414,9 @@ def run_chains_checkpointed(
     ``on_progress(done, total)`` is called after each save.
 
     On a ``mesh`` (every rank calls this with the whole inputs) the run is
-    ``run_chains(mesh=..., item_axis=...)``'s, ``initial_states`` this
-    rank's block, and every rank returns the whole draws; the file holds
-    the whole run (module docstring).
+    ``run_chains(mesh=..., item_axis=..., respondent_axis=...)``'s,
+    ``initial_states`` this rank's block, and every rank returns the whole
+    draws; the file holds the whole run (module docstring).
 
     Returns host numpy draws with a leading chain axis, ``run_chains``'s
     names and layouts.
@@ -380,22 +424,24 @@ def run_chains_checkpointed(
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
     spec = _run_spec(gen, theta_init.shape[0], thin, burn_iterations, store_f, store_fstar,
                      config)
-    shards, item_gen, y, consts, config, start_state = chain_start(
-        gen, theta_init, thresholds_init, y, consts, config, mesh, item_axis, item_gen)
+    shards, shard_gens, y, consts, config, start_state = chain_start(
+        gen, theta_init, thresholds_init, y, consts, config, mesh, item_axis, respondent_axis,
+        shard_gens)
 
     def fresh():
         return start_state() if initial_states is None else initial_states
 
-    carry, done, draws, _ = _start(manager, spec, gen, config, fresh, shards, item_gen)
+    carry, done, draws, _ = _start(manager, spec, gen, config, fresh, shards, shard_gens)
 
     def step(start, stop):
         return advance_chains(gen, carry, y, consts, config, sched, start, stop,
                               store_f=store_f, store_fstar=store_fstar, shards=shards,
-                              item_gen=item_gen)
+                              shard_gens=shard_gens)
 
     _, draws = _drive(manager, gen, spec, carry, done, run_length(sched), draws, sched,
                       sample_iterations + burn_iterations, sample_iterations,
-                      checkpoint_every, on_progress, step, shards=shards, item_gen=item_gen)
+                      checkpoint_every, on_progress, step, shards=shards,
+                      shard_gens=shard_gens)
     return {k: v[:, :sched.n_samples] for k, v in draws.items()}
 
 

@@ -1,5 +1,6 @@
 """What the ranks of the port's multi-process tests run
-(``test_torch_items.py``, ``test_torch_distributed.py``), in a module that
+(``test_torch_items.py``, ``test_torch_respondents.py``,
+``test_torch_distributed.py``), in a module that
 imports no JAX, as ``_multihost_worker.py`` is for the JAX package: a
 spawned rank imports the module that holds its function, and the test files
 import JAX. Inputs and outputs cross as ``.npz`` files in the test's
@@ -39,6 +40,12 @@ from gpirt_tpu_torch.parallel.items import (
     make_item_mesh,
     run_chains_itemsharded,
 )
+from gpirt_tpu_torch.parallel.respondents import (
+    consts_respondent_block,
+    draws_respondent_block,
+    make_respondent_mesh,
+    run_chains_respondentsharded,
+)
 from gpirt_tpu_torch.parallel.smc import lane_block
 
 n, m, K, N = 12, 8, 4, 61
@@ -54,7 +61,7 @@ CUT = ("nu", "logu", "eps0", "rs")
 REFUSALS = {"uneven_m": "ValueError", "chains_indivisible": "ValueError",
             "non_conjugate": "NotImplementedError", "theta_ess": "NotImplementedError",
             "affine": "NotImplementedError", "n_temps": "NotImplementedError",
-            "respondent_axis": "NotImplementedError", "campaign_mesh": "NotImplementedError",
+            "respondent_axis": "ValueError", "campaign_mesh": "NotImplementedError",
             "resume_other_item_count": "NotImplementedError",
             "resume_without_mesh": "NotImplementedError",
             "item_axis_not_named": "ValueError"}
@@ -308,6 +315,31 @@ def card_sharded_sweep(path, out_dir, seed=3):
     return dist.get_rank()
 
 
+def card_respondent_sweep(path, out_dir, seed=3):
+    """One sweep on this rank's respondent block of the card, from the state
+    and constants in ``path`` and the unsharded sweep's draws (seeded
+    ``seed`` on the card) cut to the block; the result saved in
+    ``out_dir``."""
+    from gpirt_tpu_torch.api import full_fp32_matmuls
+    from gpirt_tpu_torch.models.config import GPIRTConstants as Consts
+
+    full_fp32_matmuls()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(path, map_location=dev)
+    state, consts = tg.GPIRTState(*saved["state"]), Consts(**saved["consts"])
+    cfg, y = card_config(), saved["y"]
+    draws = tg.sweep_draws(torch.Generator(device=dev).manual_seed(seed), K, consts, cfg)
+    sh = shards_of(make_respondent_mesh(2, device="cuda"), None, RESP)
+    r = sh.respondents(n)
+    got, ll = tg.gibbs_sweep(lane_state_block(state, sh), draws_respondent_block(draws, r, cfg),
+                             y[:, r].contiguous(), consts_respondent_block(consts, r),
+                             dataclasses.replace(cfg, n=r.stop - r.start), None, 0, None,
+                             sh.resp_group)
+    torch.save([a.cpu() for a in got] + [ll.cpu()],
+               os.path.join(out_dir, f"card_resp_rank{dist.get_rank()}.pt"))
+    return dist.get_rank()
+
+
 def sleep_in_stage(seconds, stage_done):
     """Two stages: the first ends at once, the second sleeps ``seconds``."""
     import time
@@ -315,3 +347,178 @@ def sleep_in_stage(seconds, stage_done):
     stage_done()
     time.sleep(seconds)
     return dist.get_rank()
+
+
+# ---------------------------------------------------------------------------
+# the respondents world (test_torch_respondents.py)
+# ---------------------------------------------------------------------------
+
+RESP = "respondents"
+# the refusals the respondents world checks: (case, exception it must raise)
+RESP_REFUSALS = {"uneven_n": "ValueError", "non_conjugate": "NotImplementedError",
+                 "n_temps": "NotImplementedError", "affine_item_axis": "NotImplementedError",
+                 "resume_other_resp_count": "NotImplementedError",
+                 "resume_without_mesh": "NotImplementedError"}
+# sharded sweeps against the port's own unsharded sweep: (sweep case, options)
+RESP_SELF_CASES = {"C2": ("C2", {}), "C5": ("C5", {}), "gp_H3": ("gp_H3", {}),
+                   "affine": ("C2", dict(affine_shift_max=2, affine_rounds=2)),
+                   "theta_ess": ("C2", dict(theta_method="ess")),
+                   "collapsed": ("C5", dict(threshold_method="collapsed")),
+                   "newton": ("C2", dict(threshold_method="newton"))}
+
+
+def _resp_block(z, sh, case, prefix="s_"):
+    """This rank's respondent block of a case's state, y, constants and
+    config (all chains, all items)."""
+    cfg = port_config(case)
+    r = sh.respondents(n)
+    consts = _consts(z)
+    state = lane_state_block(_state(z, prefix), sh)
+    y = torch.as_tensor(z["y"])[:, r].contiguous()
+    return (state, y, consts_respondent_block(consts, r),
+            dataclasses.replace(cfg, n=r.stop - r.start), consts, cfg)
+
+
+def _resp_blocks_case(tmp, sh, out):
+    """Each coupled block on this rank's respondents, fed JAX's numbers."""
+    z = np.load(os.path.join(tmp, "resp_blocks.npz"))
+    g, r = sh.resp_group, sh.respondents(n)
+    T = torch.as_tensor
+    consts = _consts(z)
+    cb = consts_respondent_block(consts, r)
+
+    def rows(a, dim):
+        return T(a).narrow(dim, r.start, r.stop - r.start).contiguous()
+
+    from gpirt_tpu_torch.models import affine
+
+    x, ld = affine.lowrank_bsolve(rows(z["lr_idx"], -1), cb, rows(z["lr_r"], -2),
+                                  None, g)
+    out["lowrank_x"], out["lowrank_logdet"] = x.numpy(), ld.numpy()
+    for tag in ("session", "pooled"):
+        cfg = port_config("C2" if tag == "session" else "gp_H3")
+        cfg = dataclasses.replace(cfg, constant_IRF=tag == "pooled")
+        cz = consts if tag == "session" else _consts(np.load(os.path.join(tmp,
+                                                                          "sweep_gp_H3.npz")))
+        cz = consts_respondent_block(cz, r)
+        st = tg.GPIRTState(rows(z[f"fs_{tag}_idx"], -1), None, None, None, None)
+        fs, f = tg.draw_fstar_conjugate(
+            st, rows(z[f"fs_{tag}_zr"], -2), cfg, cz, T(z[f"fs_{tag}_z_q"]),
+            T(z[f"fs_{tag}_z_p"]), T(z[f"fs_{tag}_z_n"]),
+            T(z[f"fs_{tag}_eps_r{sh.resp_rank}"]), None, g)
+        out[f"fstar_{tag}"], out[f"fstar_{tag}_f"] = fs.numpy(), f.numpy()
+    cfg2 = port_config("C2")
+    out["beta"] = tg.draw_beta_conjugate(rows(z["b_theta"], -1), rows(z["b_zmf"], -2), cb,
+                                         cfg2, T(z["b_zeta"]), None, g).numpy()
+    for C in (2, 4):
+        cfg = dataclasses.replace(cfg2, C=C)
+        f, mu, y = rows(z[f"t{C}_f"], -2), rows(z[f"t{C}_mu"], -2), rows(z[f"t{C}_y"], -2)
+        thr = T(z[f"t{C}_thr"])
+        out[f"ess_C{C}"] = tg.draw_threshold(
+            thr, f, mu, y, cfg, *(T(z[f"t{C}_{k}"]) for k in CUT), None, g).numpy()
+        newton = dataclasses.replace(cfg, threshold_method="newton")
+        out[f"newton_C{C}"] = tg._draw_cutpoints(
+            thr, f, mu, y, newton, tg.NewtonDraws(T(z[f"t{C}_nz"]), T(z[f"t{C}_nlogu"])),
+            None, g).numpy()
+    out["collapsed"] = tg.draw_threshold_collapsed(
+        T(z["t2_thr"]), rows(z["c_z"], -2), rows(z["t2_y"], -2), cfg2,
+        tg.CollapsedDraws(T(z["c_u"])), g).numpy()
+    acfg = dataclasses.replace(cfg2, affine_shift_max=3, affine_rounds=4)
+    draws = tg.AffineDraws(*(T(z[f"a_{k}"]) for k in ("u_pick", "u_acc", "ell", "u_dil")))
+    idx, beta = affine.affine_theta_moves(rows(z["a_idx"], -1), rows(z["a_z"], -2),
+                                          T(z["a_beta"]), cb, acfg, draws, None, g)
+    out["affine_idx"], out["affine_beta"] = idx.numpy(), beta.numpy()
+
+
+def _resp_sweep_case(tmp, case, sh, out):
+    """Three respondent-sharded sweeps fed JAX's per-shard draws."""
+    z = np.load(os.path.join(tmp, f"sweep_{case}.npz"))
+    state, y, cb, cl, _, _ = _resp_block(z, sh, case)
+    for it in range(SWEEPS):
+        d = {k: torch.as_tensor(z[f"resp_it{it}_shard{sh.resp_rank}_{k}"])
+             for k in LATENT + CUT}
+        draws = tg.SweepDraws(*(d[k] for k in LATENT), tg.ESSDraws(*(d[k] for k in CUT)))
+        state, ll = tg.gibbs_sweep(state, draws, y, cb, cl, None, it, None, sh.resp_group)
+        for f in tg.GPIRTState._fields:
+            out[f"{case}_it{it}_{f}"] = getattr(state, f).numpy()
+        out[f"{case}_it{it}_ll"] = ll.numpy()
+
+
+def _resp_self_case(tmp, label, sh, out):
+    """One respondent-sharded sweep against the port's own unsharded sweep
+    from the same state and the same full draws, cut to the block."""
+    case, opts = RESP_SELF_CASES[label]
+    z = np.load(os.path.join(tmp, f"sweep_{case}.npz"))
+    state, y, cb, cl, consts, cfg = _resp_block(z, sh, case)
+    cfg, cl = (dataclasses.replace(c, **opts) for c in (cfg, cl))
+    full = tg.sweep_draws(torch.Generator().manual_seed(5), K, consts, cfg)
+    ref, ref_ll = tg.gibbs_sweep(_state(z), full, torch.as_tensor(z["y"]), consts, cfg)
+    ref = lane_state_block(ref, sh)
+    block = draws_respondent_block(full, sh.respondents(n), cfg)
+    got, ll = tg.gibbs_sweep(state, block, y, cb, cl, None, 0, None, sh.resp_group)
+    for f in tg.GPIRTState._fields:
+        out[f"self_{label}_{f}"] = getattr(got, f).numpy()
+        out[f"selfref_{label}_{f}"] = getattr(ref, f).numpy()
+    out[f"self_{label}_ll"] = ll.numpy()
+    out[f"selfref_{label}_ll"] = ref_ll.numpy()
+
+
+def respondents_world(tmp):
+    """The respondents world (4 ranks): each coupled block and three sweeps
+    of each case on a 4-shard respondent mesh against JAX's, sharded sweeps
+    against the port's unsharded ones, gpirt_mcmc on a 4-shard respondent
+    mesh with SMC, on a 2 x 2 chains x respondents mesh with SMC and on a
+    1 x 2 x 2 chains x items x respondents mesh, checkpointed runs cut and
+    resumed on the 2 x 2 meshes, and the refusals."""
+    rank = dist.get_rank()
+    resp4 = make_respondent_mesh(4, device="cpu")
+    cr22 = make_respondent_mesh(2, n_chain_shards=2, device="cpu")
+    ir22 = make_respondent_mesh(2, n_item_shards=2, device="cpu")
+    out = {}
+    for mesh, tag, axes in ((resp4, "r4", (None, RESP)), (cr22, "cr", (None, RESP)),
+                            (ir22, "ir", ("items", RESP))):
+        sh = shards_of(mesh, *axes)
+        out[f"names_{tag}"] = np.array(mesh.mesh_dim_names)
+        out[f"place_{tag}"] = np.array([sh.chain_rank, sh.item_rank, sh.resp_rank])
+    sh = shards_of(resp4, None, RESP)
+    _resp_blocks_case(tmp, sh, out)
+    for case in SWEEP_CASES:
+        _resp_sweep_case(tmp, case, sh, out)
+    for label in RESP_SELF_CASES:
+        _resp_self_case(tmp, label, sh, out)
+
+    def mcmc(mesh, item_axis=None, **kw):
+        return _mcmc(mesh, item_axis=item_axis, respondent_axis=RESP, **kw)
+
+    smc = dict(smc_steps=6, smc_max_temp=8.0)
+    _chains_out(mcmc(resp4, **smc), "mcmc_r4", out)
+    _chains_out(mcmc(cr22, **smc), "mcmc_cr", out)
+    res = mcmc(ir22, "items", store_f=True)
+    _chains_out(res, "mcmc_ir", out)
+    out["mcmc_ir_f"] = np.stack([d["f"] for d in res])
+    for mesh, tag, axis in ((cr22, "cr", None), (ir22, "ir", "items")):
+        ck = dict(checkpoint_every=3, checkpoint_path=os.path.join(tmp, f"resp_ck_{tag}"))
+        _chains_out(mcmc(mesh, axis, checkpoint_path=os.path.join(tmp, f"resp_full_{tag}"),
+                         checkpoint_every=3), f"ck_full_{tag}", out)
+        mcmc(mesh, axis, sample_iterations=2, **ck)
+        _chains_out(mcmc(mesh, axis, **ck), f"ck_resumed_{tag}", out)
+
+    yt, ti, thr, consts, cfg = chain_setup()
+    cut_path = os.path.join(tmp, "resp_cut")
+    refusals = {
+        "uneven_n": lambda: mcmc(resp4, data=votes(n=10)),
+        "non_conjugate": lambda: mcmc(resp4, f_method="two_stage"),
+        "n_temps": lambda: mcmc(resp4, n_temps=2),
+        "affine_item_axis": lambda: run_chains_respondentsharded(
+            torch.Generator().manual_seed(0), yt, ti, thr, consts,
+            dataclasses.replace(cfg, affine_rounds=1), mesh=ir22, item_axis="items",
+            **RUN),
+        "resume_other_resp_count": lambda: (
+            mcmc(cr22, sample_iterations=2, checkpoint_path=cut_path),
+            mcmc(resp4, checkpoint_path=cut_path)),
+        "resume_without_mesh": lambda: _mcmc(None, item_axis=None, checkpoint_path=cut_path),
+    }
+    for name, fn in refusals.items():
+        out[f"refusal_{name}"] = np.array(_refusal(fn))
+    np.savez(os.path.join(tmp, f"resp_rank{rank}.npz"), **out)
+    return rank

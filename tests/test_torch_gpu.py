@@ -12,8 +12,8 @@ gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
 (SMC-initialised and tempered), and refused on the CPU; profile_sweep
 timing with CUDA events; the walkthrough example on the card; and one
-sweep with the items over 2 ranks sharing the card against the unsharded
-sweep.
+sweep with the items, and one with the respondents, over 2 ranks sharing
+the card against the unsharded sweep.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -543,4 +543,49 @@ def test_item_sharded_sweep_on_card_matches_unsharded(cuda_device, tmp_path):
                                      ("fstar", -1)), start=1):
         got = torch.cat([b[i] for b in blocks], dim=dim)
         torch.testing.assert_close(got, getattr(want, name).cpu(), rtol=0, atol=1e-3)
+    torch.testing.assert_close(blocks[0][5], want_ll.cpu(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_respondent_sharded_sweep_on_card_matches_unsharded(cuda_device, tmp_path):
+    """One sweep with the respondents over 2 ranks that share the card
+    (Gloo, parallel/distributed.launch) against the unsharded sweep on the
+    card, from the same state, constants and draws (the shards' cut to
+    their respondents): beta, the cutpoints, f* and the ll bit for bit the
+    same on both ranks, theta equal, beta and the cutpoints within 1e-3, f
+    and f* within 1e-3 + 1e-3 |x| (f* is drawn from sums over the
+    respondents, which the shards add in another order)."""
+    import _torch_dist_worker as w
+    from gpirt_tpu_torch.parallel.distributed import launch
+
+    cfg = w.card_config()
+    consts = make_constants(cfg, np.zeros((3, w.m)), np.full((3, w.m), 3.0),
+                            np.zeros((2, w.n)), np.zeros((2, w.n)), device=cuda_device)
+    y = torch.as_tensor(np.nan_to_num(w.votes(), nan=0.0)[None].astype(np.int32),
+                        device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = gibbs.init_state(torch.linspace(-1, 1, w.n, device=cuda_device).expand(w.K, 1, w.n),
+                             torch.as_tensor(chip_smoke.default_thresholds(2, w.m, 1),
+                                             device=cuda_device),
+                             consts, cfg, gibbs.init_draws(gen, w.K, consts, cfg))
+    draws = gibbs.sweep_draws(torch.Generator(device=cuda_device).manual_seed(3), w.K,
+                              consts, cfg)
+    want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg)
+    path = str(tmp_path / "inputs.pt")
+    torch.save({"state": [a.cpu() for a in state], "y": y.cpu(),
+                "consts": {k: None if v is None else v.cpu() for k, v in vars(consts).items()}},
+               path)
+    assert launch(w.card_respondent_sweep, 2, (path, str(tmp_path)), device="cuda",
+                  timeout=300) == [0, 1]
+    blocks = [torch.load(tmp_path / f"card_resp_rank{r}.pt") for r in range(2)]
+    for i in (2, 3, 4, 5):
+        assert torch.equal(blocks[0][i], blocks[1][i])
+    torch.testing.assert_close(torch.cat([b[0] for b in blocks], dim=-1),
+                               want.theta_idx.cpu(), rtol=0, atol=0)
+    for name in ("beta", "thresholds"):
+        torch.testing.assert_close(blocks[0][2 if name == "beta" else 3],
+                                   getattr(want, name).cpu(), rtol=0, atol=1e-3)
+    torch.testing.assert_close(torch.cat([b[1] for b in blocks], dim=-2), want.f.cpu(),
+                               rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(blocks[0][4], want.fstar.cpu(), rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(blocks[0][5], want_ll.cpu(), rtol=1e-5, atol=0)

@@ -291,12 +291,12 @@ def test_item_sharded_checkpoint_resumes_bit_for_bit(world):
 @pytest.mark.parametrize("case", list(w.REFUSALS))
 def test_refusals(world, case):
     """What an item axis refuses, by its own exception: uneven items or
-    chains (ValueError, as JAX), and a mesh whose items axis is not named
-    by item_axis (ValueError: it would run the same chains on each of its
-    ranks); a sampler other than the conjugate one,
-    ESS theta, the affine moves, tempering's, a respondent axis, the
-    campaigns' mesh, and a resume across item-shard counts
-    (NotImplementedError naming the argument)."""
+    chains (ValueError, as JAX), a mesh whose items axis is not named by
+    item_axis (ValueError: it would run the same chains on each of its
+    ranks), and a respondent axis the mesh does not have (ValueError, as
+    JAX); a sampler other than the conjugate one, ESS theta, the affine
+    moves, tempering's, the campaigns' mesh, and a resume across item-shard
+    counts (NotImplementedError naming the argument)."""
     _, ranks = world
     for z in ranks:
         got = str(z[f"refusal_{case}"])
