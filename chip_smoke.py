@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch port (gpirt_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py     # needs one CUDA card and nvcc
+    python3 chip_smoke.py --basins [1,2,...]   # only the basin study (basin_study):
+                              # where phase 5's call settles at each SEED,
+                              # unsharded and on 2 respondent shards
+    python3 chip_smoke.py --ess-layouts   # only ess_layouts: the respondent path's
+                              # binary cutpoint ESS against one-layout versions
 
 Phases, each of which stops the run with a non-zero exit on failure:
   1. device: a CUDA card is required; its name and power limit are printed;
@@ -223,13 +228,16 @@ Phases, each of which stops the run with a non-zero exit on failure:
      mesh=make_respondent_mesh(2), respondent_axis="respondents" (64 chains
      x 50 respondents a rank): finite, no kernel launch, theta, beta and the
      cutpoints the same on both ranks; its sign-aligned posterior theta
-     means' r with phase 5's printed. senate116's 64-chain SMC ensemble
-     settles in one of several basins by its random stream (unsharded at
-     SEED 2 and 4 it lands at r 0.18 and 0.17 with SEED 1's, PERF.md §6),
-     and a respondent shard's streams are its own, so the posterior gate of
-     phases 39-40, r >= 0.999 with phase 5's means, is held by the sharded
-     sampler continued from phase 5's last state (phase 31's checkpoint) for
-     CONT_DRAWS (100) draws, beside the unsharded continuation's r; prints the
+     means' r with phase 5's printed, not gated: senate116's 64-chain SMC
+     ensemble settles in one of several basins by its random stream, and a
+     respondent shard's streams are its own (`--basins`, basin_study: at
+     SEED 2-8 unsharded 3 of 7 runs land in phase 5's basin, on 2
+     respondent shards at SEED 1-8 2 of 8; unsharded SEED 6 sits at r 0.295
+     with phase 5's, where this call sits; PERF.md §6). The posterior gate
+     of phases 39-40, r >= 0.999 with phase 5's means, is held by the
+     sharded sampler continued from phase 5's last state (phase 31's
+     checkpoint) for CONT_DRAWS (100) draws, beside the unsharded
+     continuation's r; prints the
      sweeps a second beside phases 5 and 39, the cutpoint ESS rounds an
      update, each all_reduce site's calls, bytes and ms a sweep (CUDA events
      on the sweep's stream, in the run) and each rank's peak memory;
@@ -825,10 +833,11 @@ def draws_sha256(out):
     return h.hexdigest()
 
 
-def main_call(rm, dev, chains=K, burn=BURN, draws=DRAWS, smc_steps=SMC_STEPS, **extra):
+def main_call(rm, dev, chains=K, burn=BURN, draws=DRAWS, smc_steps=SMC_STEPS, seed=SEED,
+              **extra):
     """Phase 5's gpirt_mcmc call on ``rm``, ``draws`` its sample_iterations
     and ``extra`` more of its arguments."""
-    return gpirt_mcmc(rm, draws, burn, CHAIN=chains, SEED=SEED, smc_steps=smc_steps,
+    return gpirt_mcmc(rm, draws, burn, CHAIN=chains, SEED=seed, smc_steps=smc_steps,
                       smc_max_temp=T_MAX, dtype="float32", device=dev, **extra)
 
 
@@ -2413,6 +2422,9 @@ RESP_SHARDS, AFFINE_W, AFFINE_ROUNDS, SYN_MIN_R = 2, 16, 2, 0.99
 # posterior gate (a 100-draw run; r 0.99998 at 500 and 200 draws, sharded
 # and not, NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
 CONT_DRAWS = 100
+# `chip_smoke.py --basins [s1,s2,...]`: the basin study's seeds, its draws
+# (phase 5's burn) and the |r| at which a chain's means count as a basin's
+BASIN_SEEDS, BASIN_DRAWS, BASIN_R = tuple(range(1, 9)), 200, 0.99
 SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=SYN_BURN, draws=SYN_DRAWS)
 
 # the function of the sweep (or the SMC reweight) that asks for each
@@ -2603,11 +2615,16 @@ def sweep_agreement(label, got, want, state, draws, y, consts, cfg, relative=(),
             check(v < 1e-3, f"{label}: {k} differs by {v:.3g}")
             continue
         spread = _own_spread(want._asdict(), perturbed, k)[keep]
-        share, widening = held_to_spread(getattr(got, k)[keep].double(),
-                                         getattr(want, k)[keep].double(), spread)
+        g, w = getattr(got, k)[keep].double(), getattr(want, k)[keep].double()
+        share, widening = held_to_spread(g, w, spread)
+        rule = 1e-3 + 1e-3 * w.abs()
+        ratio = (g - w).abs() / rule
+        widen = (rule + 4.0 * spread.amax(dim=-2, keepdim=True)) / rule
         log(f"{label}: {k} differs most by {v:.3g}, {share:.3g} of 1e-3 + 1e-3 |x| plus "
             f"four times the unsharded sweep's own float32 spread (the 1e-3 rule widened up "
-            f"to {widening:.3g} times)")
+            f"to {widening:.3g} times, median {float(widen.median()):.3g}); against 1e-3 + "
+            f"1e-3 |x| alone: {float(ratio.max()):.3g} of it at most, "
+            f"{float((ratio > 1).double().mean()):.3g} of the values over it")
         check(share <= 1.0, f"{label}: {k} differs beyond 1e-3 + 1e-3 |x| + 4 x its spread")
     errs["chains_theta_equal"] = int(keep.sum())
     return same, errs
@@ -3361,6 +3378,190 @@ def resp_keys(tag, res):
     return out
 
 
+def chain_means(out):
+    """Each chain's posterior theta means (session 0), (chains, n), and its
+    mean ll over the draws, (chains,)."""
+    return (np.stack([d["theta"][:, :, 0].mean(axis=0) for d in out]),
+            np.array([float(np.mean(d["ll"])) for d in out]))
+
+
+def basin_rank(device, rm, seed, chains, burn, draws, smc_steps):
+    """One rank of the basin study: phase 5's call at SEED ``seed`` on 2
+    respondent shards, its chain_means."""
+    entered = time.time()
+    dev = _rank_device(device)
+    mesh = make_respondent_mesh(RESP_SHARDS, device=dev.type)
+    means, ll = chain_means(main_call(rm, dev, chains, burn, draws, smc_steps, seed, mesh=mesh,
+                                      respondent_axis="respondents"))
+    return {"means": means, "ll": ll, "stamps": (entered, time.time())}
+
+
+def chain_r(means, ref):
+    """Each chain's |r| of its posterior theta means with ``ref`` (the sign
+    is the reflection's)."""
+    return np.abs([np.corrcoef(c, ref)[0, 1] for c in means])
+
+
+def basin_study(rm, dev, smi, seeds, chains=K, burn=BURN, draws=BASIN_DRAWS,
+                smc_steps=SMC_STEPS):
+    """Where senate116's SMC ensemble settles, unsharded and on 2 respondent
+    shards, at each SEED in ``seeds``: phase 5's call (draws cut to
+    ``draws``) once unsharded and once on a respondent mesh a seed. For each
+    run prints the sign-aligned pooled means' r with the first seed's
+    unsharded run's (phase 5's basin at SEED 1), the share of its chains
+    whose means correlate with those at |r| >= BASIN_R, the share of its
+    chains that so match some chain of the unsharded runs at the other
+    seeds (the basins the unsharded sampler visits), and the chains' mean
+    ll; then the two samplers' shares side by side. A measurement: it
+    gates nothing. Returns {"unsharded"/"sharded": [share a seed]}."""
+    t = time.perf_counter()
+    plain = {s: chain_means(main_call(rm, dev, chains, burn, draws, smc_steps, s))
+             for s in seeds}
+    log(f"basins: {len(seeds)} unsharded runs in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ranks = launch(rank_world, RESP_SHARDS,
+                   (dev.type, [(s, basin_rank, (rm, s, chains, burn, draws, smc_steps))
+                               for s in seeds]),
+                   device=dev.type, stages=(RANK_TIMEOUT,) * len(seeds))
+    log(f"basins: {len(seeds)} runs on {RESP_SHARDS} respondent shards in "
+        f"{time.perf_counter() - t:.1f} s")
+    sharded = {s: (ranks[0][s]["means"], ranks[0][s]["ll"]) for s in seeds}
+    first = plain[seeds[0]][0]
+    ref = align_theta_signs(first, reference=first[0]).mean(axis=0)
+    rows, shares = [], {"unsharded": [], "sharded": []}
+    for label, runs in (("unsharded", plain), ("sharded", sharded)):
+        for s, (means, ll) in runs.items():
+            pooled = align_theta_signs(means, reference=means[0]).mean(axis=0)
+            others = np.concatenate([plain[o][0] for o in seeds if o != s])
+            visited = float(np.mean([chain_r(others, c).max() >= BASIN_R for c in means]))
+            r_ref = chain_r(means, ref)
+            share = float(np.mean(r_ref >= BASIN_R))
+            if label == "sharded" or s != seeds[0]:  # the first is the basin's own run
+                shares[label].append(share)
+            rows.append(f"{label} SEED {s}: pooled r {signed_r(pooled, ref):.5f}, chains' |r| "
+                        f"with phase 5's basin median {np.median(r_ref):.5f} (min "
+                        f"{r_ref.min():.5f}), chains in it {share:.3f}, chains in a basin "
+                        f"the other seeds' unsharded runs visit {visited:.3f}, mean ll "
+                        f"{ll.mean():.3f} (chains {ll.min():.3f} to {ll.max():.3f})")
+    log(f"basins on {smi}: senate116, {chains} chains, SMC {smc_steps}, burn {burn}, {draws} "
+        f"draws; phase 5's basin: the unsharded SEED {seeds[0]} run's pooled means; a chain "
+        f"in a basin at |r| >= {BASIN_R}\n  " + "\n  ".join(rows))
+    u, h = shares["unsharded"], shares["sharded"]
+    log(f"basins: share of chains in phase 5's basin, mean over seeds: unsharded "
+        f"{np.mean(u):.3f} (SEED {seeds[0]}, the basin's own run, left out), sharded "
+        f"{np.mean(h):.3f}; runs "
+        f"with a majority there: unsharded {sum(x > 0.5 for x in u)} of {len(u)}, sharded "
+        f"{sum(x > 0.5 for x in h)} of {len(h)}")
+    return shares
+
+
+def ess_layouts(dev, smi, reps=5, shards=RESP_SHARDS):
+    """The respondent path's binary cutpoint ESS (gibbs._binary_ess_over_
+    respondents, which gathers the active lanes in every round) against
+    three layouts of its per-lane ll on the same inputs: every lane summed
+    densely in every round, the active lanes gathered in every round, and
+    the dense sum while over half the lanes are active, the gather after
+    (two paths chosen by the active share). The inputs are the kernel's at
+    the synthetic configuration's state after 40 sweeps (phase 16's run,
+    cut), cut to one of ``shards`` respondent blocks, one process, no
+    all_reduce. Prints each version's rounds an update, its ms an update
+    (median of ``reps``, the versions in turns, CUDA events) and whether
+    its cutpoints equal the dense version's."""
+    _, _, _, args = synthetic_run(dev, synthetic_inputs(dev), burn=30, draws=10)
+    g, y, t1, nu, logu, eps0, rs = args
+    K, H, n, m = g.shape
+    block = n // shards
+    g, y = g[..., :block, :].contiguous(), y[:, :block].contiguous()
+    obs = (y > 0).to(g.dtype)
+    sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
+
+    def term(x):
+        return torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6)
+
+    def dense(t, active):
+        return (term(sgn * (t[..., 0].unsqueeze(-2) - g) * _C) * obs).sum(dim=-2)
+
+    g_rows = g.movedim(-2, -1).reshape(K * H * m, block)
+    sgn_rows, obs_rows = (a.movedim(-2, -1).reshape(H * m, block) for a in (sgn, obs))
+
+    def gather(t, active):
+        lane = (torch.arange(K * H * m, device=dev) if active is None
+                else torch.nonzero(active.flatten()).squeeze(-1))
+        site = lane % (H * m)
+        x = sgn_rows[site] * (t.flatten()[lane].unsqueeze(-1) - g_rows[lane]) * _C
+        total = torch.zeros(K * H * m, dtype=g.dtype, device=dev)
+        total[lane] = (term(x) * obs_rows[site]).sum(dim=-1)
+        return total.view(K, H, m)
+
+    def split(t, active):  # dense while over half the lanes are active
+        if active is None or 2 * int(active.sum()) > active.numel():
+            return dense(t, active)
+        return gather(t, active)
+
+    def one(ll):
+        return lambda: ess_update(t1.unsqueeze(-1), nu.unsqueeze(-1), ll, logu, eps0, rs,
+                                  active_only=True)[..., 0]
+
+    versions = {"dense every round": one(dense), "gather every round": one(gather),
+                "dense over half active, else gather": one(split),
+                "the port's": lambda: gibbs._binary_ess_over_respondents(
+                    g, y, t1, nu, logu, eps0, rs, _C, None)}
+    times = {k: [] for k in versions}
+    out, rounds = {}, {}
+    order = list(versions)
+    for rep in range(reps):
+        for k in (order if rep % 2 == 0 else order[::-1]):
+            ess_update.rounds = ess_update.calls = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out[k] = versions[k]()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end))
+            rounds[k] = ess_update.rounds / ess_update.calls
+    ref = out["dense every round"]
+    log(f"binary cutpoint ESS over respondents on {smi}: the synthetic state after 40 sweeps, "
+        f"one of {shards} respondent blocks ({K} x {H} x {block} x {m}), float32, no "
+        "all_reduce; " + "; ".join(
+            f"{k}: {rounds[k]:.0f} rounds, {np.median(times[k]):.3f} ms an update (runs "
+            + ", ".join(f"{t:.3f}" for t in times[k]) + f"), cutpoints equal the dense "
+            f"version's in {float((out[k] == ref).double().mean()):.6f} of the lanes"
+            for k in versions))
+    return times, rounds
+
+
+def ess_layouts_main():
+    """``chip_smoke.py --ess-layouts``: :func:`ess_layouts` on the card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    full_fp32_matmuls()
+    smi = card()
+    threshold_ess.build()
+    ess_layouts(dev, smi)
+    log(card())
+    return 0
+
+
+def basins_main(argv):
+    """``chip_smoke.py --basins [s1,s2,...]``: :func:`basin_study` on the
+    card at BASIN_SEEDS or the seeds given."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    full_fp32_matmuls()
+    smi = card()
+    threshold_ess.build()
+    rm, _, _ = senate116_response_matrix()
+    basin_study(rm, dev, smi, [int(x) for x in argv[0].split(",")] if argv else BASIN_SEEDS)
+    log(card())
+    return 0
+
+
 def timed(label, fn, *args, **kwargs):
     """fn(*args), its wall time printed under ``label``."""
     t = time.perf_counter()
@@ -3678,4 +3879,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--basins"]:
+        sys.exit(basins_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ess-layouts"]:
+        sys.exit(ess_layouts_main())
     sys.exit(main())

@@ -1200,33 +1200,25 @@ def _binary_ess_over_respondents(g, y, t1, nu, logu, eps0, rs, c, group) -> torc
 
     The lockstep loop runs until the slowest lane accepts (~60 rounds at
     the synthetic configuration's 64,000 lanes on an NVIDIA H100, where
-    the mean lane takes 7), so once fewer than half the lanes are active a
-    round sums only
-    theirs, from a lane-major copy of g made once (``active_only``); the
-    others' totals are 0 and unread. g (K, H, n, m); y (H, n, m); t1, nu,
-    logu, eps0 (K, H, m); rs (R, K, H, m); c a float or (K,)."""
+    the mean lane takes 7), so a round sums only the lanes still active
+    (``active_only``), from a lane-major copy of g made once; the others'
+    totals are 0 and unread. g (K, H, n, m); y (H, n, m); t1, nu, logu,
+    eps0 (K, H, m); rs (R, K, H, m); c a float or (K,)."""
     K, H, n, m = g.shape
     obs = (y > 0).to(g.dtype)
     sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
-    c4 = _per_chain(c, g.ndim)
-    rows = {}
-
-    def site_term(x):
-        return torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6)
+    # lanes (k, h, j) in (K, H, m) order, their n sites a row
+    g_rows = g.movedim(-2, -1).reshape(K * H * m, n)
+    sgn_rows, obs_rows = (a.movedim(-2, -1).reshape(H * m, n) for a in (sgn, obs))
 
     def loglik(t, active):  # (K, H, m, 1) -> (K, H, m)
-        lane = None if active is None else torch.nonzero(active.flatten()).squeeze(-1)
-        if lane is None or 2 * lane.numel() > active.numel():
-            total = (site_term(sgn * (t[..., 0].unsqueeze(-2) - g) * c4) * obs).sum(dim=-2)
-            return _all_sum(total, group)
-        if not rows:  # lanes (k, h, j) in (K, H, m) order, their n sites a row
-            rows["g"] = g.movedim(-2, -1).reshape(K * H * m, n)
-            rows["sgn"], rows["obs"] = (a.movedim(-2, -1).reshape(H * m, n) for a in (sgn, obs))
+        lane = (torch.arange(K * H * m, device=g.device) if active is None
+                else torch.nonzero(active.flatten()).squeeze(-1))
         site = lane % (H * m)
         cc = c[lane // (H * m)].unsqueeze(-1) if torch.is_tensor(c) else c
-        x = rows["sgn"][site] * (t.flatten()[lane].unsqueeze(-1) - rows["g"][lane]) * cc
+        x = sgn_rows[site] * (t.flatten()[lane].unsqueeze(-1) - g_rows[lane]) * cc
         total = torch.zeros(K * H * m, dtype=g.dtype, device=g.device)
-        total[lane] = (site_term(x) * rows["obs"][site]).sum(dim=-1)
+        total[lane] = (torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6) * obs_rows[site]).sum(dim=-1)
         return _all_sum(total.view(K, H, m), group)
 
     return ess_update(t1.unsqueeze(-1), nu.unsqueeze(-1), loglik, logu, eps0, rs,

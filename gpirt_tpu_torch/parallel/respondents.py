@@ -78,8 +78,7 @@ RESPONDENT_AXIS = "respondents"
 
 
 def make_respondent_mesh(n_resp_shards: int, n_chain_shards: int = 1, n_item_shards: int = 1,
-                         item_axis: str = "items",
-                         respondent_axis: str = RESPONDENT_AXIS, device="cuda"):
+                         device="cuda"):
     """A (chains, items, respondents) ``DeviceMesh`` over the world's
     ``n_chain_shards * n_item_shards * n_resp_shards`` ranks (every rank
     calls it), the axes of size 1 dropped (``gpirt_tpu/parallel/respondents.py:66-83``)."""
@@ -92,10 +91,10 @@ def make_respondent_mesh(n_resp_shards: int, n_chain_shards: int = 1, n_item_sha
         raise ValueError(f"a {n_chain_shards} x {n_item_shards} x {n_resp_shards} mesh needs "
                          f"{total} ranks; the world has {world}")
     axes = [(size, name) for size, name in ((n_chain_shards, CHAIN_AXIS),
-                                            (n_item_shards, item_axis),
-                                            (n_resp_shards, respondent_axis)) if size > 1]
+                                            (n_item_shards, "items"),
+                                            (n_resp_shards, RESPONDENT_AXIS)) if size > 1]
     if not axes:
-        axes = [(1, respondent_axis)]
+        axes = [(1, RESPONDENT_AXIS)]
     return init_device_mesh(torch.device(device).type, tuple(a[0] for a in axes),
                             mesh_dim_names=tuple(a[1] for a in axes))
 

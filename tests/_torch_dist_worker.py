@@ -359,6 +359,11 @@ RESP_REFUSALS = {"uneven_n": "ValueError", "non_conjugate": "NotImplementedError
                  "n_temps": "NotImplementedError", "affine_item_axis": "NotImplementedError",
                  "resume_other_resp_count": "NotImplementedError",
                  "resume_without_mesh": "NotImplementedError"}
+# sweeps against JAX's respondent-sharded sweep: (the sweep case whose state,
+# data and draws it reads, one temperature a chain or None)
+TEMPS = (1.0, 2.0, 4.0, 8.0)
+RESP_SWEEP_CASES = {**{case: (case, None) for case in SWEEP_CASES},
+                    "C2_tempered": ("C2", TEMPS), "C5_tempered": ("C5", TEMPS)}
 # sharded sweeps against the port's own unsharded sweep: (sweep case, options)
 RESP_SELF_CASES = {"C2": ("C2", {}), "C5": ("C5", {}), "gp_H3": ("gp_H3", {}),
                    "affine": ("C2", dict(affine_shift_max=2, affine_rounds=2)),
@@ -430,18 +435,21 @@ def _resp_blocks_case(tmp, sh, out):
     out["affine_idx"], out["affine_beta"] = idx.numpy(), beta.numpy()
 
 
-def _resp_sweep_case(tmp, case, sh, out):
-    """Three respondent-sharded sweeps fed JAX's per-shard draws."""
+def _resp_sweep_case(tmp, label, sh, out):
+    """Three respondent-sharded sweeps fed JAX's per-shard draws, at T = 1
+    or one temperature a chain (RESP_SWEEP_CASES)."""
+    case, temps = RESP_SWEEP_CASES[label]
     z = np.load(os.path.join(tmp, f"sweep_{case}.npz"))
     state, y, cb, cl, _, _ = _resp_block(z, sh, case)
+    temp = None if temps is None else torch.tensor(temps, dtype=F64)
     for it in range(SWEEPS):
         d = {k: torch.as_tensor(z[f"resp_it{it}_shard{sh.resp_rank}_{k}"])
              for k in LATENT + CUT}
         draws = tg.SweepDraws(*(d[k] for k in LATENT), tg.ESSDraws(*(d[k] for k in CUT)))
-        state, ll = tg.gibbs_sweep(state, draws, y, cb, cl, None, it, None, sh.resp_group)
+        state, ll = tg.gibbs_sweep(state, draws, y, cb, cl, temp, it, None, sh.resp_group)
         for f in tg.GPIRTState._fields:
-            out[f"{case}_it{it}_{f}"] = getattr(state, f).numpy()
-        out[f"{case}_it{it}_ll"] = ll.numpy()
+            out[f"{label}_it{it}_{f}"] = getattr(state, f).numpy()
+        out[f"{label}_it{it}_ll"] = ll.numpy()
 
 
 def _resp_self_case(tmp, label, sh, out):
@@ -463,13 +471,46 @@ def _resp_self_case(tmp, label, sh, out):
     out[f"selfref_{label}_ll"] = ref_ll.numpy()
 
 
+def _resp_anneal_case(mesh, tag, out, steps=6, max_temp=8.0, chains=8):
+    """anneal_init on a respondent mesh fed the unsharded anneal's numbers
+    (each sweep's drawn for all respondents from the replicated generator,
+    as one process draws them, and cut to the rank's block), beside the
+    port's unsharded anneal_init from the same seed: this rank's block of
+    each."""
+    from gpirt_tpu_torch.parallel import smc
+
+    yt, ti, thr, consts, cfg = chain_setup(chains)
+    sh = shards_of(mesh, None, RESP)
+    r = sh.respondents(n)
+    run = dict(n_steps=steps, max_temp=max_temp)
+    ref, ref_info = smc.anneal_init(torch.Generator().manual_seed(9), yt, ti, thr, consts, cfg,
+                                    **run)
+    sweep_draws = smc.sweep_draws
+
+    def unsharded_numbers(gen, K_, _consts, _cfg, iteration, _shard_gens):
+        return draws_respondent_block(sweep_draws(gen, K_, consts, cfg, iteration), r, cfg)
+
+    smc.sweep_draws = unsharded_numbers
+    try:
+        got, info = smc.anneal_init(torch.Generator().manual_seed(9), yt, ti, thr, consts, cfg,
+                                    mesh=mesh, respondent_axis=RESP, **run)
+    finally:
+        smc.sweep_draws = sweep_draws
+    for name, a, b in zip(tg.GPIRTState._fields, got, lane_state_block(ref, sh)):
+        out[f"anneal_{tag}_{name}"], out[f"annealref_{tag}_{name}"] = a.numpy(), b.numpy()
+    for k in ("weight_ess", "n_resamples", "final_weight_ess"):
+        out[f"anneal_{tag}_{k}"] = np.asarray(info[k])
+        out[f"annealref_{tag}_{k}"] = np.asarray(ref_info[k])
+
+
 def respondents_world(tmp):
     """The respondents world (4 ranks): each coupled block and three sweeps
-    of each case on a 4-shard respondent mesh against JAX's, sharded sweeps
-    against the port's unsharded ones, gpirt_mcmc on a 4-shard respondent
-    mesh with SMC, on a 2 x 2 chains x respondents mesh with SMC and on a
-    1 x 2 x 2 chains x items x respondents mesh, checkpointed runs cut and
-    resumed on the 2 x 2 meshes, and the refusals."""
+    of each case (two tempered) on a 4-shard respondent mesh against JAX's,
+    sharded sweeps and anneal_init against the port's unsharded ones,
+    gpirt_mcmc on a 4-shard respondent mesh with SMC, on a 2 x 2 chains x
+    respondents mesh with SMC and on a 1 x 2 x 2 chains x items x
+    respondents mesh, checkpointed runs cut and resumed on the 2 x 2
+    meshes, and the refusals."""
     rank = dist.get_rank()
     resp4 = make_respondent_mesh(4, device="cpu")
     cr22 = make_respondent_mesh(2, n_chain_shards=2, device="cpu")
@@ -482,10 +523,12 @@ def respondents_world(tmp):
         out[f"place_{tag}"] = np.array([sh.chain_rank, sh.item_rank, sh.resp_rank])
     sh = shards_of(resp4, None, RESP)
     _resp_blocks_case(tmp, sh, out)
-    for case in SWEEP_CASES:
-        _resp_sweep_case(tmp, case, sh, out)
+    for label in RESP_SWEEP_CASES:
+        _resp_sweep_case(tmp, label, sh, out)
     for label in RESP_SELF_CASES:
         _resp_self_case(tmp, label, sh, out)
+    _resp_anneal_case(resp4, "r4", out)
+    _resp_anneal_case(cr22, "cr", out)
 
     def mcmc(mesh, item_axis=None, **kw):
         return _mcmc(mesh, item_axis=item_axis, respondent_axis=RESP, **kw)

@@ -98,18 +98,21 @@ def _sweep_shard_draws(key, shard, C, H, q):
         logu=logu, eps0=eps0, rs=rs)
 
 
-def _jax_sweeps(jcfg, jconsts, y, keys, jstate):
-    """Three respondent-sharded sweeps of the K chains under shard_map."""
-    def body(st, ks, yy, cc):
-        return jax.vmap(lambda s1, k1: jg.gibbs_sweep(s1, k1, yy, cc, jcfg, None, None,
-                                                      None, RAX))(st, ks)
+def _jax_sweeps(jcfg, jconsts, y, keys, jstate, temps=None):
+    """Three respondent-sharded sweeps of the K chains under shard_map, at
+    T = 1 or at ``temps``, one temperature a chain."""
+    def body(st, ks, yy, cc, tt):
+        return jax.vmap(lambda s1, k1, t1: jg.gibbs_sweep(s1, k1, yy, cc, jcfg, t1, None,
+                                                          None, RAX),
+                        in_axes=(0, 0, None if temps is None else 0))(st, ks, tt)
 
     fn = _sharded(body, (STATE_SPECS, P(), P(None, RAX, None),
-                         consts_mesh_specs(jconsts, None, RAX)), (STATE_SPECS, P()))
+                         consts_mesh_specs(jconsts, None, RAX), P()), (STATE_SPECS, P()))
+    tt = None if temps is None else jnp.asarray(temps, _F64)
     out = []
     for it in range(w.SWEEPS):
         ks = jax.vmap(lambda k: jax.random.fold_in(k, it))(keys)
-        jstate, ll = fn(jstate, ks, jnp.asarray(y), jconsts)
+        jstate, ll = fn(jstate, ks, jnp.asarray(y), jconsts, tt)
         out.append(({f: np.asarray(getattr(jstate, f)) for f in jg.GPIRTState._fields},
                     np.asarray(ll)))
     return out
@@ -274,8 +277,8 @@ def world(tmp_path_factory):
         ranks = pool.submit(tdist.launch, w.respondents_world, WORLD, (tmp,), device="cpu",
                             timeout=600)
         want = blocks()
-        for case, args in cases.items():
-            want[case] = _jax_sweeps(*args)
+        for label, (case, temps) in w.RESP_SWEEP_CASES.items():
+            want[label] = _jax_sweeps(*cases[case], temps)
         assert ranks.result() == list(range(WORLD))
     ranks = [dict(np.load(os.path.join(tmp, f"resp_rank{r}.npz"))) for r in range(WORLD)]
     return want, ranks
@@ -368,12 +371,13 @@ def test_affine_moves_match_jax(world):
     assert (want["affine_idx"] != want["affine_in"]).any(axis=(1, 2)).sum() >= 2
 
 
-@pytest.mark.parametrize("case", list(w.SWEEP_CASES))
+@pytest.mark.parametrize("case", list(w.RESP_SWEEP_CASES))
 def test_sweeps_match_jax(world, case):
     """Three respondent-sharded sweeps (C = 2; C = 5 with the ordinal
-    cutpoint ESS; three sessions in the GP regime) on 4 shards against
-    JAX's respondent-sharded sweep, state by state and ll by ll: theta
-    exactly, the rest at rtol 1e-8."""
+    cutpoint ESS; three sessions in the GP regime; C = 2 and C = 5
+    tempered, one temperature a chain) on 4 shards against JAX's
+    respondent-sharded sweep, state by state and ll by ll: theta exactly,
+    the rest at rtol 1e-8."""
     want, ranks = world
     for z in ranks:
         for it, (state, ll) in enumerate(want[case]):
@@ -387,7 +391,7 @@ def test_sweeps_match_jax(world, case):
             np.testing.assert_allclose(z[f"{case}_it{it}_ll"], ll, rtol=RTOL)
 
 
-@pytest.mark.parametrize("case", list(w.SWEEP_CASES))
+@pytest.mark.parametrize("case", list(w.RESP_SWEEP_CASES))
 def test_replicated_fields_identical_on_every_shard(world, case):
     """After each sweep beta, the cutpoints and f* are bit for bit the same
     on every respondent shard (the design's precondition,
@@ -414,6 +418,29 @@ def test_sharded_sweep_equals_the_ports_unsharded_sweep(world, label):
                                       z[f"selfref_{label}_theta_idx"])
         for f in ("f", "beta", "thresholds", "fstar", "ll"):
             np.testing.assert_allclose(z[f"self_{label}_{f}"], z[f"selfref_{label}_{f}"],
+                                       rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("tag", ["r4", "cr"])
+def test_anneal_on_respondent_mesh_equals_unsharded(world, tag):
+    """anneal_init (8 chains, 6 steps from T = 8) on a 4-shard respondent
+    mesh and on a 2 x 2 chains x respondents mesh, fed the unsharded
+    anneal's numbers cut to each rank's respondents, against the port's
+    unsharded anneal_init from the same seed: the weight-ESS trace, the
+    resample count and the final weight ESS equal to 1e-10 on every rank
+    (the reweight's ll summed over the shards), theta exactly, the rest of
+    the rank's block within 1e-10, and at least one resample before the
+    final one."""
+    _, ranks = world
+    for z in ranks:
+        for k in ("weight_ess", "final_weight_ess"):
+            np.testing.assert_allclose(z[f"anneal_{tag}_{k}"], z[f"annealref_{tag}_{k}"],
+                                       rtol=1e-10, atol=0)
+        assert z[f"anneal_{tag}_n_resamples"] == z[f"annealref_{tag}_n_resamples"] >= 2
+        np.testing.assert_array_equal(z[f"anneal_{tag}_theta_idx"],
+                                      z[f"annealref_{tag}_theta_idx"])
+        for f in ("f", "beta", "thresholds", "fstar"):
+            np.testing.assert_allclose(z[f"anneal_{tag}_{f}"], z[f"annealref_{tag}_{f}"],
                                        rtol=1e-10, atol=1e-10)
 
 
@@ -470,7 +497,7 @@ def test_refusals(world, case):
 @pytest.mark.parametrize("per_chain_c", [False, True])
 def test_binary_ess_over_respondents_matches_the_plain_version(per_chain_c):
     """The respondent path's binary cutpoint ESS, its rounds summing only
-    the active lanes once fewer than half are, against the kernel's plain
+    the active lanes, against the kernel's plain
     version on the same lanes and numbers (float64, one process: the lane
     totals' all_reduce is the identity), with one c and with one a chain."""
     import torch
@@ -492,3 +519,27 @@ def test_binary_ess_over_respondents_matches_the_plain_version(per_chain_c):
     got = tg._binary_ess_over_respondents(g, y, t1, nu, logu, eps0, rs, c, None)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
     assert (got != t1).float().mean() > 0.8
+
+
+def test_basin_study_at_reduced_size(capsys):
+    """``chip_smoke.py --basins``' study on the CPU at 4 chains of a 20 x 8
+    matrix, SMC 3 steps, burn 2 and 4 draws, seeds 1-3, the sharded runs
+    the stages of one world of 2 Gloo ranks: a share a seed for each
+    sampler (the first seed's unsharded run, the basin's own, left out),
+    each in [0, 1], and a line a run. (Here, not beside the other
+    reduced-size phases: ``--dist loadfile`` runs each file on one worker,
+    and test_torch_chip_smoke.py is already the suite's longest.)"""
+    import torch
+
+    import chip_smoke
+    from test_torch_chip_smoke import _small_votes
+
+    shares = chip_smoke.basin_study(_small_votes(), torch.device("cpu"), "cpu", [1, 2, 3],
+                                    chains=4, burn=2, draws=4, smc_steps=3)
+    assert len(shares["unsharded"]) == 2 and len(shares["sharded"]) == 3
+    assert all(0.0 <= x <= 1.0 for v in shares.values() for x in v)
+    text = capsys.readouterr().out
+    for label in ("unsharded", "sharded"):
+        for s in (1, 2, 3):
+            assert f"  {label} SEED {s}: pooled r " in text
+    assert "runs with a majority there: unsharded" in text
