@@ -224,9 +224,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
      forms; no kernel launch (under a respondent axis the cutpoint ESS runs
      its plain round loop, each round's lane totals all-reduced, as JAX
      leaves its kernel there);
- 43. respondent-sharded main path: phase 5's call with
-     mesh=make_respondent_mesh(2), respondent_axis="respondents" (64 chains
-     x 50 respondents a rank): finite, no kernel launch, theta, beta and the
+ 43. respondent-sharded main path: phase 5's call at phase 40's burn 50
+     and 250 draws with mesh=make_respondent_mesh(2),
+     respondent_axis="respondents" (64 chains x 50 respondents a rank): finite, no kernel launch, theta, beta and the
      cutpoints the same on both ranks; its sign-aligned posterior theta
      means' r with phase 5's printed, not gated: senate116's 64-chain SMC
      ensemble settles in one of several basins by its random stream, and a
@@ -241,18 +241,38 @@ Phases, each of which stops the run with a non-zero exit on failure:
      sweeps a second beside phases 5 and 39, the cutpoint ESS rounds an
      update, each all_reduce site's calls, bytes and ms a sweep (CUDA events
      on the sweep's stream, in the run) and each rank's peak memory;
- 44. respondent-sharded synthetic: phase 16's run (5000 x 1000, 64 chains,
-     burn 30, 150 draws) on 2 respondent shards: finite, no kernel launch,
+ 44. respondent-sharded synthetic: phase 16's run (5000 x 1000, 64 chains)
+     at burn 10, 40 draws on 2 respondent shards: finite, no kernel launch,
      the same draws on both ranks, its posterior theta means at r >= 0.99
      with phase 16's (two short runs' means, not the truth); prints each
      rank's peak device memory beside phase 16's, the sweeps a second
      beside phase 16's and the all_reduce sites;
  45. the 2 x 2 items x respondents mesh: phase 43's checks on 4 ranks, the
      theta table's all_reduce over the item group and the sufficient
-     statistics' over the respondent group, at phase 40's burn and draws.
-Phases 38, 39, 41 and 42-44 run as the stages of one world of 2 ranks (a
-rank's start costs seconds on the card's machine), phases 40 and 45 in one
-of 4; the ranks start by the spawn method, each phase must end within 400
+     statistics' over the respondent group, at phase 40's burn and draws;
+ 46. ESS theta and the affine moves on 2 item shards: phase 38's sweep
+     with theta by ESS and with the affine moves (phase 29's W = 16, 2
+     rounds) against the unsharded one, theta equal in at least 62 of 64
+     chains under the tie rule and the rest within 1e-3, the kernel against
+     its plain version at a rank's state (timed, its bound); then phase
+     27's call on the item shards at burn 20, 80 draws: one launch a
+     sweep on each rank, theta the same on both, the table's all_reduce;
+ 47. phase 19's tempering on a 2-rank chain mesh: its cold draws and swap
+     rates hash to phase 19's, one launch a sweep a rank, the kernel at a
+     rank's state (timed, its bound);
+ 48. phase 20's campaigns8 on a 2-rank campaign mesh: the same on both
+     ranks, bit for bit phase 20's (or, where the card rounds a campaign's
+     batched products otherwise in the smaller batch, printed, with the
+     grand mean at r >= 0.99 with phase 20's), phase 22's agreement rule;
+ 49. phase 19's tempering on the 2 x 2 items x respondents mesh: continued
+     from phase 19's last lane states (phase 32's checkpoint) for 100
+     draws, the cold chains' means at r >= 0.999 with phase 19's; theta,
+     beta, the cutpoints, f* and the swaps alike on the model shards; no
+     launch; then its call from scratch at burn 20, 80 draws, its r and
+     swap rates printed, not gated, and its all_reduce sites.
+Phases 38, 39, 41, 42-44 and 46-48 run as the stages of one world of 2
+ranks (a rank's start costs seconds on the card's machine), phases 40, 45
+and 49 in one of 4; the ranks start by the spawn method, each phase must end within 400
 seconds, and a rank that fails ends the run.
 Each phase prints its wall time. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
@@ -278,9 +298,10 @@ import torch
 import torch.distributed as dist
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+CK_DIR = HERE  # where the phases' temporary directories go
 sys.path.insert(0, HERE)
 
-from gpirt_tpu_torch import api, campaign_schedule, gpirt_campaigns, gpirt_mcmc  # noqa: E402
+from gpirt_tpu_torch import api, campaign_schedule, campaigns, gpirt_campaigns, gpirt_mcmc  # noqa: E402
 from gpirt_tpu_torch.api import (  # noqa: E402
     _recover_one,
     default_thresholds,
@@ -308,7 +329,9 @@ from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
 from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds  # noqa: E402
 from gpirt_tpu_torch.parallel.chains import (  # noqa: E402
+    Shards,
     lane_state_block,
+    make_campaign_mesh,
     make_chain_mesh,
     shards_of,
 )
@@ -329,6 +352,10 @@ from gpirt_tpu_torch.parallel.respondents import (  # noqa: E402
     shard_inputs,
 )
 from gpirt_tpu_torch.parallel.smc import WARM_STEPS, lane_block  # noqa: E402
+from gpirt_tpu_torch.parallel.tempering import (  # noqa: E402
+    advance_tempered,
+    tempered_start,
+)
 from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     load_sdo,
     senate116_response_matrix,
@@ -1407,8 +1434,9 @@ def tempering_call(rm, dev, chains=K, burn=PT_BURN, draws=PT_DRAWS, **extra):
 def tempering_path(rm, dev, smi, chains=K, burn=PT_BURN, draws=PT_DRAWS):
     """Phase 19: gpirt_mcmc with n_temps on senate116, checked; prints its
     swap rates, cold theta ESS and sweep rate. Returns the kernel's
-    launches, the inputs of its last call, that call's per-chain c and the
-    draws' sha256 (swap_rate included)."""
+    launches, the inputs of its last call, that call's per-chain c, the
+    draws' sha256 (swap_rate included) and the cold chains' sign-aligned
+    posterior theta means."""
     scales = []
     threshold_ess.binary_threshold_ess.launches = 0
     out, args = observe_kernel(lambda: tempering_call(rm, dev, chains, burn, draws),
@@ -1438,7 +1466,7 @@ def tempering_path(rm, dev, smi, chains=K, burn=PT_BURN, draws=PT_DRAWS):
         + ", ".join(f"{r:.4f}" for r in rate)
         + f"; cold theta ESS median within-chain (summed over {chains} chains) {within:.1f}, "
         f"pooled {pooled:.1f}; ess/sec {within / samp_s:.2f} (sampling wall)")
-    return launches, args, scales[-1], draws_sha256(out)
+    return launches, args, scales[-1], draws_sha256(out), theta_means(out)
 
 
 def campaigns8(rm, dev, smi, **schedule):
@@ -2067,9 +2095,9 @@ def affine_path(rm, dev, smi, chains=K, burn=BURN, draws=DRAWS, shift_max=16, ro
 
 
 def _temporary_dir():
-    """A directory in this checkout for the checkpoints of phases 31-33,
-    deleted with its contents when the phase ends."""
-    return tempfile.TemporaryDirectory(prefix=".chip_smoke_ck_", dir=HERE)
+    """A directory under CK_DIR (this checkout) for a phase's checkpoints
+    and files, deleted with its contents when the phase ends."""
+    return tempfile.TemporaryDirectory(prefix=".chip_smoke_ck_", dir=CK_DIR)
 
 
 def checkpointed_main_path(rm, dev, smi, want, plain_rate, chains=K, burn=BURN,
@@ -2139,7 +2167,8 @@ def checkpointed_tempering(rm, dev, smi, want, chains=K, burn=PT_BURN, draws=PT_
     """Phase 32: phase 19's call with a checkpoint every ``every`` sweeps,
     interrupted after the burn and one chunk and resumed: its cold draws
     and swap rates hash to phase 19's ``want``, with one kernel launch a
-    sweep over the pair. Returns the launches."""
+    sweep over the pair. Returns the launches and the G L lanes' last
+    state, phase 19's (phase 49 continues from it)."""
     call = dict(checkpoint_every=every)
     with _temporary_dir() as tmp:
         path = os.path.join(tmp, "tempered")
@@ -2147,6 +2176,7 @@ def checkpointed_tempering(rm, dev, smi, want, chains=K, burn=PT_BURN, draws=PT_
         cut = tempering_call(rm, dev, chains, burn, every, checkpoint_path=path, **call)
         out = tempering_call(rm, dev, chains, burn, draws, checkpoint_path=path, **call)
         size = os.path.getsize(path + ".npz")
+        lanes = CheckpointManager(path + ".npz").load().state  # on the host
     launches = threshold_ess.binary_threshold_ess.launches
     sweeps = burn + draws
     digest = draws_sha256(out)
@@ -2157,7 +2187,7 @@ def checkpointed_tempering(rm, dev, smi, want, chains=K, burn=PT_BURN, draws=PT_
         f"{burn + every} sweeps and resumed; cold draws and swap rates sha256 = phase "
         f"19's; {launches} kernel launches = {sweeps} sweeps; saves {cut[0]['seconds']['checkpoint']:.3f} s "
         f"+ {out[0]['seconds']['checkpoint']:.3f} s, last checkpoint {size} bytes")
-    return launches
+    return launches, lanes
 
 
 def synthetic_checkpoint(dev, smi, inputs):
@@ -2422,10 +2452,16 @@ RESP_SHARDS, AFFINE_W, AFFINE_ROUNDS, SYN_MIN_R = 2, 16, 2, 0.99
 # posterior gate (a 100-draw run; r 0.99998 at 500 and 200 draws, sharded
 # and not, NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
 CONT_DRAWS = 100
+# Phases 46-49: phase 46's item-sharded sweeps hold theta equal in at least
+# THETA_EQUAL_MIN of 64 chains (the rest ties); its ESS theta call and phase
+# 49's tempered call from scratch run at MESH2_BURN and MESH2_DRAWS
+THETA_EQUAL_MIN, MESH2_BURN, MESH2_DRAWS = 62, 20, 80
 # `chip_smoke.py --basins [s1,s2,...]`: the basin study's seeds, its draws
 # (phase 5's burn) and the |r| at which a chain's means count as a basin's
 BASIN_SEEDS, BASIN_DRAWS, BASIN_R = tuple(range(1, 9)), 200, 0.99
-SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=SYN_BURN, draws=SYN_DRAWS)
+# phase 44's run, cut from phase 16's burn 30 and 150 draws to fit phases
+# 46-49 in the time limit (its memory reading and its r gate stay)
+SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=10, draws=40)
 
 # the function of the sweep (or the SMC reweight) that asks for each
 # all_reduce, and the name a respondent phase prints it under
@@ -2436,7 +2472,7 @@ ALLREDUCE_SITES = {"_theta_ll_table": "theta table", "_pathwise_fstar": "f* U^T 
                    "_draw_threshold_binary_newton": "Newton sums",
                    "_draw_threshold_newton_ordinal": "Newton sums",
                    "draw_beta_conjugate": "beta", "gibbs_sweep": "ll",
-                   "anneal_init_batched": "SMC reweight ll"}
+                   "anneal_init_batched": "SMC reweight ll", "_swap": "swap ll"}
 
 
 def _rank_device(device):
@@ -2821,19 +2857,29 @@ def item_mesh_report(rm, dev, smi, want_means, ranks, n_item, n_chain, burn, dra
 
 
 def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAWS,
-             smc_steps=SMC_STEPS, phases=(40,), rates=None, state=None):
-    """Phases 40 and 45 as the stages of one world of 4 ranks (``phases``,
-    each checked here): phase 40, :func:`item_mesh_report` of phase 5's call
-    on a 2 x 2 chains x items mesh, and phase 45, :func:`resp_mesh_report`
-    of it on a 2 x 2 items x respondents mesh, both at ``burn`` and
-    ``draws``; ``rates`` the sweep rates phase 45 prints beside its own,
-    ``state`` the main path's last state its continuation starts from.
-    Returns {phase: its numbers}."""
+             smc_steps=SMC_STEPS, phases=(40,), rates=None, state=None, tempered=None,
+             mesh2=(MESH2_BURN, MESH2_DRAWS)):
+    """Phases 40, 45 and 49 as the stages of one world of 4 ranks
+    (``phases``, each checked here): phase 40, :func:`item_mesh_report` of
+    phase 5's call on a 2 x 2 chains x items mesh, and phase 45,
+    :func:`resp_mesh_report` of it on a 2 x 2 items x respondents mesh,
+    both at ``burn`` and ``draws``; ``rates`` the sweep rates phase 45
+    prints beside its own, ``state`` the main path's last state its
+    continuation starts from; phase 49, :func:`tempered_mesh_report` of
+    phase 19's tempering on the items x respondents mesh, ``tempered``
+    giving phase 19's last lane states ("lanes") and posterior means
+    ("means"), its call from scratch at ``mesh2`` (burn, draws). Returns
+    {phase: its numbers}."""
     with _temporary_dir() as tmp:
         path = state_file(rm, dev, state, tmp) if 45 in phases else None
+        pt_path = None
+        if 49 in phases:
+            os.makedirs(os.path.join(tmp, "pt"))
+            pt_path = state_file(rm, dev, tempered["lanes"], os.path.join(tmp, "pt"))
         specs = {40: (item_mesh_rank, (rm, 2, 2, burn, draws, smc_steps, chains)),
                  45: (resp_mesh_rank, (rm, 2, burn, draws, smc_steps, chains, path,
-                                       CONT_DRAWS))}
+                                       CONT_DRAWS)),
+                 49: (tempered_mesh_rank, (rm, pt_path, CONT_DRAWS, chains) + tuple(mesh2))}
         started = time.time()
         ranks = launch(rank_world, 4, (dev.type, [(p,) + specs[p] for p in phases]),
                        device=dev.type, stages=(RANK_TIMEOUT,) * len(phases))
@@ -2847,6 +2893,9 @@ def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAW
             out[45] = resp_mesh_report(rm, dev, smi, want_means, [r[45] for r in ranks], 2,
                                        burn, draws, smc_steps, "45", rates or {}, chains,
                                        path)
+        if 49 in phases:
+            out[49] = tempered_mesh_report(rm, dev, smi, [r[49] for r in ranks],
+                                           tempered["means"], pt_path, *mesh2)
     return out
 
 
@@ -3263,11 +3312,448 @@ def resp_synthetic_report(dev, smi, ranks, syn16, size):
             "ess_rounds": rounds, "allreduce_sites": sites}
 
 
+# ---------------------------------------------------------------------------
+# phases 46-49: ESS theta and the affine moves on item shards, tempering on a
+# chain mesh and on items x respondents, the campaigns on a campaign mesh
+# ---------------------------------------------------------------------------
+
+
+def item_option_configs(cfg, shift_max):
+    """Phase 46's two sweeps: the main path's configuration with theta by
+    ESS, and with the affine moves at W = ``shift_max`` (phase 29's) and
+    AFFINE_ROUNDS rounds."""
+    return {"theta_ess": dataclasses.replace(cfg, theta_method="ess"),
+            "affine": dataclasses.replace(cfg, affine_shift_max=shift_max,
+                                          affine_rounds=AFFINE_ROUNDS)}
+
+
+def item_option_rank(device, rm, state_path, out_dir, shift_max, chains, burn, draws,
+                     shards=ITEM_SHARDS):
+    """Phase 46 on one rank: one sweep of the main path's state on this
+    rank's item block (the parent's constants, both in ``state_path``),
+    fed the unsharded sweep's draws cut to it, with theta by ESS and with
+    the affine moves, the results saved in ``out_dir``; on a card the
+    kernel against its plain version on this rank's lanes of the ESS theta
+    sweep (rank 0 times it and gives its bound while the other waits); then
+    phase 27's gpirt_mcmc(theta_method="ess") from the spread init at ``burn``
+    and ``draws`` on the item shards, its launches counted from 0."""
+    entered = time.time()
+    dev = _rank_device(device)
+    rank = dist.get_rank()
+    y, cfg, _ = main_config(rm, dev, build=False)
+    saved = torch.load(state_path, map_location=dev)
+    state = gibbs.GPIRTState(*saved["state"])
+    consts = GPIRTConstants(**saved["consts"])
+    mesh = make_item_mesh(shards, device=dev.type)
+    sh = shards_of(mesh, "items")
+    block = lane_state_block(state, sh, "items")
+    res = {"rank": rank, "worst": 0.0, "flipped": 0}
+    for label, c in item_option_configs(cfg, shift_max).items():
+        draws_all = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
+                                      state.theta_idx.shape[0], consts, c)
+        y_b, _, cb, cl = item_inputs(y, state.thresholds[0], consts, c, sh)
+        (got, ll), args = observe_kernel(lambda: gibbs.gibbs_sweep(
+            block, draws_item_block(draws_all, sh.items(c.m)), y_b, cb, cl, None, 0,
+            sh.item_group))
+        torch.save([a.cpu() for a in got] + [ll.cpu()],
+                   os.path.join(out_dir, f"items_{label}_rank{rank}.pt"))
+        if label == "theta_ess":
+            res["lanes"] = args[2].numel()
+            if dev.type == "cuda":
+                res["worst"], res["flipped"] = kernel_check(args, f"rank {rank}'s ESS theta "
+                                                            "sweep state")
+                _barrier()
+                if rank == 0:
+                    res["ms"], res["ms_eager"], res["plain_ms"] = kernel_times(args, _C)
+                    res["work"] = kernel_bound(args, _C, "rank 0's ESS theta state")
+                _barrier()
+    threshold_ess.binary_threshold_ess.launches = 0
+    ess_update.calls = ess_update.rounds = 0
+    collectives = TimedAllReduce(dev)
+    gibbs.dist = collectives
+    try:
+        out = gpirt_mcmc(rm, draws, burn, CHAIN=chains, SEED=SEED, theta_method="ess",
+                         theta_init=spread_init(np.asarray(rm).shape[0]), dtype="float32",
+                         device=dev, verbose=False, mesh=mesh, item_axis="items")
+    finally:
+        gibbs.dist = dist
+    res.update({"allreduce_ms": collectives.total_ms() / (burn + draws),
+                "allreduce_bytes": collectives.bytes,
+                "launches": threshold_ess.binary_threshold_ess.launches,
+                "ess_rounds": ess_update.rounds, "ess_calls": ess_update.calls,
+                "theta_sha": _theta_sha(out), "seconds": out[0]["seconds"],
+                "finite": bool(all(np.isfinite(d["ll"]).all() for d in out)),
+                "stamps": (entered, time.time())})
+    return res
+
+
+def item_option_inputs(rm, dev, state):
+    """Phase 46's parent side before its ranks: the unsharded sweeps of
+    ``state`` on ``dev`` from the seeded draws, with theta by ESS and with
+    the affine moves. Returns {label: what the check needs}."""
+    y, cfg, consts = main_config(rm, dev)
+    out = {}
+    for label, c in item_option_configs(cfg, AFFINE_W).items():
+        draws = gibbs.sweep_draws(torch.Generator(device=dev).manual_seed(SEED),
+                                  state.theta_idx.shape[0], consts, c)
+        want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, c)
+        out[label] = (want, want_ll, state, draws, y, consts, c)
+    return out
+
+
+def item_option_check(smi, ranks, tmp, inputs, burn, draws, shards=ITEM_SHARDS):
+    """Phase 46: each item-sharded sweep on ``shards`` ranks of the card
+    (``ranks``' results, their blocks in ``tmp``) against the unsharded
+    sweep on the card from the main path's last state and the same draws:
+    theta the same on every item shard, equal to the unsharded sweep's in
+    at least THETA_EQUAL_MIN chains under the tie rule (the affine sweep's
+    item sums are float64 across the shards, so the float64 run decides
+    there), the other fields within 1e-3 (:func:`sweep_agreement`); each
+    rank's kernel against its plain version on its lanes (at most 0.1% of
+    them over 1e-5); then the ESS theta call on the item shards: one launch
+    a sweep on each rank, theta the same on both. Returns the numbers for
+    the kernels line."""
+    out = {}
+    for label, (want, want_ll, state, draws_all, y, consts, cfg) in inputs.items():
+        blocks = [torch.load(os.path.join(tmp, f"items_{label}_rank{r}.pt"))
+                  for r in range(shards)]
+        check(all(torch.equal(b[0], blocks[0][0]) for b in blocks),
+              f"phase 46 ({label}): theta differs between the item shards")
+        cat = [torch.cat([b[i] for b in blocks], dim=d) for i, d in ((1, -1), (2, -1),
+                                                                     (3, -2), (4, -1))]
+        got = gibbs.GPIRTState(blocks[0][0], *cat)
+        same, errs = sweep_agreement(f"{shards} item shards against the unsharded sweep, "
+                                     f"{label}", got, want, state, draws_all, y, consts, cfg,
+                                     float64_decides=label == "affine")
+        check(errs["chains_theta_equal"] >= THETA_EQUAL_MIN,
+              f"phase 46 ({label}): theta equal in {errs['chains_theta_equal']} chains")
+        ll_rel = float(((blocks[0][5] - want_ll.cpu()).abs() / want_ll.cpu().abs()).max())
+        log(f"phase 46 ({label}) on {smi}: {shards} ranks sharing the card over Gloo, the "
+            f"main path's state, {cfg.m // shards} items a rank: bit for bit the unsharded "
+            f"sweep {same}; theta the same on every shard, equal in "
+            f"{errs['chains_theta_equal']} of {got.theta_idx.shape[0]} chains; max abs diff "
+            + ", ".join(f"{k} {errs[k]:.3g}" for k in ("f", "beta", "thresholds", "fstar"))
+            + f"; ll relative {ll_rel:.3g}")
+        out[label] = errs
+    lanes = ranks[0]["lanes"]
+    worst = max(r["worst"] for r in ranks)
+    flipped = sum(r["flipped"] for r in ranks)
+    check(flipped <= 0.001 * lanes * shards,
+          f"phase 46: {flipped} of {lanes * shards} lanes over 1e-5")
+    on_card = any("ms" in r for r in ranks)
+    sweeps = burn + draws
+    for r in ranks:
+        check(r["launches"] == (sweeps if on_card else 0),
+              f"phase 46, rank {r['rank']}: {r['launches']} kernel launches for {sweeps} "
+              "sweeps")
+        check(r["finite"], f"phase 46, rank {r['rank']}: ll not finite")
+        check(r["theta_sha"] == ranks[0]["theta_sha"],
+              f"phase 46: theta differs between ranks 0 and {r['rank']}")
+    sec = ranks[0]["seconds"]
+    rate = sweeps / sec["sampling"]
+    rounds = ranks[0]["ess_rounds"] / max(ranks[0]["ess_calls"], 1)
+    r0 = next((r for r in ranks if "ms" in r), None)
+    timing = "" if r0 is None else (
+        f"; the kernel at rank 0's ESS theta state {r0['ms']:.5f} ms (graph), "
+        f"{r0['ms_eager']:.5f} ms (eager), plain {r0['plain_ms']:.4f} ms, bound "
+        f"{r0['work']['bound_ms']:.5f} ms by {r0['work']['bound_by']}")
+    log(f"phase 46 on {smi}: the kernel on each rank's {lanes} lanes: {flipped} over 1e-5, "
+        f"the rest within {worst:.3g}{timing}; gpirt_mcmc(theta_method='ess') (no SMC) "
+        f"on {shards} item shards, burn {burn}, {draws} draws: {ranks[0]['launches']} "
+        f"launches = {sweeps} sweeps a rank, theta the same on both, {rate:.2f} sweeps/s, "
+        f"the ESS loops {rounds:.2f} rounds an update, the theta table's all_reduce "
+        f"{ranks[0]['allreduce_bytes']} bytes, {ranks[0]['allreduce_ms']:.3f} ms a sweep "
+        "(rank 0, timed in the run)")
+    res = {"sweeps": out, "launches": [r["launches"] for r in ranks], "lanes": lanes,
+           "worst": worst, "flipped": flipped, "sweeps_per_s": rate, "ess_rounds": rounds,
+           "allreduce_ms": ranks[0]["allreduce_ms"]}
+    if r0 is not None:
+        res.update({k: r0[k] for k in ("ms", "ms_eager", "plain_ms")})
+        res.update({"bound_ms": r0["work"]["bound_ms"], "bound_by": r0["work"]["bound_by"]})
+    return res
+
+
+def chain_tempering_rank(device, rm, chains, burn, draws):
+    """Phase 47 on one rank: phase 19's call on a chain mesh over the world,
+    its launches counted from 0; on a card the kernel against its plain
+    version at this rank's last state (rank 0 times it and gives its
+    bound while the other waits)."""
+    entered = time.time()
+    dev = _rank_device(device)
+    rank = dist.get_rank()
+    mesh = make_chain_mesh(device=dev.type)
+    threshold_ess.binary_threshold_ess.launches = 0
+    scales = []
+    out, args = observe_kernel(lambda: tempering_call(rm, dev, chains, burn, draws,
+                                                      mesh=mesh), scales=scales)
+    res = {"rank": rank, "sha": draws_sha256(out), "seconds": out[0]["seconds"],
+           "launches": threshold_ess.binary_threshold_ess.launches,
+           "swap_rate": out[0]["swap_rate"], "lanes": args[2].numel(), "worst": 0.0,
+           "flipped": 0}
+    if dev.type == "cuda":
+        res["worst"], res["flipped"] = kernel_check(args, f"rank {rank}'s tempering state",
+                                                    c=scales[-1])
+        _barrier()
+        if rank == 0:
+            res["ms"], res["ms_eager"], res["plain_ms"] = kernel_times(args, scales[-1])
+            res["work"] = kernel_bound(args, scales[-1], "rank 0's tempering state")
+        _barrier()
+    res["stamps"] = (entered, time.time())
+    return res
+
+
+def chain_tempering_check(smi, ranks, want, burn, draws, world=ITEM_SHARDS):
+    """Phase 47: phase 19's call on a ``world``-rank chain mesh (``ranks``'
+    results): its cold draws and swap rates hash to phase 19's (``want``)
+    on every rank, one kernel launch a sweep on each, the kernel against
+    its plain version at each rank's state. Returns the numbers for the
+    kernels line."""
+    sweeps = burn + draws
+    on_card = any("ms" in r for r in ranks)
+    for r in ranks:
+        check(r["sha"] == want, f"phase 47, rank {r['rank']}: sha256 {r['sha']}, phase 19's "
+              f"{want}")
+        check(r["launches"] == (sweeps if on_card else 0),
+              f"phase 47, rank {r['rank']}: {r['launches']} kernel launches for {sweeps} "
+              "sweeps")
+    lanes = ranks[0]["lanes"]
+    flipped = sum(r["flipped"] for r in ranks)
+    worst = max(r["worst"] for r in ranks)
+    check(flipped <= 0.001 * lanes * world,
+          f"phase 47: {flipped} of {lanes * world} lanes over 1e-5")
+    sec = ranks[0]["seconds"]
+    rate = sweeps / sec["sampling"]
+    r0 = next((r for r in ranks if "ms" in r), None)
+    timing = "" if r0 is None else (
+        f"; the kernel at rank 0's state {r0['ms']:.5f} ms (graph), {r0['ms_eager']:.5f} ms "
+        f"(eager), plain {r0['plain_ms']:.4f} ms, bound {r0['work']['bound_ms']:.5f} ms by "
+        f"{r0['work']['bound_by']}")
+    log(f"phase 47 on {smi}: phase 19's tempering on a chain mesh of {world} ranks, "
+        f"{K * PT_TEMPS // world} lanes a rank: cold draws and swap rates sha256 = phase "
+        f"19's on every rank (swap rates " + ", ".join(f"{v:.4f}" for v in
+                                                       ranks[0]["swap_rate"])
+        + f"); {ranks[0]['launches']} kernel launches a rank = {sweeps} sweeps; "
+        f"{rate:.2f} sweeps/s; the kernel on each rank's {lanes} lanes: {flipped} over 1e-5, "
+        f"the rest within {worst:.3g}{timing}")
+    res = {"launches": [r["launches"] for r in ranks], "sweeps_per_s": rate,
+           "lanes": lanes, "worst": worst, "flipped": flipped}
+    if r0 is not None:
+        res.update({k: r0[k] for k in ("ms", "ms_eager", "plain_ms")})
+        res.update({"bound_ms": r0["work"]["bound_ms"], "bound_by": r0["work"]["bound_by"]})
+    return res
+
+
+# every field of a gpirt_campaigns result but its walls and schedule
+CAMPAIGN_FIELDS = ("theta_mean", "theta_se", "campaign_means", "ess_campaign",
+                   "pooled_ess_per_campaign", "final_weight_ess", "n_resamples")
+
+
+def campaign_blocks_reference(rm, dev, world=ITEM_SHARDS, **schedule):
+    """Phase 48's reference, in this one process: phase 20's campaigns8
+    call with each place of a ``world``-rank campaign axis run in turn as
+    its rank runs it (its CAMPAIGNS / world campaigns' anneal and its block
+    of the sampling run's lanes, at the rank's batch: ``Shards`` without a
+    process group), their info rows and draws joined in campaign order,
+    and gpirt_campaigns' estimator on them. Only the collectives are left
+    out, so the mesh must equal it bit for bit in every field. Returns
+    its result."""
+    prob = campaigns._problem(np.asarray(rm), CAMPAIGNS, SEED=CAMPAIGN_SEED, vote_codes=None,
+                              device=dev, **schedule)
+    t0 = time.perf_counter()
+    blocks = [campaigns._campaign_draws(prob, Shards(world, r)) for r in range(world)]
+    info = {k: np.concatenate([b[0][k] for b in blocks]) for k in blocks[0][0]}
+    draws = {k: torch.cat([b[1][k] for b in blocks]) for k in blocks[0][1]}
+    walls = {k: sum(b[2][k] for b in blocks) for k in blocks[0][2]}
+    out = campaigns._campaign_result(prob, info, draws, walls, t0, store_draws=False)
+    log(f"phase 48's reference on one process: {world} campaign-axis places in turn, "
+        f"{CAMPAIGNS // world} campaigns and {CAMPAIGNS // world * out['schedule']['n_chains']} "
+        f"lanes each, {out['walls']['total_sec']:.3f} s")
+    return out
+
+
+def campaign_mesh_rank(device, rm, schedule):
+    """Phase 48 on one rank: phase 20's campaigns8 call on a campaign mesh
+    over the world, its launches counted from 0."""
+    entered = time.time()
+    dev = _rank_device(device)
+    mesh = make_campaign_mesh(device=dev.type)
+    threshold_ess.binary_threshold_ess.launches = 0
+    out = gpirt_campaigns(np.asarray(rm), SEED=CAMPAIGN_SEED, n_campaigns=CAMPAIGNS,
+                          vote_codes=None, store_draws=False, verbose=False, device=dev,
+                          mesh=mesh, **schedule)
+    res = {k: np.asarray(out[k]) for k in CAMPAIGN_FIELDS}
+    res.update({"rank": dist.get_rank(), "walls": out["walls"],
+                "launches": threshold_ess.binary_threshold_ess.launches,
+                "stamps": (entered, time.time())})
+    return res
+
+
+def campaign_mesh_check(smi, ranks, ref, want, world=ITEM_SHARDS):
+    """Phase 48: phase 20's campaigns8 on a ``world``-rank campaign mesh
+    (``ranks``' results): every field the same on every rank and bit for
+    bit the one-process reference at the ranks' batch (``ref``,
+    :func:`campaign_blocks_reference`'s), no kernel launch (Newton
+    cutpoints), and phase 22's agreement with the JAX package. Beside it
+    is printed how far it is from phase 20's run (``want``), whose batch of
+    CAMPAIGNS campaigns the card may round otherwise (PERF.md §6).
+    Returns the numbers for the kernels line."""
+    for r in ranks:
+        for k in CAMPAIGN_FIELDS:
+            check(np.array_equal(r[k], ranks[0][k]),
+                  f"phase 48: {k} differs between ranks 0 and {r['rank']}")
+        check(r["launches"] == 0, f"phase 48, rank {r['rank']}: {r['launches']} launches")
+    got = ranks[0]
+    differ = [k for k in CAMPAIGN_FIELDS if not np.array_equal(got[k], np.asarray(ref[k]))]
+    if differ:
+        cm_ref = np.asarray(ref["campaign_means"])
+        log(f"phase 48 against its reference: {differ} differ; campaign means equal in "
+            "campaigns "
+            f"{[i for i in range(CAMPAIGNS) if np.array_equal(got['campaign_means'][i], cm_ref[i])]}"
+            f", largest difference a campaign "
+            f"{np.abs(got['campaign_means'] - cm_ref).reshape(CAMPAIGNS, -1).max(1).tolist()}"
+            f"; final weight ESS {got['final_weight_ess'].tolist()} against "
+            f"{np.asarray(ref['final_weight_ess']).tolist()}; resamples "
+            f"{got['n_resamples'].tolist()} against {np.asarray(ref['n_resamples']).tolist()}")
+    check(not differ, f"phase 48: {differ} differ from the one-process reference at the "
+          "ranks' batch")
+    alike = [bool(np.array_equal(a, b)) for a, b in zip(got["campaign_means"],
+                                                        np.asarray(want["campaign_means"]))]
+    bitwise = all(np.array_equal(got[k], np.asarray(want[k])) for k in CAMPAIGN_FIELDS)
+    r20 = signed_r(got["theta_mean"][:, 0], np.asarray(want["theta_mean"])[:, 0])
+    r_jax, worst_z, within = campaign_agreement(got)
+    walls = got["walls"]
+    log(f"phase 48 on {smi}: campaigns8 on a campaign mesh of {world} ranks, "
+        f"{CAMPAIGNS // world} campaigns a rank: the same on every rank, and every field "
+        "bit for bit the one-process reference at the ranks' batch; against phase 20's "
+        "batch of all " + (f"{CAMPAIGNS}: bit for bit" if bitwise else
+                            f"{CAMPAIGNS}: campaign means equal in campaigns "
+                            f"{[i for i, a in enumerate(alike) if a]}, final weight ESS "
+                            f"{np.round(got['final_weight_ess'], 3).tolist()} against "
+                            f"{np.round(np.asarray(want['final_weight_ess']), 3).tolist()}, "
+                            f"grand mean r {r20:.6f}")
+        + f"; 0 kernel launches; batch wall {walls['total_sec']:.3f} s (smc "
+        f"{walls['smc_sec']:.3f}, sampling {walls['sampling_sec']:.3f}; phase 20 "
+        f"{want['walls']['total_sec']:.3f}); the JAX agreement r {r_jax:.5f}, {within} "
+        "within |z| <= 4")
+    return {"launches": [r["launches"] for r in ranks], "wall_s": walls["total_sec"],
+            "r_jax": r_jax, "bitwise": bitwise, "campaigns_alike": sum(alike),
+            "r_phase20": r20}
+
+
+def tempered_continuation(dev, rm, state_path, draws, mesh=None):
+    """The sign-aligned posterior theta means of the cold lanes of
+    ``draws`` tempered sweeps (phase 19's ladder) continued from the lane
+    states in ``state_path`` (with their constants), on ``mesh`` with the
+    items and respondents sharded, or unsharded without one; and (on a
+    mesh) this rank's swap tally and last state block."""
+    y, cfg, _ = main_config(rm, dev, build=False)
+    saved = torch.load(state_path, map_location=dev)
+    state = gibbs.GPIRTState(*saved["state"])
+    consts = GPIRTConstants(**saved["consts"])
+    G = state.theta_idx.shape[0] // PT_TEMPS
+    axes = (None, None) if mesh is None else ("items", "respondents")
+    thr = torch.as_tensor(default_thresholds(cfg.C, cfg.m, cfg.horizon), dtype=cfg.tdtype,
+                          device=dev)  # unread: the run starts from ``state``
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    st = tempered_start(gen, torch.zeros(G, cfg.horizon, cfg.n, device=dev), thr, y,
+                        consts, cfg, PT_TEMPS, PT_MAX_TEMP, mesh, *axes)
+    carry = Carry(state if mesh is None else lane_state_block(state, st.shards, *axes))
+    acc = torch.zeros(st.temps.shape[0], dtype=torch.int64, device=dev)
+    acc, out = advance_tempered(gen, carry, acc, st, PT_TEMPS, 1,
+                                sample_schedule(draws, 0, 1), 0, draws)
+    digest = hashlib.sha256(b"".join(np.ascontiguousarray(out[k].cpu().numpy()).tobytes()
+                                     for k in sorted(out))).hexdigest()
+    return run_means(out["theta"]), acc, carry.state, digest
+
+
+def tempered_mesh_rank(device, rm, state_path, cont_draws, chains, burn, draws):
+    """Phase 49 on one rank: phase 19's sampler on a 2 x 2 items x
+    respondents mesh continued from its last lane states (in
+    ``state_path``) for ``cont_draws`` draws (every model shard's replicated
+    fields checked alike at the end, ``parallel.chains.check_replicated``),
+    then phase 19's call from scratch on the mesh at ``burn`` and
+    ``draws``, its launches counted from 0."""
+    entered = time.time()
+    dev = _rank_device(device)
+    mesh = make_respondent_mesh(RESP_SHARDS, n_item_shards=2, device=dev.type)
+    sh = shards_of(mesh, "items", "respondents")
+    cont, acc, block, cont_sha = tempered_continuation(dev, rm, state_path, cont_draws, mesh)
+    threshold_ess.binary_threshold_ess.launches = 0
+    sites = SiteAllReduce(dev)
+    gibbs.dist = sites
+    try:
+        out = tempering_call(rm, dev, chains, burn, draws, mesh=mesh, item_axis="items",
+                             respondent_axis="respondents")
+    finally:
+        gibbs.dist = dist
+    return {"sites": sites.summary(burn + draws),"rank": dist.get_rank(), "place": (sh.item_rank, sh.resp_rank),
+            "continued_means": cont, "acc": acc.cpu().numpy(), "cont_sha": cont_sha,
+            "replicated": {k: getattr(block, k).cpu().numpy()
+                           for k in ("theta_idx", "beta", "thresholds", "fstar")},
+            "launches": threshold_ess.binary_threshold_ess.launches,
+            "sha": draws_sha256(out), "means": theta_means(out),
+            "swap_rate": out[0]["swap_rate"], "seconds": out[0]["seconds"],
+            "finite": bool(all(np.isfinite(d["ll"]).all() for d in out)),
+            "stamps": (entered, time.time())}
+
+
+def tempered_mesh_report(rm, dev, smi, ranks, want_means, state_path, burn, draws):
+    """Phase 49: phase 19's tempering on a 2 x 2 items x respondents mesh
+    (``ranks``' results): continued from phase 19's last lane states, the
+    cold chains' sign-aligned posterior theta means at r >= MESH_MIN_R with
+    phase 19's (``want_means``), the unsharded continuation's r beside;
+    theta alike on the item shards of a respondent block, beta, the
+    cutpoints and f* on the respondent shards of an item block, the swap
+    tally and the draws on every rank; no kernel launch (a respondent axis
+    runs the plain cutpoint loop); the call from scratch finite and alike
+    on every rank, its r with phase 19's and its swap rates printed, not
+    gated (its basin is its stream's). Returns the numbers for the
+    kernels line."""
+    by_place = {r["place"]: r for r in ranks}
+    for (i, rr), r in by_place.items():
+        check(np.array_equal(r["replicated"]["theta_idx"],
+                             by_place[(1 - i, rr)]["replicated"]["theta_idx"]),
+              "phase 49: theta differs between the item shards")
+        for k in ("beta", "thresholds", "fstar"):
+            check(np.array_equal(r["replicated"][k], by_place[(i, 1 - rr)]["replicated"][k]),
+                  f"phase 49: {k} differs between the respondent shards")
+    for r in ranks:
+        check(np.array_equal(r["acc"], ranks[0]["acc"]) and r["cont_sha"] == ranks[0]["cont_sha"],
+              f"phase 49: rank {r['rank']}'s swaps or draws differ from rank 0's")
+        check(r["launches"] == 0, f"phase 49, rank {r['rank']}: {r['launches']} launches")
+        check(r["finite"] and r["sha"] == ranks[0]["sha"],
+              f"phase 49, rank {r['rank']}: the call's draws differ or are not finite")
+    r_cont = signed_r(ranks[0]["continued_means"], want_means)
+    r_plain = signed_r(tempered_continuation(dev, rm, state_path, CONT_DRAWS)[0], want_means)
+    check(np.isfinite(r_cont) and r_cont >= MESH_MIN_R,
+          f"phase 49: continued from phase 19's last lane states, r {r_cont:.5f}")
+    r_call = signed_r(ranks[0]["means"], want_means)
+    sec = ranks[0]["seconds"]
+    rate = (burn + draws) / sec["sampling"]
+    log(f"phase 49 on {smi}: phase 19's tempering on a 2 x 2 items x respondents mesh, 4 "
+        f"ranks: continued from phase 19's last lane states for {CONT_DRAWS} draws, cold "
+        f"posterior theta means r {r_cont:.5f} with phase 19's (unsharded continuation "
+        f"{r_plain:.5f}); theta alike on the item shards, beta, cutpoints and f* on the "
+        f"respondent shards, swaps and draws on every rank; 0 kernel launches; "
+        f"gpirt_mcmc(n_temps={PT_TEMPS}, mesh) from scratch, burn {burn}, {draws} draws: "
+        f"r {r_call:.5f} with phase 19's (not gated: the basin is the stream's), swap rates "
+        + ", ".join(f"{v:.4f}" for v in ranks[0]["swap_rate"])
+        + f", {rate:.2f} sweeps/s; all_reduce a sweep (rank 0, timed in the call) "
+        f"{sum(v[2] for v in ranks[0]['sites'].values()):.3f} ms: "
+        + sites_line(ranks[0]["sites"]))
+    return {"launches": [r["launches"] for r in ranks], "r_continued": r_cont,
+            "allreduce_sites": ranks[0]["sites"],
+            "r_continued_unsharded": r_plain, "r_call": r_call, "sweeps_per_s": rate,
+            "swap_rate": [float(v) for v in ranks[0]["swap_rate"]]}
+
+
 def rank_world(device, stages, stage_done):
     """One rank of one world running ``stages``, (phase, rank function,
     arguments after the device) each, in turn, each a stage of its own
     timeout (a rank's start costs seconds on the card's machine). Returns
     {phase: the rank function's result}."""
+    if device == "cpu":  # the reduced sizes' tiny tensors: one thread a rank
+        torch.set_num_threads(1)
     out = {}
     for i, (phase, fn, args) in enumerate(stages):
         if i:
@@ -3290,28 +3776,39 @@ def stage_ends(started, ranks, phases):
 
 def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, burn=BURN,
                     draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY,
-                    phases=(38, 39, 41), resp=None):
-    """Phases 38, 39, 41 and 42-44 (``phases``) as the stages of one world
-    of 2 ranks sharing the card, each with its own timeout (RANK_TIMEOUT),
-    then each checked here. ``resp`` gives the respondent phases what they
-    are held to and print beside their own: "rates" (sweeps a second by
-    label), "syn16" (phase 16's numbers) and "syn_size" (phase 44's run).
+                    phases=(38, 39, 41), resp=None, later=None, mesh_burn=MESH_BURN,
+                    mesh_draws=MESH_DRAWS, mesh2=(MESH2_BURN, MESH2_DRAWS),
+                    pt=(PT_BURN, PT_DRAWS)):
+    """Phases 38, 39, 41, 42-44 and 46-48 (``phases``) as the stages of one
+    world of 2 ranks sharing the card, each with its own timeout
+    (RANK_TIMEOUT), then each checked here. ``resp`` gives the respondent
+    phases what they are held to and print beside their own: "rates"
+    (sweeps a second by label), "syn16" (phase 16's numbers) and
+    "syn_size" (phase 44's run); phase 43 runs at ``mesh_burn`` and
+    ``mesh_draws``. ``later`` gives phases 47-48 theirs: "pt_sha" (phase
+    19's), "camp20" (phase 20's result), "camp_ref" (phase 48's reference,
+    :func:`campaign_blocks_reference`) and "schedule" (their overrides);
+    phase 46's call runs at ``mesh2`` (burn, draws) and phase 47 at ``pt``.
     Returns {phase: its numbers}: 38's (worst, flipped), 39's, 41's, 42's
-    differences, 43's and 44's."""
-    resp = resp or {}
+    differences, 43's, 44's, 46's, 47's and 48's."""
+    resp, later = resp or {}, later or {}
     with _temporary_dir() as tmp:
-        # phases 38, 42 and 43 read the state and constants from one file
+        # phases 38, 42, 43 and 46 read the state and constants from one file
         path, inputs = (sharded_sweep_inputs(rm, dev, state, tmp)
-                        if {38, 42, 43} & set(phases) else (None, None))
+                        if {38, 42, 43, 46} & set(phases) else (None, None))
         resp_inputs = resp_sweep_inputs(rm, dev, state) if 42 in phases else None
+        item_inputs_46 = item_option_inputs(rm, dev, state) if 46 in phases else None
         ck_path = os.path.join(tmp, "cut")
         specs = {38: (sharded_sweep_rank, (rm, path, tmp)),
                  39: (item_mesh_rank, (rm, ITEM_SHARDS, 1, burn, draws, smc_steps, chains)),
                  41: (chain_mesh_rank, (rm, chains, burn, cut, smc_steps, ck_path, every)),
                  42: (resp_sweep_rank, (rm, path, tmp, AFFINE_W)),
-                 43: (resp_mesh_rank, (rm, 1, burn, draws, smc_steps, chains, path,
+                 43: (resp_mesh_rank, (rm, 1, mesh_burn, mesh_draws, smc_steps, chains, path,
                                        CONT_DRAWS)),
-                 44: (resp_synthetic_rank, (resp.get("syn_size", SYN_SIZE),))}
+                 44: (resp_synthetic_rank, (resp.get("syn_size", SYN_SIZE),)),
+                 46: (item_option_rank, (rm, path, tmp, AFFINE_W, chains) + tuple(mesh2)),
+                 47: (chain_tempering_rank, (rm, chains) + tuple(pt)),
+                 48: (campaign_mesh_rank, (rm, later.get("schedule", {})))}
         started = time.time()
         ranks = launch(rank_world, ITEM_SHARDS,
                        (dev.type, [(p,) + specs[p] for p in phases]), device=dev.type,
@@ -3342,10 +3839,19 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
             rates["phase 39"] = out[39]["sweeps_per_s"]
         if 43 in phases:
             out[43] = resp_mesh_report(rm, dev, smi, want_means, [r[43] for r in ranks], 1,
-                                       burn, draws, smc_steps, "43", rates, chains, path)
+                                       mesh_burn, mesh_draws, smc_steps, "43", rates, chains,
+                                       path)
         if 44 in phases:
             out[44] = resp_synthetic_report(dev, smi, [r[44] for r in ranks], resp["syn16"],
                                             resp.get("syn_size", SYN_SIZE))
+        if 46 in phases:
+            out[46] = item_option_check(smi, [r[46] for r in ranks], tmp, item_inputs_46,
+                                        *mesh2)
+        if 47 in phases:
+            out[47] = chain_tempering_check(smi, [r[47] for r in ranks], later["pt_sha"], *pt)
+        if 48 in phases:
+            out[48] = campaign_mesh_check(smi, [r[48] for r in ranks], later["camp_ref"],
+                                          later["camp20"])
     return out
 
 
@@ -3375,6 +3881,40 @@ def resp_keys(tag, res):
         out.update({f"{tag}_r_phase5": res["r_phase5"],
                     f"{tag}_r_continued": res["r_continued"],
                     f"{tag}_r_continued_unsharded": res["r_continued_unsharded"]})
+    return out
+
+
+def later_keys(items46, chain47, camp48, pt49):
+    """Phases 46-49's numbers as keys of the kernels line: the kernel's
+    launches on each rank (phase 46's ESS theta call, phase 47's chain
+    mesh; 0 in phases 48-49 by design: Newton cutpoints, and the plain loop
+    under a respondent axis), its errors and times at a rank's state of
+    phases 46 and 47, the rates and the posterior r."""
+    out = {"launches_items2_theta_ess": items46["launches"],
+           "launches_chain_mesh_tempering": chain47["launches"],
+           "launches_campaign_mesh": camp48["launches"],
+           "launches_items2_resp2_tempering": pt49["launches"],
+           "items2_option_sweeps_max_abs_diff": {
+               k: max(v[f] for f in ("f", "beta", "thresholds", "fstar"))
+               for k, v in items46["sweeps"].items()},
+           "items2_option_sweeps_theta_equal": {
+               k: v["chains_theta_equal"] for k, v in items46["sweeps"].items()},
+           "items2_theta_ess_sweeps_per_s": items46["sweeps_per_s"],
+           "items2_theta_ess_allreduce_ms": items46["allreduce_ms"],
+           "items2_resp2_tempering_allreduce_sites": pt49["allreduce_sites"],
+           "chain_mesh_tempering_sweeps_per_s": chain47["sweeps_per_s"],
+           "campaign_mesh_wall_s": camp48["wall_s"], "campaign_mesh_r_jax": camp48["r_jax"],
+           "campaign_mesh_bitwise_phase20": camp48["bitwise"],
+           "campaign_mesh_r_phase20": camp48["r_phase20"],
+           "items2_resp2_tempering_r_continued": pt49["r_continued"],
+           "items2_resp2_tempering_r_call": pt49["r_call"],
+           "items2_resp2_tempering_swap_rate": pt49["swap_rate"],
+           "items2_resp2_tempering_sweeps_per_s": pt49["sweeps_per_s"]}
+    for tag, res in (("items2_theta_ess", items46), ("chain_mesh_tempering", chain47)):
+        out.update({f"max_abs_err_{tag}": res["worst"], f"lanes_over_1e-5_{tag}": res["flipped"],
+                    f"lanes_{tag}": res["lanes"]})
+        out.update({f"{k}_{tag}_state": res[k] for k in ("ms", "ms_eager", "plain_ms",
+                                                         "bound_ms", "bound_by") if k in res})
     return out
 
 
@@ -3645,8 +4185,8 @@ def main():
     for C in (2, 5):
         timed(f"18 (tempered sweep check, C={C})", sweep_check, dev, C, "auto",
               sweep_temps)
-    pt_launches, pt_args, pt_c, pt_sha = timed("19 (tempering path)", tempering_path, rm,
-                                               dev, smi)
+    pt_launches, pt_args, pt_c, pt_sha, pt_means = timed("19 (tempering path)",
+                                                         tempering_path, rm, dev, smi)
     t = time.perf_counter()
     pt_worst, pt_flipped = kernel_check(pt_args, "tempering state", c=pt_c)
     pt_ms, pt_eager, pt_plain = kernel_times(pt_args, pt_c)
@@ -3655,6 +4195,8 @@ def main():
     pt_work = kernel_bound(pt_args, pt_c, "tempering state")
     log(f"phase 19 (kernel at the tempering state): {time.perf_counter() - t:.2f} s wall")
     camp, camp_launches = timed("20 (campaigns8)", campaigns8, rm, dev, smi)
+    camp_ref = timed("48's reference (campaigns8 at a rank's batch)",
+                     campaign_blocks_reference, rm, dev)
     c64_launches, _ = timed("21 (chains64)", chains64, rm, dev, smi)
     timed("22 (campaign agreement)", campaign_agreement, camp)
 
@@ -3700,8 +4242,8 @@ def main():
     ck_launches, main_state, ck_res = timed("31 (checkpointed main path)",
                                             checkpointed_main_path, rm, dev, smi, main_sha,
                                             main_rate)
-    ckt_launches = timed("32 (checkpointed tempering)", checkpointed_tempering, rm, dev, smi,
-                         pt_sha)
+    ckt_launches, pt_lanes = timed("32 (checkpointed tempering)", checkpointed_tempering, rm,
+                                   dev, smi, pt_sha)
     syn_ck = timed("33 (synthetic checkpoint)", synthetic_checkpoint, dev, smi,
                    synthetic_inputs(dev))
     prof = timed("34 (profile_sweep)", profile_phase, rm, dev, smi, main_state)
@@ -3723,20 +4265,23 @@ def main():
     sdo_r = timed("37 (SDO agreement)", sdo_example_agreement, sdo_ex)
 
     torch.cuda.empty_cache()  # the ranks share the card: the parent's cache held back
-    two = timed("38, 39, 41-44 (one world of 2 ranks)", two_rank_phases, rm, dev, smi,
-                main_state, main_sha, main_cut_sha, main_means,
-                phases=(38, 39, 41, 42, 43, 44),
-                resp={"rates": {"phase 5": main_rate}, "syn16": syn16})
+    two = timed("38, 39, 41-44, 46-48 (one world of 2 ranks)", two_rank_phases, rm, dev,
+                smi, main_state, main_sha, main_cut_sha, main_means,
+                phases=(38, 39, 41, 42, 43, 44, 46, 47, 48),
+                resp={"rates": {"phase 5": main_rate}, "syn16": syn16},
+                later={"pt_sha": pt_sha, "camp20": camp, "camp_ref": camp_ref})
     (sh_worst, sh_flipped), it2, cm = two[38], two[39], two[41]
-    four = timed("40 and 45 (one world of 4 ranks)", mesh_2x2, rm, dev, smi, main_means,
-                 phases=(40, 45), rates={"phase 5": main_rate,
-                                         "phase 39": it2["sweeps_per_s"],
-                                         "phase 43": two[43]["sweeps_per_s"]},
-                 state=main_state)
-    del main_state
+    four = timed("40, 45 and 49 (one world of 4 ranks)", mesh_2x2, rm, dev, smi, main_means,
+                 phases=(40, 45, 49), rates={"phase 5": main_rate,
+                                             "phase 39": it2["sweeps_per_s"],
+                                             "phase 43": two[43]["sweeps_per_s"]},
+                 state=main_state, tempered={"lanes": pt_lanes, "means": pt_means})
+    del main_state, pt_lanes
     mesh22 = four[40]
-    worst = max(worst, sh_worst, it2["worst"], mesh22["worst"])
-    flipped += sh_flipped + it2["flipped"] + mesh22["flipped"]
+    worst = max(worst, sh_worst, it2["worst"], mesh22["worst"], two[46]["worst"],
+                two[47]["worst"])
+    flipped += sh_flipped + it2["flipped"] + mesh22["flipped"] + two[46]["flipped"] \
+        + two[47]["flipped"]
 
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
@@ -3870,6 +4415,7 @@ def main():
         **resp_keys("resp_synthetic", two[44]),
         "resp_synthetic_r_phase16": two[44]["r_phase16"],
         **resp_keys("items2_resp2", four[45]),
+        **later_keys(two[46], two[47], two[48], four[49]),
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ run bit for bit (``gpirt_mcmc(checkpoint_path=...)``,
 (``recover_fstar``, ``recover_fstar_batch``), with the chains, the items
 and the respondents spread over the ranks of a ``torch.distributed``
 ``DeviceMesh`` (``gpirt_mcmc(mesh=..., item_axis=..., respondent_axis=...)``,
-``parallel/``); the binary cutpoint ESS runs in a hand-written CUDA kernel
+tempered or not, ``parallel/``) and the campaigns over a campaign axis
+(``gpirt_campaigns(mesh=make_campaign_mesh())``); the binary cutpoint ESS runs in a hand-written CUDA kernel
 (``csrc/threshold_ess.cu``) on the card, in its plain PyTorch version on
 the CPU, and as a plain round loop whose lane totals are summed over the
 ranks under a respondent axis.
@@ -35,6 +36,7 @@ from gpirt_tpu_torch.models.generate import (
 )
 from gpirt_tpu_torch.models.gibbs import GPIRTState
 from gpirt_tpu_torch.models.sampler import memory_estimate_mb, run_chain
+from gpirt_tpu_torch.parallel.chains import CAMPAIGN_AXIS, make_campaign_mesh
 from gpirt_tpu_torch.utils.checkpoint import CheckpointManager
 from gpirt_tpu_torch.utils.irf import irf_probabilities, posterior_irf
 from gpirt_tpu_torch.utils.profiling import profile_sweep
@@ -43,6 +45,8 @@ __all__ = [
     "gpirt_mcmc",
     "gpirt_campaigns",
     "campaign_schedule",
+    "CAMPAIGN_AXIS",
+    "make_campaign_mesh",
     "recover_fstar",
     "recover_fstar_batch",
     "default_thresholds",

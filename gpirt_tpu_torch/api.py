@@ -261,15 +261,17 @@ def gpirt_mcmc(
     ``mesh``, a ``torch.distributed`` ``DeviceMesh`` (every rank calls
     ``gpirt_mcmc`` with the same arguments), spreads the chains over its
     "chains" axis; ``item_axis`` names a mesh axis that also shards the
-    items (``parallel/items.py``; conjugate sampler, theta on the grid,
-    m divisible by its size), e.g. ``make_item_mesh(2)``, and
+    items (``parallel/items.py``; conjugate sampler, m divisible by its
+    size), e.g. ``make_item_mesh(2)``, and
     ``respondent_axis`` one that shards the respondents
     (``parallel/respondents.py``; conjugate sampler, n divisible by its
     size), e.g. ``make_respondent_mesh(2)``, alone or beside the other two.
     On a chain mesh the draws are the unsharded run's chain for chain;
     under a model axis the shard-local draws come from each shard's own
     stream. Every rank returns the same chain dicts, and prints only on
-    rank 0. Tempering (``n_temps``) does not run on a mesh yet.
+    rank 0. Tempering (``n_temps``) runs on any of these meshes, each
+    group's ``n_temps`` lanes on one chain shard (``CHAIN`` must divide
+    over the chain shards; ``parallel/tempering.py``).
     ``verbose`` prints the reference's memory table, the recode's
     messages, the SMC line, the checkpointed run's progress and the
     end-of-run convergence summary (theta ESS, R-hat, basins) to stderr.
@@ -304,9 +306,6 @@ def gpirt_mcmc(
     if respondent_axis is not None and respondent_axis not in axes:
         raise ValueError(f"respondent_axis={respondent_axis!r} needs a mesh with that axis "
                          "name (e.g. parallel.respondents.make_respondent_mesh)")
-    if mesh is not None and n_temps > 1:
-        raise NotImplementedError("mesh with n_temps > 1: tempering over a mesh is not "
-                                  "ported to gpirt_tpu_torch yet")
     device = _device(device, "gpirt_mcmc")
     full_fp32_matmuls()
     shards = shards_of(mesh, item_axis, respondent_axis)
@@ -409,7 +408,7 @@ def gpirt_mcmc(
     if n_temps > 1:
         host = run_tempered_chains_checkpointed(
             gen, yt, th_inits, thr_init, consts, config, n_temps=n_temps,
-            max_temp=max_temp, swap_every=swap_every, **run)
+            max_temp=max_temp, swap_every=swap_every, **run, **sharding)
     else:
         host = run_chains_checkpointed(gen, yt, th_inits, thr_init, consts, config,
                                        initial_states=states, **run, **sharding)

@@ -1,7 +1,7 @@
 """Campaign-replicated posterior estimation: R independent SMC campaigns on
-one device.
+one device or over a campaign axis.
 
-Counterpart of ``gpirt_tpu/campaigns.py`` without a campaign mesh. The
+Counterpart of ``gpirt_tpu/campaigns.py``. The
 GP-IRT posterior under wide IRF priors is multi-basin, so one run's
 ensemble, however many chains, is one draw of where the basins fall. The
 campaign estimator runs R independent campaigns (each an SMC annealed
@@ -15,16 +15,27 @@ generator, seeded SEED + r K as the JAX package seeds campaign r's chain
 keys) and sample as one ``run_chains`` over the R K lanes. The estimator
 and the per-campaign pooled ESS run on the device; only (R, P)-sized
 summaries come back to the host.
+
+Over a campaign mesh (``parallel.chains.CAMPAIGN_AXIS``,
+``gpirt_tpu/campaigns.py:106-129``) each rank anneals its R / P campaigns,
+and the sampling run's R K lanes shard over the axis by the chain mesh's
+rule: every rank draws all lanes' numbers from the one generator seeded
+SEED + R K and keeps its campaigns' block. The draws come back whole on
+every rank, and the estimator runs on them there. Each rank's work is what
+:func:`_campaign_draws` computes for its place alone; on the CPU the
+result equals the unsharded call's bit for bit, while a card may round a
+batched product of the rank's smaller batch otherwise (PERF.md §7).
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpirt_tpu_torch.api import (
     _as_cube,
@@ -40,6 +51,8 @@ from gpirt_tpu_torch.api import (
 from gpirt_tpu_torch.models.config import THETA_HI, THETA_LO, GPIRTConfig
 from gpirt_tpu_torch.models.gibbs import GPIRTState
 from gpirt_tpu_torch.models.sampler import run_chains
+from gpirt_tpu_torch.parallel.chains import Shards, campaign_shards
+from gpirt_tpu_torch.parallel.distributed import broadcast_constants
 from gpirt_tpu_torch.parallel.smc import anneal_init_batched
 from gpirt_tpu_torch.utils.diagnostics import effective_sample_size_device
 from gpirt_tpu_torch.utils.response import (
@@ -118,8 +131,11 @@ def gpirt_campaigns(
     permutations of linspace(-2, 2, n), drawn with numpy seeded SEED. Data
     handling is ``gpirt_mcmc``'s (vote-code recoding, priors, qnorm
     cutpoints). The run is on the CUDA card unless ``device`` says
-    otherwise; without a card it raises. A campaign ``mesh``
-    (``gpirt_tpu/campaigns.py:126-129``) is not ported yet and raises.
+    otherwise; without a card it raises. ``mesh``, a ``DeviceMesh`` with a
+    ``"campaigns"`` axis (``parallel.chains.make_campaign_mesh``; every rank
+    calls this with the same arguments), shards the campaigns over it
+    (``n_campaigns`` must divide over its size, else ``ValueError``); every
+    rank returns the unsharded call's dict, and prints only on rank 0.
 
     Returns a dict:
       theta_mean (n, H) the sign-aligned grand posterior mean;
@@ -136,9 +152,50 @@ def gpirt_campaigns(
         threshold (R, K, S, m, C+1, H), beta (R, K, S, 3, m, H);
       respondents / items, the labels when the data carried them.
     """
-    if mesh is not None:
-        raise NotImplementedError("gpirt_campaigns over a mesh (mesh) is not ported to "
-                                  "gpirt_tpu_torch yet")
+    prob = _problem(
+        data, n_campaigns, n_chains=n_chains, sample_iterations=sample_iterations,
+        burn_iterations=burn_iterations, smc_steps=smc_steps, smc_max_temp=smc_max_temp,
+        threshold_method=threshold_method, SEED=SEED, vote_codes=vote_codes,
+        beta_prior_means=beta_prior_means, beta_prior_sds=beta_prior_sds,
+        theta_prior_means=theta_prior_means, theta_prior_sds=theta_prior_sds,
+        theta_os=theta_os, theta_ls=theta_ls, KERNEL=KERNEL, thresholds=thresholds,
+        dtype=dtype, grid_size=grid_size, jitter=jitter, device=device, mesh=mesh,
+        verbose=verbose and (mesh is None or dist.get_rank() == 0))
+    t0 = time.perf_counter()
+    info, draws, walls = _campaign_draws(
+        prob, None if mesh is None else campaign_shards(mesh))
+    return _campaign_result(prob, info, draws, walls, t0, store_draws)
+
+
+class _Problem(NamedTuple):
+    """What every campaign of a call runs on (:func:`_problem`): the
+    responses (H, n, m), the K chains' inits (K, H, n), the cutpoints, the
+    constants and config, the schedule, R, SEED, the labels and whether to
+    print."""
+
+    y: torch.Tensor
+    theta_init: torch.Tensor
+    thresholds: torch.Tensor
+    consts: Any
+    config: GPIRTConfig
+    sched: Dict[str, Any]
+    R: int
+    seed: int
+    row_names: Any
+    col_names: Any
+    verbose: bool
+
+
+def _problem(data, n_campaigns: int = 8, *, n_chains=None, sample_iterations=None,
+             burn_iterations=None, smc_steps=None, smc_max_temp=None, threshold_method=None,
+             SEED: int = 1, vote_codes=..., beta_prior_means=None, beta_prior_sds=None,
+             theta_prior_means=None, theta_prior_sds=None, theta_os: float = 1.0,
+             theta_ls: float = 10.0, KERNEL: str = "Matern", thresholds=None,
+             dtype: str = "float32", grid_size: int = 1001, jitter=None, device="cuda",
+             mesh=None, verbose: bool = False) -> _Problem:
+    """:func:`gpirt_campaigns`' data handling, schedule, constants (built
+    on rank 0 of a ``mesh`` and broadcast) and inits, on ``device``; its
+    arguments and defaults are that function's."""
     device = _device(device, "gpirt_campaigns")
     full_fp32_matmuls()
     if vote_codes is ...:
@@ -183,8 +240,12 @@ def gpirt_campaigns(
         theta_ls=float(theta_ls), kernel=KERNEL, dtype=dtype,
         threshold_method=sched["threshold_method"],
         jitter=jitter if jitter is not None else (1e-6 if dtype == "float64" else 1e-5))
-    consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
-                               theta_prior_means, theta_prior_sds)
+    if mesh is None or dist.get_rank() == 0:
+        consts = _cached_constants(config, device, beta_prior_means, beta_prior_sds,
+                                   theta_prior_means, theta_prior_sds)
+    if mesh is not None:  # built once, the same bits on every rank
+        consts = broadcast_constants(consts if dist.get_rank() == 0 else None, device,
+                                     config.tdtype)
     thr = (default_thresholds(C, m, H) if thresholds is None else
            _coerce_thresholds(np.asarray(thresholds, np.float64), m, C, H))
 
@@ -198,33 +259,58 @@ def gpirt_campaigns(
     def tensor(a, dt=config.tdtype):
         return torch.as_tensor(np.array(a, order="C"), dtype=dt, device=device)
 
-    yt, ti, thr_t = tensor(y, torch.int32), tensor(theta_init), tensor(thr)
+    return _Problem(tensor(y, torch.int32), tensor(theta_init), tensor(thr), consts, config,
+                    sched, R, int(SEED), row_names, col_names, verbose)
+
+
+def _campaign_draws(prob: _Problem, shards: Optional[Shards] = None):
+    """Anneal the campaigns, then sample them as one ``run_chains`` over
+    their R K lanes, campaign-major. ``shards`` (a campaign axis's place,
+    ``parallel.chains.campaign_shards``) runs this rank's campaigns and
+    gathers their info rows and draws in campaign order; without its
+    process group it runs and returns only its campaigns', as that rank
+    computes them. Returns (info, draws, {"smc_sec", "sampling_sec"})."""
+    sched, R, K = prob.sched, prob.R, prob.theta_init.shape[0]
+    device = prob.y.device
 
     def generator(seed):
         return torch.Generator(device=device).manual_seed(seed)
 
     t0 = time.perf_counter()
     states, info = anneal_init_batched(
-        [generator(SEED + r * K) for r in range(R)], yt, ti, thr_t, consts, config,
-        n_steps=sched["smc_steps"], max_temp=sched["smc_max_temp"])
+        [generator(prob.seed + r * K) for r in range(R)], prob.y, prob.theta_init,
+        prob.thresholds, prob.consts, prob.config, n_steps=sched["smc_steps"],
+        max_temp=sched["smc_max_temp"], shards=shards)
     _sync(device)
     smc_sec = time.perf_counter() - t0
-    if verbose:
+    if prob.verbose:
         we = info["final_weight_ess"]
         print(f"[gpirt] {R} campaigns annealed ({sched['smc_steps']} steps from "
               f"T={sched['smc_max_temp']:g}): {smc_sec:.2f}s, final weight-ESS "
               f"min/med {we.min():.1f}/{np.median(we):.1f}/{K}", file=sys.stderr)
 
-    # sampling: the campaigns are independent lanes, campaign-major
+    # sampling: the campaigns are independent lanes, campaign-major, this
+    # rank's campaigns' block of them on a campaign axis
     t1 = time.perf_counter()
     draws = run_chains(
-        generator(SEED + R * K), yt, ti.repeat(R, 1, 1), thr_t, consts, config,
+        generator(prob.seed + R * K), prob.y, prob.theta_init.repeat(R, 1, 1),
+        prob.thresholds, prob.consts, prob.config,
         sample_iterations=sched["sample_iterations"],
         burn_iterations=sched["burn_iterations"],
-        initial_states=GPIRTState(*(a.reshape((R * K,) + a.shape[2:]) for a in states)))
+        initial_states=GPIRTState(*(a.reshape((-1,) + a.shape[2:]) for a in states)),
+        mesh=shards)
     _sync(device)
-    sampling_sec = time.perf_counter() - t1
+    return info, draws, {"smc_sec": smc_sec, "sampling_sec": time.perf_counter() - t1}
 
+
+def _campaign_result(prob: _Problem, info, draws, walls, t0: float,
+                     store_draws: bool) -> Dict[str, Any]:
+    """:func:`gpirt_campaigns`' dict from every campaign's anneal ``info``
+    and sampling ``draws`` (R K lanes), the estimator on the draws'
+    device; ``t0`` is the anneal's start on the host's clock."""
+    sched, R, K = prob.sched, prob.R, prob.theta_init.shape[0]
+    H, n, m = prob.y.shape
+    C = prob.config.C
     S = draws["theta"].shape[1]
     P = H * n
     theta_dev = draws["theta"].reshape(R * K, S, P)
@@ -241,10 +327,10 @@ def gpirt_campaigns(
     ess_campaign = post_var / np.maximum(se * se, 1e-300)
     ess_med = float(np.median(ess_campaign))
     total_sec = time.perf_counter() - t0
-    if verbose:
+    if prob.verbose:
         print(f"[gpirt] campaign estimator: {R} x ({sched['smc_steps']} smc + "
               f"{sched['burn_iterations']}+{S} sweeps x {K} chains), sampling "
-              f"{sampling_sec:.2f}s; implied campaign ESS median {ess_med:.1f}, "
+              f"{walls['sampling_sec']:.2f}s; implied campaign ESS median {ess_med:.1f}, "
               f"theta SE median {np.median(se):.4f} (single-run pooled basis "
               f"would claim {np.median(pooled):.0f}/campaign)", file=sys.stderr)
 
@@ -257,8 +343,7 @@ def gpirt_campaigns(
         "pooled_ess_per_campaign": pooled,
         "final_weight_ess": np.asarray(info["final_weight_ess"]),
         "n_resamples": np.asarray(info["n_resamples"]),
-        "walls": {"smc_sec": smc_sec, "sampling_sec": sampling_sec,
-                  "total_sec": total_sec},
+        "walls": dict(walls, total_sec=total_sec),
         "schedule": dict(sched, n_campaigns=R),
     }
     if store_draws:  # raw (unaligned) draws
@@ -269,8 +354,8 @@ def gpirt_campaigns(
             "threshold": np.moveaxis(host["threshold"].reshape(R, K, S, H, m, C + 1), 3, -1),
             "beta": np.moveaxis(host["beta"].reshape(R, K, S, H, 3, m), 3, -1),
         }
-    if row_names is not None:
-        out["respondents"] = list(row_names)
-    if col_names is not None:
-        out["items"] = list(col_names)
+    if prob.row_names is not None:
+        out["respondents"] = list(prob.row_names)
+    if prob.col_names is not None:
+        out["items"] = list(prob.col_names)
     return out

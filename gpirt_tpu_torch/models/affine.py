@@ -283,15 +283,17 @@ def _on_grid(idx, N: int, group) -> torch.Tensor:
 
 
 def _z_marginal_parts(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTConfig,
-                      temp=None, respondent_group=None):
+                      temp=None, respondent_group=None, item_group=None):
     """Pieces of log p(theta) + log p(z | theta, beta), f* marginalised:
     (p, q, small), the quadratic form -0.5 (sum p - sum q) and small =
     -0.5 m logdet B + log p(theta) (K,). theta_idx (K, H, n), z (K, H, n, m),
     beta (K, H, 3, m); ``temp`` as the sweep's. Under ``respondent_group``
     the parts are :func:`_lowrank_quad_parts`' and the prior is summed over
     the group, so ``small`` is the same on every rank
-    (``gpirt_tpu/models/gibbs.py:1129-1181``)."""
-    m = z.shape[-1]
+    (``gpirt_tpu/models/gibbs.py:1129-1181``). Under ``item_group`` z and
+    beta are this rank's item block: p and q hold its item columns, and
+    ``small`` counts the group's items (``:1167``)."""
+    m = _sites_total(z.shape[-1], item_group)
     theta = theta_from_indices(theta_idx, consts)
     r = z - compute_mu(theta, beta)
     if respondent_group is None:
@@ -304,16 +306,28 @@ def _z_marginal_parts(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTC
     return p, q, -0.5 * m * logdet.sum(dim=-1) + prior
 
 
-def _z_marginal_delta(parts_new, parts_old, respondent_group=None) -> torch.Tensor:
+def _z_marginal_delta(parts_new, parts_old, respondent_group=None,
+                      item_group=None) -> torch.Tensor:
     """log-posterior difference new - old (K,) from the elementwise
     differences of two :func:`_z_marginal_parts`; p's sites are this
-    rank's, so its difference is summed over ``respondent_group``
-    (``gpirt_tpu/models/gibbs.py:1183-1202``)."""
+    rank's, so its difference is summed over ``respondent_group``, and p's
+    and q's items are, so both are summed over ``item_group``
+    (``gpirt_tpu/models/gibbs.py:1183-1202``), in float64 there."""
     p_n, q_n, s_n = parts_new
     p_o, q_o, s_o = parts_old
-    dp = _all_sum((p_n - p_o).sum(dim=(-3, -2, -1)), respondent_group)
-    dq = (q_n - q_o).sum(dim=(-3, -2, -1))
+    dp = _all_sum(_item_sum(p_n - p_o, item_group), respondent_group)
+    dq = _item_sum(q_n - q_o, item_group)
+    if item_group is not None:  # one all_reduce of both
+        dp, dq = _all_sum(torch.stack([dp, dq]), item_group)
     return -0.5 * (dp - dq) + (s_n - s_o)
+
+
+def _item_sum(a, item_group):
+    """``a`` (..., H, rows, items) summed over its last three axes: in
+    float64 under an item group, whose ranks' partial sums an all_reduce
+    then completes (the decision terms stay in float64 across the group, as
+    the low-rank ones do), in ``a``'s precision without one."""
+    return (a.double() if item_group is not None else a).sum(dim=(-3, -2, -1))
 
 
 def _dilation_interval_logq(d, dp, sd: float, respondent_group=None) -> torch.Tensor:
@@ -361,7 +375,7 @@ def _beta_logprior_delta(beta_new, beta_old, consts: GPIRTConstants) -> torch.Te
 
 
 def shift_orbit_gibbs(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTConfig,
-                      u_pick, u_acc, temp=None, respondent_group=None):
+                      u_pick, u_acc, temp=None, respondent_group=None, item_group=None):
     """The windowed Gibbs draw of each chain's collective location
     (``gpirt_tpu/models/gibbs.py:1324``). log pi is evaluated on the J =
     4W + 1 offsets -2W..2W of the orbit (theta + k, T_k beta), W =
@@ -374,10 +388,15 @@ def shift_orbit_gibbs(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTC
     (K, 2W+1) and u_acc (K,) uniforms. Returns (theta_idx, beta). Under
     ``respondent_group`` the offsets' terms come from
     :func:`_shift_orbit_lowrank`, and the grid bounds and the theta prior
-    from the group's sites (``gpirt_tpu/models/gibbs.py:1383-1426``).
+    from the group's sites (``gpirt_tpu/models/gibbs.py:1383-1426``). Under
+    ``item_group`` z and beta are this rank's item block: the offsets'
+    quadratic forms and beta-prior sums are summed over the group in
+    float64 (one ``all_reduce``), and the log-determinant counts the
+    group's items (``:1374``, ``:1420-1432``).
     """
     N, W = config.grid_size, config.affine_shift_max
-    H, n, m = z.shape[-3:]
+    H, n, m_loc = z.shape[-3:]
+    m = _sites_total(m_loc, item_group)
     step = 10.0 / (N - 1)
     offs = torch.arange(-2 * W, 2 * W + 1, device=z.device)  # (J,)
     J = offs.numel()
@@ -393,12 +412,12 @@ def shift_orbit_gibbs(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTC
         K = theta_idx.shape[0]
         Pfl = Psi_j.permute(1, 2, 3, 0, 4).reshape(K, H, n, J * 3)
         sol = _a_solve(La, A, torch.cat([r, Pfl], dim=-1))  # A^{-1} r and A^{-1} Psi_j
-        x = sol[..., :m]
-        AinvP = sol[..., m:].reshape(K, H, n, J, 3).permute(3, 0, 1, 2, 4)  # (J, K, H, n, 3)
+        x = sol[..., :m_loc]
+        AinvP = sol[..., m_loc:].reshape(K, H, n, J, 3).permute(3, 0, 1, 2, 4)  # (J, K, H, n, 3)
         u = Psi_j.mT @ x  # (J, K, H, 3, m)
         C3 = torch.eye(3, dtype=z.dtype, device=z.device) + Psi_j.mT @ AinvP
         Lc3 = chol3(C3)
-        q = (u * _c3_solve(Lc3, C3, u)).sum(dim=(-3, -2, -1))  # (J, K)
+        q = _item_sum(u * _c3_solve(Lc3, C3, u), item_group)  # (J, K)
         # logdet B_j = logdet A (orbit-invariant, drops) + logdet C3_j
         ld = 2.0 * torch.log(torch.diagonal(Lc3, dim1=-2, dim2=-1)).sum(dim=(-2, -1))
     else:
@@ -409,7 +428,9 @@ def shift_orbit_gibbs(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTC
     delta_j = offs.to(z.dtype) * step
     beta_j = _beta_shift_map(beta, delta_j.reshape(-1, 1, 1, 1))  # (J, K, H, 3, m)
     var_b = torch.square(consts.beta_prior_sds) + 1e-6
-    bp = -0.5 * (torch.square(beta_j) / var_b).sum(dim=(-3, -2, -1))
+    bp = -0.5 * _item_sum(torch.square(beta_j) / var_b, item_group)
+    if item_group is not None:  # the item columns' sums, one all_reduce of both
+        q, bp = _all_sum(torch.stack([q, bp]), item_group)
     # log pi relative over the orbit (sum p is invariant and drops)
     logp = torch.where(valid, 0.5 * q - 0.5 * m * ld + thp + bp, -math.inf).mT  # (K, J)
 
@@ -427,7 +448,8 @@ def shift_orbit_gibbs(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTC
 
 
 def affine_theta_moves(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRTConfig,
-                       draws: AffineDraws, temp=None, respondent_group=None):
+                       draws: AffineDraws, temp=None, respondent_group=None,
+                       item_group=None):
     """The collective shift and dilation MH moves on (theta, beta) against
     the z-marginal (``gpirt_tpu/models/gibbs.py:1456``): the orbit draw when
     affine_shift_max > 0, then affine_rounds dilation rounds, each accepted
@@ -435,17 +457,22 @@ def affine_theta_moves(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRT
     round's log uniform. Under ``respondent_group`` theta_idx and z are this
     rank's respondent block and every term is the group's
     (``gpirt_tpu/models/gibbs.py:1535-1547``): each rank takes the same
-    decisions from the replicated ``draws``. Returns (theta_idx, beta)."""
+    decisions from the replicated ``draws``. Under ``item_group`` z and
+    beta are this rank's item block and theta is whole: the per-item sums
+    are the group's (``:1420-1432``, ``:1199-1201``), so the decisions are
+    again the same on every rank. Both groups together are a 3-D mesh's.
+    Returns (theta_idx, beta)."""
     counts["calls"] += 1
     group = respondent_group
     if config.affine_shift_max > 0:
         theta_idx, beta = shift_orbit_gibbs(theta_idx, z, beta, consts, config,
-                                            draws.u_pick, draws.u_acc, temp, group)
+                                            draws.u_pick, draws.u_acc, temp, group,
+                                            item_group)
     if config.affine_rounds == 0:
         return theta_idx, beta
     N, sd, dt = config.grid_size, config.affine_dilate_sd, z.dtype
     cen = (N - 1) / 2.0
-    parts = _z_marginal_parts(theta_idx, z, beta, consts, config, temp, group)
+    parts = _z_marginal_parts(theta_idx, z, beta, consts, config, temp, group, item_group)
     idx = theta_idx
     for ell, u in zip(draws.ell, draws.u_dil):
         a = torch.exp(ell * sd).reshape(-1, 1, 1)
@@ -454,8 +481,9 @@ def affine_theta_moves(theta_idx, z, beta, consts: GPIRTConstants, config: GPIRT
         ok = _on_grid(idx_d, N, group)
         idx_d = torch.clamp(idx_d, 0, N - 1)
         dp = idx_d.to(dt) - cen
-        parts_d = _z_marginal_parts(idx_d, z, beta, consts, config, temp, group)
-        ratio = (_z_marginal_delta(parts_d, parts, group)
+        parts_d = _z_marginal_parts(idx_d, z, beta, consts, config, temp, group,
+                                    item_group)
+        ratio = (_z_marginal_delta(parts_d, parts, group, item_group)
                  + _dilation_interval_logq(dp, d, sd, group)
                  - _dilation_interval_logq(d, dp, sd, group))
         acc = ok & torch.isfinite(ratio) & (torch.log(u) < ratio)

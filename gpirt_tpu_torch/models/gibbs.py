@@ -62,9 +62,10 @@ src/draw_threshold.cpp:181-204), and its draws have a session axis of 1.
 Under an item axis (``parallel/items.py``) a rank holds an item block of
 y, the state and the per-item draws, and ``item_group`` is the process
 group of the item shards of its chains: the conjugate sweep's blocks run on
-the block as they are, and the theta table and the ll trace are summed
-over the group by ``all_reduce``, their only collectives
-(``gpirt_tpu/models/gibbs.py:1627``, ``:2747-2748``).
+the block as they are, and the theta table (grid or ESS theta) and the ll
+trace are summed over the group by ``all_reduce``
+(``gpirt_tpu/models/gibbs.py:1627``, ``:2747-2748``), as are, when the
+affine moves run, their per-item sums (``models/affine.py``).
 
 Under a respondent axis (``parallel/respondents.py``) a rank holds a
 respondent block of y, theta, f, z and the per-respondent draws, and
@@ -625,8 +626,9 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     ``shard_gens``, a rank's :class:`ShardGenerators` on a mesh, draws the
     shard-local fields at the block's widths ``config.n`` and ``config.m``
     (JAX's rules, ``gpirt_tpu/models/gibbs.py:2645-2661``): an item shard's
-    every item-local field (theta's numbers stay the replicated ``gen``'s,
-    the same on every item shard); a respondent shard's theta numbers, z's
+    every item-local field (theta's numbers and the affine moves' stay the
+    replicated ``gen``'s, the same on every item shard, as JAX's
+    ``k_f_repl``); a respondent shard's theta numbers, z's
     uniforms and f*'s noise (f*'s grid draws, beta's, the cutpoints' and
     the affine moves' stay replicated). Without it ``gen`` draws
     everything, in the same order."""
@@ -634,6 +636,7 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
     igen = gen if sg.item is None else sg.item
     cgen = gen if sg.cell is None else sg.cell
     rand, randn = _samplers(igen, consts, config)
+    repl_rand, repl_randn = _samplers(gen, consts, config)
     cell_rand, cell_randn = _samplers(cgen, consts, config)
     theta_rand, theta_randn = _samplers(gen if sg.resp is None else sg.resp, consts, config)
     H, n, m, N = config.horizon, config.n, config.m, config.grid_size
@@ -672,7 +675,7 @@ def sweep_draws(gen: torch.Generator, K: int, consts: GPIRTConstants,
         z_p=randn(K, Hi, 3, m),
         z_n=randn(K, Hi, N, m),
         eps_f=cell_randn(K, H, n, m),
-        affine=_affine_draws(rand, randn, K, config),
+        affine=_affine_draws(repl_rand, repl_randn, K, config),
     ))
     return SweepDraws(**latent, zeta=randn(K, H, m, 3), **tail())
 
@@ -834,30 +837,34 @@ def draw_theta(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
     """theta_idx (K, H, n) by ``config.theta_method``
     (``gpirt_tpu/models/gibbs.py:1644``): the exact grid draw, or the
     reference code's ESS and snap, which has no tempered form. Under
-    ``item_group`` (items sharded) the grid draw reads the summed table;
-    the ESS is not ported there."""
+    ``item_group`` (items sharded) either reads the table summed over the
+    item shards."""
     if config.theta_method == "grid":
         return _draw_theta_grid(state, mu_star, y, consts, config, u_theta, temp,
                                 item_group)
-    if item_group is not None:
-        raise NotImplementedError(
-            "theta_method='ess' under an item axis is not ported to gpirt_tpu_torch yet")
     if temp is not None:
         raise NotImplementedError("tempering needs theta_method='grid'")
-    return _draw_theta_ess(state, mu_star, y, consts, config, u_theta)
+    return _draw_theta_ess(state, mu_star, y, consts, config, u_theta, item_group)
 
 
 def _draw_theta_ess(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
-                    config: GPIRTConfig, draws: ThetaESSDraws) -> torch.Tensor:
+                    config: GPIRTConfig, draws: ThetaESSDraws,
+                    item_group=None) -> torch.Tensor:
     """The reference code's theta update (src/draw-theta.cpp:26-84,
     165-168; ``gpirt_tpu/models/gibbs.py:1741``): an ESS whose proposals are
     clamped to [-5, 5] and whose likelihood reads the ll table at the
     snapped proposal, then the snap. CST: one lane a respondent, prior sd
     sqrt(1 + sds^2), the table summed over sessions; RDM: one lane a
     (respondent, session); GP: one lane of the H sessions a respondent,
-    its prior the time GP's factor L_time."""
+    its prior the time GP's factor L_time.
+
+    Under ``item_group`` the table's ``all_reduce`` is the only collective
+    (``gpirt_tpu/models/gibbs.py:1669-1671``): every item shard then holds
+    the same table bit for bit and reads the same replicated ``draws``, so
+    its ESS loop, host-synced exit test included, takes the same path."""
     K, H, n = state.theta_idx.shape
-    table = _theta_ll_table(state.fstar, mu_star, y, state.thresholds, config.C)
+    table = _theta_ll_table(state.fstar, mu_star, y, state.thresholds, config.C,
+                            item_group=item_group)
     theta = theta_from_indices(state.theta_idx, consts)  # (K, H, n)
     loop = (draws.logu, draws.eps0, draws.rs)
 
@@ -1533,8 +1540,9 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     must be the one ``draws`` were made for. ``item_group`` is the process
     group of an item-sharded sweep (``parallel/items.py``): state, y, the
     constants and the draws are then this rank's item block, and the theta
-    table and the ll are summed over the group; conjugate only, without the
-    affine moves. ``respondent_group`` is the process group of a
+    table and the ll are summed over the group, and so are the affine
+    moves' item sums (``models/affine.py``); conjugate only.
+    ``respondent_group`` is the process group of a
     respondent-sharded sweep (``parallel/respondents.py``): state, y, the
     theta priors and the per-respondent draws are then this rank's
     respondent block, and the replicated blocks' statistics and the ll are
@@ -1542,10 +1550,9 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
     together are a 3-D mesh's.
     """
     method = config.resolved_f_method
-    if item_group is not None and (method != "conjugate" or config.affine):
+    if item_group is not None and method != "conjugate":
         raise NotImplementedError(
-            "item-sharded sweeps need f_method='conjugate' without the affine moves "
-            f"(got {method!r}, affine {config.affine})")
+            f"item-sharded sweeps need f_method='conjugate' (got {method!r})")
     if respondent_group is not None and method != "conjugate":
         raise NotImplementedError(
             f"respondent-sharded sweeps need f_method='conjugate' (got {method!r})")
@@ -1569,7 +1576,8 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
             from gpirt_tpu_torch.models.affine import affine_theta_moves
 
             theta_idx, beta = affine_theta_moves(theta_idx, z, state.beta, consts, config,
-                                                 d.affine, temp, respondent_group)
+                                                 d.affine, temp, respondent_group,
+                                                 item_group)
             state = state._replace(theta_idx=theta_idx, beta=beta)
             theta = theta_from_indices(theta_idx, consts)
             mu = compute_mu(theta, beta)

@@ -34,9 +34,12 @@ from gpirt_tpu_torch.models.gibbs import GPIRTState
 
 __all__ = [
     "CHAIN_AXIS",
+    "CAMPAIGN_AXIS",
     "Shards",
     "shards_of",
+    "campaign_shards",
     "make_chain_mesh",
+    "make_campaign_mesh",
     "lane_state_block",
     "assemble_lane_state",
     "gather_chains",
@@ -47,6 +50,7 @@ __all__ = [
 ]
 
 CHAIN_AXIS = "chains"  # the mesh axis the chains shard over
+CAMPAIGN_AXIS = "campaigns"  # the mesh axis independent campaigns shard over
 
 # the item axis of each per-item state field and stored draw (the chain
 # axis is the first); theta and ll hold no item axis
@@ -127,17 +131,46 @@ def shards_of(mesh, item_axis: Optional[str] = None,
     return Shards(*axis(CHAIN_AXIS), *axis(item_axis), *axis(respondent_axis))
 
 
-def make_chain_mesh(n_devices: Optional[int] = None, device="cuda"):
-    """A 1-D ``DeviceMesh`` named (:data:`CHAIN_AXIS`,) over the ranks of
-    the world (every rank calls it); ``n_devices``, when given, must be the
-    world's size."""
+def campaign_shards(mesh) -> Shards:
+    """This rank's place on a campaign mesh (``gpirt_tpu/campaigns.py:126-129``)
+    as chain :class:`Shards`: the campaigns, whole and campaign-major,
+    shard over its :data:`CAMPAIGN_AXIS` as a chain mesh shards its chains.
+    A mesh without that axis, or with another axis of more than one rank,
+    raises ``ValueError``."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if CAMPAIGN_AXIS not in names:
+        raise ValueError(f"mesh has no axis named {CAMPAIGN_AXIS!r} (its axes: {names})")
+    other = [a for a, size in zip(names, mesh.shape) if a != CAMPAIGN_AXIS and size > 1]
+    if other:
+        raise ValueError(f"mesh axis {other[0]!r} is not the campaign axis "
+                         f"{CAMPAIGN_AXIS!r}: campaigns shard over that axis alone")
+    size = mesh.shape[names.index(CAMPAIGN_AXIS)]
+    if size == 1:
+        return Shards()
+    return Shards(size, mesh.get_local_rank(CAMPAIGN_AXIS), mesh.get_group(CAMPAIGN_AXIS))
+
+
+def _world_mesh(n_devices: Optional[int], device, axis: str):
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"a mesh spans the world: {n_devices} devices asked, "
                          f"{world} ranks")
-    return init_device_mesh(torch.device(device).type, (world,), mesh_dim_names=(CHAIN_AXIS,))
+    return init_device_mesh(torch.device(device).type, (world,), mesh_dim_names=(axis,))
+
+
+def make_chain_mesh(n_devices: Optional[int] = None, device="cuda"):
+    """A 1-D ``DeviceMesh`` named (:data:`CHAIN_AXIS`,) over the ranks of
+    the world (every rank calls it); ``n_devices``, when given, must be the
+    world's size."""
+    return _world_mesh(n_devices, device, CHAIN_AXIS)
+
+
+def make_campaign_mesh(n_devices: Optional[int] = None, device="cuda"):
+    """A 1-D ``DeviceMesh`` named (:data:`CAMPAIGN_AXIS`,) over the ranks of
+    the world, for ``gpirt_campaigns(mesh=...)``; as :func:`make_chain_mesh`."""
+    return _world_mesh(n_devices, device, CAMPAIGN_AXIS)
 
 
 def _gather(t: torch.Tensor, n: int, rank: int, group, dim: int) -> torch.Tensor:

@@ -22,11 +22,16 @@ chain layout does not change the draws. An item-sharded run is therefore
 not bitwise the unsharded run, as in JAX; any assignment of streams is a
 valid sampler.
 
-Only the conjugate sweep with theta drawn on the grid shards its items
-here; under an item axis the affine moves and ESS theta (each round a
-global all-reduce and a global exit test) are refused by name, and so are
-tempering's and the campaigns' meshes. A respondent axis beside the item
-axis is ``parallel/respondents.py``'s.
+Only the conjugate sweep shards its items (JAX refuses the others the
+same way). Theta by ESS runs under the axis with no collective beyond the
+table's: every shard reads the same summed table with the replicated
+numbers, so its ESS loop and its host-synced exit test take the same path
+on every shard (``gpirt_tpu/models/gibbs.py:1669-1671``). The affine moves
+run under it too: their proposals and accepts come from the replicated
+generator, and one ``all_reduce`` completes each of their per-item sums
+(the z-marginal's quadratic forms, the orbit's, the beta prior's;
+``models/affine.py``). Tempering on a mesh is ``parallel/tempering.py``'s;
+a respondent axis beside the item axis is ``parallel/respondents.py``'s.
 """
 
 from __future__ import annotations
@@ -78,13 +83,15 @@ def consts_item_block(consts: GPIRTConstants, items: slice) -> GPIRTConstants:
 
 
 # the item axis of each conjugate sweep draw whose last axis is not the
-# items' (theta's uniforms have none; every other draw has it last)
+# items' (theta's numbers and the affine moves' have none: they are
+# replicated; every other draw has it last)
 _ITEM_DIM = {"zeta": -2, "nu": -2, "z": -2}
+_REPLICATED = ("u_theta", "affine")
 
 
 def draws_item_block(draws: SweepDraws, items: slice) -> SweepDraws:
     """A conjugate sweep's draws for all items cut to the item block
-    ``items``, theta's numbers whole: what a shard's sweep reads when it is
+    ``items``, theta's and the affine moves' numbers whole: what a shard's sweep reads when it is
     fed the unsharded sweep's numbers, as the checks of the sharded sweep
     feed it. (A sharded run draws its item-local numbers at the block's
     width instead, from its own generator.)"""
@@ -96,7 +103,7 @@ def draws_item_block(draws: SweepDraws, items: slice) -> SweepDraws:
         d = _ITEM_DIM.get(name, -1) % a.ndim
         return a.narrow(d, items.start, items.stop - items.start)
 
-    return type(draws)(*(a if k == "u_theta" else cut(k, a)
+    return type(draws)(*(a if k in _REPLICATED else cut(k, a)
                          for k, a in zip(draws._fields, draws)))
 
 
@@ -116,14 +123,6 @@ def check_item_config(config: GPIRTConfig, shards: Shards) -> None:
     if config.resolved_f_method != "conjugate":
         raise NotImplementedError("item-sharded sweeps need f_method='conjugate' "
                                   f"(got {config.resolved_f_method!r})")
-    if config.theta_method != "grid":
-        raise NotImplementedError(
-            "theta_method='ess' under an item axis is not ported to gpirt_tpu_torch "
-            "yet: its every round needs a global all-reduce and a global exit test")
-    if config.affine:
-        raise NotImplementedError(
-            "the affine moves (affine_shift_max, affine_rounds) under an item axis are "
-            "not ported to gpirt_tpu_torch yet")
 
 
 def item_inputs(y: torch.Tensor, thresholds_init: torch.Tensor, consts: GPIRTConstants,

@@ -45,8 +45,8 @@ JAX; any assignment of streams is a valid sampler.
 Only the conjugate sweep shards its respondents (JAX refuses the others,
 ``gpirt_tpu/models/gibbs.py:2637-2642``); theta by ESS, the GP and RDM
 theta regimes, ``mix_subsweeps``, ``jitter``, ``threshold_shift`` and
-``interleave`` run under it, and so do the affine moves on a mesh without
-an item axis.
+``interleave`` run under it, and so do the affine moves, with or without
+an item axis beside it.
 """
 
 from __future__ import annotations

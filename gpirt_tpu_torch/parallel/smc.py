@@ -1,6 +1,6 @@
 """SMC annealed initialization for one campaign of K chains, on one device
 or over a mesh of chains, items and respondents, or for a batch of B
-independent campaigns on one device.
+independent campaigns, on one device or over a campaign axis.
 
 Counterpart of ``gpirt_tpu/parallel/smc.py::anneal_init`` and
 ``anneal_init_batched``: each K-chain ensemble starts hot
@@ -28,6 +28,12 @@ shards (the per-item and per-respondent leaves stay sharded: a resample
 moves whole chains, and every rank keeps its block of each) and keeps this
 rank's lanes. Mutation draws follow ``parallel/items.py``'s and
 ``parallel/respondents.py``'s rules.
+
+Over a campaign axis (``parallel.chains.CAMPAIGN_AXIS``,
+``gpirt_tpu/parallel/smc.py:388-499``) each rank anneals its block of B / P
+whole campaigns from those campaigns' own generators, with no collective
+until the end, where the info rows are gathered in campaign order: each
+campaign is the one the unsharded batch anneals.
 """
 
 from __future__ import annotations
@@ -195,18 +201,32 @@ def anneal_init_batched(
     steps (B, n_steps - 1), the resample counts (B,) (the final resample
     included) and the final weight ESS (B,), as numpy.
 
-    ``shards`` (one campaign only) is this rank's place on a mesh
-    (:func:`anneal_init`): ``states`` then holds this rank's block of the
-    lanes, and ``shard_gens`` are its shard-local generators.
+    ``shards`` is this rank's place on a mesh. For one campaign it may
+    shard chains, items and respondents (:func:`anneal_init`): ``states``
+    then holds this rank's block of the lanes, and ``shard_gens`` are its
+    shard-local generators. For a batch (every rank calls this with all B
+    generators) its chain axis is a campaign axis
+    (``parallel.chains.campaign_shards``) of P ranks, each of which anneals
+    its B / P whole campaigns: ``states`` then holds them, (B / P, K, ...),
+    and ``info`` every campaign's rows in campaign order, the same on every
+    rank. B must divide over P (``ValueError``, as JAX,
+    ``gpirt_tpu/parallel/smc.py:479-486``), and a batch shards over no
+    model axis (``ValueError``).
     """
 
     if config.resolved_f_method != "conjugate":
         raise NotImplementedError("anneal_init needs f_method='conjugate'")
+    shards, camp = Shards() if shards is None else shards, Shards()
+    if len(gens) > 1:  # a batch: whole campaigns over the chain (campaign) axis
+        if shards.n_item > 1 or shards.n_resp > 1:
+            raise ValueError("a batch of campaigns shards over a campaign axis alone, "
+                             "not over items or respondents")
+        if len(gens) % shards.n_chain:
+            raise ValueError(f"{len(gens)} campaigns do not divide over {shards.n_chain} "
+                             "campaign-axis devices")
+        camp, shards = shards, Shards()
+        gens = list(gens)[camp.chains(len(gens))]
     B, K = len(gens), theta_init.shape[0]
-    shards = Shards() if shards is None else shards
-    if B > 1 and shards != Shards():
-        raise NotImplementedError("campaigns over a mesh (mesh) are not ported to "
-                                  "gpirt_tpu_torch yet")
     dt, dev = config.tdtype, consts.grid.device
     # this rank's lanes, items, respondents, and their responses, constants
     # and config
@@ -254,10 +274,14 @@ def anneal_init_batched(
                                     shards.resp_group)
     w, _, src = _weights(logw, gens, K, dev, dt)
     states = _resample(states, src.reshape(-1), shards, own)
-    w_final = w.cpu().double().numpy()
+    # each campaign's rows, gathered over the campaign axis in campaign order
+    rows = [gather_chains(t.contiguous(), camp) for t in (
+        torch.stack(ess_trace)[WARM_STEPS:].T, torch.stack(resampled)[WARM_STEPS:].sum(0),
+        w)]
+    w_final = rows[2].cpu().double().numpy()
     info = {
-        "weight_ess": torch.stack(ess_trace)[WARM_STEPS:].T.cpu().double().numpy(),
-        "n_resamples": torch.stack(resampled)[WARM_STEPS:].sum(0).cpu().numpy() + 1,
+        "weight_ess": rows[0].cpu().double().numpy(),
+        "n_resamples": rows[1].cpu().numpy() + 1,
         "final_weight_ess": 1.0 / np.sum(w_final * w_final, axis=-1),
     }
     return GPIRTState(*(a.reshape((B, -1) + a.shape[1:]) for a in states)), info

@@ -1,10 +1,11 @@
-"""Parallel tempering of the chain ensemble on one device.
+"""Parallel tempering of the chain ensemble, on one device or over a mesh
+of chains, items and respondents.
 
-Counterpart of ``gpirt_tpu/parallel/tempering.py`` without a mesh. Each of G
-cold chains is backed by L - 1 hot lanes on a geometric temperature ladder
-up to ``max_temp``; the G L lanes, group-major, advance in lockstep as the
-chain axis of one sweep, lane l of every group at temperature temps[l] for
-the whole run (states swap, temperatures do not). The tempering family is
+Counterpart of ``gpirt_tpu/parallel/tempering.py``. Each of G cold chains
+is backed by L - 1 hot lanes on a geometric temperature ladder up to
+``max_temp``; the G L lanes, group-major, advance in lockstep as the chain
+axis of one sweep, lane l of every group at temperature temps[l] for the
+whole run (states swap, temperatures do not). The tempering family is
 observation noise sd sqrt(T), which keeps every conjugate block exactly
 Gaussian, so a sweep is ``gibbs_sweep`` with a (G L,) tensor of
 temperatures, and the cutpoint kernel takes one scale a lane's chain.
@@ -15,11 +16,24 @@ odd ones, accepted with probability
     min(1, exp(l_Ta(S_b) + l_Tb(S_a) - l_Ta(S_a) - l_Tb(S_b)))
 in the tempered data log-likelihoods l_T (the priors do not depend on T).
 The stored draws are the cold lanes (l = 0 of each group).
+
+On a mesh (``gpirt_tpu/parallel/tempering.py:73-147``, ``:371-592``) the
+lanes shard over the "chains" axis by whole groups (G must divide over the
+chain shards: swaps are group-local), and the items and respondents over
+their axes as ``run_chains`` shards them (``parallel/items.py``,
+``parallel/respondents.py``, the sweep draws by their rules). A swap
+phase's cross-temperature ll is summed over the item and the respondent
+shards (an ``all_reduce`` over each model axis present), so every model
+shard of a group takes the same swaps; its uniforms follow the chain
+mesh's rule: every rank draws all G L lanes' from the replicated generator
+and keeps its chain block's, so a chain mesh is the unsharded run lane for
+lane. The draws and the swap tally are gathered at the end, the same on
+every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,25 +41,34 @@ import torch
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
+    ShardGenerators,
+    _all_sum,
     gibbs_sweep,
-    init_draws,
-    init_state,
     sweep_draws,
 )
 from gpirt_tpu_torch.models.sampler import (
     Carry,
     SampleSchedule,
     advance,
+    chain_start,
     draw_record,
     run_length,
     sample_schedule,
 )
-from gpirt_tpu_torch.parallel.smc import _lane_ll, _take
+from gpirt_tpu_torch.parallel.chains import (
+    Shards,
+    check_replicated,
+    gather_chains,
+    gather_draws,
+    shards_of,
+)
+from gpirt_tpu_torch.parallel.smc import _lane_ll, _take, lane_block
 
 __all__ = [
     "temperature_ladder",
     "lane_temperatures",
-    "tempered_lanes",
+    "TemperedStart",
+    "tempered_start",
     "advance_tempered",
     "swap_rate",
     "run_tempered_chains",
@@ -60,14 +83,17 @@ def temperature_ladder(n_temps: int, max_temp: float) -> np.ndarray:
 
 
 def _swap(states: GPIRTState, ll_own, temps, u, phase: int, L: int, y,
-          consts: GPIRTConstants):
+          consts: GPIRTConstants, groups=()):
     """One even/odd adjacent-pair swap phase (parity = phase % 2) over the
-    G L lanes (``gpirt_tpu/parallel/tempering.py:96``).
+    lanes (``gpirt_tpu/parallel/tempering.py:96``), whole groups of L.
 
     ``ll_own`` (K,) is each lane's data ll at its own temperature, of the
     current state; ``u`` (K,) the phase's uniforms, pair (a, a + 1) taking
-    u[a]. Returns (states after the swap, their own-temperature ll, the
-    accepted pairs marked at their lower lane)."""
+    u[a]. ``groups`` are the process groups of the model axes (items,
+    respondents) that the states' blocks shard: the cross-temperature ll
+    is summed over each, so that every model shard takes the same swaps.
+    Returns (states after the swap, their own-temperature ll, the accepted
+    pairs marked at their lower lane)."""
     K = ll_own.shape[0]
     lane = torch.arange(K, device=ll_own.device)
     l = lane % L
@@ -75,23 +101,14 @@ def _swap(states: GPIRTState, ll_own, temps, u, phase: int, L: int, y,
     valid = (partner_l >= 0) & (partner_l < L)
     partner = torch.where(valid, lane + (partner_l - l), lane)
     ll_cross = _lane_ll(states, temps[partner], y, consts)  # l_{T_partner}(S_lane)
+    for group in groups:
+        _all_sum(ll_cross, group)
     delta = (ll_cross + ll_cross[partner]) - (ll_own + ll_own[partner])
     accept = valid & (torch.log(u[torch.minimum(lane, partner)]) < delta)
     swapped = _take(states, torch.where(accept, partner, lane))
     # lane k now holds S_partner(k), whose ll at T_k is ll_cross[partner(k)]
     ll_post = torch.where(accept, ll_cross[partner], ll_own)
     return swapped, ll_post, accept & (partner > lane)
-
-
-def _tempered_sweep(states: GPIRTState, draws, u, i: int, temps, swap_every: int,
-                    L: int, y, consts: GPIRTConstants, config: GPIRTConfig):
-    """One lockstep tempered sweep of every lane, sweep ``i`` (its
-    iteration), then its swap phase when ``i % swap_every == 0`` (``u`` its
-    uniforms, None otherwise). Returns (states, ll (K,), accepted pairs (K,))."""
-    states, ll = gibbs_sweep(states, draws, y, consts, config, temps, i)
-    if u is None:
-        return states, ll, torch.zeros_like(ll, dtype=torch.bool)
-    return _swap(states, ll, temps, u, i // swap_every, L, y, consts)
 
 
 def lane_temperatures(G: int, n_temps: int, max_temp: float,
@@ -102,41 +119,90 @@ def lane_temperatures(G: int, n_temps: int, max_temp: float,
                            dtype=config.tdtype, device=consts.grid.device)
 
 
-def tempered_lanes(gen: torch.Generator, theta_init: torch.Tensor,
-                   thresholds_init: torch.Tensor, consts: GPIRTConstants,
-                   config: GPIRTConfig, n_temps: int) -> GPIRTState:
-    """The G L lanes' initial states, each group's L lanes from its init
-    (``theta_init`` (G, H, n)), their draws from ``gen``."""
+class TemperedStart(NamedTuple):
+    """A rank's part of a tempered run (:func:`tempered_start`): its place
+    (None without a mesh), its shard generators, its block's y, constants
+    and config, its lanes of the G L, their temperatures, and ``fresh()``,
+    its block of the lanes' initial states."""
+
+    shards: Optional[Shards]
+    shard_gens: Optional[ShardGenerators]
+    y: torch.Tensor
+    consts: GPIRTConstants
+    config: GPIRTConfig
+    lanes: slice
+    temps: torch.Tensor
+    fresh: object
+
+
+def tempered_start(gen: torch.Generator, theta_init: torch.Tensor,
+                   thresholds_init: torch.Tensor, y: torch.Tensor, consts: GPIRTConstants,
+                   config: GPIRTConfig, n_temps: int, max_temp: float, mesh=None,
+                   item_axis: Optional[str] = None, respondent_axis: Optional[str] = None,
+                   shard_gens: Optional[ShardGenerators] = None) -> TemperedStart:
+    """This rank's :class:`TemperedStart` of the G = len(theta_init)
+    groups of ``n_temps`` lanes, each group's lanes from its init
+    (``theta_init`` (G, H, n)), their init numbers drawn for all G L lanes
+    as ``models.sampler.chain_start`` draws a run's. Raises as JAX does for
+    a sampler other than the conjugate one, for ESS theta (it has no
+    tempered form) and, on a mesh, when the groups do not divide over the
+    chain shards (``gpirt_tpu/parallel/tempering.py:402-409``)."""
     if config.resolved_f_method != "conjugate":
         raise NotImplementedError("parallel tempering needs f_method='conjugate'")
-    K = theta_init.shape[0] * int(n_temps)
-    return init_state(theta_init.repeat_interleave(int(n_temps), dim=0), thresholds_init,
-                      consts, config, init_draws(gen, K, consts, config))
+    if config.theta_method != "grid":
+        raise NotImplementedError("tempering needs theta_method='grid'")
+    G, L = theta_init.shape[0], int(n_temps)
+    if mesh is not None:
+        n_chain = shards_of(mesh, item_axis, respondent_axis).n_chain
+        if G % n_chain:
+            raise ValueError(f"{G} tempered groups do not divide over {n_chain} chain "
+                             "shards (swaps are group-local, so the lanes shard by whole "
+                             "groups)")
+    shards, shard_gens, y, consts_l, config, fresh = chain_start(
+        gen, theta_init.repeat_interleave(L, dim=0), thresholds_init, y, consts, config,
+        mesh, item_axis, respondent_axis, shard_gens)
+    lanes = slice(0, G * L) if shards is None else shards.chains(G * L)
+    temps = lane_temperatures(G, L, max_temp, consts, config)[lanes]
+    return TemperedStart(shards, shard_gens, y, consts_l, config, lanes, temps, fresh)
 
 
 def advance_tempered(gen: torch.Generator, carry: Carry, accepted: torch.Tensor,
-                     y: torch.Tensor, consts: GPIRTConstants, config: GPIRTConfig,
-                     temps: torch.Tensor, n_temps: int, swap_every: int,
+                     start_: TemperedStart, n_temps: int, swap_every: int,
                      sched: SampleSchedule, start: int, stop: int, *,
                      store_f: bool = False, store_fstar: bool = False):
-    """The tempered sweeps ``[start, stop)`` of the G L lanes in ``carry``
-    (:func:`~gpirt_tpu_torch.models.sampler.advance`): sweep ``it`` draws
-    its numbers, then its swap phase's (G L,) uniforms when ``it %
-    swap_every == 0``, from ``gen``. ``accepted`` (G L,) int64 tallies the
-    accepted swaps at each pair's lower lane. Returns (accepted, the cold
-    lanes' stored draws {name: (G, s, ...)})."""
-    K, L = accepted.shape[0], int(n_temps)
-    dt = config.tdtype
+    """The tempered sweeps ``[start, stop)`` of this rank's lanes in
+    ``carry`` (:func:`~gpirt_tpu_torch.models.sampler.advance`), on
+    ``start_``'s block (:func:`tempered_start`): sweep ``it`` draws the
+    numbers of all G L lanes (the shard-local ones from its shard
+    generators), then its swap phase's (G L,) uniforms when ``it %
+    swap_every == 0``, from ``gen``, and keeps its lanes'. ``accepted``
+    (this rank's lanes,) int64 tallies the accepted swaps at each pair's
+    lower lane. Returns (accepted, the cold lanes' stored draws {name:
+    (G, s, ...)}, whole on every rank)."""
+    L = int(n_temps)
+    shards, y, consts, config, lanes, temps = (start_.shards, start_.y, start_.consts,
+                                              start_.config, start_.lanes, start_.temps)
+    K = lanes.stop if shards is None else lanes.stop - lanes.start
+    K_all = K if shards is None else K * shards.n_chain
+    groups = () if shards is None else tuple(
+        g for g in (shards.item_group, shards.resp_group) if g is not None)
 
     def sweep(states, it):
         nonlocal accepted
-        draws = sweep_draws(gen, K, consts, config, it)
+        draws = sweep_draws(gen, K_all, consts, config, it, start_.shard_gens)
+        if shards is not None:
+            draws = lane_block(draws, lanes, config.mix_subsweeps)
         u = None
         if L > 1 and swap_every > 0 and it % swap_every == 0:
-            u = torch.rand(K, generator=gen, device=accepted.device, dtype=dt)
-        states, ll, a = _tempered_sweep(states, draws, u, it, temps, swap_every, L, y,
-                                        consts, config)
-        accepted = accepted + a
+            u = torch.rand(K_all, generator=gen, device=accepted.device,
+                           dtype=config.tdtype)[lanes]
+        states, ll = gibbs_sweep(states, draws, y, consts, config, temps, it,
+                                 *((None, None) if shards is None else
+                                   (shards.item_group, shards.resp_group)))
+        if u is not None:
+            states, ll, a = _swap(states, ll, temps, u, it // swap_every, L, y, consts,
+                                  groups)
+            accepted = accepted + a
         return states, ll
 
     def record(states, ll):
@@ -144,7 +210,16 @@ def advance_tempered(gen: torch.Generator, carry: Carry, accepted: torch.Tensor,
         return draw_record(cold, ll[::L], consts, config, store_f, store_fstar)
 
     out = advance(sweep, record, carry, sched, start, stop)
-    return accepted, out
+    if shards is None:
+        return accepted, out
+    check_replicated(carry.state, shards)
+    return accepted, gather_draws(out, shards)
+
+
+def gather_tally(accepted: torch.Tensor, start_: TemperedStart) -> torch.Tensor:
+    """The (G L,) swap tally from each rank's lanes' (the chain group's),
+    the same on every rank."""
+    return accepted if start_.shards is None else gather_chains(accepted, start_.shards)
 
 
 def swap_rate(accepted, n_temps: int, sweeps: int, swap_every: int) -> np.ndarray:
@@ -175,6 +250,10 @@ def run_tempered_chains(
     swap_every: int = 1,
     store_f: bool = False,
     store_fstar: bool = False,
+    mesh=None,
+    item_axis: Optional[str] = None,
+    respondent_axis: Optional[str] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ) -> Dict[str, torch.Tensor]:
     """A tempered ensemble run; returns the cold chains' draws in
     :func:`~gpirt_tpu_torch.models.sampler.run_chains`'s layout, (G, S, ...)
@@ -187,17 +266,24 @@ def run_tempered_chains(
     ``n_temps = 1`` no swap is proposed and the run draws what
     ``run_chains`` draws. A draw is recorded as ``run_chains`` records it;
     after the last one no further sweep runs.
+
+    With a ``mesh`` (every rank calls this with the whole inputs) the
+    groups shard over its "chains" axis, the items over ``item_axis`` and
+    the respondents over ``respondent_axis`` (module docstring), their
+    shard-local numbers from ``shard_gens`` (by default
+    ``parallel.respondents.shard_generators`` of ``gen``'s seed); the draws
+    and swap_rate come back whole on every rank, and on a chain mesh equal
+    the unsharded run's.
     """
-    carry = Carry(tempered_lanes(gen, theta_init, thresholds_init, consts, config,
-                                 n_temps))
-    temps = lane_temperatures(theta_init.shape[0], n_temps, max_temp, consts, config)
+    st = tempered_start(gen, theta_init, thresholds_init, y, consts, config, n_temps,
+                        max_temp, mesh, item_axis, respondent_axis, shard_gens)
+    carry = Carry(st.fresh())
     sched = sample_schedule(sample_iterations, burn_iterations, thin)
     sweeps = run_length(sched, trailing=False)
-    accepted = torch.zeros(temps.shape[0], dtype=torch.int64, device=temps.device)
-    accepted, out = advance_tempered(gen, carry, accepted, y, consts, config, temps,
-                                     n_temps, swap_every, sched, 0, sweeps,
-                                     store_f=store_f, store_fstar=store_fstar)
+    accepted = torch.zeros(st.temps.shape[0], dtype=torch.int64, device=st.temps.device)
+    accepted, out = advance_tempered(gen, carry, accepted, st, n_temps, swap_every, sched,
+                                     0, sweeps, store_f=store_f, store_fstar=store_fstar)
     out["swap_rate"] = torch.as_tensor(
-        swap_rate(accepted.cpu().numpy(), n_temps, sweeps, swap_every),
-        device=temps.device)
+        swap_rate(gather_tally(accepted, st).cpu().numpy(), n_temps, sweeps, swap_every),
+        device=st.temps.device)
     return out

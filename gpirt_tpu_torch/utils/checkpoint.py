@@ -30,8 +30,9 @@ here refuse to resume from it. Module-level tallies of diagnostics (such
 as ``models.affine.counts`` or ``ops.ess.ess_update``'s counters) are not
 chain state and are not saved.
 
-On a mesh (``run_chains_checkpointed(mesh=..., item_axis=...,
-respondent_axis=...)``) the file holds the whole run, as one process
+On a mesh (``run_chains_checkpointed`` and
+``run_tempered_chains_checkpointed`` with ``mesh=..., item_axis=...,
+respondent_axis=...``) the file holds the whole run, as one process
 would: every rank gathers the lane states and the draws, rank 0 writes the
 file, and the ranks meet after it. Under an item axis it also holds each
 item shard's generator state (``item_rng_state``, one row a shard) and
@@ -83,9 +84,9 @@ from gpirt_tpu_torch.parallel.chains import (
 )
 from gpirt_tpu_torch.parallel.tempering import (
     advance_tempered,
-    lane_temperatures,
+    gather_tally,
     swap_rate,
-    tempered_lanes,
+    tempered_start,
 )
 
 __all__ = [
@@ -464,6 +465,10 @@ def run_tempered_chains_checkpointed(
     manager: Optional[CheckpointManager] = None,
     checkpoint_every: int = 200,
     on_progress=None,
+    mesh=None,
+    item_axis: Optional[str] = None,
+    respondent_axis: Optional[str] = None,
+    shard_gens: Optional[ShardGenerators] = None,
 ) -> Dict[str, np.ndarray]:
     """:func:`~gpirt_tpu_torch.parallel.tempering.run_tempered_chains`,
     resumable as :func:`run_chains_checkpointed` is: the G L lane states,
@@ -474,6 +479,12 @@ def run_tempered_chains_checkpointed(
     and resumed, it equals ``run_tempered_chains`` from the same generator,
     swap_rate included.
 
+    On a ``mesh`` (every rank calls this with the whole inputs) the run is
+    ``run_tempered_chains(mesh=..., item_axis=..., respondent_axis=...)``'s;
+    the file holds the whole ensemble and tally, and the shards' generator
+    states, as :func:`run_chains_checkpointed`'s does, and resumes as it
+    does (bit for bit onto the same shard counts).
+
     Returns the cold chains' host numpy draws with a leading (G,) chain
     axis, plus "swap_rate" (L - 1,).
     """
@@ -481,26 +492,29 @@ def run_tempered_chains_checkpointed(
     G = theta_init.shape[0]
     spec = _run_spec(gen, G, thin, burn_iterations, store_f, store_fstar, config,
                      n_temps, max_temp=float(max_temp), swap_every=int(swap_every))
-    temps = lane_temperatures(G, n_temps, max_temp, consts, config)
-    carry, done, draws, meta = _start(
-        manager, spec, gen, config,
-        lambda: tempered_lanes(gen, theta_init, thresholds_init, consts, config, n_temps))
-    accepted = torch.as_tensor(meta.get("swap_acc", [0] * temps.shape[0]),
-                               dtype=torch.int64, device=temps.device)
+    st = tempered_start(gen, theta_init, thresholds_init, y, consts, config, n_temps,
+                        max_temp, mesh, item_axis, respondent_axis, shard_gens)
+    carry, done, draws, meta = _start(manager, spec, gen, st.config, st.fresh, st.shards,
+                                      st.shard_gens)
+    accepted = torch.as_tensor(meta.get("swap_acc", [0] * (G * int(n_temps))),
+                               dtype=torch.int64, device=st.temps.device)[st.lanes]
 
     def step(start, stop):
         nonlocal accepted
-        accepted, recs = advance_tempered(gen, carry, accepted, y, consts, config, temps,
-                                          n_temps, swap_every, sched, start, stop,
-                                          store_f=store_f, store_fstar=store_fstar)
+        accepted, recs = advance_tempered(gen, carry, accepted, st, n_temps, swap_every,
+                                          sched, start, stop, store_f=store_f,
+                                          store_fstar=store_fstar)
         return recs
 
     done, draws = _drive(manager, gen, spec, carry, done, run_length(sched, trailing=False),
                          draws, sched, sample_iterations + burn_iterations,
                          sample_iterations, checkpoint_every, on_progress, step,
-                         lambda done: {"swap_acc": accepted.cpu().tolist(), "swaps": done})
+                         lambda done: {"swap_acc": gather_tally(accepted, st).cpu().tolist(),
+                                       "swaps": done},
+                         shards=st.shards, shard_gens=st.shard_gens)
     out = {k: v[:, :sched.n_samples] for k, v in draws.items()}
-    out["swap_rate"] = swap_rate(accepted.cpu().numpy(), n_temps, done, swap_every)
+    out["swap_rate"] = swap_rate(gather_tally(accepted, st).cpu().numpy(), n_temps, done,
+                                 swap_every)
     return out
 
 

@@ -25,6 +25,7 @@ from gpirt_tpu_torch.models.sampler import run_chains
 from gpirt_tpu_torch.parallel.chains import (
     assemble_lane_state,
     lane_state_block,
+    make_campaign_mesh,
     make_chain_mesh,
     shards_of,
 )
@@ -57,11 +58,12 @@ THETA_CASES = {"items2": (2, "C2"), "items4": (4, "C2"), "gp_items2": (2, "gp_H3
 SWEEPS = 3
 LATENT = ("u_theta", "u_z", "z_q", "z_p", "z_n", "eps_f", "zeta")
 CUT = ("nu", "logu", "eps0", "rs")
-# the refusals the items world checks: (case, exception it must raise)
+# the refusals the items world checks: (case, exception it must raise, or
+# None where the case now runs and its gathered draws are checked)
 REFUSALS = {"uneven_m": "ValueError", "chains_indivisible": "ValueError",
             "non_conjugate": "NotImplementedError", "theta_ess": "NotImplementedError",
-            "affine": "NotImplementedError", "n_temps": "NotImplementedError",
-            "respondent_axis": "ValueError", "campaign_mesh": "NotImplementedError",
+            "affine": None, "n_temps": "ValueError",
+            "respondent_axis": "ValueError", "campaign_mesh": "ValueError",
             "resume_other_item_count": "NotImplementedError",
             "resume_without_mesh": "NotImplementedError",
             "item_axis_not_named": "ValueError"}
@@ -185,6 +187,26 @@ def _refusal(fn):
     return "no error"
 
 
+def _runs(prefix, out, fn):
+    """A case that runs: ``fn()``'s draws saved under ``prefix``."""
+    def run():
+        for k, v in fn().items():
+            out[f"{prefix}_{k}"] = v.numpy()
+    return run
+
+
+def check_runs(ranks, prefix, shape):
+    """A case that runs (:func:`_runs`) on every rank: no error, the
+    gathered draws the same on every rank, finite, theta of ``shape``."""
+    z0 = ranks[0]
+    for z in ranks:
+        assert str(z[f"refusal_{prefix}"]) == "no error", str(z[f"refusal_{prefix}"])
+        for k in ("theta", "beta", "threshold", "ll"):
+            np.testing.assert_array_equal(z[f"run_{prefix}_{k}"], z0[f"run_{prefix}_{k}"])
+    assert z0[f"run_{prefix}_theta"].shape == shape
+    assert np.isfinite(z0[f"run_{prefix}_ll"]).all()
+
+
 def items_world(tmp):
     """The items world (4 ranks): draw_theta on a 2 x 2 and a 1 x 4 mesh,
     three sweeps of each case against JAX's and one against the port's
@@ -217,14 +239,14 @@ def items_world(tmp):
         "uneven_m": lambda: _mcmc(mesh14, data=votes(n=n, m=6)),
         "chains_indivisible": lambda: _mcmc(mesh22, CHAIN=3),
         "non_conjugate": lambda: _mcmc(mesh22, f_method="two_stage"),
-        "theta_ess": lambda: _mcmc(mesh22, theta_method="ess"),
-        "affine": lambda: run_chains_itemsharded(
+        "theta_ess": lambda: _mcmc(mesh22, theta_method="ess", n_temps=2),
+        "affine": _runs("run_affine", out, lambda: run_chains_itemsharded(
             torch.Generator().manual_seed(0), yt, ti, thr, consts,
-            dataclasses.replace(cfg, affine_rounds=1), mesh=mesh22, **RUN),
-        "n_temps": lambda: _mcmc(mesh22, item_axis=None, n_temps=2),
+            dataclasses.replace(cfg, affine_rounds=1), mesh=mesh22, **RUN)),
+        "n_temps": lambda: _mcmc(mesh22, n_temps=2, CHAIN=3),
         "respondent_axis": lambda: _mcmc(mesh22, respondent_axis="respondents"),
-        "campaign_mesh": lambda: gpirt_campaigns(votes(), 2, vote_codes=None,
-                                                 device="cpu", mesh=mesh22),
+        "campaign_mesh": lambda: gpirt_campaigns(votes(), 2, vote_codes=None, device="cpu",
+                                                 mesh=make_campaign_mesh(device="cpu")),
         "resume_other_item_count": lambda: (
             _mcmc(mesh22, sample_iterations=2, checkpoint_path=cut_path),
             _mcmc(mesh14, checkpoint_path=cut_path)),
@@ -356,7 +378,7 @@ def sleep_in_stage(seconds, stage_done):
 RESP = "respondents"
 # the refusals the respondents world checks: (case, exception it must raise)
 RESP_REFUSALS = {"uneven_n": "ValueError", "non_conjugate": "NotImplementedError",
-                 "n_temps": "NotImplementedError", "affine_item_axis": "NotImplementedError",
+                 "n_temps": "ValueError", "affine_item_axis": None,
                  "resume_other_resp_count": "NotImplementedError",
                  "resume_without_mesh": "NotImplementedError"}
 # sweeps against JAX's respondent-sharded sweep: (the sweep case whose state,
@@ -551,11 +573,12 @@ def respondents_world(tmp):
     refusals = {
         "uneven_n": lambda: mcmc(resp4, data=votes(n=10)),
         "non_conjugate": lambda: mcmc(resp4, f_method="two_stage"),
-        "n_temps": lambda: mcmc(resp4, n_temps=2),
-        "affine_item_axis": lambda: run_chains_respondentsharded(
+        "n_temps": lambda: mcmc(cr22, n_temps=2, CHAIN=3),
+        "affine_item_axis": _runs("run_affine_item_axis", out,
+                                  lambda: run_chains_respondentsharded(
             torch.Generator().manual_seed(0), yt, ti, thr, consts,
             dataclasses.replace(cfg, affine_rounds=1), mesh=ir22, item_axis="items",
-            **RUN),
+            **RUN)),
         "resume_other_resp_count": lambda: (
             mcmc(cr22, sample_iterations=2, checkpoint_path=cut_path),
             mcmc(resp4, checkpoint_path=cut_path)),

@@ -217,9 +217,9 @@ def test_tempering_path_at_reduced_size(capsys):
     """Phase 19 on the CPU with 2 groups of 4 temperatures: one call of the
     kernel's wrapper a sweep, each with 4 distinct c values, swap rates by
     rung; the plain version runs, so no launch is counted."""
-    launches, args, c, _ = chip_smoke.tempering_path(_small_votes(), torch.device("cpu"),
-                                                     "cpu", chains=2, burn=2, draws=8)
-    assert launches == 0
+    launches, args, c, _, means = chip_smoke.tempering_path(
+        _small_votes(), torch.device("cpu"), "cpu", chains=2, burn=2, draws=8)
+    assert launches == 0 and means.shape == (20,)
     assert c.shape == (8,) and torch.unique(c).numel() == 4
     assert tuple(args[0].shape) == (8, 1, 20, 8)
     assert "swap rate by rung" in capsys.readouterr().out
@@ -360,11 +360,13 @@ def test_checkpointed_main_path_and_profile_at_reduced_size(capsys):
 
 def test_checkpointed_tempering_at_reduced_size(capsys):
     """Phase 32 on the CPU: 2 groups of 4 temperatures interrupted after the
-    burn and one chunk, resumed, hash to phase 19's draws and swap rates."""
+    burn and one chunk, resumed, hash to phase 19's draws and swap rates;
+    the last checkpoint's 8 lanes come back for phase 49."""
     rm, cpu = _small_votes(), torch.device("cpu")
     small = dict(chains=2, burn=2, draws=6)
-    *_, want = chip_smoke.tempering_path(rm, cpu, "cpu", **small)
-    assert chip_smoke.checkpointed_tempering(rm, cpu, "cpu", want, every=2, **small) == 0
+    *_, want, _ = chip_smoke.tempering_path(rm, cpu, "cpu", **small)
+    launches, lanes = chip_smoke.checkpointed_tempering(rm, cpu, "cpu", want, every=2, **small)
+    assert launches == 0 and tuple(lanes.theta_idx.shape) == (8, 1, 20)
     assert "sha256 = phase 19's" in capsys.readouterr().out
 
 
@@ -446,102 +448,3 @@ def test_example_agreement_rule(tmp_path, capsys):
     with pytest.raises(RuntimeError, match="SDO example: posterior means correlate"):
         chip_smoke.sdo_example_agreement(dict(sdo, theta_mean=rng.permutation(basins[1])),
                                          path)
-
-
-def test_mesh_phases_at_reduced_size(capsys, monkeypatch):
-    """Phases 38-41 on the CPU at 4 chains of a 20 x 8 matrix, SMC 3 steps,
-    burn 2 and 6 draws, through the launcher on Gloo (phases 38, 39 and 41
-    as the three stages of one world of 2 ranks, phase 40 a world of 4):
-    the item-sharded sweep against the unsharded one, bit for bit; the
-    item-sharded and 2 x 2 runs' lanes a rank, theta the same on every
-    rank; a chain block's sweep and the chain mesh's draws, cut at 2 draws,
-    bit for bit the unsharded ones, and resumed with no mesh to the
-    unsharded call's. At this size posterior means are noise between two
-    runs, so phases 39-40's r gate is set to -1 here (on the CPU, phase
-    41's sha256 is the gate); the plain version runs, so no launch is
-    counted."""
-    monkeypatch.setattr(chip_smoke, "MESH_MIN_R", -1.0)
-    rm, cpu = _small_votes(), torch.device("cpu")
-    small = dict(chains=4, burn=2, draws=6, smc_steps=3)
-    ref = chip_smoke.main_call(rm, cpu, verbose=False, **small)
-    want, means = chip_smoke.draws_sha256(ref), chip_smoke.theta_means(ref)
-    want_cut = chip_smoke.draws_sha256([{k: d[k][:2] for k in ("theta", "beta", "threshold",
-                                                                "ll")} for d in ref])
-    _, cfg, consts = chip_smoke.main_config(rm, cpu)
-    gen = torch.Generator().manual_seed(0)
-    state = gibbs.init_state(torch.linspace(-1, 1, 20).expand(4, 1, 20),
-                             torch.as_tensor(chip_smoke.default_thresholds(2, 8, 1)),
-                             consts, cfg, gibbs.init_draws(gen, 4, consts, cfg))
-    two = chip_smoke.two_rank_phases(rm, cpu, "cpu", state, want, want_cut, means, cut=2,
-                                     every=2, **small)
-    (worst, flipped), it2, cm = two[38], two[39], two[41]
-    assert (worst, flipped) == (0.0, 0)
-    assert it2["launches"] == [0, 0] and it2["lanes"] == 4 * 4
-    assert it2["backend"] == "cpu:gloo" and it2["allreduce_bytes"] == 4 * 1001 * 20 * 4
-    sweeps = chip_smoke.WARM_STEPS + 3 - 1 + 2 + 6  # one table all_reduce a sweep
-    assert it2["allreduce_calls"] == sweeps and it2["allreduce_ms"] > 0
-    assert cm["bitwise"] and cm["block_bitwise"] and cm["launches"] == [0, 0]
-    mesh = chip_smoke.mesh_2x2(rm, cpu, "cpu", means, **small)[40]
-    assert mesh["launches"] == [0] * 4 and mesh["lanes"] == 2 * 4
-    text = capsys.readouterr().out
-    assert "sharded sweep check on cpu" in text and "bit for bit True" in text
-    assert "phase 40 on cpu: 2 x 2 chains x items mesh, 4 ranks" in text
-    assert "phases 38, 39, 41 in one world of 2 ranks" in text
-    assert glob.glob(os.path.join(chip_smoke.HERE, ".chip_smoke_ck_*")) == []
-
-
-def test_respondent_phases_at_reduced_size(capsys, monkeypatch):
-    """Phases 42-45 on the CPU at 4 chains of a 20 x 8 matrix, SMC 3 steps,
-    burn 2 and 6 draws, through the launcher on Gloo (42-44 as the stages
-    of one world of 2 ranks, 45 a world of 4), phase 44 at a 300 x 40
-    synthetic configuration of 2 chains, burn 2 and 4 draws: the
-    respondent-sharded sweep, with the affine moves off and on (W 3),
-    against the unsharded one with beta, the cutpoints and f* the same on
-    both ranks; no kernel launch; every site's all_reduce counted; phases
-    43 and 45's samplers continued from a state, sharded and not. At this
-    size posterior means are noise between two runs, so the r gates of
-    phases 43-45 are set to -1 here; the plain version runs, so no launch
-    is counted."""
-    monkeypatch.setattr(chip_smoke, "MESH_MIN_R", -1.0)
-    monkeypatch.setattr(chip_smoke, "SYN_MIN_R", -1.0)
-    monkeypatch.setattr(chip_smoke, "AFFINE_W", 3)
-    monkeypatch.setattr(chip_smoke, "CONT_DRAWS", 3)
-    rm, cpu = _small_votes(), torch.device("cpu")
-    small = dict(chains=4, burn=2, draws=6, smc_steps=3)
-    means = chip_smoke.theta_means(chip_smoke.main_call(rm, cpu, verbose=False, **small))
-    _, cfg, consts = chip_smoke.main_config(rm, cpu)
-    state = gibbs.init_state(torch.linspace(-1, 1, 20).expand(4, 1, 20),
-                             torch.as_tensor(chip_smoke.default_thresholds(2, 8, 1)),
-                             consts, cfg, gibbs.init_draws(torch.Generator().manual_seed(0),
-                                                           4, consts, cfg))
-    size = dict(n=300, m=40, K=2, burn=2, draws=4)
-    syn = chip_smoke.synthetic_inputs(cpu, size["n"], size["m"], size["K"])
-    out, _, _, _ = chip_smoke.synthetic_run(cpu, syn, burn=size["burn"], draws=size["draws"])
-    syn16 = {"sweeps_per_s": 1.0, "peak_gib": 0.0, "means": chip_smoke.run_means(out["theta"])}
-    two = chip_smoke.two_rank_phases(rm, cpu, "cpu", state, None, None, means,
-                                     phases=(42, 43, 44), resp={"rates": {"phase 5": 1.0},
-                                                                "syn16": syn16,
-                                                                "syn_size": size}, **small)
-    assert set(two[42]) == {"plain", "affine"}
-    for errs in two[42].values():
-        assert errs["chains_theta_equal"] == 4 and errs["thresholds"] < 1e-3
-    for phase in (43, 44):
-        assert two[phase]["launches"] == [0, 0]
-    sites = two[43]["allreduce_sites"]
-    sweeps = chip_smoke.WARM_STEPS + 3 - 1 + 2 + 6
-    assert sites["ll"][0] == 1 and sites["f* U^T r, U^T U"][0] == 1
-    assert sites["beta moments"][0] == 2 and sites["beta X^T X, X^T z"][0] == 1
-    assert sites["SMC reweight ll"][0] == (3 - 1) / sweeps
-    assert sites["cutpoint ESS round"][0] >= 2 and two[43]["ess_rounds"] >= 1
-    assert set(two[44]["allreduce_sites"]) == {"ll", "f* U^T r, U^T U", "beta moments",
-                                               "beta X^T X, X^T z", "cutpoint ESS round"}
-    four = chip_smoke.mesh_2x2(rm, cpu, "cpu", means, phases=(45,), rates={"phase 5": 1.0},
-                               state=state, **small)
-    assert four[45]["launches"] == [0] * 4 and "theta table" in four[45]["allreduce_sites"]
-    text = capsys.readouterr().out
-    assert "respondent-sharded sweep check (affine) on cpu" in text
-    assert "phase 43 on cpu: 2 respondent shards" in text
-    assert "continued from phase 5's last state for 3 draws" in text
-    assert "phase 45 on cpu: 2 x 2 items x respondents mesh, 4 ranks" in text
-    assert "phase 44 on cpu: the synthetic configuration (300 x 40" in text
-    assert glob.glob(os.path.join(chip_smoke.HERE, ".chip_smoke_ck_*")) == []

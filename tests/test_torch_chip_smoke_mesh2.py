@@ -1,0 +1,78 @@
+"""chip_smoke.py's phases 46-49 (ESS theta and the affine moves on 2 item
+shards, tempering on a chain mesh and on 2 x 2 items x respondents, the
+campaigns on a campaign mesh) at a reduced size on the CPU, in a file of
+their own so that a parallel run gives their Gloo worlds a worker of their
+own."""
+
+import glob
+import json
+import os
+
+import numpy as np
+import torch
+
+import chip_smoke
+from gpirt_tpu_torch.models import gibbs
+from test_torch_chip_smoke import _small_votes
+
+
+def test_later_mesh_phases_at_reduced_size(capsys, monkeypatch, tmp_path):
+    """Phases 46-48 as stages of one world of 2 ranks and phase 49 in a
+    world of 4, on the CPU at 4 chains of a 20 x 8 matrix (phase 19's call
+    at 4 groups of 4 temperatures, burn 2 and 6 draws; campaigns8 at 8
+    campaigns of 2 chains): the item-sharded ESS theta and affine (W 3)
+    sweeps against the unsharded ones with theta equal in every chain; the
+    ESS theta call alike on both ranks; the tempered chain mesh hashing to
+    the unsharded call's draws and swap rates; the campaign mesh bit for bit
+    its one-process reference at the ranks' batch and (on the CPU) the
+    unsharded call; the tempered 2 x 2 mesh continued from a lane
+    state with its replicated fields alike. At this size posterior means
+    are noise between two runs, so phase 49's r gate is set to -1 here, and
+    phase 22's agreement rule (senate116's JAX fixture) is replaced by a
+    stub; the plain version runs, so no launch is counted."""
+    monkeypatch.setattr(chip_smoke, "MESH_MIN_R", -1.0)
+    monkeypatch.setattr(chip_smoke, "CK_DIR", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "AFFINE_W", 3)
+    monkeypatch.setattr(chip_smoke, "CONT_DRAWS", 3)
+    monkeypatch.setattr(chip_smoke, "THETA_EQUAL_MIN", 4)
+    monkeypatch.setattr(chip_smoke, "campaign_agreement", lambda out: (1.0, 0.0, 20))
+    rm, cpu = _small_votes(), torch.device("cpu")
+    pt = dict(chains=4, burn=2, draws=6)
+    _, _, _, pt_sha, pt_means = chip_smoke.tempering_path(rm, cpu, "cpu", **pt)
+    schedule = dict(n_chains=2, smc_steps=3, burn_iterations=1, sample_iterations=4)
+    camp, _ = chip_smoke.campaigns8(rm, cpu, "cpu", **schedule)
+    camp_ref = chip_smoke.campaign_blocks_reference(rm, cpu, **schedule)
+    _, cfg, consts = chip_smoke.main_config(rm, cpu)
+    state = gibbs.init_state(torch.linspace(-1, 1, 20).expand(4, 1, 20),
+                             torch.as_tensor(chip_smoke.default_thresholds(2, 8, 1)),
+                             consts, cfg, gibbs.init_draws(torch.Generator().manual_seed(0),
+                                                           4, consts, cfg))
+    two = chip_smoke.two_rank_phases(
+        rm, cpu, "cpu", state, None, None, None, chains=4, phases=(46, 47, 48),
+        later={"pt_sha": pt_sha, "camp20": camp, "camp_ref": camp_ref, "schedule": schedule},
+        mesh2=(2, 4),
+        pt=(2, 6))
+    for errs in two[46]["sweeps"].values():
+        assert errs["chains_theta_equal"] == 4 and errs["thresholds"] < 1e-3
+    assert two[46]["launches"] == [0, 0] and two[46]["flipped"] == 0
+    assert two[47]["launches"] == [0, 0] and two[48]["launches"] == [0, 0]
+    lanes = gibbs.init_state(torch.linspace(-1, 1, 20).expand(16, 1, 20),
+                             torch.as_tensor(chip_smoke.default_thresholds(2, 8, 1)),
+                             consts, cfg, gibbs.init_draws(torch.Generator().manual_seed(1),
+                                                           16, consts, cfg))
+    four = chip_smoke.mesh_2x2(rm, cpu, "cpu", None, chains=4, phases=(49,),
+                               tempered={"lanes": lanes, "means": pt_means}, mesh2=(2, 4))
+    assert four[49]["launches"] == [0] * 4 and len(four[49]["swap_rate"]) == 3
+    assert {"swap ll", "theta table"} <= set(four[49]["allreduce_sites"])
+    assert two[46]["allreduce_ms"] > 0
+    assert np.isfinite(four[49]["r_continued"])
+    keys = chip_smoke.later_keys(two[46], two[47], two[48], four[49])  # the kernels line's
+    assert json.loads(json.dumps(keys))["launches_items2_resp2_tempering"] == [0] * 4
+    text = capsys.readouterr().out
+    assert "phase 46 (theta_ess) on cpu" in text and "phase 46 (affine) on cpu" in text
+    assert "phases 46, 47, 48 in one world of 2 ranks" in text
+    assert "sha256 = phase 19's on every rank" in text
+    assert "every field bit for bit the one-process reference at the ranks' batch" in text
+    assert two[48]["bitwise"] and "against phase 20's batch of all 8: bit for bit" in text
+    assert "phase 49 on cpu: phase 19's tempering on a 2 x 2 items x respondents" in text
+    assert glob.glob(os.path.join(str(tmp_path), ".chip_smoke_ck_*")) == []

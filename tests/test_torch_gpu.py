@@ -589,3 +589,45 @@ def test_respondent_sharded_sweep_on_card_matches_unsharded(cuda_device, tmp_pat
                                rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(blocks[0][4], want.fstar.cpu(), rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(blocks[0][5], want_ll.cpu(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["theta_ess", "affine"])
+def test_item_sharded_option_sweep_on_card_matches_unsharded(cuda_device, tmp_path, label):
+    """One sweep with ESS theta, or with the affine moves (W 3, 2 rounds),
+    with the items over 2 ranks that share the card (Gloo) against the
+    unsharded sweep on the card, from the same state, constants and draws
+    (the shards' cut to their items; theta's and the affine moves' numbers
+    whole): theta equal and the same on both ranks, every other field
+    within 1e-3."""
+    import _torch_mesh_worker as mw
+    from gpirt_tpu_torch.parallel.distributed import launch
+
+    w = mw.w
+    cfg = mw.card_option_config(label)
+    consts = make_constants(cfg, np.zeros((3, w.m)), np.full((3, w.m), 3.0),
+                            np.zeros((2, w.n)), np.zeros((2, w.n)), device=cuda_device)
+    y = torch.as_tensor(np.nan_to_num(w.votes(), nan=0.0)[None].astype(np.int32),
+                        device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = gibbs.init_state(torch.linspace(-1, 1, w.n, device=cuda_device).expand(w.K, 1, w.n),
+                             torch.as_tensor(chip_smoke.default_thresholds(2, w.m, 1),
+                                             device=cuda_device),
+                             consts, cfg, gibbs.init_draws(gen, w.K, consts, cfg))
+    draws = gibbs.sweep_draws(torch.Generator(device=cuda_device).manual_seed(3), w.K,
+                              consts, cfg)
+    want, want_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg)
+    path = str(tmp_path / "inputs.pt")
+    torch.save({"state": [a.cpu() for a in state], "y": y.cpu(),
+                "consts": {k: None if v is None else v.cpu() for k, v in vars(consts).items()}},
+               path)
+    assert launch(mw.card_option_sweep, 2, (path, str(tmp_path), label), device="cuda",
+                  timeout=300) == [0, 1]
+    blocks = [torch.load(tmp_path / f"card_{label}_rank{r}.pt") for r in range(2)]
+    assert torch.equal(blocks[0][0], blocks[1][0])
+    torch.testing.assert_close(blocks[0][0], want.theta_idx.cpu(), rtol=0, atol=0)
+    for i, (name, dim) in enumerate((("f", -1), ("beta", -1), ("thresholds", -2),
+                                     ("fstar", -1)), start=1):
+        got = torch.cat([b[i] for b in blocks], dim=dim)
+        torch.testing.assert_close(got, getattr(want, name).cpu(), rtol=0, atol=1e-3)
+    torch.testing.assert_close(blocks[0][5], want_ll.cpu(), rtol=1e-5, atol=0)

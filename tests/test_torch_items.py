@@ -291,20 +291,32 @@ def test_item_sharded_checkpoint_resumes_bit_for_bit(world):
 @pytest.mark.parametrize("case", list(w.REFUSALS))
 def test_refusals(world, case):
     """What an item axis refuses, by its own exception: uneven items or
-    chains (ValueError, as JAX), a mesh whose items axis is not named by
-    item_axis (ValueError: it would run the same chains on each of its
-    ranks), and a respondent axis the mesh does not have (ValueError, as
-    JAX); a sampler other than the conjugate one, ESS theta, the affine
-    moves, tempering's, the campaigns' mesh, and a resume across item-shard
-    counts (NotImplementedError naming the argument)."""
+    chains, and tempered groups that do not divide over the chain shards
+    (ValueError, as JAX), campaigns that do not divide over a campaign axis
+    (ValueError, as JAX), a mesh whose items axis is not named by item_axis
+    (ValueError: it would run the same chains on each of its ranks), and a
+    respondent axis the mesh does not have (ValueError, as JAX); a sampler
+    other than the conjugate one, ESS theta under tempering
+    (NotImplementedError, as JAX), and a resume across item-shard counts
+    (NotImplementedError naming the argument). The affine moves, which JAX
+    refuses on no mesh, run on the 2 x 2 chains x items mesh: their
+    gathered draws alike on every rank (the replication canary runs inside).
+    ESS theta, tempering and the campaigns run on a mesh too:
+    test_torch_mesh_jax.py and test_torch_mesh_tempering.py."""
     _, ranks = world
+    if w.REFUSALS[case] is None:  # runs now: its draws alike on every rank
+        w.check_runs(ranks, case, (K, 6, 1, n))
+        return
     for z in ranks:
         got = str(z[f"refusal_{case}"])
         assert got.startswith(w.REFUSALS[case] + ":"), got
-    names = {"n_temps": "n_temps", "respondent_axis": "respondent_axis",
-             "campaign_mesh": "mesh", "resume_other_item_count": "item_axis",
-             "resume_without_mesh": "item_axis", "theta_ess": "theta_method",
-             "affine": "affine", "non_conjugate": "conjugate",
+    names = {"n_temps": "do not divide over 2 chain shards",
+             "respondent_axis": "respondent_axis",
+             "campaign_mesh": "campaigns do not divide",
+             "resume_other_item_count": "item_axis",
+             "resume_without_mesh": "item_axis",
+             "theta_ess": "tempering needs theta_method='grid'",
+             "non_conjugate": "conjugate",
              "uneven_m": "items", "chains_indivisible": "chains",
              "item_axis_not_named": "'items' is neither the chain axis"}
     assert names[case] in str(ranks[0][f"refusal_{case}"])
