@@ -26,7 +26,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
      ESS and by Newton-proposal MH, and once more with the card fed the
      CPU's z draw; prints the cells that set the z and f* differences;
   8. SDO path: the ordinal survey (1500 respondents x 16 items, C = 5)
-     through gpirt_mcmc with 64 chains, burn 200 and 500 draws, f* stored;
+     through gpirt_mcmc with 64 chains, burn 100 and 250 draws, f* stored;
      checked for finite ll and f*, ordered cutpoints that moved, and no
      binary kernel launch; prints the sweep rate, theta ESS and ESS per
      second, the ESS rounds per cutpoint update and the host syncs a sweep;
@@ -204,7 +204,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
      kernel at rank 0's state against its plain version, timed, with its
      bound;
  40. the 2 x 2 chains x items mesh: phase 39's checks on 4 ranks, 32 x 209
-     lanes, its burn and draws cut to 50 and 250;
+     lanes, at phase 5's burn 100 and 500 draws;
  41. chain mesh: one sweep of a 32-chain block of the main path's last
      state against the 64-chain sweep (bit for bit, or held as phase 38),
      phase 5's call on a 2-rank chain mesh checkpointed every 100 sweeps and
@@ -224,8 +224,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
      forms; no kernel launch (under a respondent axis the cutpoint ESS runs
      its plain round loop, each round's lane totals all-reduced, as JAX
      leaves its kernel there);
- 43. respondent-sharded main path: phase 5's call at phase 40's burn 50
-     and 250 draws with mesh=make_respondent_mesh(2),
+ 43. respondent-sharded main path: phase 5's call at burn 25 and 125
+     draws with mesh=make_respondent_mesh(2),
      respondent_axis="respondents" (64 chains x 50 respondents a rank): finite, no kernel launch, theta, beta and the
      cutpoints the same on both ranks; its sign-aligned posterior theta
      means' r with phase 5's printed, not gated: senate116's 64-chain SMC
@@ -249,7 +249,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
      beside phase 16's and the all_reduce sites;
  45. the 2 x 2 items x respondents mesh: phase 43's checks on 4 ranks, the
      theta table's all_reduce over the item group and the sufficient
-     statistics' over the respondent group, at phase 40's burn and draws;
+     statistics' over the respondent group, at phase 43's burn and draws;
  46. ESS theta and the affine moves on 2 item shards: phase 38's sweep
      with theta by ESS and with the affine moves (phase 29's W = 16, 2
      rounds) against the unsharded one, theta equal in at least 62 of 64
@@ -261,16 +261,33 @@ Phases, each of which stops the run with a non-zero exit on failure:
      rates hash to phase 19's, one launch a sweep a rank, the kernel at a
      rank's state (timed, its bound);
  48. phase 20's campaigns8 on a 2-rank campaign mesh: the same on both
-     ranks, bit for bit phase 20's (or, where the card rounds a campaign's
-     batched products otherwise in the smaller batch, printed, with the
-     grand mean at r >= 0.99 with phase 20's), phase 22's agreement rule;
+     ranks and bit for bit phase 20's call in every field of the result
+     (no lane's draws depend on its batch, phase 51), phase 22's agreement
+     rule; whether the one-process reference at the ranks' batch agrees is
+     printed;
  49. phase 19's tempering on the 2 x 2 items x respondents mesh: continued
      from phase 19's last lane states (phase 32's checkpoint) for 100
      draws, the cold chains' means at r >= 0.999 with phase 19's; theta,
      beta, the cutpoints, f* and the swaps alike on the model shards; no
      launch; then its call from scratch at burn 20, 80 draws, its r and
-     swap rates printed, not gated, and its all_reduce sites.
-Phases 38, 39, 41, 42-44 and 46-48 run as the stages of one world of 2
+     swap rates printed, not gated, and its all_reduce sites;
+ 50. resume across shard counts: phase 5's configuration continued from
+     its last state on 2 item shards (burn 50, 150 draws, a checkpoint
+     every 50 sweeps), interrupted after sweep 100 and resumed without a
+     mesh (twice, in this process) and on 2 respondent shards
+     (utils/checkpoint.py's stream rule): each resume begins with the
+     file's draws bit for bit, the resume without a mesh is bit for bit
+     the unsharded driver fed the file's state and generator, two resumes
+     agree, the respondent resume is the same on both ranks, and each
+     resume's posterior theta means reach r >= 0.999 with the
+     uninterrupted 2-shard run's; the kernel launches on the item shards
+     and without a mesh, not under the respondent axis;
+ 51. a sweep's lanes against its batch: one sweep of campaigns8's 512
+     lanes and the same lanes in batches of 64, block by block (theta, z,
+     f*, beta, the cutpoints, ll, SMC's reweight ll) and whole, plain, at
+     T = 4, at a temperature a lane and with the kernel's cutpoint update:
+     every block bit for bit.
+Phases 38, 39, 41, 42-44, 46-48 and 50 run as the stages of one world of 2
 ranks (a rank's start costs seconds on the card's machine), phases 40, 45
 and 49 in one of 4; the ranks start by the spawn method, each phase must end within 400
 seconds, and a rank that fails ends the run.
@@ -288,6 +305,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -327,7 +345,7 @@ from gpirt_tpu_torch.models.sampler import (  # noqa: E402
 )
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
-from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds  # noqa: E402
+from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds, ordinal_ll_terms  # noqa: E402
 from gpirt_tpu_torch.parallel.chains import (  # noqa: E402
     Shards,
     lane_state_block,
@@ -351,6 +369,7 @@ from gpirt_tpu_torch.parallel.respondents import (  # noqa: E402
     make_respondent_mesh,
     shard_inputs,
 )
+from gpirt_tpu_torch.parallel import smc  # noqa: E402
 from gpirt_tpu_torch.parallel.smc import WARM_STEPS, lane_block  # noqa: E402
 from gpirt_tpu_torch.parallel.tempering import (  # noqa: E402
     advance_tempered,
@@ -362,7 +381,10 @@ from gpirt_tpu_torch.utils.datasets import (  # noqa: E402
     simulate_2pl,
     simulate_dynamic,
 )
-from gpirt_tpu_torch.utils.checkpoint import CheckpointManager  # noqa: E402
+from gpirt_tpu_torch.utils.checkpoint import (  # noqa: E402
+    CheckpointManager,
+    run_chains_checkpointed,
+)
 from gpirt_tpu_torch.utils.diagnostics import (  # noqa: E402
     align_theta_signs,
     effective_sample_size,
@@ -378,7 +400,9 @@ from gpirt_tpu_torch.utils.response import (  # noqa: E402
 )
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
-SDO_BURN, SDO_DRAWS = 200, 500
+# phase 8's depth, cut from bench.py's burn 200 and 500 draws to fit the
+# time limit (its checks read no posterior)
+SDO_BURN, SDO_DRAWS = 100, 250
 # bench.py::bench_dynamic's data, regime and run lengths
 DYN_N, DYN_M, DYN_H, DYN_LS, DYN_BURN, DYN_DRAWS = 150, 60, 10, 2.0, 100, 300
 DYN_VOTES = {"yea": 1, "nay": 0, "missing": None}
@@ -2440,8 +2464,10 @@ def sdo_example_agreement(out, fixture=EXAMPLES_FIXTURE):
 # posterior theta means are held to phase 5's at r >= MESH_MIN_R; the theta
 # table's all_reduce is timed inside the run (TimedAllReduce).
 ITEM_SHARDS, RANK_TIMEOUT, MESH_MIN_R = 2, 400, 0.999
-# phase 40's burn and draws, cut from phase 5's to fit phases 38-41 in 150 s
-MESH_BURN, MESH_DRAWS = 50, 250
+# phases 43 and 45's calls' burn and draws (their r with phase 5's means is
+# printed, not gated: their gate is the continuation from phase 5's last
+# state), cut from phase 5's to fit the time limit
+MESH_BURN, MESH_DRAWS = 25, 125
 # Phases 42-45: respondent sharding (parallel/respondents.py) over
 # RESP_SHARDS ranks: phase 42's affine sweep at phase 29's W and rounds;
 # phase 44's synthetic run (phase 16's size) held to phase 16's sign-aligned
@@ -2462,6 +2488,13 @@ BASIN_SEEDS, BASIN_DRAWS, BASIN_R = tuple(range(1, 9)), 200, 0.99
 # phase 44's run, cut from phase 16's burn 30 and 150 draws to fit phases
 # 46-49 in the time limit (its memory reading and its r gate stay)
 SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=10, draws=40)
+
+# Phase 50: phase 5's configuration continued from its last state on 2 item
+# shards, RC_BURN burn and RC_DRAWS draws, a checkpoint every RC_EVERY sweeps,
+# interrupted after sweep RC_CUT and resumed on no mesh and on 2 respondent
+# shards (utils/checkpoint.py's stream rule); its posterior theta means held
+# to the uninterrupted 2-shard run's at r >= MESH_MIN_R
+RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT = 50, 150, 50, 100
 
 # the function of the sweep (or the SMC reweight) that asks for each
 # all_reduce, and the name a respondent phase prints it under
@@ -2856,14 +2889,14 @@ def item_mesh_report(rm, dev, smi, want_means, ranks, n_item, n_chain, burn, dra
     return res
 
 
-def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAWS,
+def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=BURN, draws=DRAWS,
              smc_steps=SMC_STEPS, phases=(40,), rates=None, state=None, tempered=None,
-             mesh2=(MESH2_BURN, MESH2_DRAWS)):
+             mesh2=(MESH2_BURN, MESH2_DRAWS), resp_size=(MESH_BURN, MESH_DRAWS)):
     """Phases 40, 45 and 49 as the stages of one world of 4 ranks
     (``phases``, each checked here): phase 40, :func:`item_mesh_report` of
-    phase 5's call on a 2 x 2 chains x items mesh, and phase 45,
-    :func:`resp_mesh_report` of it on a 2 x 2 items x respondents mesh,
-    both at ``burn`` and ``draws``; ``rates`` the sweep rates phase 45
+    phase 5's call on a 2 x 2 chains x items mesh at ``burn`` and
+    ``draws``, and phase 45, :func:`resp_mesh_report` of it on a 2 x 2
+    items x respondents mesh at ``resp_size`` (burn, draws); ``rates`` the sweep rates phase 45
     prints beside its own, ``state`` the main path's last state its
     continuation starts from; phase 49, :func:`tempered_mesh_report` of
     phase 19's tempering on the items x respondents mesh, ``tempered``
@@ -2877,7 +2910,7 @@ def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAW
             os.makedirs(os.path.join(tmp, "pt"))
             pt_path = state_file(rm, dev, tempered["lanes"], os.path.join(tmp, "pt"))
         specs = {40: (item_mesh_rank, (rm, 2, 2, burn, draws, smc_steps, chains)),
-                 45: (resp_mesh_rank, (rm, 2, burn, draws, smc_steps, chains, path,
+                 45: (resp_mesh_rank, (rm, 2, *resp_size, smc_steps, chains, path,
                                        CONT_DRAWS)),
                  49: (tempered_mesh_rank, (rm, pt_path, CONT_DRAWS, chains) + tuple(mesh2))}
         started = time.time()
@@ -2891,7 +2924,7 @@ def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=MESH_BURN, draws=MESH_DRAW
                                        burn, draws, smc_steps, "40", chains)
         if 45 in phases:
             out[45] = resp_mesh_report(rm, dev, smi, want_means, [r[45] for r in ranks], 2,
-                                       burn, draws, smc_steps, "45", rates or {}, chains,
+                                       *resp_size, smc_steps, "45", rates or {}, chains,
                                        path)
         if 49 in phases:
             out[49] = tempered_mesh_report(rm, dev, smi, [r[49] for r in ranks],
@@ -3144,6 +3177,139 @@ def resp_mesh_rank(device, rm, n_item, burn, draws, smc_steps, chains, state_pat
             "finite": bool(all(np.isfinite(d["ll"]).all() and np.isfinite(d["theta"]).all()
                                for d in out)),
             "stamps": (entered, ran, time.time())}
+
+
+def resume_counts_run(dev, rm, state_path, rc, path=None, draws=None, mesh=None, axes=None,
+                      start=True):
+    """Phase 50's run: phase 5's configuration from the state in
+    ``state_path`` (with its constants; this rank's block of it on
+    ``mesh``, whose item and respondent axes are ``axes``) for ``rc``'s
+    (burn, draws, every, cut) burn and draws (or ``draws``), checkpointed
+    to ``path`` every ``every`` sweeps (a file there is resumed, and the
+    state is not read), the kernel's launches counted from 0. Returns
+    (run_chains_checkpointed's host draws, the launches)."""
+    burn, n_draws, every, _ = rc
+    y, cfg, _ = main_config(rm, dev, build=False)
+    saved = torch.load(state_path, map_location=dev)
+    state = gibbs.GPIRTState(*saved["state"])
+    consts = GPIRTConstants(**saved["consts"])
+    K = state.theta_idx.shape[0]
+    sharding = {} if mesh is None else dict(mesh=mesh, item_axis=axes[0],
+                                            respondent_axis=axes[1])
+    if mesh is not None:
+        state = lane_state_block(state, mesh, *axes)
+    thr = torch.as_tensor(default_thresholds(cfg.C, cfg.m, cfg.horizon), dtype=cfg.tdtype,
+                          device=dev)  # unread: the run starts from ``state``
+    threshold_ess.binary_threshold_ess.launches = 0
+    out = run_chains_checkpointed(
+        torch.Generator(device=dev).manual_seed(SEED + 2), y,
+        torch.zeros(K, cfg.horizon, cfg.n, device=dev), thr, consts, cfg,
+        sample_iterations=n_draws if draws is None else draws, burn_iterations=burn,
+        manager=None if path is None else CheckpointManager(path), checkpoint_every=every,
+        initial_states=state if start else None, **sharding)
+    return out, threshold_ess.binary_threshold_ess.launches
+
+
+def resume_counts_rank(device, rm, state_path, tmp, rc=(RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT)):
+    """Phase 50 on one rank (``rc`` its (burn, draws, every, cut)): the
+    uninterrupted run on 2 item shards, the same run interrupted after
+    sweep ``cut`` (its file ``rc_cut.npz`` in ``tmp``, copied for the
+    resumes: "rc_a1" and "rc_a2" for the parent's, "rc_b" for this
+    world's), and its resume on 2 respondent shards. Returns the posterior
+    theta means, the launches of each run, whether the resumed draws begin
+    with the file's, and the resumed draws' sha256."""
+    entered = time.time()
+    burn, _, _, cut_at = rc
+    dev = _rank_device(device)
+    items = make_item_mesh(ITEM_SHARDS, device=dev.type)
+    resp = make_respondent_mesh(RESP_SHARDS, device=dev.type)
+    full, l_full = resume_counts_run(dev, rm, state_path, rc, mesh=items, axes=("items", None))
+    cut = os.path.join(tmp, "rc_cut.npz")
+    _, l_cut = resume_counts_run(dev, rm, state_path, rc, cut, cut_at - burn, items,
+                                 ("items", None))
+    if dist.get_rank() == 0:
+        for tag in ("a1", "a2", "b"):
+            shutil.copy(cut, os.path.join(tmp, f"rc_{tag}.npz"))
+    _barrier()
+    res, l_resp = resume_counts_run(dev, rm, state_path, rc, os.path.join(tmp, "rc_b.npz"),
+                                    mesh=resp, axes=(None, "respondents"), start=False)
+    kept = CheckpointManager(cut).load().draws
+    return {"rank": dist.get_rank(), "launches": {"items2": l_full, "items2_cut": l_cut,
+                                                   "resp2_resumed": l_resp},
+            "means_full": run_means(torch.as_tensor(full["theta"])),
+            "means_resp": run_means(torch.as_tensor(res["theta"])),
+            "prefix_resp": all(np.array_equal(res[k][:, :cut_at - burn], v)
+                               for k, v in kept.items()),
+            "sha_resp": draws_sha256_host(res), "stamps": (entered, time.time())}
+
+
+def draws_sha256_host(draws):
+    """The sha256 of a driver's host draws (theta, beta, threshold, ll)."""
+    h = hashlib.sha256()
+    for k in ("theta", "beta", "threshold", "ll"):
+        h.update(np.ascontiguousarray(draws[k]).tobytes())
+    return h.hexdigest()
+
+
+def resume_counts_report(rm, dev, smi, ranks, tmp, state_path,
+                         rc=(RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT)):
+    """Phase 50's parent side: the file cut on 2 item shards resumed here
+    twice without a mesh (each its own copy), against the unsharded driver
+    run by hand from the file's state and generator state; then every gate:
+    the resumed draws begin with the file's, the resume is the hand-run
+    driver bit for bit, two resumes agree, the ranks agree, the kernel ran
+    on the item shards and without a mesh (a card's launches; the CPU runs
+    the plain version) and not under the respondent axis, and each
+    resume's posterior theta means reach r >= MESH_MIN_R with the
+    uninterrupted 2-shard run's. Returns the numbers for the kernels line."""
+    t = time.perf_counter()
+    burn, n_draws, every, cut_at = rc
+    ck = CheckpointManager(os.path.join(tmp, "rc_cut.npz")).load(device=dev)
+    a1, l_a = resume_counts_run(dev, rm, state_path, rc, os.path.join(tmp, "rc_a1.npz"),
+                                start=False)
+    a2, _ = resume_counts_run(dev, rm, state_path, rc, os.path.join(tmp, "rc_a2.npz"),
+                              start=False)
+    y, cfg, _ = main_config(rm, dev, build=False)
+    consts = GPIRTConstants(**torch.load(state_path, map_location=dev)["consts"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    gen.set_state(torch.from_numpy(ck.rng_state))
+    fed = advance_chains(gen, Carry(ck.state), y, consts, cfg,
+                         sample_schedule(n_draws, burn, 1), int(ck.meta["iteration"]),
+                         burn + n_draws)
+    kept = cut_at - burn
+    card = dev.type == "cuda"
+    for r in ranks:
+        check(r["prefix_resp"], f"phase 50, rank {r['rank']}: the resume on 2 respondent "
+              "shards does not begin with the file's draws")
+        check(r["sha_resp"] == ranks[0]["sha_resp"], "phase 50: the ranks' resumes differ")
+        check((r["launches"]["items2"] > 0) == card and r["launches"]["resp2_resumed"] == 0,
+              f"phase 50, rank {r['rank']}: launches {r['launches']}")
+    for k in ("theta", "beta", "threshold", "ll"):
+        check(np.array_equal(a1[k][:, :kept], ck.draws[k]),
+              f"phase 50: the resume without a mesh does not begin with the file's {k}")
+        check(np.array_equal(a1[k][:, kept:], fed[k].cpu().numpy()),
+              f"phase 50: the resume without a mesh is not the unsharded driver fed the "
+              f"file's state and generator ({k})")
+        check(np.array_equal(a1[k], a2[k]), f"phase 50: two resumes of one file differ ({k})")
+    full = ranks[0]["means_full"]
+    r_a = signed_r(run_means(torch.as_tensor(a1["theta"])), full)
+    r_b = signed_r(ranks[0]["means_resp"], full)
+    check(min(r_a, r_b) >= MESH_MIN_R, f"phase 50: r {r_a:.6f} (no mesh), {r_b:.6f} (2 "
+          f"respondent shards) against the uninterrupted 2-shard run, gate {MESH_MIN_R}")
+    check(l_a == (burn + n_draws - cut_at if card else 0),
+          f"phase 50: {l_a} launches in the resume without a mesh")
+    log(f"phase 50 on {smi}: phase 5's configuration continued from its last state on "
+        f"{ITEM_SHARDS} item shards, burn {burn} and {n_draws} draws, a checkpoint every "
+        f"{every} sweeps, interrupted after sweep {cut_at}; the resume without a mesh "
+        f"begins with the file's {kept} draws, is bit for bit the unsharded driver fed "
+        "the file's state and generator, and two resumes of the file agree; the resume "
+        f"on {RESP_SHARDS} respondent shards begins with the file's draws, the same on "
+        "both ranks; theta means r against the uninterrupted 2-shard run "
+        f"{r_a:.6f} (no mesh), {r_b:.6f} (respondent shards); kernel launches by rank "
+        + ", ".join(f"{r['launches']}" for r in ranks) + f", {l_a} in the resume without "
+        f"a mesh; {time.perf_counter() - t:.2f} s here")
+    return {"launches": [r["launches"] for r in ranks], "launches_resumed_alone": l_a,
+            "r_no_mesh": r_a, "r_resp2": r_b}
 
 
 def continuation(dev, rm, state_path, draws, mesh=None, item_axis=None):
@@ -3571,6 +3737,130 @@ def campaign_blocks_reference(rm, dev, world=ITEM_SHARDS, **schedule):
     return out
 
 
+# One conjugate sweep (one latent pass, no affine moves or shift), block by
+# block as gibbs_sweep runs it, and SMC's reweight ll of its result: each
+# block a function of the environment of the blocks before it.
+SWEEP_BLOCKS = (
+    ("mu_star", lambda e: gibbs.compute_mu_star(e["consts"], e["state"].beta)),
+    ("theta", lambda e: gibbs.draw_theta(e["state"], e["mu_star"], e["y"], e["consts"],
+                                         e["cfg"], e["draws"].u_theta, e["temp"])),
+    ("f_at_theta", lambda e: gibbs._rows(e["state"].fstar, e["theta"])),
+    ("mu", lambda e: gibbs.compute_mu(gibbs.theta_from_indices(e["theta"], e["consts"]),
+                                      e["state"].beta)),
+    ("z", lambda e: gibbs.draw_z_truncnorm(e["f_at_theta"] + e["mu"], e["y"],
+                                           e["state"].thresholds, e["draws"].u_z,
+                                           e["temp"])),
+    ("fstar", lambda e: gibbs.draw_fstar_conjugate(
+        e["state"]._replace(theta_idx=e["theta"], f=e["f_at_theta"]), e["z"] - e["mu"],
+        e["cfg"], e["consts"], e["draws"].z_q, e["draws"].z_p, e["draws"].z_n,
+        e["draws"].eps_f, e["temp"])),
+    ("beta", lambda e: gibbs.draw_beta_conjugate(
+        gibbs.theta_from_indices(e["theta"], e["consts"]), e["z"] - e["fstar"][1],
+        e["consts"], e["cfg"], e["draws"].zeta, e["temp"])),
+    ("mu_beta", lambda e: gibbs.compute_mu(gibbs.theta_from_indices(e["theta"], e["consts"]),
+                                           e["beta"])),
+    ("cutpoints", lambda e: gibbs._draw_cutpoints(e["state"].thresholds, e["fstar"][1],
+                                                  e["mu_beta"], e["y"], e["cfg"],
+                                                  e["draws"].cut, e["temp"])),
+    ("ll", lambda e: ordinal_ll_terms(
+        e["fstar"][1] + e["mu_beta"], e["y"], e["cutpoints"],
+        gibbs._per_chain(gibbs._temp_scales(e["temp"])[1], 4)).sum(dim=(-3, -2, -1))),
+    ("smc_ll", lambda e: smc._lane_ll(gibbs.GPIRTState(
+        e["theta"], e["fstar"][1], e["beta"], e["cutpoints"], e["fstar"][0]),
+        1.0 if e["temp"] is None else e["temp"], e["y"], e["consts"])),
+)
+
+
+def _lanes_cut(v, lanes, L):
+    """``v`` of a sweep's environment cut to the lanes ``lanes`` of ``L``:
+    a state or a tensor with L leading rows, a draws tuple along its lane
+    axes (``lane_block``); anything else as it is."""
+    if isinstance(v, gibbs.GPIRTState):
+        return gibbs.GPIRTState(*(_lanes_cut(a, lanes, L) for a in v))
+    if isinstance(v, tuple) and not hasattr(v, "_fields"):
+        return tuple(_lanes_cut(a, lanes, L) for a in v)
+    if isinstance(v, tuple):
+        return lane_block(v, lanes)
+    if torch.is_tensor(v) and v.ndim and v.shape[0] == L:
+        return v[lanes]
+    return v
+
+
+def _outputs_apart(got, want):
+    """The largest absolute difference of two block outputs (a tensor or a
+    tuple of them), 0.0 when every element is equal bit for bit (NaNs
+    equal where both are NaN)."""
+    if isinstance(want, tuple):
+        return max(_outputs_apart(g, w) for g, w in zip(got, want))
+    if torch.equal(got, want):
+        return 0.0
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    d = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+
+def sweep_blocks(state, draws, y, consts, cfg, temp=None, lanes=None, whole=None):
+    """The environment of :data:`SWEEP_BLOCKS` run on ``state``: each
+    block's output by name. With ``lanes`` (a slice) and ``whole`` (the
+    environment of all L lanes) every block reads ``whole``'s inputs cut to
+    those lanes instead of its own blocks' outputs, so that each block is
+    compared on the same inputs."""
+    env = dict(state=state, draws=draws, y=y, consts=consts, cfg=cfg, temp=temp)
+    if whole is not None:
+        L = state.theta_idx.shape[0]
+        env = {k: _lanes_cut(v, lanes, L) for k, v in whole.items()}
+    for name, fn in SWEEP_BLOCKS:
+        got = fn(env)
+        if whole is None:
+            env[name] = got
+        else:
+            env.setdefault("_out", {})[name] = got
+    return env
+
+
+def sweep_block_check(prob, lanes, chunk, burn=3):
+    """Phase 51's check: one conjugate sweep of campaigns8's problem
+    ``prob`` (``campaigns._problem``) on ``lanes`` lanes after ``burn``
+    sweeps from the prior, plain, at one temperature and at one a lane
+    (with ``prob``'s cutpoint update), and plain with the binary cutpoint
+    ESS (the kernel's update), block by block on all lanes and on batches of ``chunk`` lanes fed the
+    same inputs (:func:`sweep_blocks`), and the whole sweep on each batch
+    fed its lanes of the numbers. Returns {label: {block: the largest
+    difference from the whole call's lanes, 0.0 bit for bit}}."""
+    y, consts, cfg = prob.y, prob.consts, prob.config
+    dev = y.device
+    gen = torch.Generator(device=dev).manual_seed(prob.seed)
+    th = prob.theta_init.repeat(lanes // prob.theta_init.shape[0], 1, 1)
+    state = gibbs.init_state(th, prob.thresholds, consts, cfg,
+                             gibbs.init_draws(gen, lanes, consts, cfg))
+    for it in range(burn):
+        state, _ = gibbs.gibbs_sweep(state, gibbs.sweep_draws(gen, lanes, consts, cfg, it),
+                                     y, consts, cfg)
+    ladder_l = ladder(PT_TEMPS, PT_MAX_TEMP, dev).to(cfg.tdtype).repeat(lanes // PT_TEMPS)
+    ess = dataclasses.replace(cfg, threshold_method="ess")  # the kernel's cutpoint update
+    out = {}
+    for label, cfg, temp in (("T=1", cfg, None), ("T=4", cfg, 4.0),
+                             ("T a lane", cfg, ladder_l), ("T=1, ESS cutpoints", ess, None)):
+        draws = gibbs.sweep_draws(gen, lanes, consts, cfg, burn)
+        whole = sweep_blocks(state, draws, y, consts, cfg, temp)
+        apart = {name: 0.0 for name, _ in SWEEP_BLOCKS}
+        apart["sweep"] = 0.0
+        sw_state, sw_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg, temp, burn)
+        for lo in range(0, lanes, chunk):
+            sl = slice(lo, lo + chunk)
+            part = sweep_blocks(state, draws, y, consts, cfg, temp, sl, whole)["_out"]
+            for name, _ in SWEEP_BLOCKS:
+                apart[name] = max(apart[name],
+                                  _outputs_apart(part[name], _lanes_cut(whole[name], sl,
+                                                                        lanes)))
+            st, ll = gibbs.gibbs_sweep(_lanes_cut(state, sl, lanes), lane_block(draws, sl),
+                                       y, consts, cfg, _lanes_cut(temp, sl, lanes), burn)
+            apart["sweep"] = max(apart["sweep"], _outputs_apart(
+                tuple(st) + (ll,), tuple(_lanes_cut(sw_state, sl, lanes)) + (sw_ll[sl],)))
+        out[label] = apart
+    return out
+
+
 def campaign_mesh_rank(device, rm, schedule):
     """Phase 48 on one rank: phase 20's campaigns8 call on a campaign mesh
     over the world, its launches counted from 0."""
@@ -3588,14 +3878,31 @@ def campaign_mesh_rank(device, rm, schedule):
     return res
 
 
+def _campaign_differences(got, other):
+    """The fields of two campaigns8 results that differ, and a line on how:
+    the campaigns whose means agree, each campaign's largest difference,
+    the final weight ESS and the resample counts."""
+    differ = [k for k in CAMPAIGN_FIELDS if not np.array_equal(got[k], np.asarray(other[k]))]
+    cm = np.asarray(other["campaign_means"])
+    line = (f"{differ} differ; campaign means equal in campaigns "
+            f"{[i for i in range(CAMPAIGNS) if np.array_equal(got['campaign_means'][i], cm[i])]}"
+            f", largest difference a campaign "
+            f"{np.abs(got['campaign_means'] - cm).reshape(CAMPAIGNS, -1).max(1).tolist()}"
+            f"; final weight ESS {np.asarray(got['final_weight_ess']).tolist()} against "
+            f"{np.asarray(other['final_weight_ess']).tolist()}; resamples "
+            f"{np.asarray(got['n_resamples']).tolist()} against "
+            f"{np.asarray(other['n_resamples']).tolist()}")
+    return differ, line
+
+
 def campaign_mesh_check(smi, ranks, ref, want, world=ITEM_SHARDS):
     """Phase 48: phase 20's campaigns8 on a ``world``-rank campaign mesh
     (``ranks``' results): every field the same on every rank and bit for
-    bit the one-process reference at the ranks' batch (``ref``,
-    :func:`campaign_blocks_reference`'s), no kernel launch (Newton
-    cutpoints), and phase 22's agreement with the JAX package. Beside it
-    is printed how far it is from phase 20's run (``want``), whose batch of
-    CAMPAIGNS campaigns the card may round otherwise (PERF.md §6).
+    bit phase 20's call of all CAMPAIGNS campaigns in one batch (``want``):
+    no lane's draws depend on how the lanes are batched. No kernel launch
+    (Newton cutpoints), and phase 22's agreement with the JAX package.
+    Beside it is printed whether the one-process reference at the ranks'
+    batch (``ref``, :func:`campaign_blocks_reference`'s) agrees too.
     Returns the numbers for the kernels line."""
     for r in ranks:
         for k in CAMPAIGN_FIELDS:
@@ -3603,41 +3910,44 @@ def campaign_mesh_check(smi, ranks, ref, want, world=ITEM_SHARDS):
                   f"phase 48: {k} differs between ranks 0 and {r['rank']}")
         check(r["launches"] == 0, f"phase 48, rank {r['rank']}: {r['launches']} launches")
     got = ranks[0]
-    differ = [k for k in CAMPAIGN_FIELDS if not np.array_equal(got[k], np.asarray(ref[k]))]
+    differ, line = _campaign_differences(got, want)
     if differ:
-        cm_ref = np.asarray(ref["campaign_means"])
-        log(f"phase 48 against its reference: {differ} differ; campaign means equal in "
-            "campaigns "
-            f"{[i for i in range(CAMPAIGNS) if np.array_equal(got['campaign_means'][i], cm_ref[i])]}"
-            f", largest difference a campaign "
-            f"{np.abs(got['campaign_means'] - cm_ref).reshape(CAMPAIGNS, -1).max(1).tolist()}"
-            f"; final weight ESS {got['final_weight_ess'].tolist()} against "
-            f"{np.asarray(ref['final_weight_ess']).tolist()}; resamples "
-            f"{got['n_resamples'].tolist()} against {np.asarray(ref['n_resamples']).tolist()}")
-    check(not differ, f"phase 48: {differ} differ from the one-process reference at the "
-          "ranks' batch")
-    alike = [bool(np.array_equal(a, b)) for a, b in zip(got["campaign_means"],
-                                                        np.asarray(want["campaign_means"]))]
-    bitwise = all(np.array_equal(got[k], np.asarray(want[k])) for k in CAMPAIGN_FIELDS)
-    r20 = signed_r(got["theta_mean"][:, 0], np.asarray(want["theta_mean"])[:, 0])
+        log(f"phase 48 against phase 20's batch of all {CAMPAIGNS}: {line}")
+    check(not differ, f"phase 48: {differ} differ from phase 20's call")
+    ref_differ, ref_line = _campaign_differences(got, ref)
     r_jax, worst_z, within = campaign_agreement(got)
     walls = got["walls"]
     log(f"phase 48 on {smi}: campaigns8 on a campaign mesh of {world} ranks, "
         f"{CAMPAIGNS // world} campaigns a rank: the same on every rank, and every field "
-        "bit for bit the one-process reference at the ranks' batch; against phase 20's "
-        "batch of all " + (f"{CAMPAIGNS}: bit for bit" if bitwise else
-                            f"{CAMPAIGNS}: campaign means equal in campaigns "
-                            f"{[i for i, a in enumerate(alike) if a]}, final weight ESS "
-                            f"{np.round(got['final_weight_ess'], 3).tolist()} against "
-                            f"{np.round(np.asarray(want['final_weight_ess']), 3).tolist()}, "
-                            f"grand mean r {r20:.6f}")
+        f"bit for bit phase 20's batch of all {CAMPAIGNS}; the one-process reference at the "
+        "ranks' batch " + ("agrees bit for bit" if not ref_differ else ref_line)
         + f"; 0 kernel launches; batch wall {walls['total_sec']:.3f} s (smc "
         f"{walls['smc_sec']:.3f}, sampling {walls['sampling_sec']:.3f}; phase 20 "
         f"{want['walls']['total_sec']:.3f}); the JAX agreement r {r_jax:.5f}, {within} "
         "within |z| <= 4")
     return {"launches": [r["launches"] for r in ranks], "wall_s": walls["total_sec"],
-            "r_jax": r_jax, "bitwise": bitwise, "campaigns_alike": sum(alike),
-            "r_phase20": r20}
+            "r_jax": r_jax, "bitwise": True, "reference_bitwise": not ref_differ}
+
+
+def batch_invariance_phase(rm, dev, smi, chains=K, chunk=K):
+    """Phase 51: one sweep of campaigns8's CAMPAIGNS x ``chains`` lanes
+    (phase 20's problem and seed) against the same lanes in batches of
+    ``chunk``, block by block and whole (:func:`sweep_block_check`): plain,
+    at one temperature, at one a lane, and with the kernel's cutpoint
+    update. Every block must agree bit for bit. Returns the labels checked
+    and the number of blocks."""
+    lanes = CAMPAIGNS * chains
+    prob = campaigns._problem(np.asarray(rm), CAMPAIGNS, SEED=CAMPAIGN_SEED, n_chains=chains,
+                              vote_codes=None, device=dev)
+    res = sweep_block_check(prob, lanes, chunk)
+    apart = {label: {k: v for k, v in r.items() if v} for label, r in res.items()}
+    apart = {k: v for k, v in apart.items() if v}
+    check(not apart, f"phase 51: blocks of a sweep differ across batch sizes: {apart}")
+    blocks = len(SWEEP_BLOCKS) + 1
+    log(f"phase 51 on {smi}: one sweep of campaigns8's {lanes} lanes against batches of "
+        f"{chunk}: all {blocks} blocks (" + ", ".join(name for name, _ in SWEEP_BLOCKS)
+        + ", the whole sweep) bit for bit in each of " + "; ".join(res))
+    return {"labels": list(res), "blocks": blocks}
 
 
 def tempered_continuation(dev, rm, state_path, draws, mesh=None):
@@ -3778,8 +4088,8 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
                     draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY,
                     phases=(38, 39, 41), resp=None, later=None, mesh_burn=MESH_BURN,
                     mesh_draws=MESH_DRAWS, mesh2=(MESH2_BURN, MESH2_DRAWS),
-                    pt=(PT_BURN, PT_DRAWS)):
-    """Phases 38, 39, 41, 42-44 and 46-48 (``phases``) as the stages of one
+                    pt=(PT_BURN, PT_DRAWS), rc=(RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT)):
+    """Phases 38, 39, 41, 42-44, 46-48 and 50 (``phases``) as the stages of one
     world of 2 ranks sharing the card, each with its own timeout
     (RANK_TIMEOUT), then each checked here. ``resp`` gives the respondent
     phases what they are held to and print beside their own: "rates"
@@ -3788,14 +4098,15 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
     ``mesh_draws``. ``later`` gives phases 47-48 theirs: "pt_sha" (phase
     19's), "camp20" (phase 20's result), "camp_ref" (phase 48's reference,
     :func:`campaign_blocks_reference`) and "schedule" (their overrides);
-    phase 46's call runs at ``mesh2`` (burn, draws) and phase 47 at ``pt``.
+    phase 46's call runs at ``mesh2`` (burn, draws), phase 47 at ``pt`` and
+    phase 50 at ``rc`` (burn, draws, every, cut).
     Returns {phase: its numbers}: 38's (worst, flipped), 39's, 41's, 42's
-    differences, 43's, 44's, 46's, 47's and 48's."""
+    differences, 43's, 44's, 46's, 47's, 48's and 50's."""
     resp, later = resp or {}, later or {}
     with _temporary_dir() as tmp:
         # phases 38, 42, 43 and 46 read the state and constants from one file
         path, inputs = (sharded_sweep_inputs(rm, dev, state, tmp)
-                        if {38, 42, 43, 46} & set(phases) else (None, None))
+                        if {38, 42, 43, 46, 50} & set(phases) else (None, None))
         resp_inputs = resp_sweep_inputs(rm, dev, state) if 42 in phases else None
         item_inputs_46 = item_option_inputs(rm, dev, state) if 46 in phases else None
         ck_path = os.path.join(tmp, "cut")
@@ -3808,7 +4119,8 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
                  44: (resp_synthetic_rank, (resp.get("syn_size", SYN_SIZE),)),
                  46: (item_option_rank, (rm, path, tmp, AFFINE_W, chains) + tuple(mesh2)),
                  47: (chain_tempering_rank, (rm, chains) + tuple(pt)),
-                 48: (campaign_mesh_rank, (rm, later.get("schedule", {})))}
+                 48: (campaign_mesh_rank, (rm, later.get("schedule", {}))),
+                 50: (resume_counts_rank, (rm, path, tmp, tuple(rc)))}
         started = time.time()
         ranks = launch(rank_world, ITEM_SHARDS,
                        (dev.type, [(p,) + specs[p] for p in phases]), device=dev.type,
@@ -3852,6 +4164,9 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
         if 48 in phases:
             out[48] = campaign_mesh_check(smi, [r[48] for r in ranks], later["camp_ref"],
                                           later["camp20"])
+        if 50 in phases:
+            out[50] = resume_counts_report(rm, dev, smi, [r[50] for r in ranks], tmp, path,
+                                           tuple(rc))
     return out
 
 
@@ -3905,7 +4220,7 @@ def later_keys(items46, chain47, camp48, pt49):
            "chain_mesh_tempering_sweeps_per_s": chain47["sweeps_per_s"],
            "campaign_mesh_wall_s": camp48["wall_s"], "campaign_mesh_r_jax": camp48["r_jax"],
            "campaign_mesh_bitwise_phase20": camp48["bitwise"],
-           "campaign_mesh_r_phase20": camp48["r_phase20"],
+           "campaign_mesh_reference_bitwise": camp48["reference_bitwise"],
            "items2_resp2_tempering_r_continued": pt49["r_continued"],
            "items2_resp2_tempering_r_call": pt49["r_call"],
            "items2_resp2_tempering_swap_rate": pt49["swap_rate"],
@@ -4197,6 +4512,8 @@ def main():
     camp, camp_launches = timed("20 (campaigns8)", campaigns8, rm, dev, smi)
     camp_ref = timed("48's reference (campaigns8 at a rank's batch)",
                      campaign_blocks_reference, rm, dev)
+    batch51 = timed("51 (a sweep's lanes against the batch)", batch_invariance_phase, rm,
+                    dev, smi)
     c64_launches, _ = timed("21 (chains64)", chains64, rm, dev, smi)
     timed("22 (campaign agreement)", campaign_agreement, camp)
 
@@ -4265,9 +4582,9 @@ def main():
     sdo_r = timed("37 (SDO agreement)", sdo_example_agreement, sdo_ex)
 
     torch.cuda.empty_cache()  # the ranks share the card: the parent's cache held back
-    two = timed("38, 39, 41-44, 46-48 (one world of 2 ranks)", two_rank_phases, rm, dev,
+    two = timed("38, 39, 41-44, 46-48, 50 (one world of 2 ranks)", two_rank_phases, rm, dev,
                 smi, main_state, main_sha, main_cut_sha, main_means,
-                phases=(38, 39, 41, 42, 43, 44, 46, 47, 48),
+                phases=(38, 39, 41, 42, 43, 44, 46, 47, 48, 50),
                 resp={"rates": {"phase 5": main_rate}, "syn16": syn16},
                 later={"pt_sha": pt_sha, "camp20": camp, "camp_ref": camp_ref})
     (sh_worst, sh_flipped), it2, cm = two[38], two[39], two[41]
@@ -4416,6 +4733,12 @@ def main():
         "resp_synthetic_r_phase16": two[44]["r_phase16"],
         **resp_keys("items2_resp2", four[45]),
         **later_keys(two[46], two[47], two[48], four[49]),
+        "launches_resume_counts": two[50]["launches"],
+        "launches_resume_counts_no_mesh": two[50]["launches_resumed_alone"],
+        "resume_counts_r_no_mesh": two[50]["r_no_mesh"],
+        "resume_counts_r_resp2": two[50]["r_resp2"],
+        "batch_invariance_blocks_bitwise": batch51["blocks"],
+        "batch_invariance_cases": batch51["labels"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

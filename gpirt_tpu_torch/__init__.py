@@ -21,6 +21,7 @@ the CPU, and as a plain round loop whose lane totals are summed over the
 ranks under a respondent axis.
 """
 
+from gpirt_tpu_torch import ops
 from gpirt_tpu_torch.api import (
     default_thresholds,
     gpirt_mcmc,
@@ -42,6 +43,7 @@ from gpirt_tpu_torch.utils.irf import irf_probabilities, posterior_irf
 from gpirt_tpu_torch.utils.profiling import profile_sweep
 
 __all__ = [
+    "ops",
     "gpirt_mcmc",
     "gpirt_campaigns",
     "campaign_schedule",

@@ -22,9 +22,10 @@ and the sampling run's R K lanes shard over the axis by the chain mesh's
 rule: every rank draws all lanes' numbers from the one generator seeded
 SEED + R K and keeps its campaigns' block. The draws come back whole on
 every rank, and the estimator runs on them there. Each rank's work is what
-:func:`_campaign_draws` computes for its place alone; on the CPU the
-result equals the unsharded call's bit for bit, while a card may round a
-batched product of the rank's smaller batch otherwise (PERF.md §7).
+:func:`_campaign_draws` computes for its place alone, and the result is
+the unsharded call's bit for bit: no lane's draws depend on how many lanes
+are batched with it (``ops.linalg.lane_chunked``), and the estimator reads
+the draws in one memory layout.
 """
 
 from __future__ import annotations
@@ -121,6 +122,7 @@ def gpirt_campaigns(
     verbose: bool = True,
     device="cuda",
     mesh=None,
+    chunk_iterations: int = 250,
 ) -> Dict[str, Any]:
     """Posterior estimation by R = ``n_campaigns`` independent SMC campaigns.
 
@@ -136,6 +138,10 @@ def gpirt_campaigns(
     calls this with the same arguments), shards the campaigns over it
     (``n_campaigns`` must divide over its size, else ``ValueError``); every
     rank returns the unsharded call's dict, and prints only on rank 0.
+    ``chunk_iterations`` (at least 1) is JAX's argument
+    (``gpirt_tpu/campaigns.py:287``), which bounds its sampling run's device
+    executions; eager PyTorch has none to bound and no progress to report,
+    so the run here is one, and the draws do not depend on it.
 
     Returns a dict:
       theta_mean (n, H) the sign-aligned grand posterior mean;
@@ -152,6 +158,8 @@ def gpirt_campaigns(
         threshold (R, K, S, m, C+1, H), beta (R, K, S, 3, m, H);
       respondents / items, the labels when the data carried them.
     """
+    if chunk_iterations < 1:
+        raise ValueError(f"chunk_iterations must be >= 1, got {chunk_iterations}")
     prob = _problem(
         data, n_campaigns, n_chains=n_chains, sample_iterations=sample_iterations,
         burn_iterations=burn_iterations, smc_steps=smc_steps, smc_max_temp=smc_max_temp,
@@ -313,7 +321,10 @@ def _campaign_result(prob: _Problem, info, draws, walls, t0: float,
     C = prob.config.C
     S = draws["theta"].shape[1]
     P = H * n
-    theta_dev = draws["theta"].reshape(R * K, S, P)
+    # one memory layout whatever assembled the draws (one run's transposed
+    # records, or the campaign axis's gathered blocks): the estimator's
+    # reductions follow the layout, and a card rounds each order otherwise
+    theta_dev = draws["theta"].reshape(R * K, S, P).contiguous()
     cm_d, pv_d = _campaign_estimator(theta_dev, R, K, S, P)
     pooled_d = effective_sample_size_device(theta_dev.reshape(R, K, S, P))
     campaign_means = cm_d.cpu().double().numpy().reshape(R, H, n)

@@ -104,7 +104,13 @@ from gpirt_tpu_torch.ops.likelihood import (
     ordinal_ll_terms,
     threshold_to_delta,
 )
-from gpirt_tpu_torch.ops.linalg import chol3, chol_with_jitter, tri3_solve, tri_solve
+from gpirt_tpu_torch.ops.linalg import (
+    chol3,
+    chol_with_jitter,
+    lane_chunked,
+    tri3_solve,
+    tri_solve,
+)
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
 
 __all__ = [
@@ -129,6 +135,7 @@ __all__ = [
     "theta_from_indices",
     "compute_mu",
     "compute_mu_star",
+    "total_loglik",
     "stored_fstar",
     "theta_site_basis",
     "gather_theta_gram",
@@ -409,6 +416,15 @@ def build_X(theta: torch.Tensor) -> torch.Tensor:
 def compute_mu(theta: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """mu = X(theta) @ beta: (..., H, n), (..., H, 3, m) -> (..., H, n, m)."""
     return build_X(theta) @ beta
+
+
+def total_loglik(state: GPIRTState, y: torch.Tensor, consts: GPIRTConstants) -> torch.Tensor:
+    """Total masked ordinal log-likelihood (reference src/gpirtMCMC.cpp:324-331):
+    a scalar, summed over every axis of ``state`` as the JAX package's
+    ``jnp.sum`` is: over the chains too, for a batched state (K, H, ...)."""
+    theta = theta_from_indices(state.theta_idx, consts)
+    g = state.f + compute_mu(theta, state.beta)
+    return ordinal_ll_terms(g, y, state.thresholds).sum()
 
 
 def compute_mu_star(consts: GPIRTConstants, beta: torch.Tensor) -> torch.Tensor:
@@ -1191,7 +1207,10 @@ def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
     w = tri3_solve(Lc, rhs.unsqueeze(-1))
     mean = tri3_solve(Lc, w, trans=True)[..., 0] * inv_sc
     samp = tri3_solve(Lc, zeta.unsqueeze(-1), trans=True)[..., 0] * inv_sc
-    beta = (Minv.unsqueeze(2) @ (mean + samp).unsqueeze(-1))[..., 0]  # (K, H, m, 3)
+    # the one product of the sweep whose lanes cuBLAS rounds otherwise in
+    # another batch (one float32 ulp): run it a fixed number of lanes at a time
+    beta = lane_chunked(lambda a, b: (a @ b)[..., 0], Minv.unsqueeze(2),
+                        (mean + samp).unsqueeze(-1))  # (K, H, m, 3)
     return beta.mT
 
 

@@ -14,6 +14,7 @@ import torch
 __all__ = [
     "LL_FLOOR",
     "ordinal_ll_terms",
+    "ordinal_ll",
     "cutpoint_bounds",
     "ll_terms_from_bounds",
     "delta_to_threshold",
@@ -82,6 +83,15 @@ def ordinal_ll_terms(g, y, thresholds, inv_s=None) -> torch.Tensor:
                            torch.zeros((), dtype=g.dtype, device=g.device))
     z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)
     return ll_terms_from_bounds(g, z_lo, z_hi, mask, inv_s=inv_s)
+
+
+def ordinal_ll(g: torch.Tensor, y: torch.Tensor, thresholds: torch.Tensor,
+               axis=None) -> torch.Tensor:
+    """The masked ordinal-probit log-likelihood, :func:`ordinal_ll_terms`
+    summed over ``axis`` (None: every axis), the reference's
+    ``ll_bar_sparse`` over the observed cells (src/log-likelihood.cpp:50-64)."""
+    terms = ordinal_ll_terms(g, y, thresholds)
+    return terms.sum() if axis is None else terms.sum(dim=axis)
 
 
 def delta_to_threshold(deltas: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Dense linear-algebra helpers: jittered Cholesky factors, closed-form 3x3
-factors and triangular solves.
+factors and triangular solves, and a product run a fixed number of lanes at
+a time.
 
 Counterpart of ``gpirt_tpu/ops/linalg.py``. ``chol3`` and ``tri3_solve``
 keep the JAX package's closed form: the beta block factors one 3x3 matrix
@@ -20,8 +21,15 @@ __all__ = [
     "double_solve",
     "chol3",
     "tri3_solve",
+    "spd3_solve",
     "tri_solve",
+    "LANE_CHUNK",
+    "lane_chunked",
 ]
+
+# The lanes (chains) a batch-dependent library call sees at once
+# (:func:`lane_chunked`): the main path's batch.
+LANE_CHUNK = 64
 
 
 def host_cholesky_f64(gram: np.ndarray, jitter: float, dtype=np.float32) -> np.ndarray:
@@ -105,9 +113,41 @@ def tri3_solve(L: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> torc
     return torch.stack([x0, x1, x2], dim=-2)
 
 
+def spd3_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """M^{-1} b for a batch of SPD 3x3 matrices: :func:`chol3` and two
+    :func:`tri3_solve` substitutions. M (..., 3, 3), b (..., 3, k)."""
+    L = chol3(M)
+    return tri3_solve(L, tri3_solve(L, b), trans=True)
+
+
 def tri_solve(L: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
     """Solve ``L x = b`` (or ``L^T x = b`` when ``trans``), lower-triangular
     ``L``, batched over leading axes."""
     if trans:
         return torch.linalg.solve_triangular(L.mT, b, upper=True)
     return torch.linalg.solve_triangular(L, b, upper=False)
+
+
+def lane_chunked(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)``, computed :data:`LANE_CHUNK` lanes at a time: the
+    leading axis of every argument is the lane axis, and ``fn`` must treat
+    the lanes apart. The last chunk is padded with copies of its last lane,
+    so the library sees one shape whatever the number of lanes, and a
+    lane's result does not depend on how many lanes are batched with it.
+    (cuBLAS picks its batched kernel by the batch count, and the kernels
+    round otherwise; on the CPU the padding changes nothing.)
+    :data:`LANE_CHUNK` lanes are one call, as they are."""
+    chunk = LANE_CHUNK
+    K = args[0].shape[0]
+    if K == chunk:
+        return fn(*args)
+    parts = []
+    for lo in range(0, K, chunk):
+        hi = min(lo + chunk, K)
+        if hi - lo == chunk:
+            part = [a[lo:hi] for a in args]
+        else:
+            idx = torch.arange(lo, lo + chunk, device=args[0].device).clamp_(max=K - 1)
+            part = [a[idx] for a in args]
+        parts.append(fn(*part)[:hi - lo])
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

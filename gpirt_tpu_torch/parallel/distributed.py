@@ -229,12 +229,13 @@ def _free_port() -> int:
 
 
 def _threads(world_size: int) -> int:
-    """Each rank's share of the host's cores."""
-    return max(1, (os.cpu_count() or 1) // world_size)
+    """Each rank's torch CPU threads: its share of the host's cores, and no
+    more than the launching process runs itself."""
+    return max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // world_size))
 
 
 def _rank_entry(fn, rank: int, world_size: int, port: int, device: str, args,
-                results, staged: bool) -> None:
+                results, staged: bool, threads: int) -> None:
     """One spawned rank: join the world, run ``fn(*args)`` (with a
     ``stage_done`` callable after them when ``staged``), report (rank,
     "ok" or "failed", result or traceback) to the parent, leave the
@@ -246,7 +247,7 @@ def _rank_entry(fn, rank: int, world_size: int, port: int, device: str, args,
         stage[0] += 1
 
     try:
-        torch.set_num_threads(_threads(world_size))
+        torch.set_num_threads(threads)
         initialize_distributed(f"tcp://127.0.0.1:{port}", world_size, rank,
                                device=device)
         out = fn(*args, stage_done) if staged else fn(*args)
@@ -277,7 +278,8 @@ def launch(fn: Callable, world_size: int, args: Sequence = (), *, device="cuda",
     ``stage_done``, which every rank calls at the end of each stage but the
     last, and each stage must end within its own timeout, the first
     counted from the launch. Each rank runs torch's CPU threads on its
-    share of the host's cores."""
+    share of the host's cores, and on no more threads than the caller's
+    process runs."""
     rank_device(device)  # a CUDA world needs a card
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
@@ -285,7 +287,7 @@ def launch(fn: Callable, world_size: int, args: Sequence = (), *, device="cuda",
     limits = [timeout] if stages is None else list(stages)
     procs = [ctx.Process(target=_rank_entry,
                          args=(fn, r, world_size, port, str(device), tuple(args), results,
-                               stages is not None))
+                               stages is not None, _threads(world_size)))
              for r in range(world_size)]
     for p in procs:
         p.start()

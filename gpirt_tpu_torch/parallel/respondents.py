@@ -40,7 +40,9 @@ respondent shard draws the same f*, beta and cutpoints. Under both axes
 the draws local to both (z's uniforms, ``eps_f``) come from a generator of
 their own for the (item, respondent) cell (:func:`shard_generators`). A
 respondent-sharded run is therefore not bitwise the unsharded run, as in
-JAX; any assignment of streams is a valid sampler.
+JAX; any assignment of streams is a valid sampler. A run resumed onto other
+shard counts than its checkpoint's seeds its shards' generators afresh
+(:func:`resume_shard_generators`, ``utils/checkpoint.py``).
 
 Only the conjugate sweep shards its respondents (JAX refuses the others,
 ``gpirt_tpu/models/gibbs.py:2637-2642``); theta by ESS, the GP and RDM
@@ -69,6 +71,7 @@ __all__ = [
     "draws_respondent_block",
     "respondent_generator",
     "shard_generators",
+    "resume_shard_generators",
     "shard_inputs",
     "check_respondent_config",
     "run_chains_respondentsharded",
@@ -164,6 +167,29 @@ def shard_generators(seed: int, shards: Shards, device) -> Optional[ShardGenerat
     cell = item if resp is None else resp if item is None else _generator(
         np.random.SeedSequence([int(seed), shards.item_rank, shards.resp_rank],
                                spawn_key=(2,)), device)
+    return ShardGenerators(item=item, resp=resp, cell=cell)
+
+
+def resume_shard_generators(seed: int, shards: Shards, iteration: int,
+                            device) -> Optional[ShardGenerators]:
+    """This rank's shard generators for a run resumed at absolute sweep
+    ``iteration`` onto other counts of item or respondent shards than its
+    checkpoint's (``utils/checkpoint.py``): each seeded afresh from
+    (seed, shard, the new count, ``iteration``) with spawn keys of their
+    own (items 3, respondents 4, cells 5; a fresh run's are none, 1 and 2),
+    so that no stream replays numbers a shard of either layout has drawn.
+    The cell's is the one sharded axis's, as in :func:`shard_generators`;
+    None without a model axis."""
+    it, i, r = int(iteration), shards.item_rank, shards.resp_rank
+    ni, nr = shards.n_item, shards.n_resp
+    item = (_generator(np.random.SeedSequence([int(seed), i, ni, it], spawn_key=(3,)), device)
+            if ni > 1 else None)
+    resp = (_generator(np.random.SeedSequence([int(seed), r, nr, it], spawn_key=(4,)), device)
+            if nr > 1 else None)
+    if item is None and resp is None:
+        return None
+    cell = item if resp is None else resp if item is None else _generator(
+        np.random.SeedSequence([int(seed), i, r, ni, nr, it], spawn_key=(5,)), device)
     return ShardGenerators(item=item, resp=resp, cell=cell)
 
 

@@ -2,7 +2,14 @@
 steps from T = 64, burn 100, 500 draws) with this checkout's
 gpirt_tpu_torch against another tree's, on one CUDA card, in turns.
 
-    python3 scripts/torch_main_path_ab.py --other DIR [--rounds 2]
+    python3 scripts/torch_main_path_ab.py --other DIR [--rounds 2] [--config main_verbose|campaigns8]
+
+``--config main_verbose`` runs the main call at ``gpirt_mcmc``'s default
+``verbose=True``: progress every ``chunk_iterations`` sweeps, the summaries
+on stderr. ``--config campaigns8`` runs chip_smoke's phase 20 instead
+(gpirt_campaigns on senate116, 8 campaigns of 64 chains, one warm call,
+then the timed one) and compares its batch wall; each side's campaign
+means must repeat (their sha256), and may differ from the other side's.
 
 DIR is the root of another checkout (for example a parent commit unpacked
 with ``git archive`` into a gitignored directory). Each run is a process of
@@ -45,8 +52,34 @@ print(json.dumps({"sha256": h.hexdigest(), "smc_sweeps_per_s": (WARM_STEPS + 319
 """
 
 
-def run(root):
-    proc = subprocess.run([sys.executable, "-c", RUN, os.path.abspath(root)],
+# phase 20 (chip_smoke.py's campaigns8), one run, as RUN is
+RUN_CAMPAIGNS = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from gpirt_tpu_torch import gpirt_campaigns
+from gpirt_tpu_torch.utils.datasets import senate116_response_matrix
+
+rm, _, _ = senate116_response_matrix()
+kw = dict(n_campaigns=8, vote_codes=None, store_draws=False, verbose=False, device="cuda")
+gpirt_campaigns(np.asarray(rm), SEED=990001, **kw)
+out = gpirt_campaigns(np.asarray(rm), SEED=100000, **kw)
+w = out["walls"]
+print(json.dumps({"sha256": hashlib.sha256(np.ascontiguousarray(out["campaign_means"])
+                                           .tobytes()).hexdigest(),
+                  "batch_wall_s": w["total_sec"], "smc_s": w["smc_sec"],
+                  "sampling_s": w["sampling_sec"]}))
+"""
+CONFIGS = {"main": (RUN, "sampling_sweeps_per_s"),
+           # the main call at gpirt_mcmc's default verbose=True: the run
+           # advances chunk_iterations sweeps at a time and prints progress
+           "main_verbose": (RUN.replace("verbose=False", "verbose=True"),
+                            "sampling_sweeps_per_s"),
+           "campaigns8": (RUN_CAMPAIGNS, "batch_wall_s")}
+
+
+def run(root, config="main"):
+    proc = subprocess.run([sys.executable, "-c", CONFIGS[config][0], os.path.abspath(root)],
                           capture_output=True, text=True, check=True, timeout=900)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -55,7 +88,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="main")
     opt = ap.parse_args()
+    key = CONFIGS[opt.config][1]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -63,19 +98,28 @@ def main():
     runs = {"other": [], "this": []}
     for _ in range(opt.rounds):
         for side in ("other", "this", "this", "other"):
-            r = run(opt.other if side == "other" else HERE)
+            r = run(opt.other if side == "other" else HERE, opt.config)
             runs[side].append(r)
-            print(f"{side}: sampling {r['sampling_sweeps_per_s']:.3f} sweeps/s, SMC "
-                  f"{r['smc_sweeps_per_s']:.3f} sweeps/s, sha256 {r['sha256']}", flush=True)
-    summary = {"card": smi}
+            print(f"{side}: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()
+                                          if k != "sha256") + f", sha256 {r['sha256']}",
+                  flush=True)
+    summary = {"card": smi, "config": opt.config}
     for side, rs in runs.items():
-        rates = [r["sampling_sweeps_per_s"] for r in rs]
-        summary[side] = {"sampling_median": statistics.median(rates),
-                         "sampling_min": min(rates), "sampling_max": max(rates),
-                         "smc_median": statistics.median(r["smc_sweeps_per_s"] for r in rs)}
+        vals = [r[key] for r in rs]
+        summary[side] = {f"{key}_median": statistics.median(vals), f"{key}_min": min(vals),
+                         f"{key}_max": max(vals)}
+        if opt.config.startswith("main"):
+            summary[side]["smc_median"] = statistics.median(r["smc_sweeps_per_s"]
+                                                            for r in rs)
     summary["same_draws"] = len({r["sha256"] for rs in runs.values() for r in rs}) == 1
+    summary["each_side_repeats"] = all(len({r["sha256"] for r in rs}) == 1
+                                       for rs in runs.values())
     print(json.dumps(summary))
-    return 0 if summary["same_draws"] else 1
+    # the main path must draw what the other tree draws; campaigns8's means
+    # may move with a change, but each side must repeat
+    ok = (summary["same_draws"] if opt.config.startswith("main")
+          else summary["each_side_repeats"])
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ Sizes: n 12 respondents, m 8 items, K 4 chains, a 61-point grid, float64.
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -64,8 +65,7 @@ REFUSALS = {"uneven_m": "ValueError", "chains_indivisible": "ValueError",
             "non_conjugate": "NotImplementedError", "theta_ess": "NotImplementedError",
             "affine": None, "n_temps": "ValueError",
             "respondent_axis": "ValueError", "campaign_mesh": "ValueError",
-            "resume_other_item_count": "NotImplementedError",
-            "resume_without_mesh": "NotImplementedError",
+            "resume_other_item_count": None, "resume_without_mesh": None,
             "item_axis_not_named": "ValueError"}
 RUN = dict(sample_iterations=6, burn_iterations=2)
 
@@ -195,6 +195,24 @@ def _runs(prefix, out, fn):
     return run
 
 
+def _resumed(prefix, out, fn):
+    """A resume that runs (a gpirt_mcmc call): its chains' draws saved
+    under ``prefix`` as :func:`_runs` saves a driver's."""
+    def run():
+        _chains_out(fn(), prefix, out)
+    return run
+
+
+def _resume_alone(cut, path):
+    """``cut(path)``, a checkpointed gpirt_mcmc call on a mesh cut short,
+    then the same call without a mesh on every rank, each resuming a copy
+    of the file of its own."""
+    cut(path)
+    own = f"{path}_rank{dist.get_rank()}"
+    shutil.copy(path + ".npz", own + ".npz")
+    return _mcmc(None, item_axis=None, checkpoint_path=own)
+
+
 def check_runs(ranks, prefix, shape):
     """A case that runs (:func:`_runs`) on every rank: no error, the
     gathered draws the same on every rank, finite, theta of ``shape``."""
@@ -247,11 +265,12 @@ def items_world(tmp):
         "respondent_axis": lambda: _mcmc(mesh22, respondent_axis="respondents"),
         "campaign_mesh": lambda: gpirt_campaigns(votes(), 2, vote_codes=None, device="cpu",
                                                  mesh=make_campaign_mesh(device="cpu")),
-        "resume_other_item_count": lambda: (
+        "resume_other_item_count": _resumed("run_resume_other_item_count", out, lambda: (
             _mcmc(mesh22, sample_iterations=2, checkpoint_path=cut_path),
-            _mcmc(mesh14, checkpoint_path=cut_path)),
-        "resume_without_mesh": lambda: _mcmc(None, item_axis=None,
-                                             checkpoint_path=cut_path),
+            _mcmc(mesh14, checkpoint_path=cut_path))[1]),
+        "resume_without_mesh": _resumed("run_resume_without_mesh", out, lambda: _resume_alone(
+            lambda p: _mcmc(mesh22, sample_iterations=2, checkpoint_path=p),
+            cut_path + "_alone")),
         "item_axis_not_named": lambda: _mcmc(mesh22, item_axis=None),
     }
     for name, fn in refusals.items():
@@ -379,8 +398,7 @@ RESP = "respondents"
 # the refusals the respondents world checks: (case, exception it must raise)
 RESP_REFUSALS = {"uneven_n": "ValueError", "non_conjugate": "NotImplementedError",
                  "n_temps": "ValueError", "affine_item_axis": None,
-                 "resume_other_resp_count": "NotImplementedError",
-                 "resume_without_mesh": "NotImplementedError"}
+                 "resume_other_resp_count": None, "resume_without_mesh": None}
 # sweeps against JAX's respondent-sharded sweep: (the sweep case whose state,
 # data and draws it reads, one temperature a chain or None)
 TEMPS = (1.0, 2.0, 4.0, 8.0)
@@ -579,10 +597,12 @@ def respondents_world(tmp):
             torch.Generator().manual_seed(0), yt, ti, thr, consts,
             dataclasses.replace(cfg, affine_rounds=1), mesh=ir22, item_axis="items",
             **RUN)),
-        "resume_other_resp_count": lambda: (
+        "resume_other_resp_count": _resumed("run_resume_other_resp_count", out, lambda: (
             mcmc(cr22, sample_iterations=2, checkpoint_path=cut_path),
-            mcmc(resp4, checkpoint_path=cut_path)),
-        "resume_without_mesh": lambda: _mcmc(None, item_axis=None, checkpoint_path=cut_path),
+            mcmc(resp4, checkpoint_path=cut_path))[1]),
+        "resume_without_mesh": _resumed("run_resume_without_mesh", out, lambda: _resume_alone(
+            lambda p: mcmc(cr22, sample_iterations=2, checkpoint_path=p),
+            cut_path + "_alone")),
     }
     for name, fn in refusals.items():
         out[f"refusal_{name}"] = np.array(_refusal(fn))

@@ -330,7 +330,7 @@ def tempering_world(tmp):
     and on 2 respondent shards, each state's replicated fields on its
     model shards, the tempered driver on both model meshes fed the
     unsharded run's numbers, checkpointed tempered runs cut and resumed on the chain
-    and the item mesh (and onto another item count), gpirt_mcmc tempered
+    and the item mesh (and onto another item count, which runs), gpirt_mcmc tempered
     on the item and the respondent mesh, ESS theta and the affine moves on
     2 item shards, the batched anneal and
     gpirt_campaigns on a campaign mesh, and the refusals of the new paths."""
@@ -386,8 +386,9 @@ def tempering_world(tmp):
         "groups_indivisible": lambda: mcmc(chain, item_axis=None, CHAIN=3),
         "campaigns_indivisible": lambda: campaign_call(camp, n_campaigns=3),
         "theta_ess_tempered": lambda: mcmc(items, theta_method="ess"),
-        "resume_other_item_count": lambda: tempered_call(
+        "resume_other_item_count": lambda: _save("pt_other_count", tempered_call(
             make_item_mesh(1, 2, device="cpu"), "items", manager=CheckpointManager(cut)),
+            out),
     }
     for name, fn in refusals.items():
         out[f"refusal_{name}"] = np.array(w._refusal(fn))

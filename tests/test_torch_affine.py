@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.parallel.smc import anneal_init as j_anneal_init
 from gpirt_tpu_torch.models import affine

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.campaigns import _campaign_estimator as j_campaign_estimator
 from gpirt_tpu.campaigns import campaign_schedule as j_campaign_schedule
 from gpirt_tpu_torch import campaign_schedule, gpirt_campaigns

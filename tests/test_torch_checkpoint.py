@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.models.gibbs import GPIRTState as JState
 from gpirt_tpu.utils.checkpoint import CheckpointManager as JManager
 from gpirt_tpu_torch import api, gpirt_mcmc

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import chip_smoke
 from gpirt_tpu_torch import gpirt_mcmc
 from gpirt_tpu_torch.models import gibbs

@@ -5,11 +5,16 @@ own so that a parallel run gives their Gloo worlds a worker of their own."""
 import glob
 import os
 
+import pytest
 import torch
 
+from _torch_threads import default_blas_threads  # noqa: F401  (a fixture)
 import chip_smoke
 from gpirt_tpu_torch.models import gibbs
 from test_torch_chip_smoke import _small_votes
+
+# the host constants at the BLAS thread count phase 38's check was set at
+pytestmark = pytest.mark.usefixtures("default_blas_threads")
 
 
 def test_mesh_phases_at_reduced_size(capsys, monkeypatch, tmp_path):

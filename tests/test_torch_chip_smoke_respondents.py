@@ -7,6 +7,7 @@ import os
 
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import chip_smoke
 from gpirt_tpu_torch.models import gibbs
 from test_torch_chip_smoke import _small_votes
@@ -60,7 +61,7 @@ def test_respondent_phases_at_reduced_size(capsys, monkeypatch, tmp_path):
     assert set(two[44]["allreduce_sites"]) == {"ll", "f* U^T r, U^T U", "beta moments",
                                                "beta X^T X, X^T z", "cutpoint ESS round"}
     four = chip_smoke.mesh_2x2(rm, cpu, "cpu", means, phases=(45,), rates={"phase 5": 1.0},
-                               state=state, **small)
+                               state=state, resp_size=(small["burn"], small["draws"]), **small)
     assert four[45]["launches"] == [0] * 4 and "theta table" in four[45]["allreduce_sites"]
     text = capsys.readouterr().out
     assert "respondent-sharded sweep check (affine) on cpu" in text

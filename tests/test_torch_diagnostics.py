@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.utils import diagnostics as jdiag
 from gpirt_tpu_torch import gpirt_mcmc
 from gpirt_tpu_torch import api

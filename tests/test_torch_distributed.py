@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import _torch_dist_worker as w
 from gpirt_tpu_torch.models.sampler import run_chains
 from gpirt_tpu_torch.parallel import distributed as tdist

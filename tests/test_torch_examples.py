@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import gpirt_tpu
 import gpirt_tpu.utils.cache
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
 from gpirt_tpu.models.config import make_constants as j_make_constants
@@ -253,3 +254,36 @@ def test_three_sweeps_match(setup, temp):
         for name in ("f", "beta", "thresholds", "fstar"):
             _close(getattr(state, name), getattr(jstate, name), 1e-8)
         _close(ll, jll, 1e-10)
+
+
+@pytest.mark.parametrize("temp", [None, "per_lane"])
+def test_sweep_lanes_do_not_depend_on_the_batch(setup, temp, monkeypatch):
+    """One sweep of 8 lanes equals the same lanes swept as two batches of 4,
+    bit for bit, and as batches of 3 and 5 with the batch-dependent call's
+    chunk at 4 lanes (``ops.linalg.lane_chunked``: a batch of 8 two chunks,
+    of 5 a chunk and a padded one, of 3 a padded one). The card's check is
+    chip_smoke phase 51 (512 lanes against 64-lane batches)."""
+    from gpirt_tpu_torch.ops import linalg
+    from gpirt_tpu_torch.parallel.smc import lane_block
+
+    cfg, consts, yt = setup["cfg"], setup["consts"], setup["yt"]
+    L = 8
+    gen = torch.Generator().manual_seed(11)
+    th = torch.as_tensor(np.tile(setup["theta_init"], (L // K, 1, 1)))
+    state = tg.init_state(th, torch.as_tensor(setup["thr_init"]), consts, cfg,
+                          tg.init_draws(gen, L, consts, cfg))
+    for it in range(2):
+        state, _ = tg.gibbs_sweep(state, tg.sweep_draws(gen, L, consts, cfg, it), yt,
+                                  consts, cfg)
+    draws = tg.sweep_draws(gen, L, consts, cfg, 2)
+    t = None if temp is None else torch.linspace(1.0, 4.0, L, dtype=torch.float64)
+    for chunk, cuts in ((linalg.LANE_CHUNK, (0, 4, 8)), (4, (0, 3, 8))):
+        monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
+        whole, ll = tg.gibbs_sweep(state, draws, yt, consts, cfg, t, 2)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            sl = slice(lo, hi)
+            part, ll_p = tg.gibbs_sweep(tg.GPIRTState(*(a[sl] for a in state)),
+                                        lane_block(draws, sl), yt, consts, cfg,
+                                        None if t is None else t[sl], 2)
+            for a, b in zip(tuple(part) + (ll_p,), tuple(whole) + (ll,)):
+                assert torch.equal(a, b[sl])

@@ -13,7 +13,8 @@ default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
 (SMC-initialised and tempered), and refused on the CPU; profile_sweep
 timing with CUDA events; the walkthrough example on the card; and one
 sweep with the items, and one with the respondents, over 2 ranks sharing
-the card against the unsharded sweep.
+the card against the unsharded sweep; one sweep of 512 lanes against
+batches of 64 lanes, bit for bit.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -631,3 +632,23 @@ def test_item_sharded_option_sweep_on_card_matches_unsharded(cuda_device, tmp_pa
         got = torch.cat([b[i] for b in blocks], dim=dim)
         torch.testing.assert_close(got, getattr(want, name).cpu(), rtol=0, atol=1e-3)
     torch.testing.assert_close(blocks[0][5], want_ll.cpu(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_sweep_lanes_on_card_do_not_depend_on_the_batch(cuda_device):
+    """One sweep of campaigns8's 512 lanes on the card against the same
+    lanes in batches of 64, block by block and whole, plain, tempered and
+    with the kernel's cutpoint update (chip_smoke phase 51): every block
+    bit for bit (cuBLAS picks a batched kernel by the batch count, so the
+    sweep runs its one batch-dependent product 64 lanes at a time)."""
+    from gpirt_tpu_torch import campaigns
+    from gpirt_tpu_torch.utils.datasets import senate116_response_matrix
+
+    rm, _, _ = senate116_response_matrix()
+    prob = campaigns._problem(np.asarray(rm), chip_smoke.CAMPAIGNS,
+                              SEED=chip_smoke.CAMPAIGN_SEED, vote_codes=None,
+                              device=cuda_device)
+    res = chip_smoke.sweep_block_check(prob, 512, 64)
+    assert len(res) == 4
+    for label, apart in res.items():
+        assert not any(apart.values()), (label, apart)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import _torch_dist_worker as w
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
@@ -297,15 +298,16 @@ def test_refusals(world, case):
     (ValueError: it would run the same chains on each of its ranks), and a
     respondent axis the mesh does not have (ValueError, as JAX); a sampler
     other than the conjugate one, ESS theta under tempering
-    (NotImplementedError, as JAX), and a resume across item-shard counts
-    (NotImplementedError naming the argument). The affine moves, which JAX
-    refuses on no mesh, run on the 2 x 2 chains x items mesh: their
+    (NotImplementedError, as JAX). The affine moves, which JAX refuses on
+    no mesh, run on the 2 x 2 chains x items mesh, and a checkpoint of the
+    2 x 2 mesh resumes on 4 item shards and without a mesh (each rank its
+    own copy; ``test_torch_resume_counts.py`` checks the streams): their
     gathered draws alike on every rank (the replication canary runs inside).
     ESS theta, tempering and the campaigns run on a mesh too:
     test_torch_mesh_jax.py and test_torch_mesh_tempering.py."""
     _, ranks = world
     if w.REFUSALS[case] is None:  # runs now: its draws alike on every rank
-        w.check_runs(ranks, case, (K, 6, 1, n))
+        w.check_runs(ranks, case, (K, 6, n, 1) if case.startswith("resume") else (K, 6, 1, n))
         return
     for z in ranks:
         got = str(z[f"refusal_{case}"])
@@ -313,8 +315,6 @@ def test_refusals(world, case):
     names = {"n_temps": "do not divide over 2 chain shards",
              "respondent_axis": "respondent_axis",
              "campaign_mesh": "campaigns do not divide",
-             "resume_other_item_count": "item_axis",
-             "resume_without_mesh": "item_axis",
              "theta_ess": "tempering needs theta_method='grid'",
              "non_conjugate": "conjugate",
              "uneven_m": "items", "chains_indivisible": "chains",

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import _torch_dist_worker as w
 import _torch_mesh_worker as mw
 from gpirt_tpu.models import gibbs as jg

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import _torch_dist_worker as w
 import _torch_mesh_worker as mw
 from gpirt_tpu_torch.parallel import distributed as tdist
@@ -165,21 +166,34 @@ def test_gpirt_campaigns_on_a_campaign_mesh_equals_one_process(world):
     assert c["campaign_means"].shape == (2, n, 1)
 
 
-# each case and what it must raise: the refusals JAX still makes on a mesh
+# each case and what it must raise: the refusals JAX still makes on a mesh,
+# and (None) a case that runs now
 REFUSALS = {"groups_indivisible": ("ValueError", "do not divide over 2 chain shards"),
             "campaigns_indivisible": ("ValueError", "campaigns do not divide"),
             "theta_ess_tempered": ("NotImplementedError",
                                    "tempering needs theta_method='grid'"),
-            "resume_other_item_count": ("NotImplementedError", "item_axis")}
+            "resume_other_item_count": None}
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_mesh_refusals(world, case):
     """3 tempered groups over 2 chain shards and 3 campaigns over 2
-    campaign shards (ValueError, as JAX), ESS theta under tempering
-    (NotImplementedError, as JAX), and a tempered checkpoint resumed onto
-    another item count (NotImplementedError naming item_axis)."""
-    _, ranks = world
+    campaign shards (ValueError, as JAX) and ESS theta under tempering
+    (NotImplementedError, as JAX) are refused; a tempered checkpoint of 2
+    item shards resumes on a chain mesh of 1 item shard: its cold draws
+    alike on both ranks, finite, in the unsharded run's layout
+    (``test_torch_resume_counts.py`` checks the streams)."""
+    want, ranks = world
+    if REFUSALS[case] is None:
+        for z in ranks:
+            assert str(z[f"refusal_{case}"]) == "no error", str(z[f"refusal_{case}"])
+            for k, v in want["pt"].items():
+                np.testing.assert_array_equal(z[f"pt_other_count_{k}"],
+                                              ranks[0][f"pt_other_count_{k}"])
+                assert z[f"pt_other_count_{k}"].shape == v.shape
+                if k != "threshold":  # the cutpoints' ends are -inf and inf
+                    assert np.isfinite(z[f"pt_other_count_{k}"]).all()
+        return
     kind, text = REFUSALS[case]
     for z in ranks:
         got = str(z[f"refusal_{case}"])

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
 from gpirt_tpu.models.config import make_constants as j_make_constants
 from gpirt_tpu.ops import kernels as jk
@@ -142,3 +143,60 @@ def test_senate116_response_matrix_matches():
     y_j, C_j, _ = jr.encode_categories(np.asarray(rm_j))
     np.testing.assert_array_equal(y, y_j)
     assert C == C_j == 2 and y.shape == (1, 100, 418)
+
+
+def test_exported_helpers_match():
+    """JAX's five public helpers the port lacked, in JAX's argument order:
+    time_gram (both kernels), add_jitter, ordinal_ll (whole and over an
+    axis), spd3_solve, and total_loglik of one chain's state and of two, against the
+    JAX package in float64 on the same numpy inputs, within 1e-12; the
+    port's names exported where JAX exports them."""
+    import gpirt_tpu.ops as j_ops
+    import gpirt_tpu_torch.ops as t_ops
+    from gpirt_tpu.models import gibbs as jg
+    from gpirt_tpu_torch.models import gibbs as tg
+
+    assert t_ops.__all__ == j_ops.__all__
+    rng = np.random.default_rng(3)
+    t1, t2, sds = rng.uniform(0, 9, 6), rng.uniform(0, 9, 4), rng.uniform(0.1, 1.0, 2)
+    for kernel in ("Matern", "RBF"):
+        _close(tk.time_gram(_t(t1), _t(t2), 1.3, 2.5, _t(sds), kernel),
+               jk.time_gram(jnp.asarray(t1), jnp.asarray(t2), 1.3, 2.5, jnp.asarray(sds),
+                            kernel))
+    gram = rng.standard_normal((2, 5, 5))
+    _close(tk.add_jitter(_t(gram), 1e-3), jk.add_jitter(jnp.asarray(gram), 1e-3))
+
+    C, n, m = 4, 9, 5
+    g = rng.standard_normal((2, n, m))
+    y = rng.integers(0, C + 1, (2, n, m)).astype(np.int32)
+    thr = np.sort(rng.standard_normal((2, m, C - 1)), -1)
+    thr = np.concatenate([np.full((2, m, 1), -np.inf), thr, np.full((2, m, 1), np.inf)], -1)
+    for axis in (None, (1, 2)):
+        _close(tl.ordinal_ll(_t(g), _t(y, torch.int32), _t(thr), axis),
+               jl.ordinal_ll(jnp.asarray(g), jnp.asarray(y), jnp.asarray(thr), axis))
+
+    A = rng.standard_normal((7, 3, 3))
+    M = A @ np.swapaxes(A, -1, -2) + 0.5 * np.eye(3)
+    b = rng.standard_normal((7, 3, 2))
+    _close(tla.spd3_solve(_t(M), _t(b)), jla.spd3_solve(jnp.asarray(M), jnp.asarray(b)))
+
+    N, H = 21, 2
+    priors = dict(beta_prior_means=np.zeros((3, m)), beta_prior_sds=np.full((3, m), 3.0),
+                  theta_prior_means=np.zeros((2, n)), theta_prior_sds=np.zeros((2, n)))
+    consts = make_constants(GPIRTConfig(n=n, m=m, horizon=H, C=C, grid_size=N,
+                                        dtype="float64"), **priors, device="cpu")
+    idx = rng.integers(0, N, (H, n))
+    state = dict(theta_idx=idx, f=rng.standard_normal((H, n, m)),
+                 beta=rng.standard_normal((H, 3, m)), thresholds=thr,
+                 fstar=rng.standard_normal((H, N, m)))
+    t_state = tg.GPIRTState(**{k: _t(v, torch.int64 if k == "theta_idx" else torch.float64)
+                               for k, v in state.items()})
+    j_state = jg.GPIRTState(**{k: jnp.asarray(v) for k, v in state.items()})
+    j_consts = j_make_constants(JConfig(n=n, m=m, horizon=H, C=C, grid_size=N,
+                                        dtype="float64"), **priors)
+    want = jg.total_loglik(j_state, jnp.asarray(y), j_consts)
+    _close(tg.total_loglik(t_state, _t(y, torch.int32), consts), want)
+    # a batched state (JAX's takes one chain's) sums over its chains too,
+    # one scalar as jnp.sum gives
+    batched = tg.GPIRTState(*(torch.stack([a, a]) for a in t_state))
+    _close(tg.total_loglik(batched, _t(y, torch.int32), consts), 2 * want)

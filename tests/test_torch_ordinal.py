@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.api import _coerce_thresholds as j_coerce_thresholds
 from gpirt_tpu.api import default_thresholds as j_default_thresholds
 from gpirt_tpu.models import gibbs as jg

@@ -21,6 +21,7 @@ import struct
 import numpy as np
 import pytest
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.utils import datasets as jd
 from gpirt_tpu.utils import rdata as jr
 from gpirt_tpu_torch.utils import datasets as td

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.api import _recover_one as j_recover_one
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
 from gpirt_tpu.models.config import make_constants as j_make_constants

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import _torch_dist_worker as w
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.parallel.respondents import consts_mesh_specs
@@ -480,24 +481,23 @@ def test_respondent_sharded_checkpoint_resumes_bit_for_bit(world, tag):
 def test_refusals(world, case):
     """What a respondent axis refuses, by its own exception: uneven
     respondents, and tempered groups that do not divide over the chain
-    shards (ValueError, as JAX); a sampler other than the conjugate one,
-    and a resume onto another count of respondent shards or without the
-    mesh (NotImplementedError naming the argument). The affine moves on
-    the 1 x 2 x 2 chains x items x respondents mesh, which JAX refuses on
-    no mesh, run: their gathered draws alike on every rank (the
-    replication canary runs inside). Tempering runs too:
+    shards (ValueError, as JAX); a sampler other than the conjugate one
+    (NotImplementedError). The affine moves on the 1 x 2 x 2 chains x
+    items x respondents mesh, which JAX refuses on no mesh, run, and so
+    does a checkpoint of the 2 x 2 chains x respondents mesh resumed on 4
+    respondent shards and without a mesh (each rank its own copy;
+    ``test_torch_resume_counts.py`` checks the streams): their gathered
+    draws alike on every rank (the replication canary runs inside). Tempering runs too:
     test_torch_mesh_tempering.py and test_torch_mesh_jax.py."""
     _, ranks = world
     if w.RESP_REFUSALS[case] is None:  # runs now: its draws alike on every rank
-        w.check_runs(ranks, case, (K, 6, 1, n))
+        w.check_runs(ranks, case, (K, 6, n, 1) if case.startswith("resume") else (K, 6, 1, n))
         return
     for z in ranks:
         got = str(z[f"refusal_{case}"])
         assert got.startswith(w.RESP_REFUSALS[case] + ":"), got
     names = {"uneven_n": "respondents do not divide", "non_conjugate": "conjugate",
-             "n_temps": "do not divide over 2 chain shards",
-             "resume_other_resp_count": "respondent_axis",
-             "resume_without_mesh": "respondent_axis"}
+             "n_temps": "do not divide over 2 chain shards"}
     assert names[case] in str(ranks[0][f"refusal_{case}"])
 
 

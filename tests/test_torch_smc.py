@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.models.sampler import sample_schedule as j_sample_schedule
 from gpirt_tpu.ops.likelihood import ordinal_ll_terms as j_ordinal_ll_terms
 from gpirt_tpu.parallel.smc import annealing_schedule as j_annealing_schedule

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
 from gpirt_tpu.ops.pallas_threshold import (

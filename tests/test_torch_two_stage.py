@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import default_blas_threads  # noqa: F401  (a fixture)
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.models.config import GPIRTConfig as JConfig
 from gpirt_tpu.models.config import make_constants as j_make_constants
@@ -396,6 +397,7 @@ def test_three_two_stage_sweeps_match(C, fstar_method):
     assert bool((t[..., 1:] > t[..., :-1]).all())
 
 
+@pytest.mark.usefixtures("default_blas_threads")  # the constants' bits it was set at
 def test_two_stage_sweep_newton_matches():
     """The cutpoints by Newton-proposal MH in a two-stage sweep (C = 3)."""
     s = setup_for(3, 1, "matheron", "newton")

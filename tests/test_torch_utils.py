@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a process)
 from gpirt_tpu import api as japi
 from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.models import generate as jgen
