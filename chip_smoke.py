@@ -26,7 +26,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
      ESS and by Newton-proposal MH, and once more with the card fed the
      CPU's z draw; prints the cells that set the z and f* differences;
   8. SDO path: the ordinal survey (1500 respondents x 16 items, C = 5)
-     through gpirt_mcmc with 64 chains, burn 100 and 250 draws, f* stored;
+     through gpirt_mcmc with 64 chains, burn 50 and 150 draws (cut from 100,
+     250 to fit the time limit), f* stored;
      checked for finite ll and f*, ordered cutpoints that moved, and no
      binary kernel launch; prints the sweep rate, theta ESS and ESS per
      second, the ESS rounds per cutpoint update and the host syncs a sweep;
@@ -112,7 +113,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
      gpirt_mcmc(constant_IRF=1), the grid sampler (f* by ESS over the
      1001-point grid, the cutpoints by the kernel over one session of
      1500 stacked sites), 64 chains from the dynamic path's spread init,
-     burn 100 and 300 draws; checked for one kernel launch and one f* ESS
+     burn 100 and 150 draws (cut from 300 to fit the time limit); checked
+     for one kernel launch and one f* ESS
      a sweep, finite ll, one cutpoint vector for the sessions, theta that
      differs between sessions and the truth correlation (|r| > 0.5);
      prints the sweep rate, theta ESS, the f* ESS's rounds and host syncs
@@ -132,8 +134,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
      launched once at C = 2 where the y-marginal ESS runs and never under
      the collapsed draw;
  27. ESS theta path: senate116 through gpirt_mcmc(theta_method="ess") with
-     64 chains from bench.py's spread init, burn 100 and 500 draws; checked
-     for one kernel launch and one theta ESS a sweep and finite draws;
+     64 chains from bench.py's spread init, burn 100 and 250 draws (cut from
+     500 to fit the time limit); checked for one kernel launch and one theta
+     ESS a sweep and finite draws;
      prints the sweep rate, theta ESS and ESS per second, the theta ESS's
      rounds and host syncs a sweep, then phase 6 on the inputs of its last
      sweep;
@@ -143,8 +146,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
      600); prints the sweep rate and theta ESS;
  29. affine path: scripts/tune_bench.py's affine_shift_max=16,
      affine_rounds=2 and the moves off, senate116 through run_chains with
-     64 chains from spread inits, burn 100 and 500 draws (tune_bench ran
-     burn 500 and 1000 draws): one kernel launch a sweep each; prints each
+     64 chains from spread inits, burn 100 and 250 draws (cut from 500 to
+     fit the time limit; tune_bench ran burn 500 and 1000 draws): one
+     kernel launch a sweep each; prints each
      run's sweep rate, theta ESS, ESS per second and the moves' accept
      rates, and the ESS and wall ratios of on to off;
  30. past the tile capacity: the kernel at one respondent more than its
@@ -172,15 +176,18 @@ Phases, each of which stops the run with a non-zero exit on failure:
      posterior_predictive of every chain's draws on the card (in range,
      and its agreement with the observed votes);
  36. walkthrough: examples/torch_senate116_walkthrough.py's main() at its
-     defaults (senate116, 4 chains, burn 500, 2000 draws, SEED 1119), one
-     kernel launch a sweep (2500), then phase 6 at its last sweep's state
-     (1,672 lanes) and its sign-aligned theta_hat against the JAX run's of
-     the same call (tests/fixtures/examples_jax.npz, from
+     defaults (senate116, 4 chains, burn 500, SEED 1119) but 500 draws
+     (2000 by default; cut to fit the time limit), one kernel launch a
+     sweep (1000), then phase 6 at its last sweep's state (1,672 lanes) and
+     its sign-aligned theta_hat against the JAX run's of the default call
+     (tests/fixtures/examples_jax.npz, from
      scripts/jax_examples_fixture.py): |r| >= 0.95; prints JAX's own r
      between two seeds, the ESS and R-hat beside JAX's, the wall and the
      sweeps/s;
  37. SDO example: examples/torch_sdo_ordinal.py's main() at its defaults
-     (1500 x 16, C = 5, one chain, burn 300, 1000 draws, f* stored): no
+     (1500 x 16, C = 5, one chain, burn 300, f* stored) but 300 draws (1000
+     by default; cut to fit the time limit, the first 600 sweeps the
+     default call's): no
      kernel launch, finite output, every item's cutpoints increasing and
      moved off qnorm(i/5); its one chain's basin depends on the seed (in
      JAX too), so its theta means are held at |r| >= 0.95 against the JAX
@@ -224,8 +231,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
      forms; no kernel launch (under a respondent axis the cutpoint ESS runs
      its plain round loop, each round's lane totals all-reduced, as JAX
      leaves its kernel there);
- 43. respondent-sharded main path: phase 5's call at burn 25 and 125
-     draws with mesh=make_respondent_mesh(2),
+ 43. respondent-sharded main path: phase 5's call at 40 SMC steps, burn 10
+     and 40 draws (cut from 320 steps, burn 25 and 125 draws to fit
+     the time limit: the call's r is not gated) with mesh=make_respondent_mesh(2),
      respondent_axis="respondents" (64 chains x 50 respondents a rank): finite, no kernel launch, theta, beta and the
      cutpoints the same on both ranks; its sign-aligned posterior theta
      means' r with phase 5's printed, not gated: senate116's 64-chain SMC
@@ -236,26 +244,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
      with phase 5's, where this call sits; PERF.md §6). The posterior gate
      of phases 39-40, r >= 0.999 with phase 5's means, is held by the
      sharded sampler continued from phase 5's last state (phase 31's
-     checkpoint) for CONT_DRAWS (100) draws, beside the unsharded
+     checkpoint) for CONT_DRAWS (50, cut from 100) draws, beside the unsharded
      continuation's r; prints the
      sweeps a second beside phases 5 and 39, the cutpoint ESS rounds an
      update, each all_reduce site's calls, bytes and ms a sweep (CUDA events
      on the sweep's stream, in the run) and each rank's peak memory;
  44. respondent-sharded synthetic: phase 16's run (5000 x 1000, 64 chains)
-     at burn 10, 40 draws on 2 respondent shards: finite, no kernel launch,
+     at burn 5, 20 draws (cut from 10, 40) on 2 respondent shards: finite, no kernel launch,
      the same draws on both ranks, its posterior theta means at r >= 0.99
      with phase 16's (two short runs' means, not the truth); prints each
      rank's peak device memory beside phase 16's, the sweeps a second
      beside phase 16's and the all_reduce sites;
  45. the 2 x 2 items x respondents mesh: phase 43's checks on 4 ranks, the
      theta table's all_reduce over the item group and the sufficient
-     statistics' over the respondent group, at phase 43's burn and draws;
+     statistics' over the respondent group, at phase 43's SMC steps, burn and
+     draws;
  46. ESS theta and the affine moves on 2 item shards: phase 38's sweep
      with theta by ESS and with the affine moves (phase 29's W = 16, 2
      rounds) against the unsharded one, theta equal in at least 62 of 64
      chains under the tie rule and the rest within 1e-3, the kernel against
      its plain version at a rank's state (timed, its bound); then phase
-     27's call on the item shards at burn 20, 80 draws: one launch a
+     27's call on the item shards at burn 10, 40 draws (cut from 20, 80): one launch a
      sweep on each rank, theta the same on both, the table's all_reduce;
  47. phase 19's tempering on a 2-rank chain mesh: its cold draws and swap
      rates hash to phase 19's, one launch a sweep a rank, the kernel at a
@@ -269,11 +278,13 @@ Phases, each of which stops the run with a non-zero exit on failure:
      from phase 19's last lane states (phase 32's checkpoint) for 100
      draws, the cold chains' means at r >= 0.999 with phase 19's; theta,
      beta, the cutpoints, f* and the swaps alike on the model shards; no
-     launch; then its call from scratch at burn 20, 80 draws, its r and
+     launch; then its call from scratch at burn 10, 40 draws (cut from 20,
+     80), its r and
      swap rates printed, not gated, and its all_reduce sites;
  50. resume across shard counts: phase 5's configuration continued from
-     its last state on 2 item shards (burn 50, 150 draws, a checkpoint
-     every 50 sweeps), interrupted after sweep 100 and resumed without a
+     its last state on 2 item shards (burn 20, 60 draws, a checkpoint
+     every 20 sweeps; cut from burn 50, 150 draws, every 50), interrupted
+     after sweep 40 (cut from 100) and resumed without a
      mesh (twice, in this process) and on 2 respondent shards
      (utils/checkpoint.py's stream rule): each resume begins with the
      file's draws bit for bit, the resume without a mesh is bit for bit
@@ -285,13 +296,29 @@ Phases, each of which stops the run with a non-zero exit on failure:
  51. a sweep's lanes against its batch: one sweep of campaigns8's 512
      lanes and the same lanes in batches of 64, block by block (theta, z,
      f*, beta, the cutpoints, ll, SMC's reweight ll) and whole, plain, at
-     T = 4, at a temperature a lane and with the kernel's cutpoint update:
-     every block bit for bit.
-Phases 38, 39, 41, 42-44, 46-48 and 50 run as the stages of one world of 2
+     T = 4, at a temperature a lane and with the kernel's cutpoint update;
+     then each sweep family (FAMILY_CASES: the SDO ordinal sweep with ESS
+     and Newton cutpoints, the dynamic GP theta sweep, the two-stage sweep
+     with both f* | f methods, the shared-IRF grid and conjugate sweeps,
+     ESS theta, interleave with two passes, the affine moves; plain and,
+     where the sweep takes one, at a temperature a lane) at its phase's
+     cell, one sweep of 128 chains against the same lanes in batches of 64,
+     32 and 16, every block the sweep runs and the whole sweep: every block
+     bit for bit;
+ 52. each sweep family on a 2-rank chain mesh: the cell of each family of
+     phase 51 through gpirt_mcmc (the affine moves through run_chains), 64
+     chains, burn 10 and 40 draws, 32 chains a rank, against the same call
+     in this process: the draws' sha256 equal on every rank, the kernel
+     launched once a sweep a rank on the binary families (every fourth sweep
+     under interleave); the shared-IRF run also cut on the mesh after 20
+     sweeps with a checkpoint and resumed here without a mesh: bit for bit
+     the uninterrupted call.
+Phases 38, 39, 41, 42-44, 46-48, 50 and 52 run as the stages of one world of 2
 ranks (a rank's start costs seconds on the card's machine), phases 40, 45
 and 49 in one of 4; the ranks start by the spawn method, each phase must end within 400
 seconds, and a rank that fails ends the run.
-Each phase prints its wall time. A kernel time is the mean over 50
+Each phase prints its wall time, and a line before the last lines holds
+them all with their sum. A kernel time is the mean over 50
 back-to-back launches captured in one CUDA graph and timed by CUDA events
 after a warm-up ("ms"), and over 50
 eager calls, which adds the wrapper's host time where that is the longer
@@ -299,6 +326,7 @@ eager calls, which adds the wrapper's host time where that is the longer
 nvidia-smi reports it, and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import importlib.util
@@ -401,11 +429,16 @@ from gpirt_tpu_torch.utils.response import (  # noqa: E402
 
 K, SMC_STEPS, T_MAX, BURN, DRAWS, SEED = 64, 320, 64.0, 100, 500, 1
 # phase 8's depth, cut from bench.py's burn 200 and 500 draws to fit the
-# time limit (its checks read no posterior)
-SDO_BURN, SDO_DRAWS = 100, 250
+# time limit (its checks read no posterior; burn 100, 250 draws before the
+# last cut)
+SDO_BURN, SDO_DRAWS = 50, 150
 # bench.py::bench_dynamic's data, regime and run lengths
 DYN_N, DYN_M, DYN_H, DYN_LS, DYN_BURN, DYN_DRAWS = 150, 60, 10, 2.0, 100, 300
 DYN_VOTES = {"yea": 1, "nay": 0, "missing": None}
+# phase 24's shared-IRF run on those data, cut from phase 10's burn 100 and
+# 300 draws to fit the time limit (its truth correlation gate, |r| > 0.5,
+# read 0.97 at 300 draws)
+SH_BURN, SH_DRAWS = 100, 150
 TS_BURN, TS_DRAWS = 100, 200  # the two-stage path on senate116
 # bench.py::bench_fstar10k and bench_synthetic (64 chains, not bench's 4:
 # those were a 16 GB TPU's limit)
@@ -418,6 +451,12 @@ PAST_M = 418
 # bench_campaigns8 on senate116
 PT_TEMPS, PT_MAX_TEMP, PT_BURN, PT_DRAWS = 4, 4.0, 100, 500
 C64_BURN, C64_DRAWS = 100, 300
+# phase 29's affine on / off runs' draws each (at phase 5's burn), cut from
+# 500 to fit the time limit (its checks read no posterior)
+AF_DRAWS = 250
+# phase 27's ESS theta run's draws (at phase 5's burn), cut from 500 to fit
+# the time limit (its checks read no posterior)
+TE_DRAWS = 250
 CAMPAIGNS, CAMPAIGN_WARM_SEED, CAMPAIGN_SEED = 8, 990001, 100000
 CAMPAIGN_FIXTURE = os.path.join(HERE, "tests", "fixtures", "campaigns8_senate116_jax.npz")
 # phases 31-32: a checkpoint every CK_EVERY sweeps, phase 5's call interrupted
@@ -430,6 +469,12 @@ UT_BURN, UT_DRAWS, UT_THIN = 20, 8, 2
 # |r| >= EXAMPLE_MIN_R (scripts/cross_parity.py's bar) against a JAX run of
 # the same calls (scripts/jax_examples_fixture.py)
 WALK_SWEEPS, SDO_EX_SWEEPS, EXAMPLE_MIN_R = 500 + 2000, 300 + 1000, 0.95
+# the examples' draws, cut to fit the time limit (from their defaults,
+# 2000 and 1000 draws; their burn-in stays, so a run's first sweeps are the
+# default call's): the sweeps the phases run, against the JAX runs of the
+# default calls
+WALK_ARGV, SDO_EX_ARGV = ("--iters", "500"), ("--iters", "300")
+WALK_RUN, SDO_EX_RUN = 500 + 500, 300 + 300
 EXAMPLES_FIXTURE = os.path.join(HERE, "tests", "fixtures", "examples_jax.npz")
 # per-chain temperatures of the tempered sweep check's 3 chains
 SWEEP_TEMPS = (1.0, 4.0, 16.0)
@@ -1695,7 +1740,7 @@ def shared_irf_check(dev, f_method, constant_IRF=True, temp=None, C=2, H=3):
     check(float(moved.float().mean()) > 0.2, f"cutpoints did not move ({label})")
 
 
-def shared_irf_path(dev, smi):
+def shared_irf_path(dev, smi, burn=SH_BURN, draws=SH_DRAWS):
     """Phase 24: the dynamic data through gpirt_mcmc(constant_IRF=1), the
     grid sampler (f* by ESS a (chain, item) over N grid points, the pooled
     cutpoint kernel over H n sites), 64 chains, burn 100 and 300 draws;
@@ -1722,14 +1767,14 @@ def shared_irf_path(dev, smi):
     threshold_ess.binary_threshold_ess.launches = 0
     try:
         out, state_args = observe_kernel(
-            lambda: gpirt_mcmc(raw, DYN_DRAWS, DYN_BURN, CHAIN=K, SEED=SEED,
+            lambda: gpirt_mcmc(raw, draws, burn, CHAIN=K, SEED=SEED,
                                vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init,
                                constant_IRF=1, dtype="float32", device=dev))
     finally:
         gibbs.draw_fstar_direct = direct
     peak = torch.cuda.max_memory_allocated()
     launches = threshold_ess.binary_threshold_ess.launches
-    sweeps = DYN_BURN + DYN_DRAWS
+    sweeps = burn + draws
     check(launches == fstar_ess["calls"] == sweeps,
           f"shared IRF: {launches} kernel launches, {fstar_ess['calls']} f* ESS for "
           f"{sweeps} sweeps")
@@ -1740,14 +1785,14 @@ def shared_irf_path(dev, smi):
     ll = np.stack([d["ll"] for d in out])
     thr = np.stack([d["threshold"] for d in out])  # (K, S, m, 3, H)
     theta = np.stack([d["theta"] for d in out])  # (K, S, n, H)
-    check(ll.shape == (K, DYN_DRAWS) and np.isfinite(ll).all(), "shared-IRF ll not finite")
+    check(ll.shape == (K, draws) and np.isfinite(ll).all(), "shared-IRF ll not finite")
     check(np.isfinite(thr[..., 1, :]).all(), "shared-IRF cutpoints not finite")
     check(bool((thr[..., 1, :] == thr[..., 1, :1]).all()), "cutpoints differ between sessions")
     check(np.mean(thr[:, -1, :, 1, 0] != 0.0) > 0.99, "shared-IRF cutpoints did not move")
     varies = np.mean(np.ptp(theta, axis=-1) > 0)
     check(varies > 0.5, f"theta differs between sessions in {varies:.3f} of draws")
     samp_s = out[0]["seconds"]["sampling"]
-    within, pooled = theta_ess(theta.reshape(K, DYN_DRAWS, -1), dev)
+    within, pooled = theta_ess(theta.reshape(K, draws, -1), dev)
     ch_means = theta.mean(axis=1).transpose(0, 2, 1)  # (K, H, n)
     tt = truth.T
     sign = np.sign(np.sum(ch_means * tt[None], axis=(1, 2), keepdims=True))
@@ -2464,10 +2509,11 @@ def sdo_example_agreement(out, fixture=EXAMPLES_FIXTURE):
 # posterior theta means are held to phase 5's at r >= MESH_MIN_R; the theta
 # table's all_reduce is timed inside the run (TimedAllReduce).
 ITEM_SHARDS, RANK_TIMEOUT, MESH_MIN_R = 2, 400, 0.999
-# phases 43 and 45's calls' burn and draws (their r with phase 5's means is
-# printed, not gated: their gate is the continuation from phase 5's last
-# state), cut from phase 5's to fit the time limit
-MESH_BURN, MESH_DRAWS = 25, 125
+# phases 43 and 45's calls' burn, draws and SMC steps (their r with phase 5's
+# means is printed, not gated: their gate is the continuation from phase 5's
+# last state), cut from phase 5's to fit the time limit: burn 25 and 125
+# draws at 320 SMC steps before the cut
+MESH_BURN, MESH_DRAWS, MESH_SMC = 10, 40, 40
 # Phases 42-45: respondent sharding (parallel/respondents.py) over
 # RESP_SHARDS ranks: phase 42's affine sweep at phase 29's W and rounds;
 # phase 44's synthetic run (phase 16's size) held to phase 16's sign-aligned
@@ -2475,26 +2521,30 @@ MESH_BURN, MESH_DRAWS = 25, 125
 # respondents: one run's means against another's, not against the truth).
 RESP_SHARDS, AFFINE_W, AFFINE_ROUNDS, SYN_MIN_R = 2, 16, 2, 0.99
 # phases 43 and 45's samplers continued from phase 5's last state: their
-# posterior gate (a 100-draw run; r 0.99998 at 500 and 200 draws, sharded
-# and not, NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
-CONT_DRAWS = 100
+# posterior gate (r 0.99998 at 500, 200 and 100 draws, sharded and not,
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6; cut from 100 draws to 50); phase 49's tempered continuation from phase 19's lane states
+# (r 0.99964 at 100 draws, its gate 0.999: not cut)
+CONT_DRAWS, PT_CONT_DRAWS = 50, 100
 # Phases 46-49: phase 46's item-sharded sweeps hold theta equal in at least
 # THETA_EQUAL_MIN of 64 chains (the rest ties); its ESS theta call and phase
-# 49's tempered call from scratch run at MESH2_BURN and MESH2_DRAWS
-THETA_EQUAL_MIN, MESH2_BURN, MESH2_DRAWS = 62, 20, 80
+# 49's tempered call from scratch (neither's posterior gated) run at
+# MESH2_BURN and MESH2_DRAWS (cut from burn 20, 80 draws)
+THETA_EQUAL_MIN, MESH2_BURN, MESH2_DRAWS = 62, 10, 40
 # `chip_smoke.py --basins [s1,s2,...]`: the basin study's seeds, its draws
 # (phase 5's burn) and the |r| at which a chain's means count as a basin's
 BASIN_SEEDS, BASIN_DRAWS, BASIN_R = tuple(range(1, 9)), 200, 0.99
-# phase 44's run, cut from phase 16's burn 30 and 150 draws to fit phases
-# 46-49 in the time limit (its memory reading and its r gate stay)
-SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=10, draws=40)
+# phase 44's run, cut from phase 16's burn 30 and 150 draws to fit the time
+# limit (burn 10, 40 draws before the last cut, r 0.9998 against its gate
+# 0.99; its memory reading and its r gate stay)
+SYN_SIZE = dict(n=SYN_N, m=SYN_M, K=SYN_K, burn=5, draws=20)
 
 # Phase 50: phase 5's configuration continued from its last state on 2 item
 # shards, RC_BURN burn and RC_DRAWS draws, a checkpoint every RC_EVERY sweeps,
 # interrupted after sweep RC_CUT and resumed on no mesh and on 2 respondent
 # shards (utils/checkpoint.py's stream rule); its posterior theta means held
-# to the uninterrupted 2-shard run's at r >= MESH_MIN_R
-RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT = 50, 150, 50, 100
+# to the uninterrupted 2-shard run's at r >= MESH_MIN_R (burn 50, 150 draws,
+# every 50 and cut after 100 before, r 0.999999 both ways)
+RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT = 20, 60, 20, 40
 
 # the function of the sweep (or the SMC reweight) that asks for each
 # all_reduce, and the name a respondent phase prints it under
@@ -2891,18 +2941,21 @@ def item_mesh_report(rm, dev, smi, want_means, ranks, n_item, n_chain, burn, dra
 
 def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=BURN, draws=DRAWS,
              smc_steps=SMC_STEPS, phases=(40,), rates=None, state=None, tempered=None,
-             mesh2=(MESH2_BURN, MESH2_DRAWS), resp_size=(MESH_BURN, MESH_DRAWS)):
+             mesh2=(MESH2_BURN, MESH2_DRAWS), resp_size=(MESH_BURN, MESH_DRAWS),
+             resp_smc=None):
     """Phases 40, 45 and 49 as the stages of one world of 4 ranks
     (``phases``, each checked here): phase 40, :func:`item_mesh_report` of
     phase 5's call on a 2 x 2 chains x items mesh at ``burn`` and
     ``draws``, and phase 45, :func:`resp_mesh_report` of it on a 2 x 2
-    items x respondents mesh at ``resp_size`` (burn, draws); ``rates`` the sweep rates phase 45
+    items x respondents mesh at ``resp_size`` (burn, draws) and ``resp_smc``
+    SMC steps (``smc_steps`` when None); ``rates`` the sweep rates phase 45
     prints beside its own, ``state`` the main path's last state its
     continuation starts from; phase 49, :func:`tempered_mesh_report` of
     phase 19's tempering on the items x respondents mesh, ``tempered``
     giving phase 19's last lane states ("lanes") and posterior means
     ("means"), its call from scratch at ``mesh2`` (burn, draws). Returns
     {phase: its numbers}."""
+    resp_smc = smc_steps if resp_smc is None else resp_smc
     with _temporary_dir() as tmp:
         path = state_file(rm, dev, state, tmp) if 45 in phases else None
         pt_path = None
@@ -2910,9 +2963,9 @@ def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=BURN, draws=DRAWS,
             os.makedirs(os.path.join(tmp, "pt"))
             pt_path = state_file(rm, dev, tempered["lanes"], os.path.join(tmp, "pt"))
         specs = {40: (item_mesh_rank, (rm, 2, 2, burn, draws, smc_steps, chains)),
-                 45: (resp_mesh_rank, (rm, 2, *resp_size, smc_steps, chains, path,
+                 45: (resp_mesh_rank, (rm, 2, *resp_size, resp_smc, chains, path,
                                        CONT_DRAWS)),
-                 49: (tempered_mesh_rank, (rm, pt_path, CONT_DRAWS, chains) + tuple(mesh2))}
+                 49: (tempered_mesh_rank, (rm, pt_path, PT_CONT_DRAWS, chains) + tuple(mesh2))}
         started = time.time()
         ranks = launch(rank_world, 4, (dev.type, [(p,) + specs[p] for p in phases]),
                        device=dev.type, stages=(RANK_TIMEOUT,) * len(phases))
@@ -2924,7 +2977,7 @@ def mesh_2x2(rm, dev, smi, want_means, chains=K, burn=BURN, draws=DRAWS,
                                        burn, draws, smc_steps, "40", chains)
         if 45 in phases:
             out[45] = resp_mesh_report(rm, dev, smi, want_means, [r[45] for r in ranks], 2,
-                                       *resp_size, smc_steps, "45", rates or {}, chains,
+                                       *resp_size, resp_smc, "45", rates or {}, chains,
                                        path)
         if 49 in phases:
             out[49] = tempered_mesh_report(rm, dev, smi, [r[49] for r in ranks],
@@ -3861,6 +3914,180 @@ def sweep_block_check(prob, lanes, chunk, burn=3):
     return out
 
 
+# The sweep families beyond the conjugate sweep of campaigns8, each at its
+# cell's data and options (phases 8, 10, 13, 24, 27, 28 and 29): the cases
+# phase 51 checks, each (label, GPIRTConfig fields over the family's, one
+# temperature a lane or none, the checked sweep's index).
+FAMILY_CASES = {
+    "sdo": (("ESS cutpoints", {}, False, 0), ("ESS cutpoints, T a lane", {}, True, 0),
+            ("Newton", {"threshold_method": "newton"}, False, 0),
+            ("Newton, T a lane", {"threshold_method": "newton"}, True, 0)),
+    "dynamic": (("GP theta", {}, False, 0), ("GP theta, T a lane", {}, True, 0)),
+    "two_stage": (("f* by Matheron", {}, False, 0),
+                  ("f* by Cholesky", {"fstar_method": "chol", "jitter": CHOL_JITTER}, False, 0)),
+    "shared_irf": (("grid", {}, False, 0), ("conjugate", {"f_method": "conjugate"}, False, 0),
+                   ("conjugate, T a lane", {"f_method": "conjugate"}, True, 0)),
+    "theta_ess": (("ESS theta", {}, False, 0),),
+    "interleave": (("collapsed sweep", {}, False, 1),
+                   ("collapsed sweep, T a lane", {}, True, 1), ("ESS sweep", {}, False, 4)),
+    "affine": (("W 16, 2 rounds", {}, False, 0), ("W 16, 2 rounds, T a lane", {}, True, 0)),
+}
+FAMILIES = tuple(FAMILY_CASES)
+# a campaign's lanes, against a 2- and a 4-rank chain mesh's of 64 chains
+FAMILY_LANES, FAMILY_CHUNKS = 2 * K, (K, K // 2, K // 4)
+
+
+def family_call(name, rm):
+    """(data, gpirt_mcmc keyword arguments, further GPIRTConfig fields) of
+    family ``name``'s cell; ``rm`` is senate116's response matrix."""
+    if name == "sdo":
+        return load_sdo(), dict(vote_codes=None), {}
+    if name in ("dynamic", "shared_irf"):
+        _, raw, init = dynamic_inputs()
+        kw = dict(vote_codes=DYN_VOTES, theta_ls=DYN_LS, theta_init=init)
+        return raw, dict(kw, constant_IRF=1) if name == "shared_irf" else kw, {}
+    spread = dict(theta_init=spread_init(np.asarray(rm).shape[0]))
+    if name == "two_stage":
+        return rm, dict(f_method="two_stage", **spread), {}
+    if name == "theta_ess":
+        return rm, dict(theta_method="ess", **spread), {}
+    if name == "interleave":
+        return rm, dict(threshold_method="interleave", threshold_ess_every=4,
+                        mix_subsweeps=2), {}
+    if name == "affine":  # GPIRTConfig fields only, as in JAX: run through run_chains
+        return rm, spread, dict(affine_shift_max=16, affine_rounds=2)
+    raise ValueError(f"unknown family {name!r}")
+
+
+def family_inputs(call, dev):
+    """(y on ``dev``, config, theta init (H, n), thresholds init) of a
+    family's cell (``call``, :func:`family_call`'s), built as gpirt_mcmc
+    builds them at its default priors."""
+    data, kw, fields = call
+    codes = kw.get("vote_codes", api.DEFAULT_VOTE_CODES)
+    if codes is not None:
+        data = api._strip_h(data)
+        data = (recode_cube(data, codes, verbose=False) if np.asarray(data).ndim == 3
+                else as_response_matrix(data, codes, verbose=False))
+    y, C, _ = encode_categories(api._as_cube(data))
+    H, n, m = y.shape
+    names = {f.name for f in dataclasses.fields(GPIRTConfig)}
+    opts = {k: bool(v) if k == "constant_IRF" else v for k, v in kw.items() if k in names}
+    cfg = GPIRTConfig(n=n, m=m, horizon=H, C=C, dtype="float32", jitter=1e-5, **opts,
+                      **fields)
+    init = np.zeros(n) if "theta_init" not in kw else np.asarray(kw["theta_init"])
+    th = torch.as_tensor(np.broadcast_to(init, (H, n)).copy(), dtype=torch.float32,
+                         device=dev)
+    thr = torch.as_tensor(np.ascontiguousarray(default_thresholds(C, m, H)),
+                          dtype=torch.float32, device=dev)
+    return (torch.as_tensor(np.ascontiguousarray(y), dtype=torch.int32, device=dev), cfg,
+            th, thr)
+
+
+_FAMILY_CONSTS = {}
+
+
+def family_consts(cfg, dev):
+    """The constants of ``cfg`` at gpirt_mcmc's default priors, built once
+    for the fields make_constants reads (a case's sampler options share its
+    family's)."""
+    key = (cfg.n, cfg.m, cfg.horizon, cfg.grid_size, cfg.jitter, cfg.dtype, cfg.theta_os,
+           cfg.theta_ls, cfg.kernel, str(dev))
+    if key not in _FAMILY_CONSTS:
+        m, n = cfg.m, cfg.n
+        _FAMILY_CONSTS[key] = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0),
+                                             np.zeros((2, n)), np.zeros((2, n)), device=dev)
+    return _FAMILY_CONSTS[key]
+
+
+class SweepBlocks:
+    """Records the blocks of the sweeps run inside it: each call of a
+    block function that ``gibbs_sweep`` (or the grid and two-stage sweeps)
+    makes, not those the blocks make, as (name, function, args, kwargs,
+    output), a repeated name numbered by its pass."""
+
+    NAMES = ("compute_mu_star", "draw_theta", "compute_mu", "draw_z_truncnorm",
+             "draw_fstar_conjugate", "draw_beta_conjugate", "draw_threshold_collapsed",
+             "_draw_cutpoints", "_shift", "ordinal_ll_terms", "draw_f", "draw_fstar",
+             "draw_fstar_direct", "draw_beta")
+
+    def __init__(self):
+        self.calls, self.depth, self.saved = [], 0, []
+
+    def _wrap(self, name, fn):
+        def block(*args, **kwargs):
+            self.depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+            if not self.depth:
+                seen = sum(c[0].split(" ")[0] == name for c in self.calls)
+                self.calls.append((name if not seen else f"{name} {seen + 1}", fn, args,
+                                   kwargs, out))
+            return out
+        return block
+
+    def __enter__(self):
+        targets = [(gibbs, n) for n in self.NAMES] + [(affine, "affine_theta_moves")]
+        for mod, name in targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        self.saved = []
+
+
+def family_block_check(name, rm, dev, lanes=FAMILY_LANES, chunks=FAMILY_CHUNKS, burn=3,
+                       mode=None):
+    """Phase 51's check of family ``name`` (:data:`FAMILY_CASES`): for each
+    case, one sweep of its cell on ``lanes`` chains after ``burn`` sweeps
+    from the prior, and the same lanes in batches of each of ``chunks``:
+    every block the sweep runs (:class:`SweepBlocks`), fed the whole
+    sweep's inputs cut to the batch's lanes, and the whole sweep on each
+    batch fed its lanes of the numbers. ``mode``, a context, is entered
+    around the whole-lanes sweep. Returns {"case, batches of c": {block:
+    the largest difference from the whole call's lanes, 0.0 bit for
+    bit}}."""
+    y, base, th, thr = family_inputs(family_call(name, rm), dev)
+    out = {}
+    for label, fields, lane_temp, it in FAMILY_CASES[name]:
+        cfg = dataclasses.replace(base, **fields)
+        consts = family_consts(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = gibbs.init_state(th.expand(lanes, *th.shape), thr, consts, cfg,
+                                 gibbs.init_draws(gen, lanes, consts, cfg))
+        for i in range(burn):
+            state, _ = gibbs.gibbs_sweep(state, gibbs.sweep_draws(gen, lanes, consts, cfg, i),
+                                         y, consts, cfg, iteration=i)
+        temp = (ladder(PT_TEMPS, PT_MAX_TEMP, dev).repeat(lanes // PT_TEMPS)
+                if lane_temp else None)
+        draws = gibbs.sweep_draws(gen, lanes, consts, cfg, it)
+        with SweepBlocks() as rec, mode or contextlib.nullcontext():
+            sw_state, sw_ll = gibbs.gibbs_sweep(state, draws, y, consts, cfg, temp, it)
+        for chunk in chunks:
+            apart = {key: 0.0 for key, *_ in rec.calls}
+            apart["sweep"] = 0.0
+            for lo in range(0, lanes, chunk):
+                sl = slice(lo, lo + chunk)
+                for key, fn, args, kwargs, got in rec.calls:
+                    part = fn(*(_lanes_cut(a, sl, lanes) for a in args),
+                              **{k: _lanes_cut(v, sl, lanes) for k, v in kwargs.items()})
+                    apart[key] = max(apart[key],
+                                     _outputs_apart(part, _lanes_cut(got, sl, lanes)))
+                st, ll = gibbs.gibbs_sweep(_lanes_cut(state, sl, lanes),
+                                           lane_block(draws, sl, cfg.mix_subsweeps), y,
+                                           consts, cfg, _lanes_cut(temp, sl, lanes), it)
+                apart["sweep"] = max(apart["sweep"], _outputs_apart(
+                    tuple(st) + (ll,), tuple(_lanes_cut(sw_state, sl, lanes)) + (sw_ll[sl],)))
+            out[f"{label}, batches of {chunk}"] = apart
+    return out
+
+
 def campaign_mesh_rank(device, rm, schedule):
     """Phase 48 on one rank: phase 20's campaigns8 call on a campaign mesh
     over the world, its launches counted from 0."""
@@ -3929,25 +4156,167 @@ def campaign_mesh_check(smi, ranks, ref, want, world=ITEM_SHARDS):
             "r_jax": r_jax, "bitwise": True, "reference_bitwise": not ref_differ}
 
 
-def batch_invariance_phase(rm, dev, smi, chains=K, chunk=K):
+def batch_invariance_phase(rm, dev, smi, chains=K, chunk=K, families=FAMILIES,
+                           lanes=FAMILY_LANES, chunks=FAMILY_CHUNKS):
     """Phase 51: one sweep of campaigns8's CAMPAIGNS x ``chains`` lanes
     (phase 20's problem and seed) against the same lanes in batches of
     ``chunk``, block by block and whole (:func:`sweep_block_check`): plain,
     at one temperature, at one a lane, and with the kernel's cutpoint
-    update. Every block must agree bit for bit. Returns the labels checked
-    and the number of blocks."""
-    lanes = CAMPAIGNS * chains
+    update; then each sweep family of ``families`` at its cell, one sweep
+    of ``lanes`` chains against the same lanes in batches of each of
+    ``chunks`` (:func:`family_block_check`). Every block must agree bit for
+    bit. Returns the labels checked and the number of blocks, and each
+    family's cases with their blocks."""
+    lanes8 = CAMPAIGNS * chains
     prob = campaigns._problem(np.asarray(rm), CAMPAIGNS, SEED=CAMPAIGN_SEED, n_chains=chains,
                               vote_codes=None, device=dev)
-    res = sweep_block_check(prob, lanes, chunk)
+    res = sweep_block_check(prob, lanes8, chunk)
     apart = {label: {k: v for k, v in r.items() if v} for label, r in res.items()}
     apart = {k: v for k, v in apart.items() if v}
     check(not apart, f"phase 51: blocks of a sweep differ across batch sizes: {apart}")
     blocks = len(SWEEP_BLOCKS) + 1
-    log(f"phase 51 on {smi}: one sweep of campaigns8's {lanes} lanes against batches of "
+    log(f"phase 51 on {smi}: one sweep of campaigns8's {lanes8} lanes against batches of "
         f"{chunk}: all {blocks} blocks (" + ", ".join(name for name, _ in SWEEP_BLOCKS)
         + ", the whole sweep) bit for bit in each of " + "; ".join(res))
-    return {"labels": list(res), "blocks": blocks}
+    fams = {}
+    for name in families:
+        t = time.perf_counter()
+        got = family_block_check(name, rm, dev, lanes, chunks)
+        apart = {label: {k: v for k, v in r.items() if v} for label, r in got.items()}
+        apart = {k: v for k, v in apart.items() if v}
+        check(not apart, f"phase 51, {name}: blocks of a sweep differ across batch sizes: "
+              f"{apart}")
+        cases = {}
+        for label, r in got.items():
+            cases.setdefault(label.rsplit(", batches of", 1)[0], len(r))
+        fams[name] = cases
+        log(f"phase 51, {name}: one sweep of {lanes} chains against batches of "
+            f"{', '.join(map(str, chunks))}: every block and the whole sweep bit for bit in "
+            + "; ".join(f"{c} ({n} blocks)" for c, n in cases.items())
+            + f" ({time.perf_counter() - t:.2f} s)")
+    return {"labels": list(res), "blocks": blocks, "families": fams}
+
+
+# Phase 52: each sweep family (FAMILIES) at its cell through gpirt_mcmc, K
+# chains, at FAM_SIZE's burn and draws on a 2-rank chain mesh (32 chains a
+# rank) against the same call in one process; FAM_RESUME's run also cut on
+# the mesh after FAM_SIZE's cut draws (burn + cut sweeps) with a checkpoint
+# and resumed without a mesh. FAM_RESUME is the family whose repair was the
+# largest: the shared-IRF grid sweep, whose f* ESS sums its likelihood 64
+# lanes at a time in every round, and moved f* by 1.4 at 512 lanes before
+# (PERF.md section 6).
+FAM_SIZE, FAM_RESUME = dict(chains=K, burn=10, draws=40, cut=10), "shared_irf"
+
+
+def family_run(call, dev, size, draws=None, mesh=None, **extra):
+    """A family's cell (``call``, :func:`family_call`'s) at ``size``'s chains
+    and burn and ``draws`` (``size``'s by default), from SEED, through
+    gpirt_mcmc (``extra``: its further arguments), or, for the affine moves
+    (GPIRTConfig fields only, as in JAX), through run_chains from the same
+    inputs and constants; the chains over ``mesh``'s chains axis. Returns
+    (the draws' sha256, the sampling seconds)."""
+    data, kw, fields = call
+    chains, burn = size["chains"], size["burn"]
+    draws = size["draws"] if draws is None else draws
+    if not fields:
+        out = gpirt_mcmc(data, draws, burn, CHAIN=chains, SEED=SEED, dtype="float32",
+                         device=dev, verbose=False, mesh=mesh, **kw, **extra)
+        return draws_sha256(out), out[0]["seconds"]["sampling"]
+    y, cfg, th, thr = family_inputs(call, dev)
+    if mesh is None or dist.get_rank() == 0:
+        consts = family_consts(cfg, dev)
+    if mesh is not None:  # built once, the same bits on every rank, as gpirt_mcmc does
+        consts = broadcast_constants(consts if dist.get_rank() == 0 else None, dev,
+                                     cfg.tdtype)
+    t = time.perf_counter()
+    d = run_chains(torch.Generator(device=dev).manual_seed(SEED), y,
+                   th.expand(chains, *th.shape), thr, consts, cfg, sample_iterations=draws,
+                   burn_iterations=burn, mesh=mesh)
+    host = {k: d[k].cpu().numpy() for k in ("theta", "beta", "threshold", "ll")}
+    return draws_sha256_host(host), time.perf_counter() - t
+
+
+def _counted(fn, *args, **kwargs):
+    """{"sha", "seconds", "launches"} of ``fn``'s run (:func:`family_run`),
+    the kernel's launches counted from 0."""
+    threshold_ess.binary_threshold_ess.launches = 0
+    sha, secs = fn(*args, **kwargs)
+    return {"sha": sha, "seconds": secs, "launches": threshold_ess.binary_threshold_ess.launches}
+
+
+def family_mesh_rank(device, calls, path, size, resume=FAM_RESUME):
+    """Phase 52 on one rank: each family's run (``calls``: name ->
+    :func:`family_call`'s) on a chain mesh over the world, then
+    ``resume``'s run cut after ``size``'s cut draws with a checkpoint at
+    ``path``."""
+    entered = time.time()
+    dev = _rank_device(device)
+    mesh = make_chain_mesh(device=dev.type)
+    res = {name: _counted(family_run, call, dev, size, mesh=mesh)
+           for name, call in calls.items()}
+    res["cut"] = _counted(family_run, calls[resume], dev, size, size["cut"], mesh=mesh,
+                          checkpoint_path=path, checkpoint_every=size["burn"] + size["cut"])
+    return {"families": res, "rank": dist.get_rank(), "stamps": (entered, time.time())}
+
+
+def family_references(rm, dev, size=None, families=FAMILIES):
+    """Phase 52's inputs and one-process calls: {"calls": name ->
+    :func:`family_call`'s, "size": the runs' size, "want": name -> its run
+    without a mesh (:func:`_counted`)}."""
+    size = dict(FAM_SIZE if size is None else size)
+    calls = {name: family_call(name, rm) for name in families}
+    return {"calls": calls, "size": size,
+            "want": {name: _counted(family_run, call, dev, size)
+                     for name, call in calls.items()}}
+
+
+def family_mesh_check(dev, smi, ranks, refs, path, world=ITEM_SHARDS, resume=FAM_RESUME):
+    """Phase 52's checks: on every rank each family's draws hash to the
+    one-process call's (``refs``, :func:`family_references`') and the
+    kernel was launched once a sweep on the binary families (on every
+    fourth under interleave, 0 on the ordinal SDO); the run cut on the mesh, resumed here without one,
+    hashes to the uninterrupted one-process call. Returns the numbers for
+    the kernels line."""
+    size, want, calls = refs["size"], refs["want"], refs["calls"]
+    sweeps, cut = size["burn"] + size["draws"], size["burn"] + size["cut"]
+
+    def launched(name, start, stop):  # the kernel's sweeps of [start, stop)
+        every = calls[name][1].get("threshold_ess_every", 1)  # interleave's ESS sweeps
+        binary = name != "sdo" and dev.type == "cuda"
+        return len(range(start + -start % every, stop, every)) if binary else 0
+
+    for name, ref in want.items():
+        for r in ranks:
+            got = r["families"][name]
+            check(got["sha"] == ref["sha"],
+                  f"phase 52, {name}, rank {r['rank']}: the chain mesh's draws "
+                  f"{got['sha'][:8]}... differ from the one-process call's {ref['sha'][:8]}...")
+            check(got["launches"] == launched(name, 0, sweeps),
+                  f"phase 52, {name}, rank {r['rank']}: {got['launches']} kernel launches "
+                  f"in {sweeps} sweeps")
+    res = _counted(family_run, calls[resume], dev, size, checkpoint_path=path,
+                   checkpoint_every=cut)
+    check(res["launches"] == launched(resume, cut, sweeps),
+          f"phase 52: {res['launches']} kernel launches in the resume's {sweeps - cut} sweeps")
+    check(res["sha"] == want[resume]["sha"],
+          f"phase 52: {resume}'s run cut on the chain mesh and resumed without one "
+          f"{res['sha'][:8]}... differs from the uninterrupted call's "
+          f"{want[resume]['sha'][:8]}...")
+    launches = {name: [r["families"][name]["launches"] for r in ranks] for name in want}
+    log(f"phase 52 on {smi}: {len(want)} sweep families on a chain mesh of {world} ranks, "
+        f"{size['chains'] // world} chains a rank, burn {size['burn']}, {size['draws']} draws: "
+        "every rank's draws hash to the one-process call's (" + "; ".join(
+            f"{n} {w['sha'][:8]}..., launches {launches[n]} a rank and {w['launches']} in one "
+            f"process, {sweeps / ranks[0]['families'][n]['seconds']:.2f} sweeps/s a rank "
+            f"against {sweeps / w['seconds']:.2f}" for n, w in want.items())
+        + f"); {resume} cut on the mesh after {cut} sweeps "
+        f"({[r['families']['cut']['launches'] for r in ranks]} launches) and resumed here "
+        f"without one for {sweeps - cut} sweeps ({res['launches']} launches): bit for bit "
+        "the uninterrupted one-process call")
+    return {"launches": launches,
+            "launches_one_process": {n: w["launches"] for n, w in want.items()},
+            "launches_cut": [r["families"]["cut"]["launches"] for r in ranks],
+            "launches_resumed": res["launches"], "bitwise": True}
 
 
 def tempered_continuation(dev, rm, state_path, draws, mesh=None):
@@ -4034,14 +4403,15 @@ def tempered_mesh_report(rm, dev, smi, ranks, want_means, state_path, burn, draw
         check(r["finite"] and r["sha"] == ranks[0]["sha"],
               f"phase 49, rank {r['rank']}: the call's draws differ or are not finite")
     r_cont = signed_r(ranks[0]["continued_means"], want_means)
-    r_plain = signed_r(tempered_continuation(dev, rm, state_path, CONT_DRAWS)[0], want_means)
+    r_plain = signed_r(tempered_continuation(dev, rm, state_path, PT_CONT_DRAWS)[0],
+                       want_means)
     check(np.isfinite(r_cont) and r_cont >= MESH_MIN_R,
           f"phase 49: continued from phase 19's last lane states, r {r_cont:.5f}")
     r_call = signed_r(ranks[0]["means"], want_means)
     sec = ranks[0]["seconds"]
     rate = (burn + draws) / sec["sampling"]
     log(f"phase 49 on {smi}: phase 19's tempering on a 2 x 2 items x respondents mesh, 4 "
-        f"ranks: continued from phase 19's last lane states for {CONT_DRAWS} draws, cold "
+        f"ranks: continued from phase 19's last lane states for {PT_CONT_DRAWS} draws, cold "
         f"posterior theta means r {r_cont:.5f} with phase 19's (unsharded continuation "
         f"{r_plain:.5f}); theta alike on the item shards, beta, cutpoints and f* on the "
         f"respondent shards, swaps and draws on every rank; 0 kernel launches; "
@@ -4087,40 +4457,45 @@ def stage_ends(started, ranks, phases):
 def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, burn=BURN,
                     draws=DRAWS, smc_steps=SMC_STEPS, cut=CK_CUT, every=CK_EVERY,
                     phases=(38, 39, 41), resp=None, later=None, mesh_burn=MESH_BURN,
-                    mesh_draws=MESH_DRAWS, mesh2=(MESH2_BURN, MESH2_DRAWS),
+                    mesh_draws=MESH_DRAWS, mesh_smc=None, mesh2=(MESH2_BURN, MESH2_DRAWS),
                     pt=(PT_BURN, PT_DRAWS), rc=(RC_BURN, RC_DRAWS, RC_EVERY, RC_CUT)):
-    """Phases 38, 39, 41, 42-44, 46-48 and 50 (``phases``) as the stages of one
-    world of 2 ranks sharing the card, each with its own timeout
+    """Phases 38, 39, 41, 42-44, 46-48, 50 and 52 (``phases``) as the stages of
+    one world of 2 ranks sharing the card, each with its own timeout
     (RANK_TIMEOUT), then each checked here. ``resp`` gives the respondent
     phases what they are held to and print beside their own: "rates"
     (sweeps a second by label), "syn16" (phase 16's numbers) and
-    "syn_size" (phase 44's run); phase 43 runs at ``mesh_burn`` and
-    ``mesh_draws``. ``later`` gives phases 47-48 theirs: "pt_sha" (phase
+    "syn_size" (phase 44's run); phase 43 runs at ``mesh_burn``,
+    ``mesh_draws`` and ``mesh_smc`` SMC steps (``smc_steps`` when None).
+    ``later`` gives phases 47-48 theirs: "pt_sha" (phase
     19's), "camp20" (phase 20's result), "camp_ref" (phase 48's reference,
-    :func:`campaign_blocks_reference`) and "schedule" (their overrides);
+    :func:`campaign_blocks_reference`) and "schedule" (their overrides), and
+    phase 52 "families" (:func:`family_references`');
     phase 46's call runs at ``mesh2`` (burn, draws), phase 47 at ``pt`` and
     phase 50 at ``rc`` (burn, draws, every, cut).
     Returns {phase: its numbers}: 38's (worst, flipped), 39's, 41's, 42's
-    differences, 43's, 44's, 46's, 47's, 48's and 50's."""
+    differences, 43's, 44's, 46's, 47's, 48's, 50's and 52's."""
     resp, later = resp or {}, later or {}
+    mesh_smc = smc_steps if mesh_smc is None else mesh_smc
     with _temporary_dir() as tmp:
         # phases 38, 42, 43 and 46 read the state and constants from one file
         path, inputs = (sharded_sweep_inputs(rm, dev, state, tmp)
                         if {38, 42, 43, 46, 50} & set(phases) else (None, None))
         resp_inputs = resp_sweep_inputs(rm, dev, state) if 42 in phases else None
         item_inputs_46 = item_option_inputs(rm, dev, state) if 46 in phases else None
-        ck_path = os.path.join(tmp, "cut")
+        ck_path, fam_path = os.path.join(tmp, "cut"), os.path.join(tmp, "families")
         specs = {38: (sharded_sweep_rank, (rm, path, tmp)),
                  39: (item_mesh_rank, (rm, ITEM_SHARDS, 1, burn, draws, smc_steps, chains)),
                  41: (chain_mesh_rank, (rm, chains, burn, cut, smc_steps, ck_path, every)),
                  42: (resp_sweep_rank, (rm, path, tmp, AFFINE_W)),
-                 43: (resp_mesh_rank, (rm, 1, mesh_burn, mesh_draws, smc_steps, chains, path,
+                 43: (resp_mesh_rank, (rm, 1, mesh_burn, mesh_draws, mesh_smc, chains, path,
                                        CONT_DRAWS)),
                  44: (resp_synthetic_rank, (resp.get("syn_size", SYN_SIZE),)),
                  46: (item_option_rank, (rm, path, tmp, AFFINE_W, chains) + tuple(mesh2)),
                  47: (chain_tempering_rank, (rm, chains) + tuple(pt)),
                  48: (campaign_mesh_rank, (rm, later.get("schedule", {}))),
-                 50: (resume_counts_rank, (rm, path, tmp, tuple(rc)))}
+                 50: (resume_counts_rank, (rm, path, tmp, tuple(rc))),
+                 52: (family_mesh_rank, (later.get("families", {}).get("calls"), fam_path,
+                                         later.get("families", {}).get("size")))}
         started = time.time()
         ranks = launch(rank_world, ITEM_SHARDS,
                        (dev.type, [(p,) + specs[p] for p in phases]), device=dev.type,
@@ -4151,7 +4526,7 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
             rates["phase 39"] = out[39]["sweeps_per_s"]
         if 43 in phases:
             out[43] = resp_mesh_report(rm, dev, smi, want_means, [r[43] for r in ranks], 1,
-                                       mesh_burn, mesh_draws, smc_steps, "43", rates, chains,
+                                       mesh_burn, mesh_draws, mesh_smc, "43", rates, chains,
                                        path)
         if 44 in phases:
             out[44] = resp_synthetic_report(dev, smi, [r[44] for r in ranks], resp["syn16"],
@@ -4167,6 +4542,12 @@ def two_rank_phases(rm, dev, smi, state, want, want_cut, want_means, chains=K, b
         if 50 in phases:
             out[50] = resume_counts_report(rm, dev, smi, [r[50] for r in ranks], tmp, path,
                                            tuple(rc))
+        if 52 in phases:
+            t = time.perf_counter()
+            out[52] = family_mesh_check(dev, smi, [r[52] for r in ranks],
+                                        later["families"], fam_path)
+            log(f"phase 52 (its checks and the resume here): {time.perf_counter() - t:.2f} s "
+                "wall")
     return out
 
 
@@ -4417,12 +4798,31 @@ def basins_main(argv):
     return 0
 
 
+# (label, seconds) of each phase main() ran, in order: the table of phase walls
+PHASE_WALLS = []
+
+
+def phase_wall(label, t0):
+    """Prints and keeps the wall time of phase ``label``, begun at ``t0``
+    (``time.perf_counter``)."""
+    secs = time.perf_counter() - t0
+    PHASE_WALLS.append((label, secs))
+    log(f"phase {label}: {secs:.2f} s wall")
+
+
 def timed(label, fn, *args, **kwargs):
-    """fn(*args), its wall time printed under ``label``."""
+    """fn(*args), its wall time printed under ``label`` and kept."""
     t = time.perf_counter()
     out = fn(*args, **kwargs)
-    log(f"phase {label}: {time.perf_counter() - t:.2f} s wall")
+    phase_wall(label, t)
     return out
+
+
+def walls_line(walls):
+    """The table of phase walls (``walls``: (label, seconds)) on one line,
+    with their sum."""
+    return ("phase walls (s): " + "; ".join(f"{label} {secs:.2f}" for label, secs in walls)
+            + f"; sum {sum(secs for _, secs in walls):.2f}")
 
 
 def main():
@@ -4490,7 +4890,7 @@ def main():
         f"{syn_ms:.5f} ms (graph), {syn_eager:.5f} ms (eager), plain {syn_plain:.4f} ms "
         f"(3 calls); bound {syn_work['bound_ms']:.5f} ms by {syn_work['bound_by']}, "
         f"{100 * syn_work['bound_ms'] / syn_ms:.2f}% of it")
-    log(f"phase 16 (kernel at the synthetic state): {time.perf_counter() - t:.2f} s wall")
+    phase_wall("16 (kernel at the synthetic state)", t)
     worst, flipped = max(worst, syn_worst), flipped + syn_flipped
 
     pc_worst, pc_flipped, ms_pc, ms_scalar = timed("17 (per-chain c)", per_chain_c,
@@ -4508,7 +4908,7 @@ def main():
     log(f"kernel time, tempering state (c per chain, T {temp_label((_C / pt_c) ** 2)}): "
         f"{pt_ms:.5f} ms (graph), {pt_eager:.5f} ms (eager), plain {pt_plain:.4f} ms")
     pt_work = kernel_bound(pt_args, pt_c, "tempering state")
-    log(f"phase 19 (kernel at the tempering state): {time.perf_counter() - t:.2f} s wall")
+    phase_wall("19 (kernel at the tempering state)", t)
     camp, camp_launches = timed("20 (campaigns8)", campaigns8, rm, dev, smi)
     camp_ref = timed("48's reference (campaigns8 at a rank's batch)",
                      campaign_blocks_reference, rm, dev)
@@ -4530,7 +4930,7 @@ def main():
         f"{sh_args[0].shape[2]} sites), T=1: {sh_ms:.5f} ms (graph), {sh_eager:.5f} ms "
         f"(eager), plain {sh_plain:.4f} ms")
     sh_work = kernel_bound(sh_args, _C, "shared-IRF (pooled) state")
-    log(f"phase 24 (kernel at the pooled state): {time.perf_counter() - t:.2f} s wall")
+    phase_wall("24 (kernel at the pooled state)", t)
     worst, flipped = max(worst, sh_worst), flipped + sh_flipped
     del sh_args
     timed("25 (shared-IRF recovery)", shared_irf_recovery, dev, smi)
@@ -4538,20 +4938,21 @@ def main():
     t = time.perf_counter()
     opt_errs = {label: option_check(dev, label, inputs, temp, it)
                 for label, inputs, temp, it in OPTION_CHECKS}
-    log(f"phase 26 (sweep checks of the new blocks): {time.perf_counter() - t:.2f} s wall")
-    te_launches, te_args, te_res = timed("27 (ESS theta path)", theta_ess_path, rm, dev, smi)
+    phase_wall("26 (sweep checks of the new blocks)", t)
+    te_launches, te_args, te_res = timed("27 (ESS theta path)", theta_ess_path, rm, dev, smi,
+                                         draws=TE_DRAWS)
     t = time.perf_counter()
     te_worst, te_flipped = kernel_check(te_args, "ESS theta path's state")
     te_ms, te_eager, te_plain = kernel_times(te_args, _C)
     log(f"kernel time, ESS theta path's state, T=1: {te_ms:.5f} ms (graph), "
         f"{te_eager:.5f} ms (eager), plain {te_plain:.4f} ms")
     te_work = kernel_bound(te_args, _C, "ESS theta path's state")
-    log(f"phase 27 (kernel at the ESS theta state): {time.perf_counter() - t:.2f} s wall")
+    phase_wall("27 (kernel at the ESS theta state)", t)
     worst, flipped = max(worst, te_worst), flipped + te_flipped
     del te_args
     il_launches, il_rate = timed("28 (interleave path)", interleave_path, rm, dev, smi)
     af_launches, af_ess_ratio, af_wall_ratio = timed("29 (affine path)", affine_path, rm,
-                                                     dev, smi)
+                                                     dev, smi, draws=AF_DRAWS)
     past_worst, past_flipped, past_ms, past_plain, past_work, past_plan = timed(
         "30 (past the tile capacity)", past_capacity, dev, smi)
     worst, flipped = max(worst, past_worst), flipped + past_flipped
@@ -4567,7 +4968,7 @@ def main():
     timed("35 (utilities)", utilities_phase, rm, dev, smi)
 
     walk, walk_launches, walk_args = timed("36 (walkthrough example)", walkthrough_phase,
-                                           dev, smi)
+                                           dev, smi, WALK_ARGV, WALK_RUN)
     t = time.perf_counter()
     walk_worst, walk_flipped = kernel_check(walk_args, "walkthrough state")
     walk_ms, walk_eager, walk_plain = kernel_times(walk_args, _C)
@@ -4576,20 +4977,23 @@ def main():
     log(f"kernel time, walkthrough state ({walk_args[2].numel()} lanes of "
         f"{walk_args[0].shape[2]} sites), T=1: {walk_plan}; {walk_ms:.5f} ms (graph), {walk_eager:.5f} ms (eager), plain {walk_plain:.4f} ms")
     walk_r = walkthrough_agreement(walk)
-    log(f"phase 36 (kernel check and agreement): {time.perf_counter() - t:.2f} s wall")
+    phase_wall("36 (kernel check and agreement)", t)
     worst, flipped = max(worst, walk_worst), flipped + walk_flipped
-    sdo_ex = timed("37 (SDO example)", sdo_example_phase, dev, smi)
+    sdo_ex = timed("37 (SDO example)", sdo_example_phase, dev, smi, SDO_EX_ARGV, SDO_EX_RUN)
     sdo_r = timed("37 (SDO agreement)", sdo_example_agreement, sdo_ex)
 
+    fam_want = timed("52's references (each sweep family in one process)",
+                     family_references, rm, dev)
     torch.cuda.empty_cache()  # the ranks share the card: the parent's cache held back
-    two = timed("38, 39, 41-44, 46-48, 50 (one world of 2 ranks)", two_rank_phases, rm, dev,
-                smi, main_state, main_sha, main_cut_sha, main_means,
-                phases=(38, 39, 41, 42, 43, 44, 46, 47, 48, 50),
+    two = timed("38, 39, 41-44, 46-48, 50, 52 (one world of 2 ranks)", two_rank_phases, rm,
+                dev, smi, main_state, main_sha, main_cut_sha, main_means,
+                phases=(38, 39, 41, 42, 43, 44, 46, 47, 48, 50, 52), mesh_smc=MESH_SMC,
                 resp={"rates": {"phase 5": main_rate}, "syn16": syn16},
-                later={"pt_sha": pt_sha, "camp20": camp, "camp_ref": camp_ref})
+                later={"pt_sha": pt_sha, "camp20": camp, "camp_ref": camp_ref,
+                       "families": fam_want})
     (sh_worst, sh_flipped), it2, cm = two[38], two[39], two[41]
     four = timed("40, 45 and 49 (one world of 4 ranks)", mesh_2x2, rm, dev, smi, main_means,
-                 phases=(40, 45, 49), rates={"phase 5": main_rate,
+                 phases=(40, 45, 49), resp_smc=MESH_SMC, rates={"phase 5": main_rate,
                                              "phase 39": it2["sweeps_per_s"],
                                              "phase 43": two[43]["sweeps_per_s"]},
                  state=main_state, tempered={"lanes": pt_lanes, "means": pt_means})
@@ -4600,6 +5004,7 @@ def main():
     flipped += sh_flipped + it2["flipped"] + mesh22["flipped"] + two[46]["flipped"] \
         + two[47]["flipped"]
 
+    log(walls_line(PHASE_WALLS))
     log(json.dumps({"kernels": [{
         "name": "binary_threshold_ess",
         "route": "cuda",
@@ -4711,9 +5116,9 @@ def main():
         "bound_ms_walkthrough_state": walk_work["bound_ms"],
         "bound_by_walkthrough_state": walk_work["bound_by"],
         "path_walkthrough_state": walk_plan,
-        "walkthrough_sweeps_per_s": WALK_SWEEPS / walk["seconds"],
+        "walkthrough_sweeps_per_s": WALK_RUN / walk["seconds"],
         "walkthrough_r": walk_r,
-        "sdo_example_sweeps_per_s": SDO_EX_SWEEPS / sdo_ex["seconds"],
+        "sdo_example_sweeps_per_s": SDO_EX_RUN / sdo_ex["seconds"],
         "sdo_r": sdo_r,
         "max_abs_err_sharded_sweep_check": sh_worst,
         "lanes_over_1e-5_sharded_sweep_check": sh_flipped,
@@ -4739,6 +5144,12 @@ def main():
         "resume_counts_r_resp2": two[50]["r_resp2"],
         "batch_invariance_blocks_bitwise": batch51["blocks"],
         "batch_invariance_cases": batch51["labels"],
+        "batch_invariance_families": batch51["families"],
+        "launches_chain_mesh_families": two[52]["launches"],
+        "launches_chain_mesh_families_one_process": two[52]["launches_one_process"],
+        "launches_chain_mesh_families_cut": two[52]["launches_cut"],
+        "launches_chain_mesh_families_resumed": two[52]["launches_resumed"],
+        "chain_mesh_families_bitwise": two[52]["bitwise"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

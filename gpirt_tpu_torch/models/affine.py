@@ -70,7 +70,7 @@ from gpirt_tpu_torch.models.gibbs import (
     theta_from_indices,
     theta_site_basis,
 )
-from gpirt_tpu_torch.ops.linalg import chol3, cholesky, tri3_solve, tri_solve
+from gpirt_tpu_torch.ops.linalg import chol3, cholesky, lane_chunked, tri3_solve, tri_solve
 
 __all__ = [
     "WoodburyB",
@@ -101,7 +101,13 @@ class WoodburyB(NamedTuple):
 
 
 def _a_solve(La, A, r):
-    """A^{-1} r by two triangular solves and one refinement step."""
+    """A^{-1} r by two triangular solves and one refinement step, a fixed
+    number of lanes (chains) at a time: cuBLAS picks its batched triangular
+    solve by the batch count (``ops.linalg.lane_chunked``)."""
+    return lane_chunked(_a_solve_lanes, La, A, r)
+
+
+def _a_solve_lanes(La, A, r):
     x = tri_solve(La, tri_solve(La, r), trans=True)
     res = r - A @ x
     return x + tri_solve(La, tri_solve(La, res), trans=True)

@@ -512,6 +512,14 @@ def _all_sum_parts(parts, group):
     return list(joint.split([p.shape[-1] for p in parts], dim=-1))
 
 
+def _lane_sum(a: torch.Tensor, dim) -> torch.Tensor:
+    """``a.sum(dim)`` of a lane-leading tensor, :data:`LANE_CHUNK` lanes at
+    a time (:func:`lane_chunked`): torch's reduction on the card plans its
+    split by the number of outputs, so a long sum over the sites would
+    otherwise round a lane by how many lanes share its batch."""
+    return lane_chunked(lambda t: t.sum(dim=dim), a)
+
+
 def _onehot(y, C: int, dtype) -> torch.Tensor:
     """(H, n, m) categories 1..C -> (H, n, m, C); a missing cell is all 0."""
     return (y.unsqueeze(-1) == torch.arange(1, C + 1, device=y.device)).to(dtype)
@@ -834,7 +842,10 @@ def _draw_theta_grid(state: GPIRTState, mu_star, y, consts: GPIRTConstants,
     idxs = []
     for h in range(H):
         lam_hh = lam[h, h]
-        cross = torch.einsum("g,kgn->kn", lam[h], theta) - lam_hh * theta[:, h]
+        # the sessions' product runs a fixed number of lanes at a time: its
+        # kernel follows the batch on the card (lane_chunked)
+        cross = (lane_chunked(lambda t: torch.einsum("g,kgn->kn", lam[h], t), theta)
+                 - lam_hh * theta[:, h])
         mean = -cross / lam_hh  # (K, n)
         logprior = -0.5 * torch.square(grid - mean.unsqueeze(-1)) / (1.0 / lam_hh)
         idx = _gumbel_argmax(u_theta[:, h], table[:, h].mT + logprior, dim=-1)
@@ -1130,7 +1141,7 @@ def draw_fstar_direct(state: GPIRTState, mu, y, consts: GPIRTConstants,
     z_lo, z_hi, mask = cutpoint_bounds(y, thresholds)
 
     def loglik(xt):  # (K, H, m, N) -> (K, H, m)
-        return ll_terms_from_bounds(_rows(xt.mT, idx) + mu, z_lo, z_hi, mask).sum(dim=-2)
+        return _lane_sum(ll_terms_from_bounds(_rows(xt.mT, idx) + mu, z_lo, z_hi, mask), -2)
 
     fstar = ess_update(fstar.mT, nu.mT, loglik, *ess).mT.contiguous()
     fstar = _share(fstar, config.horizon)
@@ -1207,8 +1218,8 @@ def draw_beta_conjugate(theta, z_minus_f, consts: GPIRTConstants,
     w = tri3_solve(Lc, rhs.unsqueeze(-1))
     mean = tri3_solve(Lc, w, trans=True)[..., 0] * inv_sc
     samp = tri3_solve(Lc, zeta.unsqueeze(-1), trans=True)[..., 0] * inv_sc
-    # the one product of the sweep whose lanes cuBLAS rounds otherwise in
-    # another batch (one float32 ulp): run it a fixed number of lanes at a time
+    # a product whose lanes cuBLAS rounds otherwise in another batch (one
+    # float32 ulp): run it a fixed number of lanes at a time
     beta = lane_chunked(lambda a, b: (a @ b)[..., 0], Minv.unsqueeze(2),
                         (mean + samp).unsqueeze(-1))  # (K, H, m, 3)
     return beta.mT
@@ -1467,11 +1478,11 @@ def _draw_threshold_newton_ordinal(thresholds, g, y, z, logu, inv_s=None, group=
         pc = p_cell.unsqueeze(-1)
         # pdf'(u) = -u pdf; (up - lo)^2 = up + lo, the two being disjoint
         diag_c = (-u * pdf * sgn_b - pdf * pdf * (up + lo) / pc) / pc
-        sums = [(torch.log(p_cell) * obs).sum(dim=-2).unsqueeze(-1),
-                (sgn_b * pdf / pc).sum(dim=-3), diag_c.sum(dim=-3)]
+        sums = [_lane_sum(torch.log(p_cell) * obs, -2).unsqueeze(-1),
+                _lane_sum(sgn_b * pdf / pc, -3), _lane_sum(diag_c, -3)]
         if q > 1:
             # cells with y = c+1 have lower bound c and upper bound c+1
-            sums.append((pdf[..., :-1] * pdf[..., 1:] * lo[..., :-1] / (pc ** 2)).sum(dim=-3))
+            sums.append(_lane_sum(pdf[..., :-1] * pdf[..., 1:] * lo[..., :-1] / (pc ** 2), -3))
         sums = _all_sum_parts(sums, group)
         ll_sum = sums[0][..., 0]  # (K, H, m)
         grad_t = sums[1] * cs_lane  # (K, H, m, q)

@@ -1,6 +1,6 @@
 """Dense linear-algebra helpers: jittered Cholesky factors, closed-form 3x3
-factors and triangular solves, and a product run a fixed number of lanes at
-a time.
+factors and triangular solves, and a lane-wise call run a fixed number of
+lanes at a time.
 
 Counterpart of ``gpirt_tpu/ops/linalg.py``. ``chol3`` and ``tri3_solve``
 keep the JAX package's closed form: the beta block factors one 3x3 matrix
@@ -28,7 +28,9 @@ __all__ = [
 ]
 
 # The lanes (chains) a batch-dependent library call sees at once
-# (:func:`lane_chunked`): the main path's batch.
+# (:func:`lane_chunked`): the main path's batch, so that a run of 64 chains
+# makes each such call once, as it is. A lane-wise call's shape is fixed by
+# the chunk, not by the batch.
 LANE_CHUNK = 64
 
 
@@ -134,8 +136,16 @@ def lane_chunked(fn, *args: torch.Tensor) -> torch.Tensor:
     the lanes apart. The last chunk is padded with copies of its last lane,
     so the library sees one shape whatever the number of lanes, and a
     lane's result does not depend on how many lanes are batched with it.
-    (cuBLAS picks its batched kernel by the batch count, and the kernels
-    round otherwise; on the CPU the padding changes nothing.)
+    The rule: a lane-wise call's shape is fixed by the chunk, not by the
+    batch. On the card the library's plan otherwise follows the batch and
+    rounds a lane otherwise: cuBLAS picks its batched GEMM and its batched
+    triangular solve by the batch count, and torch's reductions split a sum
+    by the number of outputs. The sweep runs through here beta's last
+    product (``models/gibbs.py``, ``draw_beta_conjugate``), the sums over
+    the sites of the ordinal Newton cutpoint update and of the grid f*
+    ESS's likelihood, the GP theta draw's sessions product, and the affine
+    moves' solves against A = K_SE + T I (``models/affine.py``,
+    ``_a_solve``); on the CPU the padding changes nothing.
     :data:`LANE_CHUNK` lanes are one call, as they are."""
     chunk = LANE_CHUNK
     K = args[0].shape[0]

@@ -1,11 +1,14 @@
 """Which of the port's calls round a lane otherwise when the lanes are
 batched otherwise, on one CUDA card (or the CPU).
 
-    python3 scripts/torch_batch_invariance.py [--lanes 512] [--chunks 64 128 256] [--chains 64] [--device cuda]
-        [--out batch_invariance.json]
+    python3 scripts/torch_batch_invariance.py [--config campaigns8] [--lanes 512]
+        [--chunks 64 128 256] [--chains 64] [--device cuda] [--out batch_invariance.json]
+    python3 scripts/torch_batch_invariance.py --config sdo|dynamic|two_stage|shared_irf|
+        theta_ess|interleave|affine|families [--lanes 128] [--chunks 64 32 16]
 
-At campaigns8's size (senate116, 8 campaigns of 64 chains, float32, Newton
-cutpoints) it runs, on ``--lanes`` lanes:
+With ``--config campaigns8`` (the default), at campaigns8's size (senate116,
+8 campaigns of 64 chains, float32, Newton cutpoints) it runs, on ``--lanes``
+lanes:
 
 * every torch call of a short batched anneal (``anneal_init_batched``, all
   campaigns) and of three sampling sweeps under a ``TorchFunctionMode``
@@ -22,6 +25,18 @@ cutpoints) it runs, on ``--lanes`` lanes:
 * with ``--campaigns``, phase 20's campaigns8 call in one batch against
   ``chip_smoke.campaign_blocks_reference`` (two places of four campaigns
   run in turn, phase 48's reference), every field of the result.
+
+With a sweep family's name (``chip_smoke.FAMILY_CASES``: the ordinal SDO
+sweep with ESS and Newton cutpoints, the dynamic GP theta sweep, the
+two-stage sweep with both f* | f methods, the shared-IRF grid and
+conjugate sweeps, ESS theta, interleave with two passes, the affine moves;
+``families``: all of them), each at its chip_smoke cell's data and width,
+it runs each of the family's cases on ``--lanes`` chains (128 by default):
+three sweeps from the prior, then one sweep under the same
+``TorchFunctionMode``, and ``chip_smoke.family_block_check``: every block
+of that sweep and the whole sweep on batches of each of ``--chunks`` lanes
+(64, 32 and 16 by default: a campaign, and a rank's chains on a 2- and a
+4-rank chain mesh of 64), bit for bit.
 
 Prints the card's name and power limit, then one JSON line; ``--out``
 writes every differing call and block to a file.
@@ -91,9 +106,10 @@ class LaneCheck(TorchFunctionMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = getattr(func, "__name__", str(func))
+        first = out[0] if isinstance(out, tuple) and out else out
         if (name in EXACT or name.endswith("_") or "generator" in kwargs or "out" in kwargs
-                or not torch.is_tensor(out) or not out.ndim
-                or out.shape[0] % self.lanes or not out.shape[0]):
+                or not torch.is_tensor(first) or not first.ndim
+                or first.shape[0] % self.lanes or not first.shape[0]):
             return out
         for chunk in self.chunks:
             self._check(func, name, args, kwargs, out, chunk)
@@ -107,6 +123,14 @@ class LaneCheck(TorchFunctionMode):
             part = func(*(c for c, _ in cut), **kwargs)
         except Exception:
             return
+        if isinstance(out, tuple):  # a pair such as cholesky_ex's (L, info): each field
+            for p, o in zip(part, out):
+                if torch.is_tensor(o) and o.ndim and o.shape[0] % self.lanes == 0:
+                    self._compare(name, args, p, o, chunk)
+            return
+        self._compare(name, args, part, out, chunk)
+
+    def _compare(self, name, args, part, out, chunk):
         r = out.shape[0] // self.lanes
         want = out[(self.lanes - chunk) * r:]
         if not torch.is_tensor(part) or part.shape != want.shape:
@@ -128,10 +152,61 @@ class LaneCheck(TorchFunctionMode):
             (diff.reshape(chunk, -1) > 0).any(1).sum()) if diff.numel() else 0)
 
 
+def report_sites(sites, checked, label=""):
+    for s in sites:
+        print(f"differs{label}: {s['site']} {s['call']} {s['shapes']}: {s['calls']} calls, "
+              f"largest {s['max_abs']:.3g}, up to {s['lanes_differ']} of {s['chunk']} lanes",
+              flush=True)
+    print(f"{checked} calls checked{label}, {len(sites)} call sites differ", flush=True)
+
+
+def report_blocks(blocks, label=""):
+    for case, res in blocks.items():
+        print(f"blocks{label}, {case}: " + ", ".join(
+            f"{k} {'equal' if v == 0 else f'{v:.3g} apart'}" for k, v in res.items()),
+              flush=True)
+
+
+def families_main(opt, dev, smi, rm):
+    """The sweep families' check (module docstring), one family after
+    another; prints each family's differing calls and blocks, then one
+    JSON line."""
+    names = chip_smoke.FAMILIES if opt.config == "families" else (opt.config,)
+    lanes = opt.lanes or chip_smoke.FAMILY_LANES
+    chunks = tuple(opt.chunks or chip_smoke.FAMILY_CHUNKS)
+    record, summary = {}, {}
+    for name in names:
+        t = time.perf_counter()
+        mode = LaneCheck(lanes, chunks)
+        try:
+            blocks = chip_smoke.family_block_check(name, rm, dev, lanes, chunks, mode=mode)
+        except Exception:  # the next family still runs
+            traceback.print_exc()
+            summary[name] = {"failed": traceback.format_exc().splitlines()[-1]}
+            continue
+        sites = sorted(mode.sites.values(), key=lambda s: (s["site"], s["chunk"]))
+        report_sites(sites, mode.checked, f" ({name})")
+        report_blocks(blocks, f" ({name})")
+        print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
+        record[name] = {"checked": mode.checked, "sites": sites, "blocks": blocks}
+        summary[name] = {"sites_differ": len(sites),
+                         "blocks_differ": {k: [b for b, v in r.items() if v]
+                                           for k, r in blocks.items() if any(r.values())}}
+    if opt.out:
+        with open(opt.out, "w") as fh:
+            json.dump({"card": smi, "lanes": lanes, "chunks": chunks, "families": record},
+                      fh, indent=1)
+    print(json.dumps({"card": smi, "lanes": lanes, "chunks": chunks, "families": summary}))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--lanes", type=int, default=512)
-    ap.add_argument("--chunks", type=int, nargs="+", default=[64, 128, 256])
+    ap.add_argument("--config", default="campaigns8",
+                    choices=("campaigns8", "families") + chip_smoke.FAMILIES)
+    ap.add_argument("--lanes", type=int, help="512 for campaigns8, else 128")
+    ap.add_argument("--chunks", type=int, nargs="+",
+                    help="64 128 256 for campaigns8, else 64 32 16")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--chains", type=int, default=64, help="chains a campaign")
     ap.add_argument("--steps", type=int, default=6, help="the short anneal's steps")
@@ -149,6 +224,10 @@ def main():
         smi = "cpu"
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
     rm, _, _ = senate116_response_matrix()
+    if opt.config != "campaigns8":
+        return families_main(opt, dev, smi, rm)
+    opt.lanes = opt.lanes or 512
+    opt.chunks = opt.chunks or [64, 128, 256]
     prob = campaigns._problem(np.asarray(rm), opt.lanes // opt.chains,
                               SEED=chip_smoke.CAMPAIGN_SEED, n_chains=opt.chains,
                               vote_codes=None, device=dev)
@@ -165,17 +244,10 @@ def main():
                    initial_states=type(states)(*(a.reshape((-1,) + a.shape[2:])
                                                  for a in states)))
     sites = sorted(mode.sites.values(), key=lambda s: (s["site"], s["chunk"]))
-    for s in sites:
-        print(f"differs: {s['site']} {s['call']} {s['shapes']}: {s['calls']} calls, "
-              f"largest {s['max_abs']:.3g}, up to {s['lanes_differ']} of {s['chunk']} lanes",
-              flush=True)
-    print(f"{mode.checked} calls checked, {len(sites)} call sites differ", flush=True)
+    report_sites(sites, mode.checked)
     blocks = {f"{label}, batches of {chunk}": res for chunk in opt.chunks
               for label, res in chip_smoke.sweep_block_check(prob, opt.lanes, chunk).items()}
-    for label, res in blocks.items():
-        print(f"blocks, {label}: " + ", ".join(
-            f"{k} {'equal' if v == 0 else f'{v:.3g} apart'}" for k, v in res.items()),
-              flush=True)
+    report_blocks(blocks)
     camp = {}
     if opt.campaigns:
         from gpirt_tpu_torch import gpirt_campaigns

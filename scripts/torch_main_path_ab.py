@@ -3,6 +3,7 @@ steps from T = 64, burn 100, 500 draws) with this checkout's
 gpirt_tpu_torch against another tree's, on one CUDA card, in turns.
 
     python3 scripts/torch_main_path_ab.py --other DIR [--rounds 2] [--config main_verbose|campaigns8]
+    python3 scripts/torch_main_path_ab.py --other DIR --config families [--chains 64]
 
 ``--config main_verbose`` runs the main call at ``gpirt_mcmc``'s default
 ``verbose=True``: progress every ``chunk_iterations`` sweeps, the summaries
@@ -10,6 +11,13 @@ on stderr. ``--config campaigns8`` runs chip_smoke's phase 20 instead
 (gpirt_campaigns on senate116, 8 campaigns of 64 chains, one warm call,
 then the timed one) and compares its batch wall; each side's campaign
 means must repeat (their sha256), and may differ from the other side's.
+``--config families`` runs each sweep family of chip_smoke.py's phases 51-52
+(``chip_smoke.FAMILIES``, at its cell: ``chip_smoke.family_run``) at
+``--chains`` chains, burn 20 and 100 draws, and compares each family's
+sampling sweeps a second; the data and calls come from this checkout's
+chip_smoke.py, the package from the run's own root; each side must repeat
+its draws (at 64 chains a lane-chunked call is the whole call, so both sides
+should draw the same).
 
 DIR is the root of another checkout (for example a parent commit unpacked
 with ``git archive`` into a gitignored directory). Each run is a process of
@@ -70,17 +78,44 @@ print(json.dumps({"sha256": hashlib.sha256(np.ascontiguousarray(out["campaign_me
                   "batch_wall_s": w["total_sec"], "smc_s": w["smc_sec"],
                   "sampling_s": w["sampling_sec"]}))
 """
+
+# each sweep family's cell (chip_smoke.family_run), one run, as RUN is; the
+# package is imported from argv[1] before chip_smoke.py from this checkout
+RUN_FAMILIES = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import gpirt_tpu_torch
+import torch
+sys.path.append(sys.argv[2])
+import chip_smoke
+from gpirt_tpu_torch.ops import threshold_ess
+from gpirt_tpu_torch.utils.datasets import senate116_response_matrix
+
+threshold_ess.build()  # the kernel built before any family is timed
+rm, _, _ = senate116_response_matrix()
+size = dict(chains=int(sys.argv[3]), burn=20, draws=100)
+h, out = hashlib.sha256(), {}
+for name in chip_smoke.FAMILIES:
+    sha, secs = chip_smoke.family_run(chip_smoke.family_call(name, rm), torch.device("cuda"),
+                                      size)
+    h.update(sha.encode())
+    out[f"{name}_sweeps_per_s"] = (size["burn"] + size["draws"]) / secs
+out["sha256"] = h.hexdigest()
+print(json.dumps(out))
+"""
 CONFIGS = {"main": (RUN, "sampling_sweeps_per_s"),
            # the main call at gpirt_mcmc's default verbose=True: the run
            # advances chunk_iterations sweeps at a time and prints progress
            "main_verbose": (RUN.replace("verbose=False", "verbose=True"),
                             "sampling_sweeps_per_s"),
-           "campaigns8": (RUN_CAMPAIGNS, "batch_wall_s")}
+           "campaigns8": (RUN_CAMPAIGNS, "batch_wall_s"),
+           "families": (RUN_FAMILIES, None)}
 
 
-def run(root, config="main"):
-    proc = subprocess.run([sys.executable, "-c", CONFIGS[config][0], os.path.abspath(root)],
-                          capture_output=True, text=True, check=True, timeout=900)
+def run(root, config="main", chains=64):
+    extra = [HERE, str(chains)] if config == "families" else []
+    proc = subprocess.run([sys.executable, "-c", CONFIGS[config][0], os.path.abspath(root),
+                           *extra], capture_output=True, text=True, check=True, timeout=900)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -89,6 +124,7 @@ def main():
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--config", choices=sorted(CONFIGS), default="main")
+    ap.add_argument("--chains", type=int, default=64, help="--config families' chains")
     opt = ap.parse_args()
     key = CONFIGS[opt.config][1]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,16 +134,19 @@ def main():
     runs = {"other": [], "this": []}
     for _ in range(opt.rounds):
         for side in ("other", "this", "this", "other"):
-            r = run(opt.other if side == "other" else HERE, opt.config)
+            r = run(opt.other if side == "other" else HERE, opt.config, opt.chains)
             runs[side].append(r)
             print(f"{side}: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()
                                           if k != "sha256") + f", sha256 {r['sha256']}",
                   flush=True)
     summary = {"card": smi, "config": opt.config}
+    keys = [key] if key else [k for k in runs["this"][0] if k != "sha256"]
     for side, rs in runs.items():
-        vals = [r[key] for r in rs]
-        summary[side] = {f"{key}_median": statistics.median(vals), f"{key}_min": min(vals),
-                         f"{key}_max": max(vals)}
+        summary[side] = {}
+        for k in keys:
+            vals = [r[k] for r in rs]
+            summary[side].update({f"{k}_median": statistics.median(vals), f"{k}_min": min(vals),
+                                  f"{k}_max": max(vals)})
         if opt.config.startswith("main"):
             summary[side]["smc_median"] = statistics.median(r["smc_sweeps_per_s"]
                                                             for r in rs)
@@ -116,7 +155,7 @@ def main():
                                        for rs in runs.values())
     print(json.dumps(summary))
     # the main path must draw what the other tree draws; campaigns8's means
-    # may move with a change, but each side must repeat
+    # and the families' draws may move with a change, but each side must repeat
     ok = (summary["same_draws"] if opt.config.startswith("main")
           else summary["each_side_repeats"])
     return 0 if ok else 1

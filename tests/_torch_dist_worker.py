@@ -68,6 +68,9 @@ REFUSALS = {"uneven_m": "ValueError", "chains_indivisible": "ValueError",
             "resume_other_item_count": None, "resume_without_mesh": None,
             "item_axis_not_named": "ValueError"}
 RUN = dict(sample_iterations=6, burn_iterations=2)
+# sweep families beside the conjugate one that the chains world runs on its
+# chain mesh: GPIRTConfig fields
+CHAIN_FAMILIES = {"two_stage": dict(f_method="two_stage")}
 
 
 def port_config(case: str) -> GPIRTConfig:
@@ -86,12 +89,13 @@ def votes(seed=0, n=n, m=m) -> np.ndarray:
     return y
 
 
-def chain_setup(K=K):
+def chain_setup(K=K, **fields):
     """A small binary problem for run_chains: y, theta_init (K, 1, n),
-    thresholds, constants and config."""
+    thresholds, constants and config (its further GPIRTConfig ``fields``:
+    another sweep family)."""
     y = votes()
     yt = torch.as_tensor(np.nan_to_num(y, nan=0.0)[None].astype(np.int32))
-    cfg = GPIRTConfig(n=n, m=m, horizon=1, C=2, grid_size=N, dtype="float64")
+    cfg = GPIRTConfig(n=n, m=m, horizon=1, C=2, grid_size=N, dtype="float64", **fields)
     consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 3.0), np.zeros((2, n)),
                             np.full((2, n), 0.5), device="cpu")
     ti = torch.as_tensor(np.random.default_rng(1).uniform(-1, 1, (K, 1, n)))
@@ -280,7 +284,8 @@ def items_world(tmp):
 
 
 def chains_world(tmp):
-    """The chains world (2 ranks): run_chains, gpirt_mcmc with SMC, and
+    """The chains world (2 ranks): run_chains (the conjugate sweep and each
+    of CHAIN_FAMILIES), gpirt_mcmc with SMC, and
     run_chains_multihost on a chain mesh, the pooled ESS of the ranks'
     blocks, a state's blocks reassembled, and checkpoints across meshes
     (interrupted here and resumed by the test without a mesh, and the
@@ -295,6 +300,11 @@ def chains_world(tmp):
     rc = run_chains(gen, yt, ti, thr, consts, cfg, mesh=mesh, **RUN)
     for k, v in rc.items():
         out[f"rc_{k}"] = v.numpy()
+    for name, fields in CHAIN_FAMILIES.items():  # the non-conjugate sweep families
+        rc = run_chains(torch.Generator().manual_seed(3), *chain_setup(**fields), mesh=mesh,
+                        **RUN)
+        for k, v in rc.items():
+            out[f"rc_{name}_{k}"] = v.numpy()
     _chains_out(_mcmc(mesh, item_axis=None, smc_steps=6, smc_max_temp=8.0), "mcmc", out)
     mh = run_chains_multihost(5, K, yt, ti[0], thr, consts, cfg, mesh=mesh, **RUN)
     out["multihost_theta"] = mh["theta"].numpy()

@@ -29,6 +29,7 @@ from gpirt_tpu.models import gibbs as jg
 from gpirt_tpu.parallel.smc import anneal_init as j_anneal_init
 from gpirt_tpu_torch.models import affine
 from gpirt_tpu_torch.models import gibbs as tg
+from gpirt_tpu_torch.ops import linalg
 from gpirt_tpu_torch.ops.kernels import icc_gram_np
 from gpirt_tpu_torch.parallel import smc
 from test_torch_constant_irf import _F64, H, K, N, _close, _lane, _t, m, n
@@ -355,3 +356,17 @@ def test_output_stays_on_grid():
 def test_config_affine_fields_as_jax():
     cfg = dataclasses.replace(setup_for("CST", 2)["cfg"], affine_rounds=2)
     assert cfg.affine and cfg.affine_dilate_sd == 0.02
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("block", ["woodbury", "moves"])
+def test_a_solve_blocks_match_in_lane_chunks(block, chunk, monkeypatch):
+    """A^{-1} r (``_a_solve``, under the Woodbury factors, the orbit and the
+    dilations) runs LANE_CHUNK lanes at a time (``ops.linalg.lane_chunked``):
+    with the chunk at 1 lane (two chunks) and at 3 (one chunk padded from 2
+    lanes) the Woodbury factors and the moves still equal JAX's."""
+    monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
+    if block == "woodbury":
+        test_woodbury_matches("chains")
+    else:
+        test_affine_theta_moves_match("GP", "chains")

@@ -1,9 +1,9 @@
 """chip_smoke.py's phases 46-51 (ESS theta and the affine moves on 2 item
 shards, tempering on a chain mesh and on 2 x 2 items x respondents, the
 campaigns on a campaign mesh, a resume across shard counts, a sweep's
-lanes against its batch) at a reduced size on the CPU, in a file of their
-own so that a parallel run gives their Gloo worlds a worker of their
-own."""
+lanes against its batch, each sweep family on a chain mesh) at a reduced
+size on the CPU, in a file of their own so that a parallel run gives their
+Gloo worlds a worker of their own."""
 
 import glob
 import json
@@ -15,6 +15,7 @@ import torch
 import _torch_threads  # noqa: F401  (one torch thread a process)
 import chip_smoke
 from gpirt_tpu_torch.models import gibbs
+from gpirt_tpu_torch.utils.datasets import simulate_dynamic
 from test_torch_chip_smoke import _small_votes
 
 
@@ -62,7 +63,8 @@ def test_later_mesh_phases_at_reduced_size(capsys, monkeypatch, tmp_path):
     assert two[47]["launches"] == [0, 0] and two[48]["launches"] == [0, 0]
     assert two[50]["launches"] == [{"items2": 0, "items2_cut": 0, "resp2_resumed": 0}] * 2
     assert two[50]["launches_resumed_alone"] == 0 and np.isfinite(two[50]["r_resp2"])
-    batch51 = chip_smoke.batch_invariance_phase(rm, cpu, "cpu", chains=2, chunk=8)
+    batch51 = chip_smoke.batch_invariance_phase(rm, cpu, "cpu", chains=2, chunk=8,
+                                                families=())
     assert batch51["blocks"] == len(chip_smoke.SWEEP_BLOCKS) + 1
     assert len(batch51["labels"]) == 4
     lanes = gibbs.init_state(torch.linspace(-1, 1, 20).expand(16, 1, 20),
@@ -87,4 +89,46 @@ def test_later_mesh_phases_at_reduced_size(capsys, monkeypatch, tmp_path):
     assert "phase 50 on cpu: phase 5's configuration continued from its last state" in text
     assert "phase 51 on cpu: one sweep of campaigns8's 16 lanes against batches of 8" in text
     assert "phase 49 on cpu: phase 19's tempering on a 2 x 2 items x respondents" in text
+    assert glob.glob(os.path.join(str(tmp_path), ".chip_smoke_ck_*")) == []
+
+
+def _small_families(monkeypatch):
+    """The sweep families' SDO and dynamic cells at 20 respondents and 8
+    items (C = 5; 3 sessions): their data loaders replaced."""
+    rng = np.random.default_rng(4)
+    sdo = rng.integers(1, 6, (20, 8)).astype(np.float64)
+    sdo[rng.random(sdo.shape) < 0.1] = np.nan
+    sdo[0, :5] = np.arange(1, 6)  # every category observed
+    truth, raw = simulate_dynamic(0, n=20, m=8, horizon=3, missing=0.1)
+    monkeypatch.setattr(chip_smoke, "load_sdo", lambda: sdo)
+    monkeypatch.setattr(chip_smoke, "dynamic_inputs",
+                        lambda: (truth, raw, chip_smoke.spread_init(20)))
+
+
+def test_family_phases_at_reduced_size(capsys, monkeypatch, tmp_path):
+    """Phase 51's sweep families (FAMILY_CASES) and phase 52 on the CPU at
+    reduced cells (a 20 x 8 matrix for senate116's, SDO's and the dynamic
+    cube's 20 x 8 x 3): each family's sweep on 8 lanes against batches of
+    4, every block bit for bit; each family on a 2-rank chain mesh (4
+    chains, burn 2, 6 draws) hashing to the one-process call, and the
+    shared-IRF run cut on the mesh after 4 sweeps and resumed here without
+    one to the uninterrupted call; the plain version runs, so no launch is
+    counted."""
+    monkeypatch.setattr(chip_smoke, "CK_DIR", str(tmp_path))
+    _small_families(monkeypatch)
+    rm, cpu = _small_votes(), torch.device("cpu")
+    batch51 = chip_smoke.batch_invariance_phase(rm, cpu, "cpu", chains=2, chunk=8, lanes=8,
+                                                chunks=(4,))
+    assert set(batch51["families"]) == set(chip_smoke.FAMILIES)
+    for name, cases in batch51["families"].items():
+        assert len(cases) == len(chip_smoke.FAMILY_CASES[name])
+    refs = chip_smoke.family_references(rm, cpu, dict(chains=4, burn=2, draws=6, cut=2))
+    two = chip_smoke.two_rank_phases(rm, cpu, "cpu", None, None, None, None, chains=4,
+                                     phases=(52,), later={"families": refs})
+    assert two[52]["bitwise"] and two[52]["launches_resumed"] == 0
+    assert two[52]["launches"] == {name: [0, 0] for name in chip_smoke.FAMILIES}
+    text = capsys.readouterr().out
+    assert "phase 51, sdo: one sweep of 8 chains against batches of 4" in text
+    assert "phase 52 on cpu: 7 sweep families on a chain mesh of 2 ranks" in text
+    assert "resumed here without one for 4 sweeps" in text
     assert glob.glob(os.path.join(str(tmp_path), ".chip_smoke_ck_*")) == []

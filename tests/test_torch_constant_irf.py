@@ -52,7 +52,7 @@ from gpirt_tpu_torch.api import default_thresholds
 from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy
 from gpirt_tpu_torch.models import gibbs as tg
 from gpirt_tpu_torch.models.config import GPIRTConfig
-from gpirt_tpu_torch.ops import ess
+from gpirt_tpu_torch.ops import ess, linalg
 from gpirt_tpu_torch.ops.interp import interp
 from gpirt_tpu_torch.ops.likelihood import delta_to_threshold, threshold_to_delta
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess_reference
@@ -528,3 +528,14 @@ def test_pooled_binary_plain_version_equals_pallas_interpret():
     err = np.abs(got.numpy().reshape(L) - want)
     assert np.sum(err > 1e-10) <= 2, np.sort(err)[-5:]
     assert np.mean(got.numpy().reshape(L) != t1.reshape(L)) > 0.8
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("pooled", [True, False])
+def test_draw_fstar_direct_matches_in_lane_chunks(pooled, chunk, monkeypatch):
+    """The grid f* ESS sums its likelihood over the sites LANE_CHUNK lanes
+    at a time (``ops.linalg.lane_chunked``): with the chunk at 1 lane (two
+    chunks) and at 3 (one chunk padded from 2 lanes) the block still equals
+    JAX's."""
+    monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
+    test_draw_fstar_direct_matches(2, pooled)

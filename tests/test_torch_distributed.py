@@ -48,6 +48,9 @@ def world(tmp_path_factory):
     yt, ti, thr, consts, cfg = w.chain_setup()
     ref = {"rc": run_chains(torch.Generator().manual_seed(3), yt, ti, thr, consts, cfg,
                             **w.RUN),
+           **{f"rc_{name}": run_chains(torch.Generator().manual_seed(3),
+                                       *w.chain_setup(**fields), **w.RUN)
+              for name, fields in w.CHAIN_FAMILIES.items()},
            "mcmc": w._mcmc(None, item_axis=None, smc_steps=6, smc_max_temp=8.0),
            "multihost": run_chains(torch.Generator().manual_seed(5), yt,
                                    ti[0].expand(w.K, 1, w.n), thr, consts, cfg, **w.RUN),
@@ -111,11 +114,14 @@ def test_chain_mesh_layout(world):
 
 def test_chain_mesh_run_chains_is_the_unsharded_run(world):
     """run_chains(mesh=...) on 2 ranks: every rank returns every chain, bit
-    for bit the single-process run from the same generator."""
+    for bit the single-process run from the same generator, for the
+    conjugate sweep and for a non-conjugate family (the two-stage sweep,
+    ``_torch_dist_worker.CHAIN_FAMILIES``)."""
     _, ref, ranks = world
     for z in ranks:
-        for k, v in ref["rc"].items():
-            np.testing.assert_array_equal(z[f"rc_{k}"], v.numpy())
+        for run in ["rc"] + [f"rc_{name}" for name in w.CHAIN_FAMILIES]:
+            for k, v in ref[run].items():
+                np.testing.assert_array_equal(z[f"{run}_{k}"], v.numpy(), err_msg=run)
 
 
 def test_chain_mesh_smc_pipeline_is_the_unsharded_run(world):

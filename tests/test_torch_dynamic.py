@@ -33,6 +33,7 @@ from gpirt_tpu_torch.api import default_thresholds
 from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy
 from gpirt_tpu_torch.models import gibbs as tg
 from gpirt_tpu_torch.models.config import GPIRTConfig, make_constants
+from gpirt_tpu_torch.ops import linalg
 from gpirt_tpu_torch.ops.likelihood import delta_to_threshold, threshold_to_delta
 from gpirt_tpu_torch.parallel import smc
 from gpirt_tpu_torch.utils import datasets
@@ -404,3 +405,13 @@ def test_simulators_match(missing):
                            j_datasets.simulate_2pl(seed, n=20, m=6, missing=missing))):
             for a, b in zip(got, want):
                 np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("temp", [None, 4.0])
+def test_gp_theta_block_matches_in_lane_chunks(temp, chunk, monkeypatch):
+    """The GP theta draw's sessions product runs LANE_CHUNK lanes at a time
+    (``ops.linalg.lane_chunked``): with the chunk at 1 lane (two chunks)
+    and at 3 (one chunk padded from 2 lanes) the block still equals JAX's."""
+    monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
+    test_theta_block_matches("GP", temp)

@@ -256,34 +256,79 @@ def test_three_sweeps_match(setup, temp):
         _close(ll, jll, 1e-10)
 
 
-@pytest.mark.parametrize("temp", [None, "per_lane"])
-def test_sweep_lanes_do_not_depend_on_the_batch(setup, temp, monkeypatch):
+# The sweep families of chip_smoke phase 51 (chip_smoke.FAMILY_CASES) at this
+# module's size: GPIRTConfig fields, C, sessions, and whether the sweep also
+# runs at one temperature a lane (the conjugate ones).
+FAMILIES = {
+    "sdo": (dict(), 5, 1, True),
+    "sdo_newton": (dict(threshold_method="newton"), 5, 1, True),
+    "dynamic": (dict(theta_ls=2.0), 2, 3, True),
+    "two_stage": (dict(f_method="two_stage"), 2, 1, False),
+    "two_stage_chol": (dict(f_method="two_stage", fstar_method="chol"), 2, 1, False),
+    "shared_irf": (dict(theta_ls=2.0, constant_IRF=True), 2, 3, False),
+    "shared_irf_conjugate": (dict(theta_ls=2.0, constant_IRF=True, f_method="conjugate"), 2,
+                             3, True),
+    "theta_ess": (dict(theta_method="ess"), 2, 1, False),
+    "interleave": (dict(threshold_method="interleave", mix_subsweeps=2), 2, 1, True),
+    "affine": (dict(affine_shift_max=3, affine_rounds=2), 2, 1, True),
+}
+
+
+def _family_inputs(family):
+    """(config, constants, y, theta init (H, n), thresholds init, temperatures
+    to check) of a sweep family at this module's size, float64."""
+    from gpirt_tpu_torch.api import default_thresholds
+    from gpirt_tpu_torch.models.config import make_constants
+
+    fields, C, Hf, tempered = FAMILIES[family]
+    cfg = GPIRTConfig(n=n, m=m, horizon=Hf, C=C, grid_size=N, dtype="float64", **fields)
+    consts = make_constants(cfg, np.zeros((3, m)), np.full((3, m), 1.5), np.zeros((2, n)),
+                            np.zeros((2, n)), device="cpu")
+    rng = np.random.default_rng(3)
+    y = rng.integers(1, C + 1, (Hf, n, m)).astype(np.int32)
+    y[rng.random(y.shape) < 0.15] = 0
+    th = torch.as_tensor(np.tile(np.linspace(-2, 2, n), (Hf, 1)))
+    thr = torch.as_tensor(default_thresholds(C, m, Hf))
+    return cfg, consts, torch.as_tensor(y), th, thr, (None, "per_lane") if tempered else (None,)
+
+
+@pytest.mark.parametrize("case", [None, "per_lane", *FAMILIES])
+def test_sweep_lanes_do_not_depend_on_the_batch(setup, case, monkeypatch):
     """One sweep of 8 lanes equals the same lanes swept as two batches of 4,
     bit for bit, and as batches of 3 and 5 with the batch-dependent call's
     chunk at 4 lanes (``ops.linalg.lane_chunked``: a batch of 8 two chunks,
-    of 5 a chunk and a padded one, of 3 a padded one). The card's check is
-    chip_smoke phase 51 (512 lanes against 64-lane batches)."""
+    of 5 a chunk and a padded one, of 3 a padded one): the conjugate sweep
+    plain and at one temperature a lane (``case`` None, "per_lane"), and
+    each sweep family of chip_smoke phase 51 (:data:`FAMILIES`), plain and,
+    where it takes one, at one temperature a lane. The card's check is
+    chip_smoke phase 51 (512 lanes against 64-lane batches; each family 128
+    against 64, 32 and 16)."""
     from gpirt_tpu_torch.ops import linalg
     from gpirt_tpu_torch.parallel.smc import lane_block
 
-    cfg, consts, yt = setup["cfg"], setup["consts"], setup["yt"]
     L = 8
+    if case in FAMILIES:
+        cfg, consts, yt, th, thr, temps = _family_inputs(case)
+        th = th.expand(L, *th.shape)
+    else:
+        cfg, consts, yt = setup["cfg"], setup["consts"], setup["yt"]
+        th = torch.as_tensor(np.tile(setup["theta_init"], (L // K, 1, 1)))
+        thr, temps = torch.as_tensor(setup["thr_init"]), (case,)
     gen = torch.Generator().manual_seed(11)
-    th = torch.as_tensor(np.tile(setup["theta_init"], (L // K, 1, 1)))
-    state = tg.init_state(th, torch.as_tensor(setup["thr_init"]), consts, cfg,
-                          tg.init_draws(gen, L, consts, cfg))
+    state = tg.init_state(th, thr, consts, cfg, tg.init_draws(gen, L, consts, cfg))
     for it in range(2):
         state, _ = tg.gibbs_sweep(state, tg.sweep_draws(gen, L, consts, cfg, it), yt,
-                                  consts, cfg)
+                                  consts, cfg, iteration=it)
     draws = tg.sweep_draws(gen, L, consts, cfg, 2)
-    t = None if temp is None else torch.linspace(1.0, 4.0, L, dtype=torch.float64)
-    for chunk, cuts in ((linalg.LANE_CHUNK, (0, 4, 8)), (4, (0, 3, 8))):
-        monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
-        whole, ll = tg.gibbs_sweep(state, draws, yt, consts, cfg, t, 2)
-        for lo, hi in zip(cuts[:-1], cuts[1:]):
-            sl = slice(lo, hi)
-            part, ll_p = tg.gibbs_sweep(tg.GPIRTState(*(a[sl] for a in state)),
-                                        lane_block(draws, sl), yt, consts, cfg,
-                                        None if t is None else t[sl], 2)
-            for a, b in zip(tuple(part) + (ll_p,), tuple(whole) + (ll,)):
-                assert torch.equal(a, b[sl])
+    for temp in temps:
+        t = None if temp is None else torch.linspace(1.0, 4.0, L, dtype=torch.float64)
+        for chunk, cuts in ((linalg.LANE_CHUNK, (0, 4, 8)), (4, (0, 3, 8))):
+            monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
+            whole, ll = tg.gibbs_sweep(state, draws, yt, consts, cfg, t, 2)
+            for lo, hi in zip(cuts[:-1], cuts[1:]):
+                sl = slice(lo, hi)
+                part, ll_p = tg.gibbs_sweep(tg.GPIRTState(*(a[sl] for a in state)),
+                                            lane_block(draws, sl, cfg.mix_subsweeps), yt,
+                                            consts, cfg, None if t is None else t[sl], 2)
+                for a, b in zip(tuple(part) + (ll_p,), tuple(whole) + (ll,)):
+                    assert torch.equal(a, b[sl]), (case, temp, chunk, lo)

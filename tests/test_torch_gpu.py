@@ -14,7 +14,8 @@ default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
 timing with CUDA events; the walkthrough example on the card; and one
 sweep with the items, and one with the respondents, over 2 ranks sharing
 the card against the unsharded sweep; one sweep of 512 lanes against
-batches of 64 lanes, bit for bit.
+batches of 64 lanes, bit for bit, and each sweep family's at 128 and 512
+lanes against batches of 64, 32 and 16.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -652,3 +653,21 @@ def test_sweep_lanes_on_card_do_not_depend_on_the_batch(cuda_device):
     assert len(res) == 4
     for label, apart in res.items():
         assert not any(apart.values()), (label, apart)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [128, 512])
+@pytest.mark.parametrize("family", chip_smoke.FAMILIES)
+def test_family_lanes_on_card_do_not_depend_on_the_batch(cuda_device, family, lanes):
+    """Each sweep family at its chip_smoke cell (chip_smoke phase 51's
+    check, FAMILY_CASES): one sweep of ``lanes`` chains against the same
+    lanes in batches of 64, 32 and 16, every block the sweep runs and the
+    whole sweep bit for bit (the calls that would round a lane by its batch
+    on the card run 64 lanes at a time, ``ops.linalg.lane_chunked``)."""
+    from gpirt_tpu_torch.utils.datasets import senate116_response_matrix
+
+    rm, _, _ = senate116_response_matrix()
+    res = chip_smoke.family_block_check(family, rm, cuda_device, lanes)
+    assert len(res) == len(chip_smoke.FAMILY_CASES[family]) * len(chip_smoke.FAMILY_CHUNKS)
+    for label, apart in res.items():
+        assert not any(apart.values()), (label, {k: v for k, v in apart.items() if v})

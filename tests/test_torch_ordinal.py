@@ -35,7 +35,7 @@ from gpirt_tpu_torch.api import _coerce_thresholds, default_thresholds
 from gpirt_tpu_torch.convert import constants_from_numpy, state_from_numpy
 from gpirt_tpu_torch.models import gibbs as tg
 from gpirt_tpu_torch.models.config import GPIRTConfig
-from gpirt_tpu_torch.ops import ess
+from gpirt_tpu_torch.ops import ess, linalg
 from gpirt_tpu_torch.ops.ess import ess_update
 from gpirt_tpu_torch.ops.likelihood import delta_to_threshold, threshold_to_delta
 from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
@@ -491,3 +491,14 @@ def test_default_thresholds_c5_and_load_sdo():
     np.testing.assert_array_equal(np.isnan(sdo), np.isnan(want))
     np.testing.assert_array_equal(sdo[~np.isnan(sdo)], want[~np.isnan(want)])
     assert set(np.unique(sdo[~np.isnan(sdo)])) == {1.0, 2.0, 3.0, 4.0, 5.0}
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("C", [3, 5])
+def test_threshold_newton_block_matches_in_lane_chunks(C, chunk, monkeypatch):
+    """The ordinal Newton's sums over the sites run LANE_CHUNK lanes at a
+    time (``ops.linalg.lane_chunked``): with the chunk at 1 lane (two
+    chunks) and at 3 (one chunk padded from 2 lanes) the block still equals
+    JAX's."""
+    monkeypatch.setattr(linalg, "LANE_CHUNK", chunk)
+    test_threshold_newton_block_matches(C, None)
