@@ -1,0 +1,19 @@
+"""Stream milliseconds a traced sweep of the item response functions
+(``sweep.fstar``: f* | z on the conjugate path, the ESS on f* or on f and f* | f
+on the grid and two-stage ones): the program's spans of that name summed over
+the traced window, over the count of its ``sweep`` roots
+(``gpirt_tpu_torch.utils.profiling.span_totals``). Nothing where no sweep was
+recorded, or the program has no spans."""
+
+try:
+    from gpirt_tpu_torch.utils.profiling import span_totals
+except ImportError:  # a program without spans
+    span_totals = None
+
+
+def read(run):
+    totals = span_totals() if span_totals is not None else {}
+    roots, block = totals.get("sweep"), totals.get("sweep.fstar")
+    if roots is None or block is None:
+        return None
+    return block.stream_ms / roots.count

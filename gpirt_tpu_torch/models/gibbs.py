@@ -88,6 +88,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from gpirt_tpu_torch._spans import span
 from gpirt_tpu_torch.models.config import (
     GPIRTConfig,
     GPIRTConstants,
@@ -1593,43 +1594,51 @@ def gibbs_sweep(state: GPIRTState, draws: Union[SweepDraws, GridDraws, TwoStageD
         sweep = _two_stage_sweep if method == "two_stage" else _grid_sweep
         return sweep(state, draws, y, consts, config)
     _, inv_s = _temp_scales(temp)
-    mu_star = compute_mu_star(consts, state.beta)
+    with span("sweep.theta"):
+        mu_star = compute_mu_star(consts, state.beta)
     for d in _passes(draws, config.mix_subsweeps):
-        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta, temp,
-                               item_group)
-        state = state._replace(theta_idx=theta_idx, f=_rows(state.fstar, theta_idx))
-        theta = theta_from_indices(theta_idx, consts)
-        mu = compute_mu(theta, state.beta)
-        z = draw_z_truncnorm(state.f + mu, y, state.thresholds, d.u_z, temp)
+        with span("sweep.theta"):
+            theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta, temp,
+                                   item_group)
+            state = state._replace(theta_idx=theta_idx, f=_rows(state.fstar, theta_idx))
+            theta = theta_from_indices(theta_idx, consts)
+            mu = compute_mu(theta, state.beta)
+        with span("sweep.z"):
+            z = draw_z_truncnorm(state.f + mu, y, state.thresholds, d.u_z, temp)
         if config.affine:  # against the z-marginal, before f* is redrawn
             # imported here: models.affine imports this module's helpers
             from gpirt_tpu_torch.models.affine import affine_theta_moves
 
-            theta_idx, beta = affine_theta_moves(theta_idx, z, state.beta, consts, config,
-                                                 d.affine, temp, respondent_group,
-                                                 item_group)
-            state = state._replace(theta_idx=theta_idx, beta=beta)
-            theta = theta_from_indices(theta_idx, consts)
-            mu = compute_mu(theta, beta)
-        fstar, f = draw_fstar_conjugate(state, z - mu, config, consts, d.z_q, d.z_p,
-                                        d.z_n, d.eps_f, temp, respondent_group)
+            with span("sweep.affine"):
+                theta_idx, beta = affine_theta_moves(theta_idx, z, state.beta, consts,
+                                                     config, d.affine, temp,
+                                                     respondent_group, item_group)
+                state = state._replace(theta_idx=theta_idx, beta=beta)
+                theta = theta_from_indices(theta_idx, consts)
+                mu = compute_mu(theta, beta)
+        with span("sweep.fstar"):
+            fstar, f = draw_fstar_conjugate(state, z - mu, config, consts, d.z_q, d.z_p,
+                                            d.z_n, d.eps_f, temp, respondent_group)
         state = state._replace(fstar=fstar, f=f)
-    beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp,
-                               respondent_group)
-    mu = compute_mu(theta, beta)
-    if _cut_method(config, iteration) == "collapsed":
-        thresholds = draw_threshold_collapsed(state.thresholds, z, y, config, draws.cut,
-                                              respondent_group)
-    else:
-        thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut, temp,
-                                     respondent_group)
-    thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
-    state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
-                       thresholds=thresholds, fstar=fstar)
-    ll = ordinal_ll_terms(f + mu, y, thresholds,
-                          _per_chain(inv_s, 4)).sum(dim=(-3, -2, -1))
-    for group in (item_group, respondent_group):
-        _all_sum(ll, group)
+    with span("sweep.beta"):
+        beta = draw_beta_conjugate(theta, z - f, consts, config, draws.zeta, temp,
+                                   respondent_group)
+        mu = compute_mu(theta, beta)
+    with span("sweep.cutpoints"):
+        if _cut_method(config, iteration) == "collapsed":
+            thresholds = draw_threshold_collapsed(state.thresholds, z, y, config, draws.cut,
+                                                  respondent_group)
+        else:
+            thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut,
+                                         temp, respondent_group)
+    with span("sweep.ll"):
+        thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
+        state = GPIRTState(theta_idx=theta_idx, f=f, beta=beta,
+                           thresholds=thresholds, fstar=fstar)
+        ll = ordinal_ll_terms(f + mu, y, thresholds,
+                              _per_chain(inv_s, 4)).sum(dim=(-3, -2, -1))
+        for group in (item_group, respondent_group):
+            _all_sum(ll, group)
     return state, ll
 
 
@@ -1649,17 +1658,21 @@ def _two_stage_sweep(state: GPIRTState, draws: TwoStageDraws, y, consts: GPIRTCo
     by ESS at the current theta, then a pass of f* | f and theta | f* (f
     read from f* at the new theta) per mix_subsweeps, then
     :func:`_ess_sweep_tail`."""
-    mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
-    theta = theta_from_indices(state.theta_idx, consts)
-    mu = compute_mu(theta, state.beta)
-    f = draw_f(state.f, state.theta_idx, state.thresholds, mu, y, consts, config,
-               draws.f)
+    with span("sweep.theta"):
+        mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
+    with span("sweep.fstar"):
+        theta = theta_from_indices(state.theta_idx, consts)
+        mu = compute_mu(theta, state.beta)
+        f = draw_f(state.f, state.theta_idx, state.thresholds, mu, y, consts, config,
+                   draws.f)
     state = state._replace(f=f)
     for d in _passes(draws, config.mix_subsweeps):
-        fstar = draw_fstar(state.f, state.theta_idx, consts, config, d.fstar)
+        with span("sweep.fstar"):
+            fstar = draw_fstar(state.f, state.theta_idx, consts, config, d.fstar)
         state = state._replace(fstar=fstar)
-        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta)
-        state = state._replace(theta_idx=theta_idx, f=_rows(fstar, theta_idx))
+        with span("sweep.theta"):
+            theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta)
+            state = state._replace(theta_idx=theta_idx, f=_rows(fstar, theta_idx))
     return _ess_sweep_tail(state, y, consts, config, draws)
 
 
@@ -1669,14 +1682,17 @@ def _grid_sweep(state: GPIRTState, draws: GridDraws, y, consts: GPIRTConstants,
     pass per mix_subsweeps of f* by ESS at the current theta
     (:func:`draw_fstar_direct`) and theta | f* on the grid, then
     :func:`_ess_sweep_tail`."""
-    mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
+    with span("sweep.theta"):
+        mu_star = compute_mu_star(consts, state.beta)  # theta's table: the old beta
     for d in _passes(draws, config.mix_subsweeps):
-        theta = theta_from_indices(state.theta_idx, consts)
-        mu = compute_mu(theta, state.beta)
-        fstar, f = draw_fstar_direct(state, mu, y, consts, config, d.fstar, d.ess)
+        with span("sweep.fstar"):
+            theta = theta_from_indices(state.theta_idx, consts)
+            mu = compute_mu(theta, state.beta)
+            fstar, f = draw_fstar_direct(state, mu, y, consts, config, d.fstar, d.ess)
         state = state._replace(f=f, fstar=fstar)
-        theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta)
-        state = state._replace(theta_idx=theta_idx, f=_rows(fstar, theta_idx))
+        with span("sweep.theta"):
+            theta_idx = draw_theta(state, mu_star, y, consts, config, d.u_theta)
+            state = state._replace(theta_idx=theta_idx, f=_rows(fstar, theta_idx))
     return _ess_sweep_tail(state, y, consts, config, draws)
 
 
@@ -1685,13 +1701,16 @@ def _ess_sweep_tail(state: GPIRTState, y, consts: GPIRTConstants, config: GPIRTC
     """The blocks after the latent passes of the grid and two-stage sweeps
     (``gpirt_tpu/models/gibbs.py:2785-2808``): beta by ESS at f = f*(theta),
     the cutpoints, the shift, the ll."""
-    theta = theta_from_indices(state.theta_idx, consts)
     f = state.f
-    beta = draw_beta(state.beta, theta, f, state.thresholds, y, consts, config,
-                     draws.beta)
-    mu = compute_mu(theta, beta)
-    thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut)
-    thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
-    state = state._replace(beta=beta, thresholds=thresholds)
-    ll = ordinal_ll_terms(f + mu, y, thresholds).sum(dim=(-3, -2, -1))
+    with span("sweep.beta"):
+        theta = theta_from_indices(state.theta_idx, consts)
+        beta = draw_beta(state.beta, theta, f, state.thresholds, y, consts, config,
+                         draws.beta)
+        mu = compute_mu(theta, beta)
+    with span("sweep.cutpoints"):
+        thresholds = _draw_cutpoints(state.thresholds, f, mu, y, config, draws.cut)
+    with span("sweep.ll"):
+        thresholds, beta, mu = _shift(thresholds, beta, mu, consts, config, draws.shift)
+        state = state._replace(beta=beta, thresholds=thresholds)
+        ll = ordinal_ll_terms(f + mu, y, thresholds).sum(dim=(-3, -2, -1))
     return state, ll

@@ -26,6 +26,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from gpirt_tpu_torch._spans import span
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 from gpirt_tpu_torch.models.gibbs import (
     GPIRTState,
@@ -191,10 +192,12 @@ def advance_chains(gen: torch.Generator, carry: Carry, y: torch.Tensor,
         own = shards.chains(K)
 
     def sweep(state, it):
-        draws = sweep_draws(gen, K, consts, config, it, shard_gens)
-        if shards is not None:
-            draws = lane_block(draws, own, config.mix_subsweeps)
-        return gibbs_sweep(state, draws, y, consts, config, None, it, *groups)
+        with span("sweep", it):
+            with span("sweep.draws"):
+                draws = sweep_draws(gen, K, consts, config, it, shard_gens)
+                if shards is not None:
+                    draws = lane_block(draws, own, config.mix_subsweeps)
+            return gibbs_sweep(state, draws, y, consts, config, None, it, *groups)
 
     def record(state, ll):
         return draw_record(state, ll, consts, config, store_f, store_fstar)

@@ -1,9 +1,20 @@
-"""Block-level timing of the Gibbs sweep.
+"""Block-level timing of the Gibbs sweep: each block alone at one state,
+and each block inside the running sweep.
 
 Counterpart of ``gpirt_tpu/utils/profiling.py``. The reference's only
 observability is a progress percentage and an upfront memory table
 (src/gpirtMCMC.cpp:60-82, 257-263). :func:`profile_sweep` times each block
 of the configured sweep at a given state, and the whole sweep.
+
+The spans (``gpirt_tpu_torch/_spans.py``, re-exported here) time the blocks
+of the sweeps a run makes: ``sweep`` around each sweep of
+``models/sampler.advance_chains`` (its iteration ``it`` shared by the spans
+inside it), and inside it ``sweep.draws``, ``sweep.theta``, ``sweep.z``,
+``sweep.affine``, ``sweep.fstar``, ``sweep.beta``, ``sweep.cutpoints`` and
+``sweep.ll``. They record while a ``torch.profiler`` records, or inside
+:func:`recording`; :func:`span_totals` then gives, per name, the count, the
+host and host self nanoseconds and the stream milliseconds, and
+:func:`spans` each record, on the clock of the profiler's events.
 
 On a CUDA device a block's time is read from CUDA events, as the slope
 between ``reps`` and ``5 reps`` back-to-back calls, which JAX's
@@ -20,10 +31,12 @@ from typing import Callable, Dict
 
 import torch
 
+from gpirt_tpu_torch._spans import clear_spans, recording, span, span_totals, spans
 from gpirt_tpu_torch.models import gibbs as G
 from gpirt_tpu_torch.models.config import GPIRTConfig, GPIRTConstants
 
-__all__ = ["profile_sweep", "device_time"]
+__all__ = ["profile_sweep", "device_time", "span", "recording", "spans", "span_totals",
+           "clear_spans"]
 
 # CUDA-event runs of each count whose least time is kept: a stall only adds
 # time, so the least of a few is the call's cost.

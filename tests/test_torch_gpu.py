@@ -11,7 +11,8 @@ paths) and the path it takes by n; gpirt_mcmc (tempered too),
 gpirt_campaigns, recover_fstar and recover_fstar_batch on the card by
 default; checkpointed gpirt_mcmc calls interrupted and resumed bit for bit
 (SMC-initialised and tempered), and refused on the CPU; profile_sweep
-timing with CUDA events; the walkthrough example on the card; and one
+timing with CUDA events; the sweep's spans on the stream and on the
+profiler's clock; the walkthrough example on the card; and one
 sweep with the items, and one with the respondents, over 2 ranks sharing
 the card against the unsharded sweep; one sweep of 512 lanes against
 batches of 64 lanes, bit for bit, and each sweep family's at 128 and 512
@@ -496,6 +497,56 @@ def test_profile_sweep_times_with_cuda_events(cuda_device, monkeypatch):
                         reps=3)
     assert len(out) == 6 and all(np.isfinite(v) and v > 0 for v in out.values()), out
     assert len(made) == 6 * 2 * 2 * 2  # six blocks, two counts, two runs, two events
+
+
+@pytest.mark.gpu
+def test_sweep_spans_on_the_card(cuda_device):
+    """Three sweeps under a CUDA profiler: every block span of the conjugate
+    sweep has a positive stream time, a root's children take no more of the
+    stream than the root, and the host launch of each cutpoint kernel, found
+    by its correlation id, lies inside a ``sweep.cutpoints`` span."""
+    from gpirt_tpu_torch.models.config import GPIRTConfig
+    from gpirt_tpu_torch.models.sampler import Carry, advance_chains, sample_schedule
+    from gpirt_tpu_torch.utils.profiling import clear_spans, span_totals, spans
+
+    y = torch.as_tensor(np.where(_votes() == 1.0, 2, 1).astype(np.int32)[None],
+                        device=cuda_device)
+    cfg = GPIRTConfig(n=20, m=12, dtype="float32", jitter=1e-5)
+    consts = make_constants(cfg, np.zeros((3, 12)), np.full((3, 12), 3.0),
+                            np.zeros((2, 20)), np.zeros((2, 20)), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ti = torch.zeros((4, 1, 20), device=cuda_device)
+    thr = torch.as_tensor(np.tile([-np.inf, 0.0, np.inf], (1, 12, 1)), dtype=torch.float32,
+                          device=cuda_device)
+    carry = Carry(gibbs.init_state(ti, thr, consts, cfg, gibbs.init_draws(gen, 4, consts, cfg)))
+    sched = sample_schedule(10, 0, 1)
+    advance_chains(gen, carry, y, consts, cfg, sched, 0, 1)  # warm
+    clear_spans()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            advance_chains(gen, carry, y, consts, cfg, sched, 1, 4)
+            torch.cuda.synchronize(cuda_device)
+        tot, recs = span_totals(), spans()
+    finally:
+        clear_spans()
+    blocks = ("sweep.draws", "sweep.theta", "sweep.z", "sweep.fstar", "sweep.beta",
+              "sweep.cutpoints", "sweep.ll")
+    assert tot["sweep"].count == 3
+    assert all(tot[b].stream_ms > 0 for b in blocks), tot
+    for root in (s for s in recs if s.name == "sweep"):
+        kids = sum(s.stream_ms for s in recs if s.parent == root.id)
+        assert 0 < kids <= root.stream_ms + 1e-3, (kids, root.stream_ms)
+    events = prof.profiler.kineto_results.events()
+    kernels = {ev.correlation_id() for ev in events
+               if ev.device_type() == torch.autograd.DeviceType.CUDA
+               and any(k in ev.name() for k in ("ess_regs", "ess_tile", "ess_stream"))}
+    launches = [ev.start_ns() for ev in events
+                if ev.device_type() == torch.autograd.DeviceType.CPU
+                and "LaunchKernel" in ev.name() and ev.correlation_id() in kernels]
+    cuts = [(s.start_ns, s.end_ns) for s in recs if s.name == "sweep.cutpoints"]
+    assert len(launches) == 3
+    assert all(any(a <= t <= b for a, b in cuts) for t in launches), (launches, cuts)
 
 
 @pytest.mark.gpu
