@@ -28,9 +28,16 @@ Phases, each of which stops the run with a non-zero exit on failure:
   8. SDO path: the ordinal survey (1500 respondents x 16 items, C = 5)
      through gpirt_mcmc with 64 chains, burn 50 and 150 draws (cut from 100,
      250 to fit the time limit), f* stored;
-     checked for finite ll and f*, ordered cutpoints that moved, and no
-     binary kernel launch; prints the sweep rate, theta ESS and ESS per
-     second, the ESS rounds per cutpoint update and the host syncs a sweep;
+     checked for finite ll and f*, ordered cutpoints that moved, one
+     ordinal kernel launch a sweep and no binary one; prints the sweep
+     rate, theta ESS and ESS per second, the host-looped ESS updates and
+     the host syncs a sweep; then the ordinal cutpoint kernel against its
+     plain version by phase 3's rule (a lane's error its largest over its
+     C - 1 deltas) on random lanes at the benchmark's sdo-k512 shape (512
+     chains x 16 items of 1500 respondents, C = 5, the survey's responses;
+     8,192 lanes, where phase 3's 0.1% is 8 lanes), at T = 1 and 64, and on
+     the kernel's inputs of the path's last sweep, timed, with each lane's
+     rounds, the work they need and the bound it gives;
   9. GP sweep check: the check of phase 4 over three sessions in the GP
      theta regime (theta_ls = 2), at C = 2 and C = 5;
  10. dynamic path: simulate_dynamic's 150 respondents x 60 items x 10
@@ -310,7 +317,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
      chains, burn 10 and 40 draws, 32 chains a rank, against the same call
      in this process: the draws' sha256 equal on every rank, the kernel
      launched once a sweep a rank on the binary families (every fourth sweep
-     under interleave); the shared-IRF run also cut on the mesh after 20
+     under interleave) and the ordinal kernel once a sweep a rank on SDO's;
+     the shared-IRF run also cut on the mesh after 20
      sweeps with a checkpoint and resumed here without a mesh: bit for bit
      the uninterrupted call.
 Phases 38, 39, 41, 42-44, 46-48, 50 and 52 run as the stages of one world of 2
@@ -373,7 +381,12 @@ from gpirt_tpu_torch.models.sampler import (  # noqa: E402
 )
 from gpirt_tpu_torch.ops import threshold_ess  # noqa: E402
 from gpirt_tpu_torch.ops.ess import ess_update  # noqa: E402
-from gpirt_tpu_torch.ops.likelihood import cutpoint_bounds, ordinal_ll_terms  # noqa: E402
+from gpirt_tpu_torch.ops.likelihood import (  # noqa: E402
+    category_logprobs,
+    cutpoint_bounds,
+    delta_to_threshold,
+    ordinal_ll_terms,
+)
 from gpirt_tpu_torch.parallel.chains import (  # noqa: E402
     Shards,
     lane_state_block,
@@ -498,6 +511,10 @@ SFU_PER_CLOCK_PER_SM = 16
 # erff) and none in logf, which is a polynomial.
 OPS_PER_SITE = 20
 SFU_PER_SITE = 1
+# The ordinal kernel's site calls erff twice (its category's two CDFs) and
+# logf once: OPS_PER_SITE is a floor there, and its special-function
+# results are counted as two of the binary site's.
+ORDINAL_SFU_PER_SITE = 2 * SFU_PER_SITE
 
 
 def log(msg):
@@ -576,6 +593,39 @@ def random_lanes(y_dev):
             torch.log(rand(K, H, m)), rand(K, H, m) * _TWO_PI, rand(64, K, H, m))
 
 
+def random_ordinal_lanes(y_dev, K=8 * K, C=5, R=64):
+    """The ordinal kernel's lane inputs for K chains on the SDO path's
+    responses ``y_dev`` (H, n, m), with random g, deltas (cutpoints about
+    0.6 apart) and uniforms from a seed."""
+    H, n, m = y_dev.shape
+    dev = y_dev.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*s):
+        return torch.rand(s, generator=gen, device=dev)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    d = torch.cat([randn(K, H, m, 1), -0.5 + 0.3 * randn(K, H, m, C - 2)], dim=-1)
+    return (1.5 * randn(K, H, n, m), y_dev, d, randn(K, H, m, C - 1),
+            torch.log(rand(K, H, m)), rand(K, H, m) * _TWO_PI, rand(R, K, H, m))
+
+
+def is_ordinal(args):
+    """Whether ``args`` are the ordinal kernel's: a lane state of C - 1
+    deltas (K, H, m, C-1) where the binary kernel's is t_1 (K, H, m)."""
+    return args[2].ndim == 4
+
+
+def kernel_pair(args):
+    """(wrapper, plain version) of the kernel that takes ``args``."""
+    if is_ordinal(args):
+        return (threshold_ess.ordinal_threshold_ess,
+                threshold_ess.ordinal_threshold_ess_reference)
+    return threshold_ess.binary_threshold_ess, threshold_ess.binary_threshold_ess_reference
+
+
 def c_of(temp):
     """The kernel's scale 1/sqrt(2 T): a float, or a (K,) tensor of one a
     chain for a (K,) tensor of temperatures."""
@@ -589,27 +639,30 @@ def temp_label(temp):
 
 
 def kernel_check(args, label, temps=(1.0, T_MAX), c=None):
-    """The kernel against its plain version on ``args``: at most 0.1% of
-    lanes over 1e-5 (a near-tie accept may flip, the site sum being taken
-    in another order), finite, and most lanes moved; at each of ``temps``
-    (a temperature may be a (K,) tensor of one a chain), or at the scale
-    ``c`` alone when it is given. Returns the largest error of the other
-    lanes and the count of lanes over 1e-5."""
-    L = args[2].numel()
+    """The kernel (binary or ordinal, :func:`kernel_pair`) against its plain
+    version on ``args``: at most 0.1% of lanes over 1e-5 (a near-tie accept
+    may flip, the site sum being taken in another order; a lane's error is
+    its largest over its C - 1 deltas), finite, and most lanes moved; at
+    each of ``temps`` (a temperature may be a (K,) tensor of one a chain),
+    or at the scale ``c`` alone when it is given. Returns the largest error
+    of the other lanes and the count of lanes over 1e-5."""
+    L = args[4].numel()
+    kernel, plain = kernel_pair(args)
     worst, flipped = 0.0, 0
     scales = ([(temp_label(t), c_of(t)) for t in temps] if c is None
               else [(f"{temp_label((_C / c) ** 2)} (c as given)", c)])
     for tl, c in scales:
-        got = threshold_ess.binary_threshold_ess(*args, c)
+        got = kernel(*args, c)
         torch.cuda.synchronize()
-        want = threshold_ess.binary_threshold_ess_reference(*args, c)
+        want = plain(*args, c)
         torch.cuda.synchronize()
-        err = (got - want).abs()
+        err = (got - want).abs().reshape(L, -1).amax(dim=-1)
         over = int((err > 1e-5).sum())
         check(bool(torch.isfinite(got).all()), f"{label}: kernel output not finite")
         check(over <= 0.001 * L, f"{label} T={tl}: {over} of {L} lanes "
               "differ by more than 1e-5")
-        check(float((got != args[2]).float().mean()) > 0.8, f"{label}: lanes did not move")
+        moved = (got != args[2]).reshape(L, -1).any(dim=-1)
+        check(float(moved.float().mean()) > 0.8, f"{label}: lanes did not move")
         rest = float(err[err <= 1e-5].max())
         worst, flipped = max(worst, rest), flipped + over
         log(f"kernel check, {label}, T={tl}: lanes={L} over_1e-5={over} "
@@ -619,38 +672,48 @@ def kernel_check(args, label, temps=(1.0, T_MAX), c=None):
 
 def kernel_times(args, c, plain_reps=10):
     """(graph ms, eager ms, plain ms) of one update of ``args``."""
-    ms = graph_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
-    eager = loop_ms(lambda: threshold_ess.binary_threshold_ess(*args, c))
-    plain = loop_ms(lambda: threshold_ess.binary_threshold_ess_reference(*args, c),
-                    reps=plain_reps)
+    kernel, plain_version = kernel_pair(args)
+    ms = graph_ms(lambda: kernel(*args, c))
+    eager = loop_ms(lambda: kernel(*args, c))
+    plain = loop_ms(lambda: plain_version(*args, c), reps=plain_reps)
     return ms, eager, plain
 
 
 def lane_rounds(g, y, t1, nu, logu, eps0, rs, c):
     """Each lane's proposals up to its accept, R for a lane at the cap, and
     the mask of lanes at the cap: a copy of the plain version's loop
-    (gpirt_tpu_torch/ops/threshold_ess.py) that counts; ``c`` a float or a
-    (K,) tensor."""
+    (gpirt_tpu_torch/ops/threshold_ess.py) that counts, of the binary
+    kernel's lanes or, for a (K, H, m, C-1) ``t1`` of deltas, the ordinal
+    kernel's; ``c`` a float or a (K,) tensor."""
     if torch.is_tensor(c):
         c = c.reshape(-1, 1, 1, 1)
-    obs = (y > 0).to(g.dtype)
-    sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
+    if t1.ndim == 4:
+        C = t1.shape[-1] + 1
+        onehot = (y.unsqueeze(-1) == torch.arange(1, C + 1, device=y.device)).to(g.dtype)
 
-    def ll(t):
-        x = sgn * (t.unsqueeze(-2) - g) * c
-        return torch.sum(torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6) * obs, dim=-2)
+        def ll(d):
+            logp = category_logprobs(g, delta_to_threshold(d).unsqueeze(-3), C, c)
+            return (logp * onehot).sum(dim=(-3, -1))
+    else:
+        obs = (y > 0).to(g.dtype)
+        sgn = torch.where(y == 1, 1.0, -1.0).to(g.dtype) * obs
+
+        def ll(t):
+            x = sgn * (t.unsqueeze(-2) - g) * c
+            return torch.sum(torch.log(0.5 * (1.0 + torch.erf(x)) + 1e-6) * obs, dim=-2)
 
     R = rs.shape[0]
     log_y = ll(t1) + logu
     eps = eps0
     eps_min = eps - _TWO_PI
     eps_max = torch.full_like(eps, _TWO_PI)
-    rounds = torch.full(t1.shape, R, dtype=torch.int64, device=t1.device)
-    active = torch.ones_like(t1, dtype=torch.bool)
+    rounds = torch.full(logu.shape, R, dtype=torch.int64, device=t1.device)
+    active = torch.ones_like(logu, dtype=torch.bool)
+    lane = (...,) + (None,) * (t1.ndim - logu.ndim)  # an angle over a lane's deltas
     for r in range(R):
         if not bool(active.any()):
             break
-        prop = t1 * torch.cos(eps) + nu * torch.sin(eps)
+        prop = t1 * torch.cos(eps)[lane] + nu * torch.sin(eps)[lane]
         accept = ll(prop) > log_y
         rounds = torch.where(active & accept, r + 1, rounds)
         still = active & ~accept
@@ -665,20 +728,26 @@ def kernel_bound(args, c, label="main path's state"):
     """The work this launch needs and the least time the card could take
     for it: each input read once (of rs, the values a shrink uses; c a
     (K,) vector), the output written once, and every observed site
-    evaluated once per ll."""
-    g, y, t1 = args[0], args[1], args[2]
+    evaluated once per ll; of the binary kernel or, on its lanes
+    (:func:`is_ordinal`), the ordinal one (benchmark/counts/ordinal_kernel.py
+    counts alike)."""
+    g, y, t1, logu = args[0], args[1], args[2], args[4]
     rounds, capped = lane_rounds(*args, c)
     n_obs = (y > 0).sum(dim=1)  # (H, m), shared by the chains
     site_evals = int(((1 + rounds) * n_obs).sum())
     shrinks = int(torch.where(capped, rounds, rounds - 1).sum())
-    L = t1.numel()
-    nbytes = 4 * (g.numel() + y.numel() + 5 * L + shrinks + g.shape[0])
+    L = logu.numel()
+    D = t1.shape[-1] if is_ordinal(args) else 1  # floats of a lane's state
+    # g, y; a lane's state, prior draw and output (D each), logu and eps0;
+    # the shrinks; c
+    nbytes = 4 * (g.numel() + y.numel() + (3 * D + 2) * L + shrinks + g.shape[0])
     ops = OPS_PER_SITE * site_evals
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / FP32_OPS_PER_S * 1e3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    sfu_ms = SFU_PER_SITE * site_evals / (SFU_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
+    sfu = ORDINAL_SFU_PER_SITE if is_ordinal(args) else SFU_PER_SITE
+    sfu_ms = sfu * site_evals / (SFU_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
     rf = rounds.double()
     work = {
         "rounds_mean": float(rf.mean()),
@@ -883,15 +952,16 @@ def theta_ess(theta, dev):
     return within_med, pooled_med
 
 
-def observe_kernel(run, before_call=None, kernel=None, scales=None):
-    """Runs ``run()`` with the sweep's call of the kernel wrapper (through
-    gibbs, once a sweep) observed: ``before_call(i)``, when given, runs
-    before the i-th call, ``kernel``, when given, is called in the
+def observe_kernel(run, before_call=None, kernel=None, scales=None,
+                   name="binary_threshold_ess"):
+    """Runs ``run()`` with the sweep's call of the kernel wrapper ``name``
+    (through gibbs, once a sweep) observed: ``before_call(i)``, when given,
+    runs before the i-th call, ``kernel``, when given, is called in the
     wrapper's place, and each call's c is appended to the list ``scales``
     when one is given. Returns run's result and the inputs of the last
     call."""
     seen = {"calls": 0, "args": None}
-    wrapper = gibbs.binary_threshold_ess
+    wrapper = getattr(gibbs, name)
     launch = wrapper if kernel is None else kernel
 
     def observe(*args):
@@ -903,11 +973,11 @@ def observe_kernel(run, before_call=None, kernel=None, scales=None):
         seen["args"] = args[:7]
         return launch(*args)
 
-    gibbs.binary_threshold_ess = observe
+    setattr(gibbs, name, observe)
     try:
         out = run()
     finally:
-        gibbs.binary_threshold_ess = wrapper
+        setattr(gibbs, name, wrapper)
     return out, seen["args"]
 
 
@@ -974,15 +1044,24 @@ def main_path(rm, dev, smi):
 
 
 def sdo_path(dev, smi):
-    """gpirt_mcmc on the SDO survey, checked; prints its rates and counts."""
+    """gpirt_mcmc on the SDO survey, checked (on the card the ordinal
+    kernel's one launch a sweep); prints its rates and counts. Returns the
+    ordinal kernel's launches, its inputs at the last sweep and the
+    rates."""
     launches = threshold_ess.binary_threshold_ess.launches
+    ordinal = threshold_ess.ordinal_threshold_ess.launches
     ess_update.calls = ess_update.rounds = ess_update.syncs = 0
     data = load_sdo()
-    out = gpirt_mcmc(data, SDO_DRAWS, SDO_BURN, CHAIN=K, SEED=SEED, vote_codes=None,
-                     store_fstar=True, dtype="float32", device=dev)
+    out, state_args = observe_kernel(
+        lambda: gpirt_mcmc(data, SDO_DRAWS, SDO_BURN, CHAIN=K, SEED=SEED, vote_codes=None,
+                           store_fstar=True, dtype="float32", device=dev),
+        name="ordinal_threshold_ess")
     sweeps = SDO_BURN + SDO_DRAWS
     check(threshold_ess.binary_threshold_ess.launches == launches,
           "the binary kernel was launched on the ordinal path")
+    ordinal = threshold_ess.ordinal_threshold_ess.launches - ordinal
+    check(ordinal == (sweeps if dev.type == "cuda" else 0),
+          f"SDO: {ordinal} ordinal kernel launches in {sweeps} sweeps")
     check(len(out) == K, "one result per chain")
     n, m = data.shape
     C = 5
@@ -1011,15 +1090,15 @@ def sdo_path(dev, smi):
         "ess_within": within_med,
         "ess_pooled": pooled_med,
         "ess_per_s": within_med / samp_s,
-        "rounds_per_update": ess_update.rounds / ess_update.calls,
         "syncs_per_sweep": ess_update.syncs / sweeps,
     }
     log(f"SDO path on {smi}: {n} x {m}, C={C}, {K} chains, {sweeps} sweeps in "
         f"{samp_s:.3f} s ({res['sweeps_per_s']:.2f} sweeps/s, f* stored); theta ESS "
         f"median within-chain (summed over {K} chains) {within_med:.1f}, pooled "
-        f"{pooled_med:.1f}; ess/sec {res['ess_per_s']:.2f}; cutpoint ESS "
-        f"{ess_update.calls} updates, {res['rounds_per_update']:.2f} rounds an update, "
+        f"{pooled_med:.1f}; ess/sec {res['ess_per_s']:.2f}; cutpoint ESS: {ordinal} "
+        f"ordinal kernel launches, {ess_update.calls} host-looped updates, "
         f"{res['syncs_per_sweep']:.2f} host syncs a sweep; binary kernel launches 0")
+    return ordinal, state_args, res
 
 
 def spread_init(n):
@@ -4237,11 +4316,14 @@ def family_run(call, dev, size, draws=None, mesh=None, **extra):
 
 
 def _counted(fn, *args, **kwargs):
-    """{"sha", "seconds", "launches"} of ``fn``'s run (:func:`family_run`),
-    the kernel's launches counted from 0."""
+    """{"sha", "seconds", "launches", "ordinal"} of ``fn``'s run
+    (:func:`family_run`), the binary and the ordinal kernel's launches
+    counted from 0."""
     threshold_ess.binary_threshold_ess.launches = 0
+    threshold_ess.ordinal_threshold_ess.launches = 0
     sha, secs = fn(*args, **kwargs)
-    return {"sha": sha, "seconds": secs, "launches": threshold_ess.binary_threshold_ess.launches}
+    return {"sha": sha, "seconds": secs, "launches": threshold_ess.binary_threshold_ess.launches,
+            "ordinal": threshold_ess.ordinal_threshold_ess.launches}
 
 
 def family_mesh_rank(device, calls, path, size, resume=FAM_RESUME):
@@ -4273,17 +4355,21 @@ def family_references(rm, dev, size=None, families=FAMILIES):
 def family_mesh_check(dev, smi, ranks, refs, path, world=ITEM_SHARDS, resume=FAM_RESUME):
     """Phase 52's checks: on every rank each family's draws hash to the
     one-process call's (``refs``, :func:`family_references`') and the
-    kernel was launched once a sweep on the binary families (on every
-    fourth under interleave, 0 on the ordinal SDO); the run cut on the mesh, resumed here without one,
-    hashes to the uninterrupted one-process call. Returns the numbers for
-    the kernels line."""
+    binary kernel was launched once a sweep on the binary families (on
+    every fourth under interleave), the ordinal kernel once a sweep on the
+    ordinal SDO and neither elsewhere; the run cut on the mesh, resumed
+    here without one, hashes to the uninterrupted one-process call. Returns
+    the numbers for the kernels line."""
     size, want, calls = refs["size"], refs["want"], refs["calls"]
     sweeps, cut = size["burn"] + size["draws"], size["burn"] + size["cut"]
 
-    def launched(name, start, stop):  # the kernel's sweeps of [start, stop)
+    def launched(name, start, stop):  # the binary kernel's sweeps of [start, stop)
         every = calls[name][1].get("threshold_ess_every", 1)  # interleave's ESS sweeps
         binary = name != "sdo" and dev.type == "cuda"
         return len(range(start + -start % every, stop, every)) if binary else 0
+
+    def launched_ordinal(name, start, stop):  # the ordinal kernel's
+        return stop - start if name == "sdo" and dev.type == "cuda" else 0
 
     for name, ref in want.items():
         for r in ranks:
@@ -4294,20 +4380,27 @@ def family_mesh_check(dev, smi, ranks, refs, path, world=ITEM_SHARDS, resume=FAM
             check(got["launches"] == launched(name, 0, sweeps),
                   f"phase 52, {name}, rank {r['rank']}: {got['launches']} kernel launches "
                   f"in {sweeps} sweeps")
+            check(got["ordinal"] == launched_ordinal(name, 0, sweeps),
+                  f"phase 52, {name}, rank {r['rank']}: {got['ordinal']} ordinal kernel "
+                  f"launches in {sweeps} sweeps")
     res = _counted(family_run, calls[resume], dev, size, checkpoint_path=path,
                    checkpoint_every=cut)
-    check(res["launches"] == launched(resume, cut, sweeps),
-          f"phase 52: {res['launches']} kernel launches in the resume's {sweeps - cut} sweeps")
+    check(res["launches"] == launched(resume, cut, sweeps)
+          and res["ordinal"] == launched_ordinal(resume, cut, sweeps),
+          f"phase 52: {res['launches']} kernel launches ({res['ordinal']} ordinal) in the "
+          f"resume's {sweeps - cut} sweeps")
     check(res["sha"] == want[resume]["sha"],
           f"phase 52: {resume}'s run cut on the chain mesh and resumed without one "
           f"{res['sha'][:8]}... differs from the uninterrupted call's "
           f"{want[resume]['sha'][:8]}...")
     launches = {name: [r["families"][name]["launches"] for r in ranks] for name in want}
+    ordinal = {name: [r["families"][name]["ordinal"] for r in ranks] for name in want}
     log(f"phase 52 on {smi}: {len(want)} sweep families on a chain mesh of {world} ranks, "
         f"{size['chains'] // world} chains a rank, burn {size['burn']}, {size['draws']} draws: "
         "every rank's draws hash to the one-process call's (" + "; ".join(
             f"{n} {w['sha'][:8]}..., launches {launches[n]} a rank and {w['launches']} in one "
-            f"process, {sweeps / ranks[0]['families'][n]['seconds']:.2f} sweeps/s a rank "
+            f"process (ordinal {ordinal[n]} and {w['ordinal']}), "
+            f"{sweeps / ranks[0]['families'][n]['seconds']:.2f} sweeps/s a rank "
             f"against {sweeps / w['seconds']:.2f}" for n, w in want.items())
         + f"); {resume} cut on the mesh after {cut} sweeps "
         f"({[r['families']['cut']['launches'] for r in ranks]} launches) and resumed here "
@@ -4315,6 +4408,8 @@ def family_mesh_check(dev, smi, ranks, refs, path, world=ITEM_SHARDS, resume=FAM
         "the uninterrupted one-process call")
     return {"launches": launches,
             "launches_one_process": {n: w["launches"] for n, w in want.items()},
+            "ordinal_launches": ordinal,
+            "ordinal_launches_one_process": {n: w["ordinal"] for n, w in want.items()},
             "launches_cut": [r["families"]["cut"]["launches"] for r in ranks],
             "launches_resumed": res["launches"], "bitwise": True}
 
@@ -4861,7 +4956,28 @@ def main():
     work = kernel_bound(state_args, _C)
     for method in ("ess", "newton"):
         timed(f"7 (C=5 sweep check, {method})", sweep_check, dev, 5, method)
-    timed("8 (SDO path)", sdo_path, dev, smi)
+    sdo_launches, sdo_args, sdo_res = timed("8 (SDO path)", sdo_path, dev, smi)
+    t = time.perf_counter()
+    ord_rand = random_ordinal_lanes(sdo_args[1])
+    ord_worst, ord_flipped = kernel_check(ord_rand, "SDO random lanes")
+    ord_rand_times = {temp: kernel_times(ord_rand, _C / np.sqrt(temp))
+                      for temp in (1.0, T_MAX)}
+    for temp, (o_ms, o_eager, o_plain) in ord_rand_times.items():
+        log(f"ordinal kernel time, SDO random lanes ({ord_rand[4].numel()} lanes), "
+            f"T={temp:g}: {o_ms:.5f} ms (graph), "
+            f"{o_eager:.5f} ms (eager), plain {o_plain:.4f} ms")
+    w, f = kernel_check(sdo_args, "SDO path's state")
+    ord_worst, ord_flipped = max(ord_worst, w), ord_flipped + f
+    ord_plan = threshold_ess.ordinal_launch_plan(sdo_args[0].shape[2], sdo_args[2].shape[-1] + 1)
+    ord_ms, ord_eager, ord_plain = kernel_times(sdo_args, _C)
+    ord_work = kernel_bound(sdo_args, _C, "SDO path's state")
+    log(f"ordinal kernel time, SDO path's state ({sdo_args[4].numel()} lanes of "
+        f"{sdo_args[0].shape[2]} sites), T=1: {ord_plan['path']} path, "
+        f"{ord_plan['threads_a_lane']} threads a lane; {ord_ms:.5f} ms (graph), "
+        f"{ord_eager:.5f} ms (eager), plain {ord_plain:.4f} ms; bound "
+        f"{ord_work['bound_ms']:.5f} ms by {ord_work['bound_by']}, "
+        f"{100 * ord_work['bound_ms'] / ord_ms:.2f}% of it")
+    phase_wall("8 (ordinal kernel at random lanes and the SDO state)", t)
     for C in (2, 5):
         timed(f"9 (GP sweep check, C={C})", sweep_check, dev, C, "auto", 4.0, 3, DYN_LS)
     dyn_launches, dyn_args = timed("10 (dynamic path)", dynamic_path, dev, smi)
@@ -5150,6 +5266,33 @@ def main():
         "launches_chain_mesh_families_cut": two[52]["launches_cut"],
         "launches_chain_mesh_families_resumed": two[52]["launches_resumed"],
         "chain_mesh_families_bitwise": two[52]["bitwise"],
+    }, {
+        "name": "ordinal_threshold_ess",
+        "route": "cuda",
+        "source": "gpirt_tpu_torch/csrc/ordinal_threshold_ess.cu",
+        "replaces": "no TPU kernel: ops/ess.py::ess_update's host loop (the JAX package's "
+                    "update is jnp, gpirt_tpu/models/gibbs.py:2231)",
+        "launches": sdo_launches,
+        "launches_per_sdo_path": sdo_launches,
+        "path_sdo_state": ord_plan["path"],
+        "max_abs_err": ord_worst,
+        "lanes_over_1e-5": ord_flipped,
+        "ms": ord_ms,
+        "ms_eager": ord_eager,
+        "plain_ms": ord_plain,
+        "bound_ms": ord_work["bound_ms"],
+        "bound_by": ord_work["bound_by"],
+        "share_of_bound": ord_work["bound_ms"] / ord_ms,
+        "library_ms": None,
+        "ms_random_T1": ord_rand_times[1.0][0],
+        "plain_ms_random_T1": ord_rand_times[1.0][2],
+        "ms_random_T64": ord_rand_times[T_MAX][0],
+        "plain_ms_random_T64": ord_rand_times[T_MAX][2],
+        **{k: v for k, v in ord_work.items() if k not in ("bound_ms", "bound_by")},
+        "sdo_sweeps_per_s": sdo_res["sweeps_per_s"],
+        "sdo_syncs_per_sweep": sdo_res["syncs_per_sweep"],
+        "launches_chain_mesh_families": two[52]["ordinal_launches"],
+        "launches_chain_mesh_families_one_process": two[52]["ordinal_launches_one_process"],
     }]}))
     log(card())
     log(json.dumps({"ok": True, "device": {

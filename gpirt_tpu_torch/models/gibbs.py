@@ -99,6 +99,7 @@ from gpirt_tpu_torch.ops.ess import ess_update
 from gpirt_tpu_torch.ops.interp import interp
 from gpirt_tpu_torch.ops.kernels import icc_gram
 from gpirt_tpu_torch.ops.likelihood import (
+    category_logprobs,
     cutpoint_bounds,
     delta_to_threshold,
     ll_terms_from_bounds,
@@ -112,7 +113,11 @@ from gpirt_tpu_torch.ops.linalg import (
     tri3_solve,
     tri_solve,
 )
-from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess
+from gpirt_tpu_torch.ops.threshold_ess import (
+    binary_threshold_ess,
+    ordinal_threshold_ess,
+    ordinal_threshold_ess_reference,
+)
 
 __all__ = [
     "GPIRTState",
@@ -774,14 +779,14 @@ def init_state(theta_init: torch.Tensor, thresholds_init: torch.Tensor,
 
 def _category_logprobs(g, thresholds, C: int, inv_s=None) -> torch.Tensor:
     """log P(y = c | g) for every category: (..., m) g -> (..., m, C);
-    one Phi per interior cutpoint."""
-    z = thresholds[..., 1:C] - g.unsqueeze(-1)
-    c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * _per_chain(inv_s, z.ndim)
-    cdf = 0.5 * (1.0 + torch.erf(z * c))
-    zero = torch.zeros(cdf.shape[:-1] + (1,), dtype=g.dtype, device=g.device)
-    cdf = torch.cat([zero, cdf, zero + 1.0], dim=-1)
-    p = cdf[..., 1:] - cdf[..., :-1]
-    return torch.log(p + 1e-6)
+    one Phi per interior cutpoint (:func:`category_logprobs`)."""
+    return category_logprobs(g, thresholds, C, _cut_scale(inv_s))
+
+
+def _cut_scale(inv_s):
+    """The probit scale 1/sqrt(2), times 1/sqrt(T) when tempered: a float,
+    or a (K,) tensor of one a chain."""
+    return _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
 
 
 def _theta_ll_table(fstar, mu_star, y, thresholds, C: int, inv_s=None, item_group=None):
@@ -1272,9 +1277,11 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     Binary data goes through the binary cutpoint ESS kernel, on every
     binary ESS update of every path (the JAX package keeps its Pallas
     kernel opt-in, and off under constant_IRF and tempering,
-    ``gpirt_tpu/models/gibbs.py:2299-2301``). Ordinal data goes through
-    :func:`ess_update`, its loglik the category log-probs summed against
-    the one-hot of y. The pooled constant_IRF update
+    ``gpirt_tpu/models/gibbs.py:2299-2301``). Ordinal data goes through the
+    ordinal cutpoint ESS kernel (:func:`ordinal_threshold_ess`; the JAX
+    package's update is plain jnp), whose plain version on the CPU is
+    :func:`ess_update` with the category log-probs summed against the
+    one-hot of y. The pooled constant_IRF update
     (:func:`_draw_cutpoints`) calls this with one session of H n stacked
     sites: g (K, 1, H n, m), y (1, H n, m), one t_1 a (chain, item), which
     is the JAX package's ``_binary_ll(t1, pool_horizons=True)``.
@@ -1289,8 +1296,8 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
     C = thresholds.shape[-1] - 1
     _, inv_s = _temp_scales(temp)
     g = f + mu
+    c = _cut_scale(inv_s)
     if C == 2:
-        c = _INV_SQRT2 if inv_s is None else _INV_SQRT2 * inv_s
         t1 = thresholds[..., 1].contiguous()
         if respondent_group is not None:
             # JAX's rule (gpirt_tpu/models/gibbs.py:2299-2301): the kernel runs
@@ -1306,14 +1313,17 @@ def draw_threshold(thresholds, f, mu, y, config: GPIRTConfig, nu, logu, eps0,
                                      nu.reshape(t1.shape).contiguous(), logu.contiguous(),
                                      eps0.contiguous(), rs.contiguous(), c)
         return delta_to_threshold(t_new.unsqueeze(-1))
-    onehot = _onehot(y, C, g.dtype)  # (H, n, m, C)
-
-    def loglik(d):  # (K, H, m, C-1) -> (K, H, m)
-        thr = delta_to_threshold(d)
-        logp = _category_logprobs(g, thr.unsqueeze(-3), C, inv_s)  # (K, H, n, m, C)
-        return _all_sum((logp * onehot).sum(dim=(-3, -1)), respondent_group)
-
-    d_new = ess_update(threshold_to_delta(thresholds), nu, loglik, logu, eps0, rs)
+    d = threshold_to_delta(thresholds)
+    if respondent_group is None:
+        # the kernel (its plain version on the CPU), one launch a sweep
+        d_new = ordinal_threshold_ess(g.contiguous(), y, d.contiguous(), nu.contiguous(),
+                                      logu.contiguous(), eps0.contiguous(), rs.contiguous(),
+                                      c)
+        return delta_to_threshold(d_new)
+    # every round's lane totals are summed over the respondent shards, which
+    # one launch cannot wait on: the plain round loop, as for C == 2
+    d_new = ordinal_threshold_ess_reference(
+        g, y, d, nu, logu, eps0, rs, c, lane_total=lambda t: _all_sum(t, respondent_group))
     return delta_to_threshold(d_new)
 
 

@@ -13,6 +13,7 @@ import torch
 
 __all__ = [
     "LL_FLOOR",
+    "category_logprobs",
     "ordinal_ll_terms",
     "ordinal_ll",
     "cutpoint_bounds",
@@ -50,6 +51,20 @@ def cutpoint_bounds(y: torch.Tensor, thresholds: torch.Tensor):
     z_hi = torch.gather(t_b, -1, y_b)[..., 0]
     z_lo = torch.gather(t_b, -1, y_b - 1)[..., 0]
     return z_lo, z_hi, y > 0
+
+
+def category_logprobs(g, thresholds, C: int, c) -> torch.Tensor:
+    """log P(y = c | g) for every category: (..., m) g -> (..., m, C); one
+    Phi per interior cutpoint, at the scale ``c`` (1/sqrt(2), times
+    1/sqrt(T) when tempered): a float, or a (K,) tensor of one a chain."""
+    z = thresholds[..., 1:C] - g.unsqueeze(-1)
+    if torch.is_tensor(c):
+        c = c.reshape((-1,) + (1,) * (z.ndim - 1))
+    cdf = 0.5 * (1.0 + torch.erf(z * c))
+    zero = torch.zeros(cdf.shape[:-1] + (1,), dtype=g.dtype, device=g.device)
+    cdf = torch.cat([zero, cdf, zero + 1.0], dim=-1)
+    p = cdf[..., 1:] - cdf[..., :-1]
+    return torch.log(p + 1e-6)
 
 
 def ll_terms_from_bounds(g, z_lo, z_hi, mask, inv_s=None) -> torch.Tensor:

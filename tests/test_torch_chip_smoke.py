@@ -17,7 +17,10 @@ import chip_smoke
 from gpirt_tpu_torch import gpirt_mcmc
 from gpirt_tpu_torch.models import gibbs
 from gpirt_tpu_torch.models.config import make_constants
-from gpirt_tpu_torch.ops.threshold_ess import binary_threshold_ess_reference
+from gpirt_tpu_torch.ops.threshold_ess import (
+    binary_threshold_ess_reference,
+    ordinal_threshold_ess_reference,
+)
 from gpirt_tpu_torch.utils.datasets import simulate_2pl
 from gpirt_tpu_torch.utils.response import as_response_matrix
 
@@ -55,6 +58,31 @@ def test_lane_rounds_counts_the_plain_versions_proposals(temp):
         done = (rounds <= r) & ~capped
         assert torch.equal(cut[done], final[done])
         assert torch.equal(cut[~done], t1[~done])
+
+
+@pytest.mark.parametrize("temp", [1.0, 64.0])
+def test_lane_rounds_counts_the_ordinal_plain_versions_proposals(temp):
+    """Phase 8's round count on the ordinal kernel's lanes (random lanes of
+    phase 8's construction, a reduced size): a lane counted at r proposals
+    takes its final deltas under a cap of r rounds and keeps d under any
+    smaller cap; a lane at the cap keeps d."""
+    rng = np.random.default_rng(1)
+    y = torch.as_tensor(rng.integers(0, 6, (1, 40, 6)), dtype=torch.int32)
+    args = [a.double() if a.is_floating_point() else a
+            for a in chip_smoke.random_ordinal_lanes(y, K=3, R=6)]
+    assert chip_smoke.is_ordinal(args) and tuple(args[2].shape) == (3, 1, 6, 4)
+    d, rs = args[2], args[6]
+    c = _C / np.sqrt(temp)
+    rounds, capped = chip_smoke.lane_rounds(*args, c)
+    final = ordinal_threshold_ess_reference(*args, c)
+    assert tuple(rounds.shape) == (3, 1, 6)
+    assert torch.equal(final[capped], d[capped])
+    assert int(rounds.max()) > 1 and int(rounds.min()) == 1
+    for r in range(1, rs.shape[0] + 1):
+        cut = ordinal_threshold_ess_reference(*args[:6], rs[:r], c)
+        done = (rounds <= r) & ~capped
+        assert torch.equal(cut[done], final[done])
+        assert torch.equal(cut[~done], d[~done])
 
 
 def test_refuses_to_run_without_a_card(monkeypatch, capsys):

@@ -16,7 +16,11 @@ profiler's clock; the walkthrough example on the card; and one
 sweep with the items, and one with the respondents, over 2 ranks sharing
 the card against the unsharded sweep; one sweep of 512 lanes against
 batches of 64 lanes, bit for bit, and each sweep family's at 128 and 512
-lanes against batches of 64, 32 and 16.
+lanes against batches of 64, 32 and 16; the ordinal cutpoint kernel
+against its plain version at the SDO benchmark's shapes, at C = 3 and 7,
+with missing sites, lanes at the round cap, one c a chain, over sessions and
+on every path it chooses from n, each lane's bits against its batch, and its
+one launch a sweep.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX (nor does chip_smoke.py, whose sweep inputs it
@@ -34,10 +38,14 @@ import chip_smoke
 from gpirt_tpu_torch import gpirt_mcmc
 from gpirt_tpu_torch.models import gibbs
 from gpirt_tpu_torch.models.config import make_constants
+from gpirt_tpu_torch.ops.ess import ess_update
 from gpirt_tpu_torch.ops.threshold_ess import (
     binary_threshold_ess,
     binary_threshold_ess_reference,
     launch_plan,
+    ordinal_launch_plan,
+    ordinal_threshold_ess,
+    ordinal_threshold_ess_reference,
 )
 
 _C = 0.7071067811865476
@@ -202,11 +210,13 @@ def test_sweep_on_card_matches_cpu(cuda_device):
 @pytest.mark.parametrize("temp", [None, 64.0])
 @pytest.mark.parametrize("method", ["ess", "newton"])
 def test_ordinal_sweep_on_card_matches_cpu(cuda_device, method, temp):
-    """A C = 5 sweep at T = 1 and 64, its cutpoints by the ordinal ESS or
-    by Newton-proposal MH; the binary kernel is not launched."""
-    before = binary_threshold_ess.launches
+    """A C = 5 sweep at T = 1 and 64, its cutpoints by the ordinal ESS (the
+    ordinal kernel, once) or by Newton-proposal MH; the binary kernel is
+    not launched."""
+    before, ordinal = binary_threshold_ess.launches, ordinal_threshold_ess.launches
     state0, state = _sweep_on_both(cuda_device, C=5, method=method, temp=temp)
     assert binary_threshold_ess.launches == before
+    assert ordinal_threshold_ess.launches == ordinal + (method == "ess")
     t = state.thresholds[..., 1:-1]
     assert bool((t[..., 1:] > t[..., :-1]).all())
     assert bool((state.thresholds != state0.thresholds.to(t.device)).any())
@@ -722,3 +732,136 @@ def test_family_lanes_on_card_do_not_depend_on_the_batch(cuda_device, family, la
     assert len(res) == len(chip_smoke.FAMILY_CASES[family]) * len(chip_smoke.FAMILY_CHUNKS)
     for label, apart in res.items():
         assert not any(apart.values()), (label, {k: v for k, v in apart.items() if v})
+
+
+def _ordinal_inputs(device, K=4, H=1, n=50, m=16, C=5, R=64, missing=0.05, seed=0):
+    """g (K, H, n, m), y (H, n, m) categories 1..C with a share ``missing``
+    of 0, the deltas of cutpoints near the data's (K, H, m, C-1), nu, logu,
+    eps0 and rs, float32 (y int32) on ``device``."""
+    rng = np.random.default_rng(seed)
+    g = 0.8 * rng.standard_normal((K, H, n, m))
+    y = rng.integers(1, C + 1, (H, n, m))
+    y[rng.random((H, n, m)) < missing] = 0
+    d = np.concatenate([-1.0 + 0.3 * rng.standard_normal((K, H, m, 1)),
+                        -0.5 + 0.3 * rng.standard_normal((K, H, m, C - 2))], axis=-1)
+    nu = rng.standard_normal((K, H, m, C - 1))
+    logu = np.log(rng.random((K, H, m)))
+    eps0 = rng.random((K, H, m)) * _TWO_PI
+    rs = rng.random((R, K, H, m))
+    f32 = [torch.as_tensor(a, dtype=torch.float32, device=device)
+           for a in (g, d, nu, logu, eps0, rs)]
+    return [f32[0], torch.as_tensor(y, dtype=torch.int32, device=device)] + f32[1:]
+
+
+def _ladder(K, device):
+    """c of a tempering ladder, one temperature a chain from 1 to 64."""
+    return (_C / torch.sqrt(torch.logspace(0, 6, K, base=2.0))).to(torch.float32).to(device)
+
+
+def _assert_ordinal_matches_plain(got, want, d):
+    """The ordinal kernel's rule on the card: every lane within 1e-5 of the
+    plain version (both float32 on the card), except at most 0.1% of lanes,
+    or 2, whose accept flipped on a near-tie: the kernel sums a lane's
+    observed sites in its own order, and the plain version sums the C
+    categories' one-hot products of every site in torch.sum's. Nothing else
+    differs: a proposal and its cutpoints are the same float operations."""
+    lanes = (got - want).abs().amax(dim=-1)
+    over = int((lanes > 1e-5).sum())
+    assert over <= max(2, 0.001 * lanes.numel()), (over, lanes.numel(), float(lanes.max()))
+    assert bool(torch.isfinite(got).all())
+    moved = float((got != d).any(dim=-1).float().mean())
+    assert moved > 0.5, moved
+
+
+# label: (inputs, c a chain, the path the kernel takes)
+_ORDINAL_CASES = {
+    "sdo-k64": (dict(K=64, n=1500, m=16, C=5), False, "registers"),
+    "sdo-k512": (dict(K=512, n=1500, m=16, C=5), True, "registers"),
+    "C=3": (dict(K=16, n=300, m=20, C=3), False, "registers"),
+    "C=7": (dict(K=16, n=100, m=21, C=7), True, "registers"),
+    "missing": (dict(K=16, n=700, m=13, C=5, missing=0.6), True, "registers"),
+    "few sites": (dict(K=32, n=40, m=45, C=5), False, "registers"),
+    "sessions": (dict(K=8, H=3, n=200, m=16, C=4), True, "registers"),
+    "pooled H n": (dict(K=64, n=3 * 1500, m=16, C=5), False, "tile"),
+    "streaming": (dict(K=8, n=6000, m=16, C=5), True, "streaming"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_ORDINAL_CASES))
+def test_ordinal_kernel_matches_plain_version(cuda_device, case):
+    """The SDO benchmark's shapes (64 and 512 chains, n = 1500, m = 16, C =
+    5), C = 3 and 7, missing sites, few sites, one c a chain, three
+    sessions, and every path the kernel chooses from n (the sites in
+    registers, the pooled constant_IRF layout of 3 x 1500 stacked sites in
+    shared memory, and streaming past it)."""
+    kw, ladder, path = _ORDINAL_CASES[case]
+    args = _ordinal_inputs(cuda_device, **kw)
+    c = _ladder(kw["K"], cuda_device) if ladder else _C
+    assert ordinal_launch_plan(kw["n"], kw["C"])["path"] == path
+    before = ordinal_threshold_ess.launches
+    got = ordinal_threshold_ess(*args, c)
+    torch.cuda.synchronize()
+    assert ordinal_threshold_ess.launches == before + 1
+    want = ordinal_threshold_ess_reference(*args, c)
+    _assert_ordinal_matches_plain(got, want, args[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("n", [40, 1500, 6000])
+def test_ordinal_kernel_round_cap_keeps_d(cuda_device, R, n):
+    """R = 1 and 2 rounds, and a slice level no proposal can reach on every
+    other lane: those lanes keep their deltas bit for bit, the others
+    follow the plain version."""
+    args = _ordinal_inputs(cuda_device, K=8, n=n, m=16, C=5, R=R)
+    args[4][:, :, ::2] = 1e30
+    got = ordinal_threshold_ess(*args, _C)
+    assert torch.equal(got[:, :, ::2], args[2][:, :, ::2])
+    want = ordinal_threshold_ess_reference(*args, _C)
+    lanes = (got - want).abs().amax(dim=-1)
+    assert int((lanes > 1e-5).sum()) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [40, 300, 1500, 4500, 6000])
+def test_ordinal_kernel_lanes_do_not_depend_on_the_batch(cuda_device, n):
+    """Each lane of a 512-chain launch (one c a chain) bit for bit the same
+    lane of eight 64-chain launches, on every path the kernel takes: a
+    lane's sum follows n and its own sites alone."""
+    g, y, d, nu, logu, eps0, rs = _ordinal_inputs(cuda_device, K=512, n=n, m=13, C=5)
+    c = _ladder(512, cuda_device)
+    whole = ordinal_threshold_ess(g, y, d, nu, logu, eps0, rs, c)
+    for k in range(0, 512, 64):
+        part = ordinal_threshold_ess(g[k:k + 64], y, d[k:k + 64], nu[k:k + 64],
+                                     logu[k:k + 64], eps0[k:k + 64],
+                                     rs[:, k:k + 64].contiguous(), c[k:k + 64])
+        assert torch.equal(part, whole[k:k + 64]), k
+
+
+@pytest.mark.gpu
+def test_ordinal_kernel_rejects_what_it_cannot_take(cuda_device):
+    args = _ordinal_inputs(cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ordinal_threshold_ess(*[a.double() if a.is_floating_point() else a for a in args], _C)
+    with pytest.raises(ValueError, match="int32"):
+        ordinal_threshold_ess(args[0], args[1].long(), *args[2:], _C)
+    with pytest.raises(ValueError, match="contiguous"):
+        ordinal_threshold_ess(args[0].mT.contiguous().mT, *args[1:], _C)
+    with pytest.raises(ValueError, match="C >= 3"):
+        ordinal_threshold_ess(args[0], args[1], args[2][..., :1], args[3][..., :1],
+                              *args[4:], _C)
+
+
+@pytest.mark.gpu
+def test_ordinal_kernel_one_launch_a_sweep(cuda_device):
+    """gpirt_mcmc on ordinal data on the card: the cutpoint update is one
+    launch a sweep and syncs nothing (no host-looped ESS runs)."""
+    rng = np.random.default_rng(0)
+    data = rng.integers(1, 6, (60, 12)).astype(np.float64)
+    before, syncs = ordinal_threshold_ess.launches, ess_update.syncs
+    out = gpirt_mcmc(data, sample_iterations=4, burn_iterations=3, CHAIN=3, vote_codes=None,
+                     dtype="float32", device=cuda_device)
+    assert ordinal_threshold_ess.launches == before + 7
+    assert ess_update.syncs == syncs
+    assert all(np.isfinite(d["ll"]).all() for d in out)

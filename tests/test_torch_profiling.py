@@ -132,6 +132,7 @@ def test_spans_record_under_a_profiler_on_its_clock():
         time.sleep(0.002)
         with span("outer", 9):
             torch.mul(a, 2)
+            time.sleep(0.002)
             with span("inner"):
                 torch.exp(a)
         time.sleep(0.002)
